@@ -1,33 +1,47 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA Hopper card.
 
-Drives the port's main path (render a trained classic NeRF) through its own
-entry points and holds every kernel on that path against its plain PyTorch
-version. Each phase prints one JSON line; any failure exits non-zero. Then
-it prints the ``kernels`` line, the card's name and power limit, and last
+Drives the port's main paths through its own entry points (render a trained
+classic NeRF; train one, by the fused train pass and by autograd through the
+field) and holds every kernel on them against its plain PyTorch version.
+Each phase prints one JSON line; any failure exits non-zero. Then it prints
+the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py
 
-Phases: device, build (nvcc, sm_90a), kernel (full width, ragged tail,
-against the plain version with PyTorch-default and He-scaled weights, and
-three planted trunk faults that the comparison must reject), serve
-(``run_render`` + ``evaluate`` CLIs on 128x128 test views, kernel launches
-counted, the kernel's render held against the plain version's), bench
-(800x800 frames at ``bench.py --render``'s operating point, kernel and plain
-times).
+Phases: device, build (one nvcc per source, all at once, sm_90a); kernel
+(the field's forward at full width, ragged tail, PyTorch-default and
+He-scaled weights, three planted trunk faults that the comparison must
+reject); kernel_bwd (the field's backward on 2^16 + 37 points and at the
+train path's 4096 x 64 and 4096 x 192, every grad against the plain
+version, three planted faults); kernel_train (the fused train pass at
+4096 x 64, 4096 x 192 and a ragged batch, rgb, weights and grads, planted
+faults in the weight layout and in the composite);
+serve (``run_render`` + ``evaluate`` on 128x128 test views, kernel launches
+counted, the kernel's render held against the plain version's); train
+(``run_train`` for 24 steps with a validation, a checkpoint and a
+visualisation, a resume for 8 more, then ``run_render`` + ``evaluate``;
+2 fused-pass launches per step); train_bench (train steps at ``bench.py``'s
+operating point, fused and through autograd, each kernel timed beside its
+bound and its plain version); bench (800x800 frames at ``bench.py
+--render``'s operating point).
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import shutil
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
+
+from torch_nerf_tpu_torch.runners.timing import event_ms as cuda_ms
+from torch_nerf_tpu_torch.runners.timing import nvidia_smi
 
 # H100 SXM data-sheet peaks (dense bf16, HBM3); PCIe part where named so
 _PEAKS = (("H100 PCIe", 756e12, 2.0e12), ("H100", 989e12, 3.35e12), ("H200", 989e12, 4.8e12))
@@ -44,28 +58,6 @@ def card_peaks(name: str):
         if key in name:
             return flops, bw
     return _PEAKS[1][1], _PEAKS[1][2]
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device ms of ``fn`` over ``iters`` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def nvidia_smi(query: str) -> str:
-    """``nvidia-smi --query-gpu=<query>`` of card 0."""
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def phase_device():
@@ -85,7 +77,7 @@ def phase_build():
     from torch_nerf_tpu_torch.ops import build  # noqa: PLC0415
 
     t0 = time.perf_counter()
-    reports = build.build(["fused_nerf_fwd"])
+    reports = build.build(["fused_nerf_fwd", "fused_nerf_bwd", "fused_train"])
     seconds = time.perf_counter() - t0
     ptxas = {
         Path(src).stem: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -192,6 +184,328 @@ def phase_kernel():
     if not ok:
         raise SystemExit("chip_smoke: a planted kernel fault passed the comparison")
     return max(e for r in results.values() for e in r["max_abs_err"].values())
+
+
+def rel_l2(got: dict, ref: dict) -> dict:
+    """||got - ref|| / ||ref|| for each named tensor."""
+    out = {}
+    for k, r in ref.items():
+        r = r.float()
+        out[k] = (got[k].float() - r).norm().item() / max(r.norm().item(), 1e-30)
+    return out
+
+
+def named(grads, **extra) -> dict:
+    """The 22 grads of a public parameter tree (and extra tensors) by name."""
+    flat = {f"{n}.{k}": t for n, p in grads.items() for k, t in p.items()}
+    flat.update(extra)
+    return flat
+
+
+def bf16_rounded(params):
+    return {n: {k: t.to(torch.bfloat16).float() for k, t in v.items()} for n, v in params.items()}
+
+
+def judge(err: dict, scale: dict) -> dict:
+    """``ok`` when every relative L2 error is at most 2x the plain bf16
+    version's own + 1e-3; the worst entry by its share of that limit."""
+    limit = {k: 2.0 * scale[k] + 1e-3 for k in err}
+    worst = max(err, key=lambda k: err[k] / limit[k])
+    ok = all(math.isfinite(err[k]) and err[k] <= limit[k] for k in err)
+    return dict(ok=ok, worst=worst, worst_err=err[worst], worst_limit=limit[worst],
+                max_rel_err=max(err.values()), max_plain_bf16_rel_err=max(scale.values()))
+
+
+# faults planted in the training kernels' weight layout, the way a wrong
+# pointer or stride would break them: two in the backward-only transposed
+# fragments, one in the forward fragments the backward recomputes with
+def _fault_wt_zeroed(frags, biases, frags_t):
+    frags_t[6] = torch.zeros_like(frags_t[6])
+
+
+def _fault_wt_k_tiles_shifted(frags, biases, frags_t):
+    w = frags_t[2]  # (K/16 k-tiles x N/8 n-tiles x 32 lanes, 4)
+    frags_t[2] = torch.roll(w, w.shape[0] // (FULL["feat_dim"] // 16), dims=0)
+
+
+def _fault_fwd_swapped(frags, biases, frags_t):
+    frags[3], frags[4] = frags[4], frags[3]
+
+
+TRAIN_FAULTS = {
+    "wt_fc_6_zeroed": _fault_wt_zeroed,
+    "wt_fc_2_k_tiles_shifted": _fault_wt_k_tiles_shifted,
+    "fwd_fc_3_fc_4_swapped": _fault_fwd_swapped,
+}
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """Route the training kernels' weight layout through ``fault``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    real = fn.training_layout
+
+    def broken(params, cfg):
+        frags, biases, frags_t = real(params, cfg)
+        fault(frags, biases, frags_t)
+        return frags, biases, frags_t
+
+    fn.training_layout = broken
+    try:
+        yield
+    finally:
+        fn.training_layout = real
+
+
+def sum_trees(a, b):
+    return b if a is None else {n: {k: a[n][k] + b[n][k] for k in b[n]} for n in b}
+
+
+def bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg) -> dict:
+    """The plain backward over slices of 2^18 points (the whole of a fine
+    pass in f32 would hold tens of GB): the grads summed, dpts and ddirs
+    joined, by name."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    total, dps, dds = None, [], []
+    for a in range(0, pts.shape[0], 2**18):
+        sl = slice(a, a + 2**18)
+        g, dp, dd = fn.fused_nerf_bwd_reference(params, pts[sl], dirs[sl], g_sigma[sl], g_rgb[sl], cfg)
+        total = sum_trees(total, g)
+        dps.append(dp)
+        dds.append(dd)
+    return named(total, dpts=torch.cat(dps), ddirs=torch.cat(dds))
+
+
+def ray_points(o, d, t):
+    """The points o + t d of every sample and their view directions, flat."""
+    pts = (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
+    dirs = d[:, None, :].expand(-1, t.shape[1], -1).reshape(-1, 3).contiguous()
+    return pts, dirs
+
+
+def phase_kernel_bwd(batch):
+    """Kernel 2 (the field's backward) against its plain version at full
+    width, with seeded random cotangents: on 2^16 + 37 random points and at
+    the main path's shapes, the coarse and fine points of a train batch
+    (4096 x 64 = 262,144 and 4096 x 192 = 786,432, each with its own split
+    of the dW GEMMs); PyTorch-default weights and their He-scaled copy. Each
+    of the 22 grads, dpts and ddirs within 2x the plain bf16 version's
+    relative L2 error against f32 (on the same bf16-rounded weights) +
+    1e-3. Then the planted faults on the random points, each of which must
+    fail that check with the He-scaled weights."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    m = 2**16 + 37
+    cases = {
+        "random": (torch.rand((m, 3), generator=gen, device=dev) * 8.0 - 4.0,
+                   torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1)),
+        "coarse": ray_points(batch["o"], batch["d"], batch["t_c"]),
+        "fine": ray_points(batch["o"], batch["d"], batch["t_f"]),
+    }
+    cfg = fn.FusedNeRFConfig(**FULL)
+    cfg32 = fn.FusedNeRFConfig(**FULL, compute_dtype=torch.float32)
+    base = _seeded_params(0, dev)
+    results, faults, max_abs = {}, {}, 0.0
+    for case, (pts, dirs) in cases.items():
+        g_sigma = torch.randn((pts.shape[0],), generator=gen, device=dev)
+        g_rgb = torch.randn((pts.shape[0], 3), generator=gen, device=dev)
+        for wname, params in (("port_init", base), ("he", he_scaled(base))):
+            ref32 = bwd_reference(bf16_rounded(params), pts, dirs, g_sigma, g_rgb, cfg32)
+            scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref32)
+
+            def check():
+                before = fn.fused_nerf_bwd.launches
+                grads, dp, dd = fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, cfg)
+                torch.cuda.synchronize()
+                got = named(grads, dpts=dp, ddirs=dd)
+                verdict = judge(rel_l2(got, ref32), scale)
+                verdict["ok"] = verdict["ok"] and fn.fused_nerf_bwd.launches == before + 1
+                verdict["max_abs_err"] = max((got[k] - ref32[k]).abs().max().item() for k in ref32)
+                return verdict
+
+            results[f"{case}/{wname}"] = dict(points=pts.shape[0], **check())
+            max_abs = max(max_abs, results[f"{case}/{wname}"]["max_abs_err"])
+            if case != "random":
+                continue
+            for fname, fault in TRAIN_FAULTS.items():
+                with planted(fault):
+                    v = check()
+                faults[f"{wname}/{fname}"] = {"rejected": not v["ok"], "worst": v["worst"],
+                                             "worst_err": v["worst_err"], "worst_limit": v["worst_limit"]}
+    ok = all(r["ok"] for r in results.values()) and all(
+        v["rejected"] for k, v in faults.items() if k.startswith("he/"))
+    emit("kernel_bwd", cases=results, planted_faults=faults,
+         tolerance="rel L2 <= 2 * plain bf16 rel L2 + 1e-3, each of 22 grads, dpts, ddirs",
+         rule="every planted fault rejected with the he weights", ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: kernel_bwd failed")
+    return max_abs
+
+
+def train_reference(params, o, d, t, delta, gt, cfg, num_real):
+    """The plain train pass over ray slices of about 2^18 points, the
+    grads summed: the whole batch in f32 would hold tens of GB."""
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+
+    n, s = t.shape
+    step = max(1, 2**18 // s)
+    rgbs, ws, total = [], [], None
+    for a in range(0, n, step):
+        b = min(n, a + step)
+        c, w, g = ftm.fused_train_pass_reference(params, o[a:b], d[a:b], t[a:b], delta[a:b], gt[a:b],
+                                                 cfg, num_real, first_ray=a)
+        rgbs.append(c)
+        ws.append(w)
+        total = sum_trees(total, g)
+    return torch.cat(rgbs), torch.cat(ws), total
+
+
+def train_batch(dev, seed=3, rays=4096):
+    """A ray batch of the train path: 4096 random pixels of a 400x400
+    training view, their colours, the coarse depths of a real draw and the
+    fine depths (192 a ray, sorted) drawn from the plain f32 coarse weights
+    of the He-scaled network."""
+    from torch_nerf_tpu_torch import cameras, renderer  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    camera = cameras.CameraParams(480.0, 480.0, 400, 400)  # make_dataset(8, 400)
+    pose = torch.as_tensor(synthetic.split_poses(8, "train")[0], device=dev)
+    pix = torch.randperm(400 * 400, generator=gen, device=dev)[:rays]
+    o, d = cameras.rays_for_pixels(pix, camera, pose)
+    o, d = o.contiguous(), d.contiguous()
+    gt = torch.rand((rays, 3), generator=gen, device=dev)
+    settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
+    uni = renderer.draw_uniforms(gen, rays, settings)
+    t_c = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far)
+    cfg32 = fn.FusedNeRFConfig(**FULL, compute_dtype=torch.float32)
+    _, w_c, _ = train_reference(he_scaled(_seeded_params(0, dev)), o, d, t_c, sampling.t_deltas(t_c),
+                                gt, cfg32, rays)
+    return dict(o=o, d=d, gt=gt, t_c=t_c.contiguous(), t_f=fine_depths(w_c, uni, settings))
+
+
+def fine_depths(w_coarse, uni, settings):
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    return sampling.hierarchical_t_samples_from_uniforms(
+        w_coarse, settings.t_near, settings.t_far, uni.fine_coarse, uni.u, uni.fine
+    ).contiguous()
+
+
+def composite_errors(c, w, c32, w32, cbf, wbf) -> dict:
+    """rgb (N, 3) and weights (N, S) of a pass against the plain f32
+    version's, each measure within 2x the plain bf16 version's own + 1e-3:
+    the relative L2 error of each; the max-abs error of the weights without
+    the last interval, whose weight jumps between 0 and the ray's
+    transmittance when sigma's bf16 rounding crosses 0 there (its delta is
+    1e8); and the max-abs error of rgb on the rays where neither the pass
+    nor the plain bf16 version moved that weight by more than 1e-3."""
+    flip = ((w[:, -1] - w32[:, -1]).abs() > 1e-3) | ((wbf[:, -1] - w32[:, -1]).abs() > 1e-3)
+    keep = ~flip
+
+    def measures(c_, w_):
+        return {"rgb_rel_l2": rel_l2({"x": c_}, {"x": c32})["x"],
+                "weights_rel_l2": rel_l2({"x": w_}, {"x": w32})["x"],
+                "weights_max_abs_but_last": (w_[:, :-1] - w32[:, :-1]).abs().max().item(),
+                "rgb_max_abs_unflipped": (c_[keep] - c32[keep]).abs().max().item() if keep.any() else 0.0}
+
+    err, scale = measures(c, w), measures(cbf, wbf)
+    limit = {k: 2.0 * scale[k] + 1e-3 for k in err}
+    ok = all(math.isfinite(err[k]) and err[k] <= limit[k] for k in err)
+    return dict(ok=ok, err=err, limit=limit, flipped_rays=int(flip.sum()),
+                plain_flipped_rays=int(((wbf[:, -1] - w32[:, -1]).abs() > 1e-3).sum()),
+                max_abs_err=max((c - c32).abs().max().item(), (w - w32).abs().max().item()))
+
+
+# faults planted in the pass's composite: the intervals of the next ray read
+# in place of the ray's own (a wrong row stride into delta), and each of its
+# two outputs stored one place off (the next sample's weight, the next
+# ray's colour), with the grads left right, so only the composite's checks
+# can see them
+COMPOSITE_FAULTS = {
+    "delta_of_next_ray": dict(delta=lambda x: torch.roll(x, -1, dims=0)),
+    "weights_stored_one_sample_off": dict(out=lambda c, w: (c, torch.roll(w, 1, dims=1))),
+    "rgb_stored_one_ray_off": dict(out=lambda c, w: (torch.roll(c, 1, dims=0), w)),
+}
+
+
+def phase_kernel_train(batch):
+    """Kernel 3 (the fused train pass) against its plain version at the main
+    path's shapes, 4096 x 64 and 4096 x 192 (sorted depths from a real
+    draw), and a ragged 4093-ray batch with 4090 real rays; PyTorch-default
+    and He-scaled weights. rgb and weights as :func:`composite_errors`
+    measures them; the 22 grads by relative L2 as in kernel_bwd. Then, at
+    the coarse shape, the planted weight-layout faults and composite faults,
+    each of which must fail the check with the He-scaled weights (the
+    composite faults by rgb and weights alone)."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    cfg = fn.FusedNeRFConfig(**FULL)
+    cfg32 = fn.FusedNeRFConfig(**FULL, compute_dtype=torch.float32)
+    o, d, gt = batch["o"], batch["d"], batch["gt"]
+    base = _seeded_params(0, dev)
+    sets = {"port_init": base, "he": he_scaled(base)}
+    cases = {"coarse": (4096, 4096, batch["t_c"]), "fine": (4096, 4096, batch["t_f"]),
+             "ragged": (4093, 4090, batch["t_c"][:4093])}
+    results, faults, max_abs = {}, {}, 0.0
+    for case, (n, real, t) in cases.items():
+        t = t.contiguous()
+        delta = sampling.t_deltas(t)
+        args = (o[:n], d[:n], t, delta, gt[:n])
+        for wname, params in sets.items():
+            c32, w32, g32 = train_reference(bf16_rounded(params), *args, cfg32, real)
+            cbf, wbf, gbf = train_reference(params, *args, cfg, real)
+            ref32 = named(g32)
+            scale = rel_l2(named(gbf), ref32)
+
+            def check(delta_in=delta, out=None):
+                before = ftm.fused_train_pass.launches
+                c, w, g = ftm.fused_train_pass(params, o[:n], d[:n], t, delta_in, gt[:n], cfg, real)
+                torch.cuda.synchronize()
+                if out is not None:
+                    c, w = out(c, w)
+                verdict = judge(rel_l2(named(g), ref32), scale)
+                comp = composite_errors(c, w, c32, w32, cbf, wbf)
+                verdict.update(grads_ok=verdict["ok"], composite=comp)
+                verdict["ok"] = (verdict["ok"] and comp["ok"]
+                                 and ftm.fused_train_pass.launches == before + 1)
+                verdict["max_abs_err"] = max([comp["max_abs_err"]] + [
+                    (g[n_][k] - g32[n_][k]).abs().max().item() for n_ in g for k in g[n_]])
+                return verdict
+
+            results[f"{case}/{wname}"] = check()
+            max_abs = max(max_abs, results[f"{case}/{wname}"]["max_abs_err"])
+            if case != "coarse":
+                continue
+            for fname, fault in TRAIN_FAULTS.items():
+                with planted(fault):
+                    v = check()
+                faults[f"{wname}/{fname}"] = {"rejected": not v["ok"], "worst": v["worst"],
+                                             "worst_err": v["worst_err"], "worst_limit": v["worst_limit"]}
+            for fname, fault in COMPOSITE_FAULTS.items():
+                v = check(delta_in=fault.get("delta", lambda x: x)(delta).contiguous(), out=fault.get("out"))
+                faults[f"{wname}/{fname}"] = {"rejected": not v["composite"]["ok"],
+                                             "composite_err": v["composite"]["err"],
+                                             "composite_limit": v["composite"]["limit"]}
+    ok = all(r["ok"] for r in results.values()) and all(
+        v["rejected"] for k, v in faults.items() if k.startswith("he/"))
+    emit("kernel_train", cases=results, planted_faults=faults,
+         tolerance="rgb, weights as composite_errors (rel L2; max-abs of weights but the last "
+                   "interval; max-abs of rgb on unflipped rays), grads rel L2: each <= 2 * plain bf16 + 1e-3",
+         rule="every planted fault rejected with the he weights (composite faults by rgb, weights alone)",
+         ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: kernel_train failed")
+    return max_abs
 
 
 def _field_and_params(dev, use_kernel=True, dtype=torch.bfloat16):
@@ -321,8 +635,7 @@ def phase_bench(smi: str):
     shapes = {}
     for name, samples in (("fine", 192), ("coarse", 64)):
         t = torch.sort(2.0 + 4.0 * torch.rand((4096, samples), generator=gen, device=dev)).values
-        pts = (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
-        dirs = d[:, None, :].expand(-1, samples, -1).reshape(-1, 3).contiguous()
+        pts, dirs = ray_points(o, d, t)
         m = pts.shape[0]
         check = compare_with_plain(prepared, pts, dirs)
         check_he = compare_with_plain(prepared_he, pts, dirs)
@@ -351,36 +664,218 @@ def phase_bench(smi: str):
     return shapes
 
 
+def phase_train(work: Path):
+    """run_train on the card: the default config on gaussian_blobs at
+    400x400 (8 views), 24 steps with one validation, one checkpoint and one
+    visualisation, then a resume for 8 more steps, then run_render +
+    evaluate on two test views. Kernel 3 launches counted over the two
+    train runs: exactly 2 per step."""
+    from torch_nerf_tpu_torch import config, session  # noqa: PLC0415
+    from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
+
+    run, out, gt = work / "train_run", work / "train_render", work / "train_gt"
+    overrides = ["data.dataset_type=gaussian_blobs", "data.img_size=400",
+                 "train_params.validation.validate_every=3", "train_params.validation.num_batch=1",
+                 "train_params.log.epoch_btw_ckpt=3", "train_params.log.epoch_btw_vis=3"]
+    logs, results, launches = [], [], []
+    t0 = time.perf_counter()
+    for max_steps in (24, 32):
+        ftm.fused_train_pass.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            results.append(run_train.main(["--config", "default", "--log-dir", str(run),
+                                           "--max-steps", str(max_steps)] + overrides))
+        torch.cuda.synchronize()
+        launches.append(ftm.fused_train_pass.launches)
+        logs.append(buf.getvalue())
+    train_s = time.perf_counter() - t0
+    losses = results[0]["losses"] + results[1]["losses"]
+
+    run_render.main(["--log-dir", str(run), "--render-test-views", "--num-views", "2", "--out-dir", str(out)])
+    cfg = config.load_config(run / "config.yaml")
+    data = session.build_dataset(cfg, "test", device=torch.device("cuda"))
+    gt.mkdir(parents=True)
+    for i in range(2):
+        save_png(gt / f"{i:04d}.png", data.images[i])
+    scores = evaluate.main([str(out), str(gt)])
+    shapes = [list(load_png(p).shape) for p in sorted(out.iterdir())]
+    vis = sorted(str(p.relative_to(run)) for p in (run / "vis").rglob("*.png"))
+    val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
+    first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    ok = (launches == [48, 16] and len(losses) == 32 and all(math.isfinite(v) for v in losses)
+          and last8 < first8 and "Resumed from step 24." in logs[1] and len(val) == 1
+          and vis == ["vis/epoch_3/pred_imgs/view_000.png"]
+          and (run / "ckpt" / "ckpt_000024.pt").exists() and (run / "ckpt" / "ckpt_000032.pt").exists()
+          and shapes == [[800, 800, 3]] * 2 and all(math.isfinite(v) for v in scores.values()))
+    emit("train", seconds=train_s, steps=[r["step"] for r in results], kernel3_launches=launches,
+         expected_launches=[48, 16], losses=losses, mean_loss_first8=first8, mean_loss_last8=last8,
+         validation=val, resumed="Resumed from step 24." in logs[1], vis=vis,
+         png_shapes=shapes, psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"], ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train phase failed")
+    return sum(launches)
+
+
+def phase_train_bench(smi: str):
+    """Train steps at bench.py's operating point (8 views at 400x400, 4096
+    rays, 64 + 128 samples, make_image_train_step(precrop=False)): 3 warm-up
+    and 20 timed steps, fused and force_generic, with the launches of each
+    path counted over its timed steps; then kernel 3 alone per coarse and
+    fine pass and kernel 2 at the fine shape (CUDA events), beside their
+    bounds and the plain versions' times."""
+    from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners.train_ab import step_batch  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
+    images = torch.as_tensor(images, device=dev)
+    poses = torch.as_tensor(poses, device=dev)
+    field = make_nerf_field(compute_dtype=torch.bfloat16)
+    settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
+    optim = train.OptimConfig()
+    timed = 20
+    paths, states = {}, {}
+    for path, generic in (("fused", False), ("generic", True)):
+        state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(3):
+            state, _ = step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        ftm.fused_train_pass.launches = fn.fused_nerf_apply.launches = fn.fused_nerf_bwd.launches = 0
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, metrics = step(state, images, poses, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        losses = [float(v) for v in losses]
+        paths[path] = dict(ms_per_step=elapsed / timed * 1e3, rays_per_sec=4096 * timed / elapsed,
+                           launches={"fused_train_pass": ftm.fused_train_pass.launches,
+                                     "fused_nerf_fwd": fn.fused_nerf_apply.launches,
+                                     "fused_nerf_bwd": fn.fused_nerf_bwd.launches},
+                           loss_first=losses[0], loss_last=losses[-1],
+                           finite=all(math.isfinite(v) for v in losses))
+        states[path] = (state, step, gen)
+    clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+
+    # the kernels alone, on a batch of the fused path's own step
+    state, step, gen = states["fused"]
+    cfg = field.fused_cfg
+    pc, pf = state.params["coarse"], state.params["fine"]
+    o, d, gt, uni = step_batch(step, images, poses, camera, gen)
+    t_c = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far)
+    with torch.no_grad():
+        _, w_c, _ = ftm.fused_train_pass(pc, o, d, t_c, sampling.t_deltas(t_c), gt, cfg, 4096)
+        t_f = fine_depths(w_c, uni, settings)
+    peak_flops, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    param_bytes = 4 * sum(t.numel() for p in (pc,) for v in p.values() for t in v.values())
+    kernels = {}
+    with torch.no_grad():
+        for name, params, t in (("coarse", pc, t_c), ("fine", pf, t_f)):
+            delta = sampling.t_deltas(t)
+            m = t.numel()
+            ms = cuda_ms(lambda: ftm.fused_train_pass(params, o, d, t, delta, gt, cfg, 4096), 10)
+            plain = cuda_ms(lambda: train_reference(params, o, d, t, delta, gt, cfg, 4096), 2)
+            flops = 3 * fn.flops_per_point(cfg) * m
+            # t, delta in; weights out; rays' o, d, gt in, rgb out; params in, grads out
+            nbytes = 12 * m + 48 * 4096 + 2 * param_bytes
+            kernels[f"fused_train_pass/{name}"] = bound_entry(ms, plain, flops, nbytes, peak_flops, peak_bw, m)
+        pts, dirs = ray_points(o, d, t_f)
+        m = pts.shape[0]
+        g = torch.Generator(device=dev).manual_seed(4)
+        g_sigma = torch.randn((m,), generator=g, device=dev)
+        g_rgb = torch.randn((m, 3), generator=g, device=dev)
+        ms = cuda_ms(lambda: fn.fused_nerf_bwd(pf, pts, dirs, g_sigma, g_rgb, cfg), 5)
+        plain = cuda_ms(lambda: bwd_reference(pf, pts, dirs, g_sigma, g_rgb, cfg), 2)
+        # pts, dirs, g_sigma, g_rgb in; dpts, ddirs out; params in, grads out
+        kernels["fused_nerf_bwd/fine"] = bound_entry(ms, plain, 3 * fn.flops_per_point(cfg) * m, 64 * m + 2 * param_bytes,
+                                                     peak_flops, peak_bw, m)
+    fused = paths["fused"]
+    k3 = kernels["fused_train_pass/coarse"]["ms"] + kernels["fused_train_pass/fine"]["ms"]
+    step_bound = kernels["fused_train_pass/coarse"]["bound_ms"] + kernels["fused_train_pass/fine"]["bound_ms"]
+    ok = (all(p["finite"] for p in paths.values())
+          and paths["fused"]["launches"] == {"fused_train_pass": 2 * timed, "fused_nerf_fwd": 0, "fused_nerf_bwd": 0}
+          and paths["generic"]["launches"] == {"fused_train_pass": 0, "fused_nerf_fwd": 2 * timed,
+                                               "fused_nerf_bwd": 2 * timed})
+    emit("train_bench", card=smi, sm_clock_temp_power=clocks, timed_steps=timed, paths=paths,
+         kernels=kernels, kernel3_ms_per_step=k3, kernel3_share_of_step=k3 / fused["ms_per_step"],
+         step_bound_ms=step_bound, peak_flops=peak_flops, peak_bytes_per_s=peak_bw, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_bench phase failed")
+    return dict(kernels=kernels, generic_bwd_launches=paths["generic"]["launches"]["fused_nerf_bwd"])
+
+
+def bound_entry(ms, plain_ms, flops, nbytes, peak_flops, peak_bw, points) -> dict:
+    """A kernel's time beside its bound: the larger of its operations over
+    the bf16 peak and its bytes (each input read once, each output written
+    once) over the memory rate."""
+    bound = max(flops / peak_flops, nbytes / peak_bw) * 1e3
+    return dict(points=points, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="operations" if flops / peak_flops >= nbytes / peak_bw else "bytes",
+                share_of_bound=bound / ms, tflops=flops / ms / 1e9, library_ms=None)
+
+
+def kernel_lines(done: dict) -> list:
+    """The ``kernels`` line: each kernel with its main-path launches, its
+    largest max-abs error against the plain f32 version, and its time,
+    the plain version's and its bound at the main path's largest shape."""
+    shapes = done["bench"]
+    fine = shapes["fine"]
+    k1_err = max([done["kernel"]] + [e for s in shapes.values()
+                                     for k in ("max_abs_err", "he_max_abs_err") for e in s[k].values()])
+    tb = done["train_bench"]["kernels"]
+    k2, k3 = tb["fused_nerf_bwd/fine"], tb["fused_train_pass/fine"]
+    return [
+        {"name": "fused_nerf_fwd", "route": "cuda",
+         "source": "torch_nerf_tpu_torch/ops/csrc/fused_nerf_fwd.cu",
+         "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:397", "launches": done["serve"],
+         "max_abs_err": k1_err, "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+         "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"], "library_ms": None},
+        {"name": "fused_nerf_bwd", "route": "cuda",
+         "source": "torch_nerf_tpu_torch/ops/csrc/fused_nerf_bwd.cu",
+         "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:487",
+         "launches": done["train_bench"]["generic_bwd_launches"], "max_abs_err": done["kernel_bwd"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": None},
+        {"name": "fused_train_pass", "route": "cuda",
+         "source": "torch_nerf_tpu_torch/ops/csrc/fused_train.cu",
+         "replaces": "torch_nerf_tpu/ops/pallas/fused_train.py:196", "launches": done["train"],
+         "max_abs_err": done["kernel_train"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None},
+    ]
+
+
 def main() -> int:
-    import torch_nerf_tpu_torch  # noqa: F401, PLC0415  (fails at once outside a checkout)
+    import torch_nerf_tpu_torch  # noqa: F401, PLC0415
 
     smi = phase_device()
     # plain versions in full f32 / f32-accumulated bf16 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase_build()
-    max_err = phase_kernel()
     work = Path(__file__).resolve().parent / "outputs" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
-    launches = phase_serve(work)
-    shapes = phase_bench(smi)
-    fine = shapes["fine"]
-    max_err = max([max_err] + [e for s in shapes.values()
-                               for k in ("max_abs_err", "he_max_abs_err") for e in s[k].values()])
+    batch = train_batch(torch.device("cuda"))
+    done = {
+        "kernel": phase_kernel(),
+        "kernel_bwd": phase_kernel_bwd(batch),
+        "kernel_train": phase_kernel_train(batch),
+        "serve": phase_serve(work),
+        "train": phase_train(work),
+        "train_bench": phase_train_bench(smi),
+        "bench": phase_bench(smi),
+    }
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "fused_nerf_fwd",
-        "route": "cuda",
-        "source": "torch_nerf_tpu_torch/ops/csrc/fused_nerf_fwd.cu",
-        "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:397",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": fine["ms"],
-        "plain_ms": fine["plain_ms"],
-        "bound_ms": fine["bound_ms"],
-        "bound_by": fine["bound_by"],
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": kernel_lines(done)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

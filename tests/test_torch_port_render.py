@@ -206,8 +206,11 @@ def test_build_field_selects_kernel_or_plain():
     assert session.build_field(cfg).name == "nerf"
     cfg = config.resolve("default", ["device.compute_dtype=float32"])
     assert session.build_field(cfg).name == "nerf_fused"
-    with pytest.raises(NotImplementedError, match="training slice"):
-        session.build_dataset(config.resolve("default"), "test")
+    # the Blender loader reads its scene from data_root; LLFF has a slice of its own
+    with pytest.raises(FileNotFoundError, match="transforms_test.json"):
+        session.build_dataset(config.resolve("default", ["data.data_root=/nonexistent"]), "test")
+    with pytest.raises(NotImplementedError, match="LLFF"):
+        session.build_dataset(config.resolve("default", ["data.dataset_type=nerf_llff"]), "test")
 
 
 def test_build_field_float32_config_takes_kernel_route(monkeypatch):

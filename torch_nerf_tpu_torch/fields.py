@@ -2,8 +2,11 @@
 
 Counterpart of ``torch_nerf_tpu/fields.py:28-100``. A field bundles
 ``init(generator, device) -> params``, ``prepare(params) -> handle`` (the
-kernel layout of the weights, built once per network rather than per call)
-and ``apply(handle, pts, dirs) -> (sigma, rgb)``.
+kernel layout of the weights, built once per image when serving) and
+``apply(params or handle, pts, dirs) -> (sigma, rgb)``; the public
+parameter tree is differentiable through ``apply``. ``fused_cfg`` is set
+when the field's loss can run through the fused train pass
+(``ops/fused_train.py``), as the JAX field's is.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ class Field:
     apply: FieldApplyFn
     name: str = "field"
     prepare: Callable[[Any], Any] = _identity
+    fused_cfg: Optional[fused_nerf.FusedNeRFConfig] = None
 
 
 def make_nerf_field(
@@ -76,6 +80,7 @@ def make_nerf_field(
             apply=apply,
             name="nerf_fused",
             prepare=lambda params: fused_nerf.prepare(params, cfg),
+            fused_cfg=cfg,
         )
 
     def apply(params, pts: torch.Tensor, dirs: torch.Tensor):

@@ -1,17 +1,105 @@
-"""PNG write and read with the standard library (``zlib`` + ``struct``).
+"""Observability and image IO: metrics logging, step timing, PNG files.
 
-Counterpart of ``torch_nerf_tpu/logging_utils.py:142-147`` (``save_png``)
-for hosts without PIL. The reader takes 8-bit greyscale, RGB and RGBA
-images, non-interlaced, with any of the five PNG row filters.
+Counterpart of ``torch_nerf_tpu/logging_utils.py``. ``MetricsLogger``
+writes ``<log_dir>/metrics.jsonl`` only (the card's host has no
+tensorboard); ``StepTimer`` gives steps/s, rays/s and MFU over windows whose
+boundaries synchronise with the card. PNG files are written and read with
+the standard library (``zlib`` + ``struct``) for hosts without PIL: the
+reader takes 8-bit greyscale, RGB and RGBA images, non-interlaced, with any
+of the five PNG row filters.
 """
 
 from __future__ import annotations
 
+import json
 import struct
+import time
 import zlib
 from pathlib import Path
+from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+
+class MetricsLogger:
+    """Appends one JSON object per call to ``<log_dir>/metrics.jsonl``:
+    ``{"step", "wall_s", <scalars>}``, ``wall_s`` counted from the logger's
+    creation."""
+
+    def __init__(self, log_dir: str | Path):
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.log_dir / "metrics.jsonl", "a", buffering=1)
+        self._t0 = time.perf_counter()
+
+    def log_scalars(self, step: int, scalars: Dict[str, float]) -> None:
+        record = {"step": int(step), "wall_s": round(time.perf_counter() - self._t0, 3)}
+        record.update({k: float(v) for k, v in scalars.items()})
+        self._jsonl.write(json.dumps(record) + "\n")
+
+    def close(self) -> None:
+        self._jsonl.close()
+
+
+def device_peak_flops(device: Optional[torch.device] = None) -> Optional[float]:
+    """Dense bf16 peak FLOP/s of the CUDA card, from its name (NVIDIA's data
+    sheets), or None for the CPU and unknown cards."""
+    if device is None or device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    if "H100" in name:
+        return 756e12 if "PCIe" in name else 989e12
+    if "H200" in name:
+        return 989e12
+    return None
+
+
+class StepTimer:
+    """Windowed steps/s + rays/s (+ TFLOP/s and MFU) tracker.
+
+    Only the window-boundary stamps feed the rates, and those are taken
+    after ``torch.cuda.synchronize()``: kernel launches return before the
+    card finishes, so an unsynchronised clock measures the enqueue rate. One
+    synchronisation per window of steps.
+    """
+
+    def __init__(
+        self,
+        rays_per_step: int,
+        window: int = 50,
+        flops_per_step: Optional[float] = None,
+        device: Optional[torch.device] = None,
+    ):
+        self.rays_per_step = rays_per_step
+        self.window = window
+        self.flops_per_step = flops_per_step
+        self.device = device
+        self._peak = device_peak_flops(device)
+        self._count = 0
+        self._last_boundary: Optional[float] = None
+
+    def tick(self) -> Optional[Dict[str, float]]:
+        self._count += 1
+        if self._count % self.window != 0:
+            return None
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        prev, self._last_boundary = self._last_boundary, now
+        if prev is None:
+            return None
+        steps_per_sec = self.window / (now - prev)
+        out = {
+            "perf/steps_per_sec": steps_per_sec,
+            "perf/rays_per_sec": steps_per_sec * self.rays_per_step,
+        }
+        if self.flops_per_step:
+            flops_per_sec = steps_per_sec * self.flops_per_step
+            out["perf/tflops"] = flops_per_sec / 1e12
+            if self._peak:
+                out["perf/mfu"] = flops_per_sec / self._peak
+        return out
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels

@@ -3,8 +3,8 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``torch_nerf_tpu_torch/
 _build/`` (git-ignored). The library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale one never
-loaded. Nothing is built when a module is imported: the CPU tests import
+source, the ``*.cuh`` headers beside it and the flags, so an edited source
+is rebuilt and a stale one never loaded. Nothing is built when a module is imported: the CPU tests import
 every module on a machine without ``nvcc``.
 """
 
@@ -51,7 +51,10 @@ def source(name: str) -> Path:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of ``src``, named by a hash of it, the headers beside it
+    and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 

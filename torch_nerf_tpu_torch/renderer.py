@@ -72,13 +72,14 @@ def render_rays(
     """Render a batch of rays: the stratified coarse pass, then (if
     ``num_samples_fine > 0``) the fine pass on coarse + inverse-CDF samples
     of the detached coarse weights. Draws from ``generator`` unless
-    ``uniforms`` are given."""
+    ``uniforms`` are given. The params are the public trees (differentiable)
+    or ``field.prepare`` handles (forward only)."""
     if uniforms is None:
         uniforms = draw_uniforms(generator, ray_origin.shape[0], settings)
     t_coarse = sampling.stratified_t_samples_from_uniforms(
         uniforms.coarse, settings.t_near, settings.t_far
     )
-    out = _render_pass(field, field.prepare(params_coarse), ray_origin, ray_dir, t_coarse)
+    out = _render_pass(field, params_coarse, ray_origin, ray_dir, t_coarse)
     result = {"rgb_coarse": out["rgb"], "weights_coarse": out["weights"], "t_coarse": t_coarse}
 
     if settings.hierarchical:
@@ -92,7 +93,7 @@ def render_rays(
             uniforms.u,
             uniforms.fine,
         )
-        fine_out = _render_pass(field, field.prepare(params_fine), ray_origin, ray_dir, t_fine)
+        fine_out = _render_pass(field, params_fine, ray_origin, ray_dir, t_fine)
         result.update(rgb_fine=fine_out["rgb"], weights_fine=fine_out["weights"], t_fine=t_fine)
     return result
 

@@ -16,10 +16,7 @@ median and quartiles, and the card's ``nvidia-smi`` line.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import statistics
-import subprocess
 import time
 from pathlib import Path
 
@@ -31,41 +28,7 @@ from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
 from torch_nerf_tpu_torch.models.nerf import init_nerf_params
 from torch_nerf_tpu_torch.ops import build, fused_nerf
-
-
-def _event_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def _nvidia_smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-
-
-@contextlib.contextmanager
-def _kernel_library(lib):
-    """Route ``fused_nerf``'s launches through ``lib`` inside the block."""
-    saved = fused_nerf._library
-    fused_nerf._library = lambda: lib
-    try:
-        yield
-    finally:
-        fused_nerf._library = saved
-
-
-def _quartiles(xs):
-    q = statistics.quantiles(xs, n=4) if len(xs) > 1 else [xs[0]] * 3
-    return {"median": statistics.median(xs), "q1": q[0], "q3": q[2], "n": len(xs)}
+from torch_nerf_tpu_torch.runners.timing import event_ms, kernel_library, nvidia_smi, quartiles
 
 
 def main(argv=None) -> dict:
@@ -97,7 +60,7 @@ def main(argv=None) -> dict:
     pts, dirs = inputs["fine"]
     outs = {}
     for side, lib in libs.items():
-        with _kernel_library(lib):
+        with kernel_library(fused_nerf, lib):
             outs[side] = fused_nerf.fused_nerf_apply(prepared, pts, dirs, cfg)
     torch.cuda.synchronize()
     agree = max((a - b).abs().max().item() for a, b in zip(outs["repo"], outs["other"]))
@@ -110,9 +73,9 @@ def main(argv=None) -> dict:
         order = ("other", "repo") if r % 2 == 0 else ("repo", "other")
         for side in order:
             row = {"round": r, "side": side}
-            with _kernel_library(libs[side]):
+            with kernel_library(fused_nerf, libs[side]):
                 for shape, (p, q) in inputs.items():
-                    ms = _event_ms(lambda: fused_nerf.fused_nerf_apply(prepared, p, q, cfg), 20)
+                    ms = event_ms(lambda: fused_nerf.fused_nerf_apply(prepared, p, q, cfg), 20)
                     row[f"{shape}_ms"] = ms
                     results[side][f"{shape}_ms"].append(ms)
                 renderer.render_image(field, params["coarse"], params["fine"], camera, pose, 0,
@@ -127,11 +90,11 @@ def main(argv=None) -> dict:
             results[side]["s_per_frame"].append(row["s_per_frame"])
             # a card that heats or hits its power limit slows down
             # within a call: the clock beside each turn shows it
-            row["sm_clock_temp_power"] = _nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+            row["sm_clock_temp_power"] = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
             print(json.dumps(row), flush=True)
 
-    smi = _nvidia_smi("name,power.limit")
-    summary = {side: {k: _quartiles(v) for k, v in res.items()} for side, res in results.items()}
+    smi = nvidia_smi("name,power.limit")
+    summary = {side: {k: quartiles(v) for k, v in res.items()} for side, res in results.items()}
     print(json.dumps({"summary": summary, "card": smi}), flush=True)
     return summary
 
