@@ -2,7 +2,8 @@
 
 Drives the port's main paths through its own entry points (render a trained
 classic NeRF; train one, by the fused train pass and by autograd through the
-field) and holds every kernel on them against its plain PyTorch version.
+field; train, resume, render and evaluate both Instant-NGP presets) and
+holds every kernel on them against its plain PyTorch version.
 Each phase prints one JSON line; any failure exits non-zero. Then it prints
 the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -24,7 +25,16 @@ visualisation, a resume for 8 more, then ``run_render`` + ``evaluate``;
 2 fused-pass launches per step); train_bench (train steps at ``bench.py``'s
 operating point, fused and through autograd, each kernel timed beside its
 bound and its plain version); bench (800x800 frames at ``bench.py
---render``'s operating point).
+--render``'s operating point); kernel_hash (kernels 4-7, the bricked and
+per-corner hash encodes forward and backward, at full width on the 2^20
+points of a train batch plus 37 negative, integral and large ones, three
+planted faults that must be rejected); train_ngp (``run_train`` with the
+``instant_nerf_tpu`` preset for 24 steps, a resume for 8, ``run_render`` +
+``evaluate``, then 8 steps of ``instant_nerf``; one forward and one
+backward hash launch per step); train_bench_ngp (NGP train steps at
+``bench.py --model=instant_nerf``'s point, both layouts, each hash kernel
+timed beside its bound and its plain version); bench_ngp (800x800 NGP
+frames at ``bench.py --render --model=instant_nerf``'s point).
 """
 
 from __future__ import annotations
@@ -45,8 +55,13 @@ from torch_nerf_tpu_torch.runners.timing import nvidia_smi
 
 # H100 SXM data-sheet peaks (dense bf16, HBM3); PCIe part where named so
 _PEAKS = (("H100 PCIe", 756e12, 2.0e12), ("H100", 989e12, 3.35e12), ("H200", 989e12, 4.8e12))
+# f32 outside the tensor cores, H100 SXM data sheet: the hash kernels' blend
+F32_PEAK = 67e12
 
 FULL = dict(coord_encode_level=10, dir_encode_level=4, feat_dim=256)
+# the Instant-NGP presets' hash grid: L16 F2, 2^19 entries a level, res 16-512
+NGP = dict(num_level=16, log_max_entry_per_level=19, table_feat_dim=2, min_res=16, max_res=512)
+NGP_LAYOUTS = ("bricked", "hash")
 
 
 def emit(phase: str, **fields) -> None:
@@ -77,7 +92,7 @@ def phase_build():
     from torch_nerf_tpu_torch.ops import build  # noqa: PLC0415
 
     t0 = time.perf_counter()
-    reports = build.build(["fused_nerf_fwd", "fused_nerf_bwd", "fused_train"])
+    reports = build.build(["fused_nerf_fwd", "fused_nerf_bwd", "fused_train", "hash_grid"])
     seconds = time.perf_counter() - t0
     ptxas = {
         Path(src).stem: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -814,9 +829,339 @@ def phase_train_bench(smi: str):
     return dict(kernels=kernels, generic_bwd_launches=paths["generic"]["launches"]["fused_nerf_bwd"])
 
 
+# ---------------------------------------------------------------------------
+# Instant-NGP: kernels 4-7
+
+
+def hash_ops(layout):
+    """(forward wrapper, backward wrapper, plain forward, plain backward) of
+    a table layout."""
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
+
+    if layout == "bricked":
+        return hg.hash_brick_fwd, hg.hash_brick_bwd, hg.brick_encode_reference, hg.brick_backward_reference
+    return hg.hash_corner_fwd, hg.hash_corner_bwd, hg.corner_encode_reference, hg.corner_backward_reference
+
+
+def table_args(tables):
+    """The backward's table arguments: T_b for bricks, (T, F) for corners."""
+    return (tables.shape[1],) if tables.shape[2] == 128 else (tables.shape[1], tables.shape[2])
+
+
+def ngp_resolutions(dev):
+    from torch_nerf_tpu_torch.models.hash_math import level_resolutions  # noqa: PLC0415
+
+    return torch.as_tensor(level_resolutions(NGP["num_level"], NGP["min_res"], NGP["max_res"]), device=dev)
+
+
+def ngp_table_shape(layout):
+    from torch_nerf_tpu_torch.ops.hash_grid import bricks_per_level  # noqa: PLC0415
+
+    levels, log_t, f = NGP["num_level"], NGP["log_max_entry_per_level"], NGP["table_feat_dim"]
+    if layout == "bricked":
+        return (levels, bricks_per_level(log_t, f), 128)
+    return (levels, 2**log_t, f)
+
+
+def ngp_points(dev, seed=6):
+    """The 4096 x 256 = 2^20 sample points of an NGP train batch (random
+    pixels of a 400x400 training view, stratified depths in [2, 6]) and 37
+    more: 12 with negative coordinates, 12 with integral scaled coordinates
+    on one or more axes, 13 far out (|x| up to 900)."""
+    from torch_nerf_tpu_torch import cameras, renderer  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    camera = cameras.CameraParams(480.0, 480.0, 400, 400)
+    pose = torch.as_tensor(synthetic.split_poses(8, "train")[0], device=dev)
+    pix = torch.randperm(400 * 400, generator=gen, device=dev)[:4096]
+    o, d = cameras.rays_for_pixels(pix, camera, pose)
+    uni = renderer.draw_uniforms(gen, 4096, renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0))
+    t = sampling.stratified_t_samples_from_uniforms(uni.coarse, 2.0, 6.0)
+    pts, _ = ray_points(o, d, t)
+    negative = -1.5 * torch.rand((12, 3), generator=gen, device=dev)
+    integral = torch.randint(-3, 4, (12, 3), generator=gen, device=dev).float()
+    integral[6:, 0] += 0.3  # integral on the other two axes only
+    far = torch.rand((13, 3), generator=gen, device=dev) * 1800.0 - 900.0
+    return torch.cat([pts, negative, integral, far]).contiguous()
+
+
+def hash_verdict(layout, tables, pts, res, g, ref_out, ref_grad) -> dict:
+    """Kernels forward and backward on these inputs against the plain
+    versions' results on the true inputs: the forward within max-abs 1e-5
+    and relative L2 1e-5 (f32 sums of 8 weighted unit-scale features in
+    another order), the table gradient within relative L2 1e-5 (atomics on
+    both sides, in orders that change from run to run); one launch each."""
+    fwd, bwd, _, _ = hash_ops(layout)
+    before = (fwd.launches, bwd.launches)
+    out = fwd(tables, pts, res)
+    grad = bwd(g, pts, res, *table_args(tables))
+    torch.cuda.synchronize()
+    err = {"fwd_max_abs": (out - ref_out).abs().max().item(),
+           "fwd_rel_l2": rel_l2({"x": out}, {"x": ref_out})["x"],
+           "grad_rel_l2": rel_l2({"x": grad}, {"x": ref_grad})["x"],
+           "grad_max_abs": (grad - ref_grad).abs().max().item()}
+    limit = {"fwd_max_abs": 1e-5, "fwd_rel_l2": 1e-5, "grad_rel_l2": 1e-5}
+    ok = (all(math.isfinite(v) for v in err.values()) and all(err[k] <= limit[k] for k in limit)
+          and (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1))
+    return dict(ok=ok, err=err, limit=limit)
+
+
+def phase_kernel_hash():
+    """Kernels 4-7 against their plain versions at full width (L = 16,
+    F = 2, 2^19 entries a level; the brick table (16, 8192, 128)) on
+    :func:`ngp_points`, with U(-1, 1) tables (the init's U(+-1e-4) would put
+    every feature under the tolerance) and a seeded random cotangent; the
+    all-zero-weight quirk on the integral points. Then three faults planted
+    in the kernels' inputs, each of which the check must reject: the table
+    rolled by one row, two levels' resolutions swapped, one point's x and y
+    swapped."""
+    dev = torch.device("cuda")
+    pts = ngp_points(dev)
+    n = pts.shape[0]
+    res = ngp_resolutions(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    integral = slice(n - 25, n - 19)  # integral on every axis
+    results, max_abs = {}, {}
+    for layout in NGP_LAYOUTS:
+        _, _, fwd_ref, bwd_ref = hash_ops(layout)
+        tables = torch.rand(ngp_table_shape(layout), generator=gen, device=dev) * 2.0 - 1.0
+        g = torch.randn((n, 32), generator=gen, device=dev)
+        ref_out = fwd_ref(tables, pts, res)
+        ref_grad = bwd_ref(g, pts, res, *table_args(tables))
+        verdict = hash_verdict(layout, tables, pts, res, g, ref_out, ref_grad)
+        swapped_levels = res.clone()
+        swapped_levels[[3, 11]] = res[[11, 3]]
+        swapped_axes = pts.clone()
+        swapped_axes[0] = pts[0, [1, 0, 2]]
+        faults = {
+            "table_rolled_one_row": (torch.roll(tables, 1, dims=1).contiguous(), pts, res),
+            "levels_3_11_swapped": (tables, pts, swapped_levels),
+            "point_0_x_y_swapped": (tables, swapped_axes, res),
+        }
+        rejected = {}
+        for name, (t_, p_, r_) in faults.items():
+            v = hash_verdict(layout, t_, p_, r_, g, ref_out, ref_grad)
+            rejected[name] = {"rejected": not v["ok"], "err": v["err"]}
+        quirk = ref_out[integral].abs().max().item()
+        results[layout] = dict(points=n, table_shape=list(tables.shape), kernels_ok=verdict["ok"],
+                               err=verdict["err"], limit=verdict["limit"], planted_faults=rejected,
+                               integral_points_max_abs=quirk,
+                               ok=verdict["ok"] and quirk == 0.0 and all(f["rejected"] for f in rejected.values()))
+        max_abs[layout] = {"fwd": verdict["err"]["fwd_max_abs"], "bwd": verdict["err"]["grad_max_abs"]}
+    ok = all(r["ok"] for r in results.values())
+    emit("kernel_hash", layouts=results, rule="kernels within the limits; every planted fault rejected", ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: kernel_hash failed")
+    return max_abs
+
+
+NGP_TRAIN_OVERRIDES = ["data.dataset_type=gaussian_blobs", "data.img_size=400",
+                       "train_params.validation.validate_every=3", "train_params.validation.num_batch=1",
+                       "train_params.log.epoch_btw_ckpt=3", "train_params.log.epoch_btw_vis=3"]
+
+
+def run_cli(fn, argv, counted):
+    """``fn(argv)`` with its stdout captured and the launch counts of the
+    ``counted`` wrappers set to 0 just before and read just after."""
+    for w in counted:
+        w.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(argv)
+    torch.cuda.synchronize()
+    return result, buf.getvalue(), [w.launches for w in counted]
+
+
+def phase_train_ngp(work: Path):
+    """``run_train --config instant_nerf_tpu`` (bricked) on gaussian_blobs at
+    400x400 (8 views): 24 steps with one validation (an 800x800 val view,
+    157 chunks), one checkpoint and one visualisation (a 400x400 view, 40
+    chunks), a resume for 8 more, ``run_render`` + ``evaluate`` of two
+    800x800 test views; then 8 steps of ``--config instant_nerf``
+    (per-corner). Hash launches counted over each call: one forward and one
+    backward per train step, one forward per render chunk, nothing of the
+    other layout's kernels."""
+    from torch_nerf_tpu_torch import config, session  # noqa: PLC0415
+    from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
+
+    brick, corner = hash_ops("bricked")[:2], hash_ops("hash")[:2]
+    counted = brick + corner
+    run, out, gt, hash_run = work / "ngp_run", work / "ngp_render", work / "ngp_gt", work / "ngp_hash_run"
+    logs, results, launches = [], [], []
+    t0 = time.perf_counter()
+    for max_steps in (24, 32):
+        r, log, c = run_cli(run_train.main, ["--config", "instant_nerf_tpu", "--log-dir", str(run),
+                                             "--max-steps", str(max_steps)] + NGP_TRAIN_OVERRIDES, counted)
+        results.append(r)
+        logs.append(log)
+        launches.append(c)
+    train_s = time.perf_counter() - t0
+    losses = results[0]["losses"] + results[1]["losses"]
+    _, _, render_launches = run_cli(run_render.main, ["--log-dir", str(run), "--render-test-views",
+                                                      "--num-views", "2", "--out-dir", str(out)], counted)
+    cfg = config.load_config(run / "config.yaml")
+    data = session.build_dataset(cfg, "test", device=torch.device("cuda"))
+    gt.mkdir(parents=True)
+    for i in range(2):
+        save_png(gt / f"{i:04d}.png", data.images[i])
+    scores = evaluate.main([str(out), str(gt)])
+    shapes = [list(load_png(p).shape) for p in sorted(out.iterdir())]
+    val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
+    hash_result, _, hash_launches = run_cli(run_train.main, ["--config", "instant_nerf", "--log-dir", str(hash_run),
+                                                             "--max-steps", "8"] + NGP_TRAIN_OVERRIDES, counted)
+    chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
+    # [brick fwd, brick bwd, corner fwd, corner bwd] per call
+    want = [[24 + chunks_800 + chunks_400, 24, 0, 0], [8, 8, 0, 0]]
+    want_render, want_hash = [2 * chunks_800, 0, 0, 0], [0, 0, 8, 8]
+    first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    ok = (launches == want and render_launches == want_render and hash_launches == want_hash
+          and len(losses) == 32 and all(math.isfinite(v) for v in losses + hash_result["losses"])
+          and len(hash_result["losses"]) == 8 and last8 < first8
+          and "Resumed from step 24." in logs[1] and len(val) == 1
+          and (run / "ckpt" / "ckpt_000024.pt").exists() and (run / "ckpt" / "ckpt_000032.pt").exists()
+          and shapes == [[800, 800, 3]] * 2 and all(math.isfinite(v) for v in scores.values()))
+    emit("train_ngp", seconds=train_s, steps=[r["step"] for r in results] + [hash_result["step"]],
+         launches_brick_fwd_bwd_corner_fwd_bwd={"train": launches, "render": render_launches,
+                                                 "hash_train": hash_launches},
+         expected={"train": want, "render": want_render, "hash_train": want_hash},
+         losses=losses, mean_loss_first8=first8, mean_loss_last8=last8, hash_losses=hash_result["losses"],
+         validation=val, resumed="Resumed from step 24." in logs[1], png_shapes=shapes,
+         psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"], ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_ngp phase failed")
+    return {"hash_brick_fwd": launches[0][0] + launches[1][0] + render_launches[0],
+            "hash_brick_bwd": launches[0][1] + launches[1][1],
+            "hash_corner_fwd": hash_launches[2], "hash_corner_bwd": hash_launches[3]}
+
+
+def ngp_field(layout, use_kernel=True):
+    from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field  # noqa: PLC0415
+
+    return make_instant_ngp_field(**NGP, compute_dtype=torch.bfloat16, table_layout=layout, use_kernel=use_kernel)
+
+
+def phase_train_bench_ngp(smi: str):
+    """NGP train steps at ``bench.py --model=instant_nerf``'s point (8 views
+    at 400x400, 4096 rays x 256 samples, no fine network, Adam 1e-2 -> 1e-3
+    at eps 1e-15, ``make_image_train_step(precrop=False)``), both layouts:
+    3 warm-up and 20 timed steps, launches counted over the timed ones; then
+    each hash kernel alone on the 2^20 points of a batch of the step's own,
+    with a seeded random cotangent (CUDA events), beside its bound and its
+    plain version's time."""
+    from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners.train_ab import step_batch  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
+    images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
+    settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
+    optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
+    res = ngp_resolutions(dev)
+    _, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    timed = 20
+    paths, kernels = {}, {}
+    for layout in NGP_LAYOUTS:
+        fwd, bwd, fwd_ref, bwd_ref = hash_ops(layout)
+        field = ngp_field(layout)
+        state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(3):
+            state, _ = step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        fwd.launches = bwd.launches = 0
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, metrics = step(state, images, poses, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        losses = [float(v) for v in losses]
+        paths[layout] = dict(ms_per_step=elapsed / timed * 1e3, rays_per_sec=4096 * timed / elapsed,
+                             launches={"fwd": fwd.launches, "bwd": bwd.launches},
+                             loss_first=losses[0], loss_last=losses[-1],
+                             finite=all(math.isfinite(v) for v in losses))
+        o, d, _, uni = step_batch(step, images, poses, camera, gen)
+        t = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far)
+        pts, _ = ray_points(o, d, t)
+        m = pts.shape[0]
+        tables = state.params["coarse"]["tables"].detach()
+        g = torch.randn((m, 32), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        # the table (or its gradient), the coordinates, the (N, 32) output
+        # (or its cotangent): each read or written once
+        nbytes = 4 * (tables.numel() + 3 * m + 32 * m)
+        # the blend's (or the scatter's) multiply and add of 8 sites x F a (point, level)
+        flops = 2 * 8 * NGP["table_feat_dim"] * NGP["num_level"] * m
+        with torch.no_grad():
+            for name, run, plain in (
+                ("fwd", lambda: fwd(tables, pts, res), lambda: fwd_ref(tables, pts, res)),
+                ("bwd", lambda: bwd(g, pts, res, *table_args(tables)),
+                 lambda: bwd_ref(g, pts, res, *table_args(tables))),
+            ):
+                kernels[f"{layout}/{name}"] = bound_entry(cuda_ms(run, 20), cuda_ms(plain, 3), flops, nbytes,
+                                                          F32_PEAK, peak_bw, m)
+        hash_ms = kernels[f"{layout}/fwd"]["ms"] + kernels[f"{layout}/bwd"]["ms"]
+        paths[layout].update(hash_kernels_ms_per_step=hash_ms, hash_kernels_share_of_step=hash_ms / paths[layout]["ms_per_step"])
+    clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+    ok = all(p["finite"] and p["launches"] == {"fwd": timed, "bwd": timed} for p in paths.values())
+    emit("train_bench_ngp", card=smi, sm_clock_temp_power=clocks, timed_steps=timed, paths=paths,
+         kernels=kernels, peak_bytes_per_s=peak_bw, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_bench_ngp phase failed")
+    return kernels
+
+
+def phase_bench_ngp(smi: str):
+    """800x800 NGP frames at ``bench.py --render --model=instant_nerf``'s
+    point (256 samples, no fine network, 4096-ray chunks: 157 forward hash
+    launches a frame), both layouts, seeded random weights: a warm-up and 2
+    timed frames each."""
+    from torch_nerf_tpu_torch import cameras, renderer  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
+    camera = cameras.CameraParams(960.0, 960.0, 800, 800)
+    pose = torch.as_tensor(synthetic.split_poses(1, "train")[0], device=dev)
+    frames, layouts = 2, {}
+    for layout in NGP_LAYOUTS:
+        fwd = hash_ops(layout)[0]
+        field = ngp_field(layout)
+        params = field.init(torch.Generator(device=dev).manual_seed(0), dev)
+
+        def frame(seed):
+            return renderer.render_image(field, params, None, camera, pose, seed, settings, chunk_size=4096)
+
+        img = frame(1)
+        torch.cuda.synchronize()
+        fwd.launches = 0
+        t0 = time.perf_counter()
+        for i in range(frames):
+            img = frame(2 + i)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        layouts[layout] = dict(seconds_per_frame=elapsed / frames, rays_per_sec=800 * 800 * frames / elapsed,
+                               launches_per_frame=fwd.launches / frames, finite=bool(torch.isfinite(img).all()),
+                               shape=list(img.shape))
+    clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+    chunks = -(-800 * 800 // 4096)
+    ok = all(v["finite"] and v["launches_per_frame"] == chunks and v["shape"] == [800, 800, 3]
+             for v in layouts.values())
+    emit("bench_ngp", card=smi, sm_clock_temp_power=clocks, frames=frames, layouts=layouts, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: bench_ngp phase failed")
+    return layouts
+
+
 def bound_entry(ms, plain_ms, flops, nbytes, peak_flops, peak_bw, points) -> dict:
     """A kernel's time beside its bound: the larger of its operations over
-    the bf16 peak and its bytes (each input read once, each output written
+    the peak for their type and its bytes (each input read once, each output written
     once) over the memory rate."""
     bound = max(flops / peak_flops, nbytes / peak_bw) * 1e3
     return dict(points=points, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -827,7 +1172,10 @@ def bound_entry(ms, plain_ms, flops, nbytes, peak_flops, peak_bw, points) -> dic
 def kernel_lines(done: dict) -> list:
     """The ``kernels`` line: each kernel with its main-path launches, its
     largest max-abs error against the plain f32 version, and its time,
-    the plain version's and its bound at the main path's largest shape."""
+    the plain version's and its bound at the main path's largest shape
+    (the hash kernels: their launches over ``train_ngp``'s CLI calls, their
+    errors from kernel_hash, their times at the NGP train step's 2^20
+    points)."""
     shapes = done["bench"]
     fine = shapes["fine"]
     k1_err = max([done["kernel"]] + [e for s in shapes.values()
@@ -851,6 +1199,18 @@ def kernel_lines(done: dict) -> list:
          "replaces": "torch_nerf_tpu/ops/pallas/fused_train.py:196", "launches": done["train"],
          "max_abs_err": done["kernel_train"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda", "source": "torch_nerf_tpu_torch/ops/csrc/hash_grid.cu",
+         "replaces": replaces, "launches": done["train_ngp"][name],
+         "max_abs_err": done["kernel_hash"][layout][part], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
+        for name, layout, part, replaces in (
+            ("hash_brick_fwd", "bricked", "fwd", "torch_nerf_tpu/ops/pallas/hash_brick.py:228"),
+            ("hash_brick_bwd", "bricked", "bwd", "torch_nerf_tpu/ops/pallas/hash_brick.py:361"),
+            ("hash_corner_fwd", "hash", "fwd", "torch_nerf_tpu/ops/pallas/hash_corner.py:173"),
+            ("hash_corner_bwd", "hash", "bwd", "torch_nerf_tpu/ops/pallas/hash_corner.py:249"),
+        )
+        for k in (done["train_bench_ngp"][f"{layout}/{part}"],)
     ]
 
 
@@ -869,10 +1229,14 @@ def main() -> int:
         "kernel": phase_kernel(),
         "kernel_bwd": phase_kernel_bwd(batch),
         "kernel_train": phase_kernel_train(batch),
+        "kernel_hash": phase_kernel_hash(),
         "serve": phase_serve(work),
         "train": phase_train(work),
         "train_bench": phase_train_bench(smi),
         "bench": phase_bench(smi),
+        "train_ngp": phase_train_ngp(work),
+        "train_bench_ngp": phase_train_bench_ngp(smi),
+        "bench_ngp": phase_bench_ngp(smi),
     }
     print(smi)
     print(json.dumps({"kernels": kernel_lines(done)}))

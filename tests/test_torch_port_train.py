@@ -443,7 +443,5 @@ def test_unported_branches_raise_and_name_their_slice():
     settings = RenderSettings(num_samples_coarse=8, num_samples_fine=0)
     with pytest.raises(NotImplementedError, match="occupancy slice"):
         train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(), occupancy_cfg=object())
-    with pytest.raises(NotImplementedError, match="Instant-NGP slice"):
+    with pytest.raises(NotImplementedError, match="packed-layout slice"):
         train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(), aux_loss_fn=lambda p, k: 0)
-    with pytest.raises(NotImplementedError, match="Instant-NGP slice"):
-        train.make_optimizer({"w": torch.zeros(1)}, train.OptimConfig(table_weight_decay=0.1))

@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
+_by_name: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -105,5 +106,11 @@ def load_source(src: Path) -> ctypes.CDLL:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``."""
-    return load_source(source(name))
+    """The built library for ``csrc/<name>.cu``. The sources are hashed at a
+    process's first call only: a wrapper calls this at every launch, and
+    reading and hashing ~60 KB of sources each time is host time a short
+    kernel (a hash-grid forward) waits for."""
+    lib = _by_name.get(name)
+    if lib is None:
+        lib = _by_name[name] = load_source(source(name))
+    return lib

@@ -33,7 +33,7 @@ from torch_nerf_tpu_torch.renderer import render_image
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="Train a NeRF on one card.")
+    parser = argparse.ArgumentParser(description="Train a NeRF or an Instant-NGP on one card.")
     parser.add_argument("--config", default="default", help="preset name or YAML/JSON path")
     parser.add_argument("--log-dir", default=None, help="output/resume directory")
     parser.add_argument("--max-steps", type=int, default=None, help="cap total steps (debug)")
@@ -55,8 +55,6 @@ def _check_supported(cfg, args) -> None:
         raise NotImplementedError("data-parallel training comes with the port's parallelism slice")
     if cfg.occupancy.enabled:
         raise NotImplementedError("occupancy pruning comes with the port's occupancy slice")
-    if cfg.objective.encode_smoothness_weight > 0.0:
-        raise NotImplementedError("the smoothness loss comes with the port's Instant-NGP slice")
 
 
 def main(argv=None) -> dict:
@@ -81,6 +79,7 @@ def main(argv=None) -> dict:
     settings = session.build_render_settings(cfg, dataset)
     field = session.build_field(cfg)
     optim_cfg = session.build_optim_config(cfg)
+    aux_loss_fn = session.build_aux_loss(cfg)
 
     state = train.create_train_state(
         torch.Generator(device=device).manual_seed(cfg.seed), field, settings, optim_cfg, device
@@ -107,7 +106,8 @@ def main(argv=None) -> dict:
 
     steps = {
         precrop: train.make_image_train_step(
-            field, settings, optim_cfg, camera, cfg.renderer.num_pixels, precrop=precrop
+            field, settings, optim_cfg, camera, cfg.renderer.num_pixels, precrop=precrop,
+            aux_loss_fn=aux_loss_fn,
         )
         for precrop in (True, False)
     }

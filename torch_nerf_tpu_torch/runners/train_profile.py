@@ -1,15 +1,17 @@
 """Where a train step's time goes on the card, by kernel.
 
 Runs train steps at ``bench.py``'s operating point (8 procedural views at
-400x400, 4096 rays, 64 + 128 samples, seeded random weights), by the fused
-train pass and by autograd through the field, and traces a few steps of
-each with ``torch.profiler``. Prints one JSON line per path: the host-clock
-ms per step, the device ms per step of every kernel by name (each launch's
-own device time, summed and divided by the steps), their sum, and the
-device's idle share of the step (1 - busy / step); then the card's
-``nvidia-smi`` line.
+400x400, 4096 rays, seeded random weights) and traces a few steps of each
+path with ``torch.profiler``: for the classic NeRF (64 + 128 samples) the
+fused train pass and autograd through the field; with ``--model
+instant_nerf`` (256 samples, no fine network, Adam 1e-2 at eps 1e-15) the
+bricked and the per-corner hash layouts. Prints one JSON line per path:
+the host-clock ms per step, the device ms per step of every kernel by name
+(each launch's own device time, summed and divided by the steps), their
+sum, and the device's idle share of the step (1 - busy / step); then the
+card's ``nvidia-smi`` line.
 
-    python -m torch_nerf_tpu_torch.runners.train_profile [--steps 5]
+    python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf] [--steps 5]
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch_nerf_tpu_torch import renderer, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
+from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field
 from torch_nerf_tpu_torch.runners.timing import nvidia_smi
 
 
@@ -65,15 +68,23 @@ def profile_path(step, state, images, poses, gen, steps: int) -> dict:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--model", choices=("nerf", "instant_nerf"), default="nerf")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
     images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
-    field = make_nerf_field(compute_dtype=torch.bfloat16)
-    settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
-    optim = train.OptimConfig()
+    if args.model == "instant_nerf":
+        settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
+        optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
+        paths = {layout: (make_instant_ngp_field(compute_dtype=torch.bfloat16, table_layout=layout), False)
+                 for layout in ("bricked", "hash")}
+    else:
+        settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
+        optim = train.OptimConfig()
+        field = make_nerf_field(compute_dtype=torch.bfloat16)
+        paths = {"fused": (field, False), "generic": (field, True)}
     out = {}
-    for path, generic in (("fused", False), ("generic", True)):
+    for path, (field, generic) in paths.items():
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
         step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
         gen = torch.Generator(device=dev).manual_seed(1)

@@ -1,9 +1,10 @@
 """Session factory: config -> dataset, render settings, field, optimizer
 config, and the FLOP count of a train step.
 
-Counterpart of ``torch_nerf_tpu/session.py`` for the classic NeRF: the
-Instant-NGP field, LLFF, multi-scene datasets, occupancy and auxiliary
-losses come with later slices and raise here.
+Counterpart of ``torch_nerf_tpu/session.py`` for the classic NeRF and the
+Instant-NGP field (``hash`` and ``bricked`` layouts): LLFF, multi-scene
+datasets, occupancy and the packed layouts' smoothness loss come with later
+slices and raise here.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.datasets.blender import PosedImages, load_blender
 from torch_nerf_tpu_torch.encoders import positional_encoding_dim
 from torch_nerf_tpu_torch.fields import Field, make_nerf_field
+from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field
 from torch_nerf_tpu_torch.models.nerf import layer_dims
 from torch_nerf_tpu_torch.renderer import RenderSettings
 from torch_nerf_tpu_torch.train import OptimConfig
@@ -78,16 +80,26 @@ def build_render_settings(
 
 def build_field(cfg: cfg_mod.ExperimentConfig) -> Field:
     """Field from the network + signal_encoder groups. ``parallel.use_pallas``
-    None or true takes the fused kernel, which decides by the tensors'
-    device (and raises on the card for a compute_dtype other than bfloat16);
-    false takes the plain version."""
+    None or true takes the kernels, which decide by the tensors' device (the
+    fused NeRF kernel raises on the card for a compute_dtype other than
+    bfloat16); false takes the plain versions."""
     net = cfg.network
     enc = cfg.signal_encoder
     compute_dtype = getattr(torch, cfg.device.compute_dtype)
-    if net.type != "nerf":
-        raise NotImplementedError(
-            f"network.type '{net.type}' comes with the port's Instant-NGP slice"
+    if net.type == "instant_nerf":
+        return make_instant_ngp_field(
+            num_level=net.num_level,
+            log_max_entry_per_level=net.log_max_entry_per_level,
+            table_feat_dim=net.table_feat_dim,
+            min_res=net.min_res,
+            max_res=net.max_res,
+            sh_degree=enc.degree,
+            compute_dtype=compute_dtype,
+            table_layout=net.table_layout,
+            use_kernel=cfg.parallel.use_pallas,
         )
+    if net.type != "nerf":
+        raise ValueError(f"Unsupported network type '{net.type}'.")
     if enc.type != "pe":
         raise ValueError("The classic NeRF network expects positional encoding.")
     return make_nerf_field(
@@ -100,6 +112,22 @@ def build_field(cfg: cfg_mod.ExperimentConfig) -> Field:
         compute_dtype=compute_dtype,
         use_kernel=cfg.parallel.use_pallas,
     )
+
+
+def build_aux_loss(cfg: cfg_mod.ExperimentConfig):
+    """The objective group's regularizer: None, as
+    ``objective.encode_smoothness_weight`` is 0 unless a packed layout asks
+    for its voxel-face penalty, which comes with the port's packed-layout
+    slice."""
+    if cfg.objective.encode_smoothness_weight <= 0.0:
+        return None
+    net = cfg.network
+    if net.type != "instant_nerf" or net.table_layout not in ("packed", "packed_dual"):
+        raise ValueError(
+            "encode_smoothness_weight applies to the packed instant-NGP layouts; got "
+            f"network.type='{net.type}', table_layout='{net.table_layout}'."
+        )
+    raise NotImplementedError("the smoothness loss comes with the port's packed-layout slice")
 
 
 def build_optim_config(cfg: cfg_mod.ExperimentConfig) -> OptimConfig:

@@ -3,8 +3,8 @@
 Counterpart of ``torch_nerf_tpu/train.py:35-231`` and ``:405-623``, without
 the occupancy-pruned and auxiliary-loss branches (later slices). Adam with
 ``lr(t) = init_lr * (end_lr / init_lr)^(t / num_iter)``, stepped once per
-iteration (``ExponentialLR``); the loss is coarse MSE + fine MSE summed
-before one backward.
+iteration (``ExponentialLR``), and L2 weight decay on hash tables where
+asked for; the loss is coarse MSE + fine MSE summed before one backward.
 
 A field with a ``fused_cfg`` trains through the fused train pass
 (``ops/fused_train.py``: each render pass with its loss gradient in one
@@ -39,7 +39,8 @@ from torch_nerf_tpu_torch.renderer import RayUniforms, RenderSettings, draw_unif
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
     """Mirrors ``configs/train_params/nerf.yaml:1-8``. ``table_weight_decay``
-    applies to Instant-NGP hash tables only, which come with a later slice."""
+    (no reference counterpart, 0 by default) adds ``wd * p`` to the
+    gradient of every leaf under a ``"tables"`` key before Adam."""
 
     num_iter: int = 300_000
     init_lr: float = 5.0e-4
@@ -64,15 +65,32 @@ def parameter_list(params: Dict[str, Any]) -> list:
     return [params]
 
 
+def table_flags(params: Dict[str, Any], is_table: bool = False) -> list:
+    """For each leaf in :func:`parameter_list` order, whether it lies under
+    a ``"tables"`` key."""
+    if isinstance(params, dict):
+        return [f for key in sorted(params) for f in table_flags(params[key], is_table or key == "tables")]
+    return [is_table]
+
+
 def make_optimizer(params: Dict[str, Any], cfg: OptimConfig) -> torch.optim.Adam:
     """Adam (betas 0.9/0.999, eps outside the sqrt, bias correction), as
-    ``optax.adam`` and the reference's ``torch.optim.Adam``."""
-    if cfg.table_weight_decay > 0.0:
-        raise NotImplementedError(
-            "table_weight_decay applies to Instant-NGP hash tables, which come with the port's "
-            "Instant-NGP slice"
-        )
-    return torch.optim.Adam(parameter_list(params), lr=cfg.init_lr, eps=cfg.eps)
+    ``optax.adam`` and the reference's ``torch.optim.Adam``. With
+    ``table_weight_decay`` > 0, Adam's ``weight_decay`` (``wd * p`` added to
+    the gradient before the moments: optax's ``chain(masked(
+    add_decayed_weights), adam)``) on the hash-table leaves only, in
+    parameter groups of consecutive leaves that keep
+    :func:`parameter_list`'s order, and with it the optimizer state's."""
+    leaves = parameter_list(params)
+    if cfg.table_weight_decay <= 0.0:
+        return torch.optim.Adam(leaves, lr=cfg.init_lr, eps=cfg.eps)
+    groups = []
+    for leaf, is_table in zip(leaves, table_flags(params)):
+        decay = cfg.table_weight_decay if is_table else 0.0
+        if not groups or groups[-1]["weight_decay"] != decay:
+            groups.append({"params": [], "weight_decay": decay})
+        groups[-1]["params"].append(leaf)
+    return torch.optim.Adam(groups, lr=cfg.init_lr, eps=cfg.eps)
 
 
 def lr_schedule(optimizer: torch.optim.Optimizer, cfg: OptimConfig) -> torch.optim.lr_scheduler.ExponentialLR:
@@ -192,8 +210,8 @@ def make_ray_train_step(
         raise NotImplementedError("occupancy pruning comes with the port's occupancy slice")
     if aux_loss_fn is not None:
         raise NotImplementedError(
-            "auxiliary losses (the packed-layout smoothness penalty) come with the port's "
-            "Instant-NGP slice"
+            "auxiliary losses (the packed layouts' smoothness penalty) come with the port's "
+            "packed-layout slice"
         )
     use_fused = field.fused_cfg is not None and not force_generic
 
