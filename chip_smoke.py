@@ -2,8 +2,9 @@
 
 Drives the port's main paths through its own entry points (render a trained
 classic NeRF; train one, by the fused train pass and by autograd through the
-field; train, resume, render and evaluate both Instant-NGP presets) and
-holds every kernel on them against its plain PyTorch version.
+field; train, resume, render and evaluate both Instant-NGP presets and the
+packed table layouts with their smoothness loss) and holds every kernel on
+them against its plain PyTorch version.
 Each phase prints one JSON line; any failure exits non-zero. Then it prints
 the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -33,8 +34,16 @@ planted faults that must be rejected); train_ngp (``run_train`` with the
 ``evaluate``, then 8 steps of ``instant_nerf``; one forward and one
 backward hash launch per step); train_bench_ngp (NGP train steps at
 ``bench.py --model=instant_nerf``'s point, both layouts, each hash kernel
-timed beside its bound and its plain version); bench_ngp (800x800 NGP
-frames at ``bench.py --render --model=instant_nerf``'s point).
+timed beside its bound and its plain version; then the packed layouts,
+without and with the smoothness loss, and kernels 8-9 timed alone);
+bench_ngp (800x800 NGP frames at ``bench.py --render
+--model=instant_nerf``'s point, all four layouts); kernel_fold (kernels
+8-9, the packed layouts' folded encode forward and backward, at full width
+for ``packed`` and ``packed_dual`` on the same points, four planted faults
+that must be rejected); train_packed (``run_train`` of ``packed`` with the
+smoothness loss for 24 steps, a resume for 8, ``run_render`` +
+``evaluate``, then 8 steps of ``packed_dual``; two forward and two
+backward fold launches per step, one forward per render chunk).
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ FULL = dict(coord_encode_level=10, dir_encode_level=4, feat_dim=256)
 # the Instant-NGP presets' hash grid: L16 F2, 2^19 entries a level, res 16-512
 NGP = dict(num_level=16, log_max_entry_per_level=19, table_feat_dim=2, min_res=16, max_res=512)
 NGP_LAYOUTS = ("bricked", "hash")
+PACKED_LAYOUTS = ("packed", "packed_dual")
 
 
 def emit(phase: str, **fields) -> None:
@@ -843,6 +853,13 @@ def hash_ops(layout):
     return hg.hash_corner_fwd, hg.hash_corner_bwd, hg.corner_encode_reference, hg.corner_backward_reference
 
 
+def fold_ops():
+    """(forward wrapper, backward wrapper) of the packed layouts."""
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
+
+    return hg.hash_fold_fwd, hg.hash_fold_bwd
+
+
 def table_args(tables):
     """The backward's table arguments: T_b for bricks, (T, F) for corners."""
     return (tables.shape[1],) if tables.shape[2] == 128 else (tables.shape[1], tables.shape[2])
@@ -887,16 +904,16 @@ def ngp_points(dev, seed=6):
     return torch.cat([pts, negative, integral, far]).contiguous()
 
 
-def hash_verdict(layout, tables, pts, res, g, ref_out, ref_grad) -> dict:
-    """Kernels forward and backward on these inputs against the plain
-    versions' results on the true inputs: the forward within max-abs 1e-5
-    and relative L2 1e-5 (f32 sums of 8 weighted unit-scale features in
-    another order), the table gradient within relative L2 1e-5 (atomics on
-    both sides, in orders that change from run to run); one launch each."""
-    fwd, bwd, _, _ = hash_ops(layout)
+def pair_verdict(fwd, bwd, run_fwd, run_bwd, ref_out, ref_grad) -> dict:
+    """A forward and a backward kernel (``run_fwd()``, ``run_bwd()``) against
+    the plain versions' results on the true inputs: the forward within
+    max-abs 1e-5 and relative L2 1e-5 (f32 sums of 8 weighted unit-scale
+    features in another order), the table gradient within relative L2 1e-5
+    (atomics on both sides, in orders that change from run to run); one
+    launch each."""
     before = (fwd.launches, bwd.launches)
-    out = fwd(tables, pts, res)
-    grad = bwd(g, pts, res, *table_args(tables))
+    out = run_fwd()
+    grad = run_bwd()
     torch.cuda.synchronize()
     err = {"fwd_max_abs": (out - ref_out).abs().max().item(),
            "fwd_rel_l2": rel_l2({"x": out}, {"x": ref_out})["x"],
@@ -905,7 +922,14 @@ def hash_verdict(layout, tables, pts, res, g, ref_out, ref_grad) -> dict:
     limit = {"fwd_max_abs": 1e-5, "fwd_rel_l2": 1e-5, "grad_rel_l2": 1e-5}
     ok = (all(math.isfinite(v) for v in err.values()) and all(err[k] <= limit[k] for k in limit)
           and (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1))
-    return dict(ok=ok, err=err, limit=limit)
+    return dict(ok=ok, err=err, limit=limit, out=out)
+
+
+def hash_verdict(layout, tables, pts, res, g, ref_out, ref_grad) -> dict:
+    """:func:`pair_verdict` of kernels 4-5 or 6-7 on these inputs."""
+    fwd, bwd, _, _ = hash_ops(layout)
+    return pair_verdict(fwd, bwd, lambda: fwd(tables, pts, res), lambda: bwd(g, pts, res, *table_args(tables)),
+                        ref_out, ref_grad)
 
 
 def phase_kernel_hash():
@@ -974,32 +998,25 @@ def run_cli(fn, argv, counted):
     return result, buf.getvalue(), [w.launches for w in counted]
 
 
-def phase_train_ngp(work: Path):
-    """``run_train --config instant_nerf_tpu`` (bricked) on gaussian_blobs at
-    400x400 (8 views): 24 steps with one validation (an 800x800 val view,
-    157 chunks), one checkpoint and one visualisation (a 400x400 view, 40
-    chunks), a resume for 8 more, ``run_render`` + ``evaluate`` of two
-    800x800 test views; then 8 steps of ``--config instant_nerf``
-    (per-corner). Hash launches counted over each call: one forward and one
-    backward per train step, one forward per render chunk, nothing of the
-    other layout's kernels."""
+def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
+    """``run_train`` with ``train_args`` into ``work/<name>_run`` for 24
+    steps (one validation, checkpoint and visualisation at 8 views), a
+    resume for 8 more, then ``run_render`` + ``evaluate`` of two 800x800
+    test views; the ``counted`` wrappers' launches over each CLI call."""
     from torch_nerf_tpu_torch import config, session  # noqa: PLC0415
     from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
 
-    brick, corner = hash_ops("bricked")[:2], hash_ops("hash")[:2]
-    counted = brick + corner
-    run, out, gt, hash_run = work / "ngp_run", work / "ngp_render", work / "ngp_gt", work / "ngp_hash_run"
+    run, out, gt = work / f"{name}_run", work / f"{name}_render", work / f"{name}_gt"
     logs, results, launches = [], [], []
     t0 = time.perf_counter()
     for max_steps in (24, 32):
-        r, log, c = run_cli(run_train.main, ["--config", "instant_nerf_tpu", "--log-dir", str(run),
-                                             "--max-steps", str(max_steps)] + NGP_TRAIN_OVERRIDES, counted)
+        r, log, c = run_cli(run_train.main, ["--log-dir", str(run), "--max-steps", str(max_steps)] + train_args,
+                            counted)
         results.append(r)
         logs.append(log)
         launches.append(c)
     train_s = time.perf_counter() - t0
-    losses = results[0]["losses"] + results[1]["losses"]
     _, _, render_launches = run_cli(run_render.main, ["--log-dir", str(run), "--render-test-views",
                                                       "--num-views", "2", "--out-dir", str(out)], counted)
     cfg = config.load_config(run / "config.yaml")
@@ -1008,33 +1025,186 @@ def phase_train_ngp(work: Path):
     for i in range(2):
         save_png(gt / f"{i:04d}.png", data.images[i])
     scores = evaluate.main([str(out), str(gt)])
+    losses = results[0]["losses"] + results[1]["losses"]
+    first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    resumed = "Resumed from step 24." in logs[1]
     shapes = [list(load_png(p).shape) for p in sorted(out.iterdir())]
     val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
-    hash_result, _, hash_launches = run_cli(run_train.main, ["--config", "instant_nerf", "--log-dir", str(hash_run),
-                                                             "--max-steps", "8"] + NGP_TRAIN_OVERRIDES, counted)
+    ok = (len(losses) == 32 and all(math.isfinite(v) for v in losses) and last8 < first8 and resumed
+          and len(val) == 1 and (run / "ckpt" / "ckpt_000024.pt").exists()
+          and (run / "ckpt" / "ckpt_000032.pt").exists() and shapes == [[800, 800, 3]] * 2
+          and all(math.isfinite(v) for v in scores.values()))
+    return dict(ok=ok, seconds=train_s, results=results, launches=launches, render_launches=render_launches,
+                report=dict(steps=[r["step"] for r in results], losses=losses, mean_loss_first8=first8,
+                            mean_loss_last8=last8, validation=val, resumed=resumed, png_shapes=shapes,
+                            psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"]))
+
+
+def phase_train_ngp(work: Path):
+    """``run_train --config instant_nerf_tpu`` (bricked) on gaussian_blobs at
+    400x400 (8 views) through :func:`train_resume_render` (the validation
+    renders an 800x800 val view, 157 chunks; the visualisation a 400x400
+    view, 40 chunks); then 8 steps of ``--config instant_nerf``
+    (per-corner). Hash launches counted over each call: one forward and one
+    backward per train step, one forward per render chunk, nothing of the
+    other layout's kernels."""
+    from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
+
+    counted = hash_ops("bricked")[:2] + hash_ops("hash")[:2]
+    done = train_resume_render(work, "ngp", ["--config", "instant_nerf_tpu"] + NGP_TRAIN_OVERRIDES, counted)
+    hash_result, _, hash_launches = run_cli(run_train.main, [
+        "--config", "instant_nerf", "--log-dir", str(work / "ngp_hash_run"), "--max-steps", "8"]
+        + NGP_TRAIN_OVERRIDES, counted)
     chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
     # [brick fwd, brick bwd, corner fwd, corner bwd] per call
     want = [[24 + chunks_800 + chunks_400, 24, 0, 0], [8, 8, 0, 0]]
     want_render, want_hash = [2 * chunks_800, 0, 0, 0], [0, 0, 8, 8]
-    first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
-    ok = (launches == want and render_launches == want_render and hash_launches == want_hash
-          and len(losses) == 32 and all(math.isfinite(v) for v in losses + hash_result["losses"])
-          and len(hash_result["losses"]) == 8 and last8 < first8
-          and "Resumed from step 24." in logs[1] and len(val) == 1
-          and (run / "ckpt" / "ckpt_000024.pt").exists() and (run / "ckpt" / "ckpt_000032.pt").exists()
-          and shapes == [[800, 800, 3]] * 2 and all(math.isfinite(v) for v in scores.values()))
-    emit("train_ngp", seconds=train_s, steps=[r["step"] for r in results] + [hash_result["step"]],
+    launches, render_launches = done["launches"], done["render_launches"]
+    ok = (done["ok"] and launches == want and render_launches == want_render and hash_launches == want_hash
+          and len(hash_result["losses"]) == 8 and all(math.isfinite(v) for v in hash_result["losses"]))
+    emit("train_ngp", seconds=done["seconds"], hash_steps=hash_result["step"],
          launches_brick_fwd_bwd_corner_fwd_bwd={"train": launches, "render": render_launches,
                                                  "hash_train": hash_launches},
          expected={"train": want, "render": want_render, "hash_train": want_hash},
-         losses=losses, mean_loss_first8=first8, mean_loss_last8=last8, hash_losses=hash_result["losses"],
-         validation=val, resumed="Resumed from step 24." in logs[1], png_shapes=shapes,
-         psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"], ok=ok)
+         hash_losses=hash_result["losses"], **done["report"], ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: train_ngp phase failed")
     return {"hash_brick_fwd": launches[0][0] + launches[1][0] + render_launches[0],
             "hash_brick_bwd": launches[0][1] + launches[1][1],
             "hash_corner_fwd": hash_launches[2], "hash_corner_bwd": hash_launches[3]}
+
+
+# ---------------------------------------------------------------------------
+# Instant-NGP, packed layouts: kernels 8-9
+
+
+def fold_grid(layout, dev):
+    """(resolutions, offsets) of a packed layout's pseudo-levels."""
+    from torch_nerf_tpu_torch.models.instant_ngp import dual_resolutions_offsets  # noqa: PLC0415
+
+    res = ngp_resolutions(dev)
+    if layout == "packed_dual":
+        return dual_resolutions_offsets(res)
+    return res, torch.zeros_like(res)
+
+
+def fold_table_shape(layout):
+    """The folded table of the presets' grid: 2^19 / 8 packed rows a level,
+    8 a 128-float line; 2L levels for the dual layout."""
+    levels = NGP["num_level"] * (2 if layout == "packed_dual" else 1)
+    return (levels, 2 ** NGP["log_max_entry_per_level"] // 8 // (128 // (8 * NGP["table_feat_dim"])), 128)
+
+
+def fold_verdict(tables, pts, res, off, g, ref_out, ref_grad) -> dict:
+    """:func:`pair_verdict` of kernels 8-9 on these inputs."""
+    fwd, bwd = fold_ops()
+    f = NGP["table_feat_dim"]
+    return pair_verdict(fwd, bwd, lambda: fwd(tables, pts, res, off, f),
+                        lambda: bwd(g, pts, res, off, tables.shape[1], f), ref_out, ref_grad)
+
+
+def phase_kernel_fold():
+    """Kernels 8 and 9 against their plain versions at full width (L = 16,
+    F = 2, 2^19 / 8 packed rows a level: the folded table (16, 8192, 128),
+    (32, 8192, 128) for ``packed_dual``) on :func:`ngp_points`, with U(-1,
+    1) tables and a seeded random cotangent. The all-zero-weight quirk on
+    the integral points holds on the base levels' columns only: on the
+    dual layout's staggered levels those points sit at half-integers. Then
+    four faults planted in the kernels' inputs, each of which the check must
+    reject: the table rolled by one packed row, two levels' resolutions
+    swapped, one point's x and y swapped, and (dual) the offsets zeroed."""
+    from torch_nerf_tpu_torch.models.instant_ngp import unfold_packed_table  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    pts = ngp_points(dev)
+    n = pts.shape[0]
+    f = NGP["table_feat_dim"]
+    base = NGP["num_level"] * f  # the base levels' columns
+    gen = torch.Generator(device=dev).manual_seed(9)
+    integral = slice(n - 25, n - 19)  # integral on every axis
+    results, max_abs = {}, {}
+    for layout in PACKED_LAYOUTS:
+        res, off = fold_grid(layout, dev)
+        tables = torch.rand(fold_table_shape(layout), generator=gen, device=dev) * 2.0 - 1.0
+        g = torch.randn((n, res.shape[0] * f), generator=gen, device=dev)
+        ref_out = hg.fold_encode_reference(tables, pts, res, off, f)
+        ref_grad = hg.fold_backward_reference(g, pts, res, off, tables.shape[1], f)
+        verdict = fold_verdict(tables, pts, res, off, g, ref_out, ref_grad)
+        swapped_levels = res.clone()
+        swapped_levels[[3, 11]] = res[[11, 3]]
+        swapped_axes = pts.clone()
+        swapped_axes[0] = pts[0, [1, 0, 2]]
+        rolled = unfold_packed_table(tables, f).roll(1, dims=1).reshape(tables.shape).contiguous()
+        faults = {
+            "table_rolled_one_packed_row": (rolled, pts, res, off),
+            "levels_3_11_swapped": (tables, pts, swapped_levels, off),
+            "point_0_x_y_swapped": (tables, swapped_axes, res, off),
+        }
+        if layout == "packed_dual":
+            faults["dual_offsets_zeroed"] = (tables, pts, res, torch.zeros_like(off))
+        rejected = {}
+        for name, (t_, p_, r_, o_) in faults.items():
+            v = fold_verdict(t_, p_, r_, o_, g, ref_out, ref_grad)
+            rejected[name] = {"rejected": not v["ok"], "err": v["err"]}
+        quirk = max(ref_out[integral, :base].abs().max().item(),
+                    verdict["out"][integral, :base].abs().max().item())
+        staggered = ref_out[integral, base:].abs().max().item() if layout == "packed_dual" else None
+        ok = (verdict["ok"] and quirk == 0.0 and all(v["rejected"] for v in rejected.values())
+              and (staggered is None or staggered > 0.0))
+        results[layout] = dict(points=n, table_shape=list(tables.shape), kernels_ok=verdict["ok"],
+                               err=verdict["err"], limit=verdict["limit"], planted_faults=rejected,
+                               integral_points_base_levels_max_abs=quirk,
+                               integral_points_staggered_levels_max_abs=staggered, ok=ok)
+        max_abs[layout] = {"fwd": verdict["err"]["fwd_max_abs"], "bwd": verdict["err"]["grad_max_abs"]}
+    ok = all(r["ok"] for r in results.values())
+    emit("kernel_fold", layouts=results,
+         rule="kernels within the limits; every planted fault rejected; integral points 0 on the base "
+              "levels only", ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: kernel_fold failed")
+    return max_abs
+
+
+SMOOTHNESS = ["objective.encode_smoothness_weight=0.001"]
+
+
+def phase_train_packed(work: Path):
+    """``run_train --config instant_nerf network.table_layout=packed
+    objective.encode_smoothness_weight=0.001`` (1024 probes a level) on
+    gaussian_blobs at 400x400 (8 views) through :func:`train_resume_render`;
+    then 8 steps of ``packed_dual`` with the smoothness loss. Launches [fold
+    fwd, fold bwd, brick fwd, brick bwd, corner fwd, corner bwd] counted
+    over each call: two forward and two backward fold kernels per train step
+    (the ray batch's and the probes'), one forward per render chunk, no
+    kernel 4-7; the last step's ``aux_loss`` above 0."""
+    from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
+
+    counted = fold_ops() + hash_ops("bricked")[:2] + hash_ops("hash")[:2]
+    done = train_resume_render(work, "packed", ["--config", "instant_nerf", "network.table_layout=packed"]
+                               + SMOOTHNESS + NGP_TRAIN_OVERRIDES, counted)
+    dual, _, dual_launches = run_cli(run_train.main, [
+        "--config", "instant_nerf", "--log-dir", str(work / "packed_dual_run"), "--max-steps", "8",
+        "network.table_layout=packed_dual"] + SMOOTHNESS + NGP_TRAIN_OVERRIDES, counted)
+    chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
+    want = [[2 * 24 + chunks_800 + chunks_400, 2 * 24, 0, 0, 0, 0], [2 * 8, 2 * 8, 0, 0, 0, 0]]
+    want_render, want_dual = [2 * chunks_800, 0, 0, 0, 0, 0], [2 * 8, 2 * 8, 0, 0, 0, 0]
+    launches, render_launches = done["launches"], done["render_launches"]
+    aux = [r["metrics"].get("aux_loss", 0.0) for r in done["results"] + [dual]]
+    ok = (done["ok"] and launches == want and render_launches == want_render and dual_launches == want_dual
+          and len(dual["losses"]) == 8 and all(math.isfinite(v) for v in dual["losses"])
+          and all(a > 0.0 for a in aux))
+    emit("train_packed", seconds=done["seconds"], dual_steps=dual["step"],
+         launches_fold_fwd_bwd_brick_fwd_bwd_corner_fwd_bwd={"train": launches, "render": render_launches,
+                                                               "dual_train": dual_launches},
+         expected={"train": want, "render": want_render, "dual_train": want_dual},
+         dual_losses=dual["losses"],
+         last_aux_loss={"packed_24": aux[0], "packed_32": aux[1], "packed_dual_8": aux[2]},
+         **done["report"], ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_packed phase failed")
+    calls = launches + [render_launches, dual_launches]
+    return {"hash_fold_fwd": sum(c[0] for c in calls), "hash_fold_bwd": sum(c[1] for c in calls)}
 
 
 def ngp_field(layout, use_kernel=True):
@@ -1046,13 +1216,15 @@ def ngp_field(layout, use_kernel=True):
 def phase_train_bench_ngp(smi: str):
     """NGP train steps at ``bench.py --model=instant_nerf``'s point (8 views
     at 400x400, 4096 rays x 256 samples, no fine network, Adam 1e-2 -> 1e-3
-    at eps 1e-15, ``make_image_train_step(precrop=False)``), both layouts:
-    3 warm-up and 20 timed steps, launches counted over the timed ones; then
-    each hash kernel alone on the 2^20 points of a batch of the step's own,
-    with a seeded random cotangent (CUDA events), beside its bound and its
-    plain version's time."""
-    from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
+    at eps 1e-15, ``make_image_train_step(precrop=False)``), every layout,
+    the packed ones also with the smoothness loss (weight 1e-3, 1024 probes
+    a level): 3 warm-up and 20 timed steps, launches counted over the timed
+    ones; then each hash kernel alone on the 2^20 points of a batch of the
+    step's own, with a seeded random cotangent (CUDA events), beside its
+    bound and its plain version's time."""
+    from torch_nerf_tpu_torch import config, renderer, session, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners.train_ab import step_batch  # noqa: PLC0415
 
@@ -1061,15 +1233,21 @@ def phase_train_bench_ngp(smi: str):
     images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
     settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
     optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
-    res = ngp_resolutions(dev)
     _, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    f = NGP["table_feat_dim"]
     timed = 20
     paths, kernels = {}, {}
-    for layout in NGP_LAYOUTS:
-        fwd, bwd, fwd_ref, bwd_ref = hash_ops(layout)
+    for layout, smooth in [(x, False) for x in NGP_LAYOUTS + PACKED_LAYOUTS] + [(x, True) for x in PACKED_LAYOUTS]:
+        packed = layout in PACKED_LAYOUTS
+        fwd, bwd = fold_ops() if packed else hash_ops(layout)[:2]
+        aux = None
+        if smooth:
+            aux = session.build_aux_loss(config.resolve("instant_nerf", [f"network.table_layout={layout}"]
+                                                         + SMOOTHNESS))
+        path = f"{layout}+smoothness" if smooth else layout
         field = ngp_field(layout)
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
-        step = train.make_image_train_step(field, settings, optim, camera, 4096)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096, aux_loss_fn=aux)
         gen = torch.Generator(device=dev).manual_seed(1)
         for _ in range(3):
             state, _ = step(state, images, poses, gen)
@@ -1083,33 +1261,49 @@ def phase_train_bench_ngp(smi: str):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         losses = [float(v) for v in losses]
-        paths[layout] = dict(ms_per_step=elapsed / timed * 1e3, rays_per_sec=4096 * timed / elapsed,
-                             launches={"fwd": fwd.launches, "bwd": bwd.launches},
-                             loss_first=losses[0], loss_last=losses[-1],
-                             finite=all(math.isfinite(v) for v in losses))
+        per_step = 2 if smooth else 1
+        paths[path] = dict(ms_per_step=elapsed / timed * 1e3, rays_per_sec=4096 * timed / elapsed,
+                           launches={"fwd": fwd.launches, "bwd": bwd.launches},
+                           expected_launches={"fwd": per_step * timed, "bwd": per_step * timed},
+                           loss_first=losses[0], loss_last=losses[-1],
+                           aux_loss_last=float(metrics["aux_loss"]) if smooth else None,
+                           finite=all(math.isfinite(v) for v in losses))
+        if smooth:
+            continue
         o, d, _, uni = step_batch(step, images, poses, camera, gen)
         t = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far)
         pts, _ = ray_points(o, d, t)
         m = pts.shape[0]
         tables = state.params["coarse"]["tables"].detach()
-        g = torch.randn((m, 32), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
-        # the table (or its gradient), the coordinates, the (N, 32) output
+        levels = tables.shape[0] if packed else NGP["num_level"]
+        g = torch.randn((m, levels * f), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        # the table (or its gradient), the coordinates, the (N, L*F) output
         # (or its cotangent): each read or written once
-        nbytes = 4 * (tables.numel() + 3 * m + 32 * m)
+        nbytes = 4 * (tables.numel() + 3 * m + levels * f * m)
         # the blend's (or the scatter's) multiply and add of 8 sites x F a (point, level)
-        flops = 2 * 8 * NGP["table_feat_dim"] * NGP["num_level"] * m
+        flops = 2 * 8 * f * levels * m
+        if packed:
+            res, off = fold_grid(layout, dev)
+            ops = (("fwd", lambda: fwd(tables, pts, res, off, f),
+                    lambda: hg.fold_encode_reference(tables, pts, res, off, f)),
+                   ("bwd", lambda: bwd(g, pts, res, off, tables.shape[1], f),
+                    lambda: hg.fold_backward_reference(g, pts, res, off, tables.shape[1], f)))
+        else:
+            res = ngp_resolutions(dev)
+            _, _, fwd_ref, bwd_ref = hash_ops(layout)
+            ops = (("fwd", lambda: fwd(tables, pts, res), lambda: fwd_ref(tables, pts, res)),
+                   ("bwd", lambda: bwd(g, pts, res, *table_args(tables)),
+                    lambda: bwd_ref(g, pts, res, *table_args(tables))))
         with torch.no_grad():
-            for name, run, plain in (
-                ("fwd", lambda: fwd(tables, pts, res), lambda: fwd_ref(tables, pts, res)),
-                ("bwd", lambda: bwd(g, pts, res, *table_args(tables)),
-                 lambda: bwd_ref(g, pts, res, *table_args(tables))),
-            ):
+            for name, run, plain in ops:
                 kernels[f"{layout}/{name}"] = bound_entry(cuda_ms(run, 20), cuda_ms(plain, 3), flops, nbytes,
                                                           F32_PEAK, peak_bw, m)
         hash_ms = kernels[f"{layout}/fwd"]["ms"] + kernels[f"{layout}/bwd"]["ms"]
-        paths[layout].update(hash_kernels_ms_per_step=hash_ms, hash_kernels_share_of_step=hash_ms / paths[layout]["ms_per_step"])
+        paths[path].update(hash_kernels_ms_per_step=hash_ms,
+                           hash_kernels_share_of_step=hash_ms / paths[path]["ms_per_step"])
     clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
-    ok = all(p["finite"] and p["launches"] == {"fwd": timed, "bwd": timed} for p in paths.values())
+    ok = all(p["finite"] and p["launches"] == p["expected_launches"]
+             and (p["aux_loss_last"] is None or p["aux_loss_last"] > 0.0) for p in paths.values())
     emit("train_bench_ngp", card=smi, sm_clock_temp_power=clocks, timed_steps=timed, paths=paths,
          kernels=kernels, peak_bytes_per_s=peak_bw, ok=ok)
     if not ok:
@@ -1120,7 +1314,7 @@ def phase_train_bench_ngp(smi: str):
 def phase_bench_ngp(smi: str):
     """800x800 NGP frames at ``bench.py --render --model=instant_nerf``'s
     point (256 samples, no fine network, 4096-ray chunks: 157 forward hash
-    launches a frame), both layouts, seeded random weights: a warm-up and 2
+    launches a frame), every layout, seeded random weights: a warm-up and 2
     timed frames each."""
     from torch_nerf_tpu_torch import cameras, renderer  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
@@ -1130,8 +1324,8 @@ def phase_bench_ngp(smi: str):
     camera = cameras.CameraParams(960.0, 960.0, 800, 800)
     pose = torch.as_tensor(synthetic.split_poses(1, "train")[0], device=dev)
     frames, layouts = 2, {}
-    for layout in NGP_LAYOUTS:
-        fwd = hash_ops(layout)[0]
+    for layout in NGP_LAYOUTS + PACKED_LAYOUTS:
+        fwd = fold_ops()[0] if layout in PACKED_LAYOUTS else hash_ops(layout)[0]
         field = ngp_field(layout)
         params = field.init(torch.Generator(device=dev).manual_seed(0), dev)
 
@@ -1175,7 +1369,9 @@ def kernel_lines(done: dict) -> list:
     the plain version's and its bound at the main path's largest shape
     (the hash kernels: their launches over ``train_ngp``'s CLI calls, their
     errors from kernel_hash, their times at the NGP train step's 2^20
-    points)."""
+    points; the fold kernels: their launches over ``train_packed``'s CLI
+    calls, their errors from kernel_fold, their times on the ``packed``
+    layout's tables)."""
     shapes = done["bench"]
     fine = shapes["fine"]
     k1_err = max([done["kernel"]] + [e for s in shapes.values()
@@ -1211,6 +1407,16 @@ def kernel_lines(done: dict) -> list:
             ("hash_corner_bwd", "hash", "bwd", "torch_nerf_tpu/ops/pallas/hash_corner.py:249"),
         )
         for k in (done["train_bench_ngp"][f"{layout}/{part}"],)
+    ] + [
+        {"name": name, "route": "cuda", "source": "torch_nerf_tpu_torch/ops/csrc/hash_grid.cu",
+         "replaces": replaces, "launches": done["train_packed"][name],
+         "max_abs_err": max(v[part] for v in done["kernel_fold"].values()), "ms": k["ms"],
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
+        for name, part, replaces in (
+            ("hash_fold_fwd", "fwd", "torch_nerf_tpu/ops/pallas/hash_fold.py:199"),
+            ("hash_fold_bwd", "bwd", "torch_nerf_tpu/ops/pallas/hash_fold.py:283"),
+        )
+        for k in (done["train_bench_ngp"][f"packed/{part}"],)
     ]
 
 
@@ -1230,11 +1436,13 @@ def main() -> int:
         "kernel_bwd": phase_kernel_bwd(batch),
         "kernel_train": phase_kernel_train(batch),
         "kernel_hash": phase_kernel_hash(),
+        "kernel_fold": phase_kernel_fold(),
         "serve": phase_serve(work),
         "train": phase_train(work),
         "train_bench": phase_train_bench(smi),
         "bench": phase_bench(smi),
         "train_ngp": phase_train_ngp(work),
+        "train_packed": phase_train_packed(work),
         "train_bench_ngp": phase_train_bench_ngp(smi),
         "bench_ngp": phase_bench_ngp(smi),
     }

@@ -97,13 +97,13 @@ def test_session_builds_the_ngp_field_on_either_route():
             jsession.estimate_flops_per_step(jcfg.resolve(preset))
         assert session.build_optim_config(config.resolve(preset, ["train_params.optim.table_weight_decay=0.1"])) \
             .table_weight_decay == 0.1
-    # the packed layouts and their smoothness loss come with a later slice
-    with pytest.raises(NotImplementedError, match="packed-layout slice"):
-        session.build_field(config.resolve("instant_nerf", ["network.table_layout=packed"]))
+    # the packed layouts build, and so does their smoothness loss
+    packed = session.build_field(config.resolve("instant_nerf", ["network.table_layout=packed"]))
+    assert packed.name == "instant_ngp" and packed.fused_cfg is None
     assert session.build_aux_loss(config.resolve("instant_nerf")) is None
-    with pytest.raises(NotImplementedError, match="packed-layout slice"):
-        session.build_aux_loss(config.resolve("instant_nerf", ["network.table_layout=packed_dual",
-                                                               "objective.encode_smoothness_weight=0.1"]))
+    aux = session.build_aux_loss(config.resolve("instant_nerf", ["network.table_layout=packed_dual",
+                                                                 "objective.encode_smoothness_weight=0.1"]))
+    assert callable(aux) and len(aux.draw(torch.Generator().manual_seed(0))) == 1
     with pytest.raises(ValueError, match="packed instant-NGP layouts"):
         session.build_aux_loss(config.resolve("instant_nerf", ["objective.encode_smoothness_weight=0.1"]))
 

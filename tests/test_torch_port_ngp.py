@@ -399,10 +399,21 @@ def test_table_weight_decay_matches_optax_and_keeps_the_leaf_order():
 
 
 def test_packed_layouts_and_their_loss_name_the_packed_layout_slice():
-    for layout in ("packed", "packed_dual"):
-        with pytest.raises(NotImplementedError, match="packed-layout slice"):
-            make_instant_ngp_field(**SMALL, table_layout=layout)
-        with pytest.raises(NotImplementedError, match="packed-layout slice"):
-            instant_ngp.init_instant_ngp_params(torch.Generator(), 16, table_layout=layout)
+    """The packed layouts, once left to a later slice, build: their field
+    and params at the JAX package's shapes, and their smoothness loss; an
+    unknown layout still raises."""
+    from torch_nerf_tpu_torch.fields_ngp import make_encode_smoothness_loss
+
+    for layout, levels in (("packed", 3), ("packed_dual", 6)):
+        field = make_instant_ngp_field(**SMALL, table_layout=layout)
+        params = field.init(torch.Generator().manual_seed(0))
+        jparams = jmake_field(**SMALL, table_layout=layout).init(jax.random.PRNGKey(0))
+        assert jax.tree_util.tree_map(np.shape, params_to_jax(params)) == jax.tree_util.tree_map(np.shape, jparams)
+        assert params["tables"].shape == (levels, 16, 128)
+        assert params["density_mlp"]["fc_in"]["w"].shape == (levels * 2, 64)
+        small = instant_ngp.init_instant_ngp_params(torch.Generator(), 16, 2, 9, 4, table_layout=layout)
+        assert small["tables"].shape == (2 * levels // 3, 16, 128)  # 2^9 / 8 rows, 4 a line
+        loss = make_encode_smoothness_loss(3, 4, 16, table_layout=layout, num_probes=8)
+        assert loss(params, loss.draw(torch.Generator().manual_seed(1))).item() > 0.0
     with pytest.raises(ValueError, match="Unknown table_layout"):
         instant_ngp.check_layout("voxels")

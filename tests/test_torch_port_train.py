@@ -443,5 +443,9 @@ def test_unported_branches_raise_and_name_their_slice():
     settings = RenderSettings(num_samples_coarse=8, num_samples_fine=0)
     with pytest.raises(NotImplementedError, match="occupancy slice"):
         train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(), occupancy_cfg=object())
-    with pytest.raises(NotImplementedError, match="packed-layout slice"):
-        train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(), aux_loss_fn=lambda p, k: 0)
+    # an aux loss takes the generic autograd path: the fused pass raises, as in JAX
+    assert PORT_FIELD.fused_cfg is not None
+    with pytest.raises(ValueError, match="requires the generic autodiff path"):
+        train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(), aux_loss_fn=lambda p, d: 0)
+    train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(), force_generic=True,
+                              aux_loss_fn=lambda p, d: 0)

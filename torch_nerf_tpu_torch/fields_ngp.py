@@ -1,16 +1,16 @@
-"""Instant-NGP field: hash-grid encoding + SH view directions.
+"""Instant-NGP field: hash-grid encoding + SH view directions, and the
+packed layouts' voxel-face smoothness loss.
 
-Counterpart of ``torch_nerf_tpu/fields_ngp.py::make_instant_ngp_field``:
-raw positions go into the hash grid, the unnormalised ray directions into
-the SH encoder. The field has no ``fused_cfg``, so training takes the
-generic autograd branch of ``train.make_ray_train_step``: one forward and
-one backward hash kernel a render pass. The voxel-face smoothness loss of
-the packed layouts comes with the port's packed-layout slice.
+Counterpart of ``torch_nerf_tpu/fields_ngp.py``: raw positions go into the
+hash grid, the unnormalised ray directions into the SH encoder. The field
+has no ``fused_cfg``, so training takes the generic autograd branch of
+``train.make_ray_train_step``: one forward and one backward hash kernel a
+render pass, and one more of each for the smoothness loss's probes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -37,7 +37,9 @@ def make_instant_ngp_field(
     """Defaults mirror the reference's ``instant_nerf`` network and SH
     encoder. ``table_layout`` "hash" hashes each of a voxel's 8 corners
     (reference parity); "bricked" reads one 4^3-site brick row a (point,
-    level). ``use_kernel`` None or True takes the hash kernels on CUDA
+    level); "packed" one row of the voxel's own 8 corners, and
+    "packed_dual" one more from a grid staggered by half a voxel.
+    ``use_kernel`` None or True takes the hash kernels on CUDA
     tensors and their plain versions on CPU tensors; False takes the plain
     versions on every device."""
     instant_ngp.check_layout(table_layout)
@@ -72,3 +74,84 @@ def make_instant_ngp_field(
         )
 
     return Field(init=init, apply=apply, name="instant_ngp" if kernel else "instant_ngp_plain")
+
+
+class SmoothnessDraws(NamedTuple):
+    """The draws of one smoothness-loss evaluation, per (pseudo-level,
+    probe): the face axis (int64 in {0, 1, 2}), the uniform in [0, 1) that
+    picks the face plane, and the probe's position, uniform in [-bound,
+    bound)^3."""
+
+    axis: torch.Tensor  # (L', P)
+    plane_u: torch.Tensor  # (L', P)
+    pos: torch.Tensor  # (L', P, 3)
+
+
+def make_encode_smoothness_loss(
+    num_level: int,
+    min_res: int = 16,
+    max_res: int = 512,
+    table_feat_dim: int = 2,
+    table_layout: str = "packed",
+    num_probes: int = 1024,
+    bound: float = 2.5,
+    use_kernel: Optional[bool] = None,
+) -> Callable[[Dict[str, Any], SmoothnessDraws], torch.Tensor]:
+    """Voxel-face consistency penalty of the packed layouts (``fields_ngp.
+    py:81-152`` of the JAX package): a lattice corner is stored once per
+    adjacent voxel, so the encode jumps at voxel faces; the loss is the
+    mean over probes of the squared jump, summed over features, between the
+    encodes at ``p - eps*e_a`` and ``p + eps*e_a`` for ``p`` on a random
+    face plane of each (pseudo-)level, ``eps = 1e-3 / res``. All 2 * probes
+    * L' points go through one encode call, at every level.
+
+    Returns ``aux_loss(params, draws) -> scalar`` (unweighted; ``params``
+    is one field's tree), with ``aux_loss.draw(generator) ->
+    SmoothnessDraws`` drawing its randomness on the generator's device.
+    ``use_kernel`` None or True encodes through kernels 8 and 9 (their
+    plain versions on CPU tensors); False takes the plain version by
+    autograd."""
+    base = torch.as_tensor(level_resolutions(num_level, min_res, max_res))
+    if table_layout == "packed_dual":
+        res_all, off_all = instant_ngp.dual_resolutions_offsets(base)
+    elif table_layout == "packed":
+        res_all, off_all = base, torch.zeros_like(base)
+    else:
+        raise ValueError(f"Smoothness loss applies to packed layouts, not '{table_layout}'.")
+    levels = res_all.shape[0]
+    kernel = use_kernel is None or bool(use_kernel)
+    on: Dict[torch.device, tuple] = {}
+
+    def constants(device: torch.device):
+        if device not in on:
+            on[device] = (res_all.to(device), off_all.to(device))
+        return on[device]
+
+    def aux_loss(params: Dict[str, Any], draws: SmoothnessDraws) -> torch.Tensor:
+        resolutions, offsets = constants(draws.pos.device)
+        # the JAX package's order of operations, in f32
+        max_plane = torch.floor(resolutions * bound).to(torch.int32)  # (L',)
+        plane = torch.floor((2.0 * draws.plane_u - 1.0) * max_plane[:, None]).float()
+        face_x = (plane - offsets[:, None]) / resolutions[:, None]
+        onehot = torch.nn.functional.one_hot(draws.axis, 3).to(draws.pos.dtype)
+        pos = draws.pos * (1.0 - onehot) + face_x[..., None] * onehot
+        # an f32 1e-3 divided by res, as JAX divides (torch's scalar / tensor
+        # multiplies by the reciprocal: another rounding)
+        eps = (torch.full_like(resolutions, 1e-3) / resolutions)[:, None, None] * onehot
+        p_minus = (pos - eps).reshape(-1, 3)
+        p_plus = (pos + eps).reshape(-1, 3)
+        both = torch.cat([p_minus, p_plus])
+        enc = instant_ngp.hash_encode_packed(params["tables"], both, resolutions, table_feat_dim, offsets, kernel)
+        half = p_minus.shape[0]
+        jump = enc[:half] - enc[half:]
+        return torch.mean(torch.sum(jump * jump, dim=-1))
+
+    def draw(generator: torch.Generator) -> SmoothnessDraws:
+        dev = generator.device
+        axis = torch.randint(0, 3, (levels, num_probes), generator=generator, device=dev)
+        plane_u = torch.rand((levels, num_probes), generator=generator, device=dev)
+        pos = torch.rand((levels, num_probes, 3), generator=generator, device=dev) * (2.0 * bound) - bound
+        return SmoothnessDraws(axis, plane_u, pos)
+
+    aux_loss.draw = draw
+    return aux_loss

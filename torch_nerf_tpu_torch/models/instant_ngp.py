@@ -1,13 +1,16 @@
 """Instant-NGP: multiresolution hash encoding + two small MLPs.
 
-Counterpart of ``torch_nerf_tpu/models/instant_ngp.py`` for the ``hash``
-(reference-parity, per-corner hashing into (L, T, F) tables) and
-``bricked`` (4^3-site bricks in (L, T_b, 128) tables, the production
-preset's) layouts; ``packed`` and ``packed_dual`` come with the port's
-packed-layout slice. The reference's quirks are kept: corners from
-floor/ceil, so an integral scaled coordinate has all-zero weights and a
-zero feature; density ``2 ** x`` with no ReLU; no activation after the MLPs'
-``fc_in``; raw, possibly negative, world coordinates hashed.
+Counterpart of ``torch_nerf_tpu/models/instant_ngp.py`` for its four table
+layouts: ``hash`` (reference-parity, per-corner hashing into (L, T, F)
+tables), ``bricked`` (4^3-site bricks in (L, T_b, 128) tables, the
+production preset's), ``packed`` (one hashed row of a voxel's 8 corners x F
+a (point, level), in folded (L, rows/fold, 128) tables) and
+``packed_dual`` (packed, plus a second grid a level staggered by half a
+voxel: 2L table levels and a 2L*F-wide ``fc_in``). The reference's quirks
+are kept: corners from floor/ceil, so an integral scaled coordinate has
+all-zero weights and a zero feature; density ``2 ** x`` with no ReLU; no
+activation after the MLPs' ``fc_in``; raw, possibly negative, world
+coordinates hashed.
 
 Parameters keep the JAX package's tree, ``{"tables", "density_mlp":
 {name: {"w", "b"}}, "color_mlp": ...}``, so ``models.nerf.params_from_jax``
@@ -26,14 +29,10 @@ from torch_nerf_tpu_torch.ops import hash_grid
 
 Params = Dict[str, Any]
 
-LAYOUTS = ("hash", "bricked")
+LAYOUTS = ("hash", "bricked", "packed", "packed_dual")
 
 
 def check_layout(table_layout: str) -> None:
-    if table_layout in ("packed", "packed_dual"):
-        raise NotImplementedError(
-            f"table_layout '{table_layout}' comes with the port's packed-layout slice"
-        )
     if table_layout not in LAYOUTS:
         raise ValueError(f"Unknown table_layout '{table_layout}'.")
 
@@ -61,6 +60,39 @@ def init_bricked_hash_table(
     return _uniform(generator, shape, -1e-4, 1e-4, device)
 
 
+def init_packed_hash_table(
+    generator: torch.Generator, num_level: int, log_max_entry_per_level: int, feat_dim: int,
+    device: Optional[torch.device] = None,
+) -> torch.Tensor:
+    """(L, rows/fold, 128) folded packed tables, U(-1e-4, 1e-4): ``2^log /
+    8`` packed rows of 8 corners x F a level (the reference's parameter
+    count), ``fold = 128 / (8F)`` of them a 128-float line."""
+    fold = hash_grid.fold_factor(feat_dim)
+    rows = 2**log_max_entry_per_level // 8
+    if rows % fold != 0:
+        raise ValueError(
+            f"log_max_entry_per_level={log_max_entry_per_level} too small for "
+            f"feat_dim={feat_dim} (need at least {fold} packed rows per line)"
+        )
+    return _uniform(generator, (num_level, rows // fold, hash_grid.LANES), -1e-4, 1e-4, device)
+
+
+def unfold_packed_table(tables: torch.Tensor, feat_dim: int) -> torch.Tensor:
+    """Folded (L, rows/fold, 128) -> the packed (L, rows, 8F) view."""
+    num_level, t_fold, _ = tables.shape
+    fold = hash_grid.fold_factor(feat_dim)
+    return tables.reshape(num_level, t_fold * fold, 8 * feat_dim)
+
+
+def dual_resolutions_offsets(resolutions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dual layout's (2L,) pseudo-level resolutions and offsets: levels
+    [0, L) the base grids (offset 0), levels [L, 2L) the same resolutions
+    with the scaled coordinate shifted by +0.5."""
+    res2 = torch.cat([resolutions, resolutions])
+    off2 = torch.cat([torch.zeros_like(resolutions), torch.full_like(resolutions, 0.5)])
+    return res2, off2
+
+
 def hash_encode(
     tables: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, use_kernel: bool = True
 ) -> torch.Tensor:
@@ -81,6 +113,21 @@ def hash_encode_bricked(
     if use_kernel:
         return hash_grid.brick_encode(tables, coords, resolutions)
     return hash_grid.brick_encode_reference(tables, coords, resolutions)
+
+
+def hash_encode_packed(
+    tables: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, feat_dim: int,
+    offsets: Optional[torch.Tensor] = None, use_kernel: bool = True,
+) -> torch.Tensor:
+    """Voxel-packed encode of folded (L, rows/fold, 128) tables -> (N,
+    L*F): through kernels 8 and 9 (their plain versions on CPU tensors) when
+    ``use_kernel``, else the plain version by autograd. ``offsets`` (L,)
+    shift the scaled coordinates (0 when None)."""
+    if offsets is None:
+        offsets = torch.zeros_like(resolutions)
+    if use_kernel:
+        return hash_grid.fold_encode(tables, coords, resolutions, offsets, feat_dim)
+    return hash_grid.fold_encode_reference(tables, coords, resolutions, offsets, feat_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -138,15 +185,20 @@ def init_instant_ngp_params(
     device: Optional[torch.device] = None,
 ) -> Params:
     """Hash tables + density MLP (L*F -> 64 -> 16, one hidden layer) +
-    color MLP (16 + view_dir_dim -> 64 -> 64 -> 3, two hidden layers)."""
+    color MLP (16 + view_dir_dim -> 64 -> 64 -> 3, two hidden layers),
+    drawn in that order. ``packed_dual`` has 2L table levels and a
+    2L*F-wide ``fc_in``."""
     check_layout(table_layout)
-    init_table = init_hash_table if table_layout == "hash" else init_bricked_hash_table
-    tables = init_table(generator, num_level, log_max_entry_per_level, table_feat_dim, device)
+    table_levels = 2 * num_level if table_layout == "packed_dual" else num_level
+    init_table = {"hash": init_hash_table, "bricked": init_bricked_hash_table}.get(
+        table_layout, init_packed_hash_table
+    )
+    tables = init_table(generator, table_levels, log_max_entry_per_level, table_feat_dim, device)
     density_out = 16
     return {
         "tables": tables,
         "density_mlp": init_small_mlp(
-            generator, num_level * table_feat_dim, density_out, density_feat_dim, 1, device
+            generator, table_levels * table_feat_dim, density_out, density_feat_dim, 1, device
         ),
         "color_mlp": init_small_mlp(generator, density_out + view_dir_dim, 3, color_feat_dim, 2, device),
     }
@@ -171,8 +223,17 @@ def instant_ngp_apply(
     batch_shape = pos.shape[:-1]
     flat_pos = pos.reshape(-1, 3).contiguous()
     flat_dir = view_dir_enc.reshape(-1, view_dir_enc.shape[-1])
-    encode = hash_encode_bricked if table_layout == "bricked" else hash_encode
-    feats = encode(params["tables"], flat_pos, resolutions, use_kernel)
+    tables = params["tables"]
+    if table_layout in ("packed", "packed_dual"):
+        # 2L pseudo-levels when dual: F from fc_in's rows, as the JAX package
+        feat_dim = params["density_mlp"]["fc_in"]["w"].shape[0] // tables.shape[0]
+        offsets = None
+        if table_layout == "packed_dual":
+            resolutions, offsets = dual_resolutions_offsets(resolutions)
+        feats = hash_encode_packed(tables, flat_pos, resolutions, feat_dim, offsets, use_kernel)
+    else:
+        encode = hash_encode_bricked if table_layout == "bricked" else hash_encode
+        feats = encode(tables, flat_pos, resolutions, use_kernel)
     density_out = small_mlp_apply(params["density_mlp"], feats, compute_dtype)
     sigma = torch.exp2(density_out[..., 0])
     color_in = torch.cat([density_out, flat_dir], dim=-1)

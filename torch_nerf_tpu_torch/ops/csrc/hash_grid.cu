@@ -1,15 +1,18 @@
-// Multiresolution hash-grid encodes on Hopper: the bricked and the
-// per-corner table layouts, each forward and backward.
+// Multiresolution hash-grid encodes on Hopper: the bricked, the per-corner
+// and the voxel-packed table layouts, each forward and backward.
 //
-// Replaces four Pallas TPU kernels of the JAX package:
+// Replaces six Pallas TPU kernels of the JAX package:
 //   hash_brick_fwd_kernel  <- torch_nerf_tpu/ops/pallas/hash_brick.py::_fwd_kernel
 //                             (reached through _fwd_pallas's pl.pallas_call)
 //   hash_brick_bwd_kernel  <- hash_brick.py::_bwd_kernel (through _bwd_pallas)
 //   hash_corner_fwd_kernel <- torch_nerf_tpu/ops/pallas/hash_corner.py::_fwd_kernel
 //                             (through _fwd_pallas)
 //   hash_corner_bwd_kernel <- hash_corner.py::_bwd_kernel (through _bwd_pallas)
+//   hash_fold_fwd_kernel   <- torch_nerf_tpu/ops/pallas/hash_fold.py::_fwd_kernel
+//                             (through _fwd_pallas)
+//   hash_fold_bwd_kernel   <- hash_fold.py::_bwd_kernel (through _bwd_pallas)
 //
-// Both encodes blend, for every (point, level), the 8 trilinear lattice
+// Every encode blends, for every (point, level), the 8 trilinear lattice
 // sites of the point's voxel, F features each, into out[point, level*F + f]
 // (level-major, feature-minor: an (N, L*F) f32 array). They differ only in
 // where a site's features live:
@@ -19,32 +22,46 @@
 //     and the voxel's 8 sites are local = v - 3b and local + 1 per axis;
 //   * corner: each of the 8 corners hashes on its own into the (L, T, F)
 //     table, row = the non-negative remainder of the int32-reinterpreted
-//     hash mod T (a bitwise AND when T is a power of two).
-// The weights are the JAX package's, in f32: scaled = x*res, v = floor,
-// span = ceil - v, frac = scaled - v; per axis span - frac at the floor site
-// and frac at the ceil site (bricked, brick_prep's select form), or
-// |opposite - scaled| (corner, hash_encode's form); at an integral scaled
-// coordinate span is 0 and every weight vanishes (the reference's quirk).
-// x*res is taken with __fmul_rn so that it is never fused into the
-// subtraction that follows, and v / 3 is an IEEE division (the build has no
+//     hash mod T (a bitwise AND when T is a power of two);
+//   * packed: one hash of the voxel's floor corner picks a packed row of
+//     8 corners x F floats (corner c's feature f at c*F + f, corners in the
+//     reference's order); the folded (L, rows/fold, 128) table is a pure
+//     reshape of (L, rows, 8F), so row r of level l starts at float
+//     (l*rows + r)*8F, 32F bytes from the last: every row is 16-byte
+//     aligned and is read as 2F float4 vectors. rows is a power of two and
+//     the row is the hash's low bits. The dual layout passes 2L
+//     pseudo-levels whose offsets are 0.5 for levels [L, 2L).
+// The weights are the JAX package's, in f32: scaled = x*res (x*res + off
+// for the packed layout), v = floor, span = ceil - v, frac = scaled - v;
+// per axis span - frac at the floor site and frac at the ceil site
+// (bricked and packed, the select form), or |opposite - scaled| (corner,
+// hash_encode's form); at an integral scaled coordinate span is 0 and every
+// weight vanishes (the reference's quirk). x*res is taken with __fmul_rn so
+// that it is never fused into the subtraction that follows; x*res + off is
+// taken with __fmaf_rn, one rounding, as XLA computes it (for an offset of
+// 0.5 the two-step form differs in the last bit of frac and, at a voxel
+// face, in floor); v / 3 is an IEEE division (the build has no
 // --use_fast_math).
 //
 // The backward scatter-adds g[point, level*F + f] * w into a zeroed f32
 // table gradient with atomicAdd, skipping zero weights; corners of one point
 // that share a row, and the many points of a coarse level, accumulate. The
 // order of those sums changes from run to run. No gradient reaches the
-// coordinates or the resolutions, as in the JAX package's custom_vjp.
+// coordinates, the resolutions or the offsets, as in the JAX package's
+// custom_vjp.
 //
 // Bound on an H100 SXM: bytes. Each (point, level) does ~60 flops against
 // a data-dependent gather of 8 x F floats from a 64 MiB table that does not
 // fit in the 50 MB L2; counting each input once, one encode of 2^20 points
-// moves the table (67.1 MB), the coordinates (12.6 MB) and the output or
-// its cotangent (134.2 MB). Design: one thread per (point, level) with the
-// level varying fastest, so a warp's loads of the coordinates broadcast and
-// its F-wide stores fill whole output rows; the brick reads only the 4 runs
-// of 2 sites x F floats that carry weight, not its 128-float row. Vector
-// atomics, warp pre-reduction on coarse levels and a deterministic
-// sort-based scatter are left for later work.
+// moves the table (67.1 MB, twice that for the dual layout), the
+// coordinates (12.6 MB) and the output or its cotangent (134.2 MB at L*F =
+// 32). Design: one thread per (point, level) with the level varying
+// fastest, so a warp's loads of the coordinates broadcast and its F-wide
+// stores fill whole output rows; the brick reads only the 4 runs of 2
+// sites x F floats that carry weight, not its 128-float row; the packed row
+// is read whole, being all weight. Vector atomics, warp pre-reduction on
+// coarse levels and a deterministic sort-based scatter are left for later
+// work.
 
 #include <cuda_runtime.h>
 
@@ -132,6 +149,12 @@ template <int F>
 __device__ __forceinline__ void store(float* __restrict__ out, size_t i, const float* acc) {
   if constexpr (F == 2) {
     *reinterpret_cast<float2*>(out + i * 2) = make_float2(acc[0], acc[1]);
+  } else if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      reinterpret_cast<float4*>(out + i * F)[q] =
+          make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    }
   } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) out[i * F + f] = acc[f];
@@ -144,6 +167,15 @@ __device__ __forceinline__ void load(const float* __restrict__ g, size_t i, floa
     const float2 x = __ldg(reinterpret_cast<const float2*>(g + i * 2));
     v[0] = x.x;
     v[1] = x.y;
+  } else if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(g + i * F) + q);
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
   } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) v[f] = __ldg(g + i * F + f);
@@ -273,6 +305,104 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --------------------------------------------------------------------------
+// voxel-packed layout, F features a corner, 8 corners a row
+
+// Whether corner c (the reference's order) sits on the ceil side of `axis`;
+// a constant once the corner loops are unrolled, so the weights stay in
+// registers.
+__host__ __device__ constexpr int corner_bit(int c, int axis) {
+  return axis == 0 ? (c == 1 || c == 4 || c == 5 || c == 7)
+         : axis == 1 ? (c == 2 || c == 4 || c == 6 || c == 7)
+                     : (c == 3 || c == 5 || c == 6 || c == 7);
+}
+
+// One (point, level) of the packed layout: the row's float offset in the
+// table and the 8 corner weights in the reference's order.
+struct Packed {
+  size_t row;
+  float w[8];
+};
+
+__device__ __forceinline__ Packed packed_of(const float* __restrict__ coords,
+                                            const float* __restrict__ res,
+                                            const float* __restrict__ off, int p, int l,
+                                            int rows, int feat) {
+  Packed k;
+  const float r = __ldg(res + l);
+  const float o = __ldg(off + l);
+  float wa[3][2];
+  uint32_t h = 0;
+#pragma unroll
+  for (int axis = 0; axis < 3; ++axis) {
+    const float scaled = __fmaf_rn(__ldg(coords + 3 * static_cast<size_t>(p) + axis), r, o);
+    const float v = floorf(scaled);
+    const float span = ceilf(scaled) - v;
+    const float frac = scaled - v;
+    wa[axis][0] = span - frac;
+    wa[axis][1] = frac;
+    h ^= lattice_bits(v) * kPrimes[axis];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wxy = __fmul_rn(wa[0][corner_bit(c, 0)], wa[1][corner_bit(c, 1)]);
+    k.w[c] = __fmul_rn(wxy, wa[2][corner_bit(c, 2)]);
+  }
+  const size_t packed_row = static_cast<size_t>(l) * rows + (h & static_cast<uint32_t>(rows - 1));
+  k.row = packed_row * 8 * feat;
+  return k;
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    hash_fold_fwd_kernel(const float* __restrict__ tables, const float* __restrict__ coords,
+                         const float* __restrict__ res, const float* __restrict__ off,
+                         float* __restrict__ out, int n, int levels, int rows) {
+  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  if (i >= static_cast<size_t>(n) * levels) return;
+  const int p = static_cast<int>(i / levels);
+  const int l = static_cast<int>(i % levels);
+  const Packed k = packed_of(coords, res, off, p, l, rows, F);
+  const float4* row = reinterpret_cast<const float4*>(tables + k.row);
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.f;
+  // the row's 8F floats in corner order, four at a time: element e is
+  // corner e / F, feature e % F
+#pragma unroll
+  for (int q = 0; q < 2 * F; ++q) {
+    const float4 x = __ldg(row + q);
+    const float e4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = 4 * q + j;
+      acc[e % F] += e4[j] * k.w[e / F];
+    }
+  }
+  store<F>(out, i, acc);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    hash_fold_bwd_kernel(const float* __restrict__ g, const float* __restrict__ coords,
+                         const float* __restrict__ res, const float* __restrict__ off,
+                         float* __restrict__ dtables, int n, int levels, int rows) {
+  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  if (i >= static_cast<size_t>(n) * levels) return;
+  const int p = static_cast<int>(i / levels);
+  const int l = static_cast<int>(i % levels);
+  const Packed k = packed_of(coords, res, off, p, l, rows, F);
+  float gv[F];
+  load<F>(g, i, gv);
+  float* row = dtables + k.row;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (k.w[c] == 0.f) continue;
+#pragma unroll
+    for (int f = 0; f < F; ++f) atomicAdd(row + c * F + f, __fmul_rn(gv[f], k.w[c]));
+  }
+}
+
 dim3 grid_for(int n, int levels) {
   const size_t threads = static_cast<size_t>(n) * levels;
   return dim3(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
@@ -285,6 +415,7 @@ int by_feat(int feat, Args... args) {
     case 2: return Launch<2>::run(args...);
     case 4: return Launch<4>::run(args...);
     case 8: return Launch<8>::run(args...);
+    case 16: return Launch<16>::run(args...);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -309,6 +440,26 @@ struct CornerBwd {
   }
 };
 
+template <int F>
+struct FoldFwd {
+  static int run(const float* tables, const float* coords, const float* res, const float* off,
+                 float* out, int n, int levels, int rows, cudaStream_t stream) {
+    hash_fold_fwd_kernel<F><<<grid_for(n, levels), kThreads, 0, stream>>>(
+        tables, coords, res, off, out, n, levels, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int F>
+struct FoldBwd {
+  static int run(const float* g, const float* coords, const float* res, const float* off,
+                 float* dtables, int n, int levels, int rows, cudaStream_t stream) {
+    hash_fold_bwd_kernel<F><<<grid_for(n, levels), kThreads, 0, stream>>>(
+        g, coords, res, off, dtables, n, levels, rows);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -318,7 +469,9 @@ const char* hash_grid_error_string(int code) {
 }
 
 // Each launches on `stream` and returns the cudaError_t of the launch (0 on
-// success). n > 0 points; `bricks` a power of two; feat in {1, 2, 4, 8}.
+// success). n > 0 points; `bricks` and `rows` powers of two; feat in {1, 2,
+// 4, 8} for the corner layout, {1, 2, 4, 8, 16} for the packed layout;
+// `tables` of the packed layout 16-byte aligned.
 
 int hash_brick_fwd(const float* tables, const float* coords, const float* res, float* out, int n,
                    int levels, int bricks, void* stream) {
@@ -344,6 +497,18 @@ int hash_corner_bwd(const float* g, const float* coords, const float* res, float
                     int levels, int entries, int feat, void* stream) {
   return by_feat<CornerBwd>(feat, g, coords, res, dtables, n, levels, entries,
                             static_cast<cudaStream_t>(stream));
+}
+
+int hash_fold_fwd(const float* tables, const float* coords, const float* res, const float* off,
+                  float* out, int n, int levels, int rows, int feat, void* stream) {
+  return by_feat<FoldFwd>(feat, tables, coords, res, off, out, n, levels, rows,
+                          static_cast<cudaStream_t>(stream));
+}
+
+int hash_fold_bwd(const float* g, const float* coords, const float* res, const float* off,
+                  float* dtables, int n, int levels, int rows, int feat, void* stream) {
+  return by_feat<FoldBwd>(feat, g, coords, res, off, dtables, n, levels, rows,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

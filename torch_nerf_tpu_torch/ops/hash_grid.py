@@ -1,34 +1,42 @@
 """Multiresolution hash-grid encodes, forward and backward, as hand-written
-Hopper kernels: the bricked and the per-corner table layouts.
+Hopper kernels: the bricked, the per-corner and the voxel-packed table
+layouts.
 
-``csrc/hash_grid.cu`` holds four kernels, each replacing a Pallas TPU
+``csrc/hash_grid.cu`` holds six kernels, each replacing a Pallas TPU
 kernel of the JAX package:
 
 * :func:`hash_brick_fwd` -- ``ops/pallas/hash_brick.py::_fwd_kernel`` (kernel 4);
 * :func:`hash_brick_bwd` -- ``hash_brick.py::_bwd_kernel`` (kernel 5);
 * :func:`hash_corner_fwd` -- ``ops/pallas/hash_corner.py::_fwd_kernel`` (kernel 6);
-* :func:`hash_corner_bwd` -- ``hash_corner.py::_bwd_kernel`` (kernel 7).
+* :func:`hash_corner_bwd` -- ``hash_corner.py::_bwd_kernel`` (kernel 7);
+* :func:`hash_fold_fwd` -- ``ops/pallas/hash_fold.py::_fwd_kernel`` (kernel 8);
+* :func:`hash_fold_bwd` -- ``hash_fold.py::_bwd_kernel`` (kernel 9).
 
 Each encode returns ``(N, L*F)`` f32 features, level-major and
 feature-minor. The JAX encodes' (N, 128) lane-padded lines, placement
-matmuls, hi/lo bf16 weight split, SMEM index streams, VMEM-resident tables
-and grouped accumulators are TPU workarounds and are not carried over. The
-brick layout's (L, T_b, 128) table -- 4^3 sites x F = 2 a row, lane
-``((sx*4 + sy)*4 + sz)*F + f`` -- is the layout's own parameter shape and
-is kept, so checkpoints and ``params_from_jax`` carry across as they are.
-Both layouts are bound by bytes on an H100 (the source's header note).
+matmuls, bf16 placement and weight roundings, SMEM index streams,
+VMEM-resident tables, tile padding and grouped accumulators are TPU
+workarounds and are not carried over. The tables keep their parameter
+shapes, so checkpoints and ``params_from_jax`` carry across as they are:
+the brick layout's (L, T_b, 128) -- 4^3 sites x F = 2 a row, lane ``((sx*4
++ sy)*4 + sz)*F + f`` -- and the packed layout's folded (L, rows/fold, 128),
+``fold = 128 / (8F)`` packed rows of 8 corners x F a line, which is a pure
+reshape of the (L, rows, 8F) packed table. Every layout is bound by bytes
+on an H100 (the source's header note).
 
 Beside each kernel is its plain PyTorch version, which the CPU takes and
 which the kernel is held against on the card: :func:`brick_prep` +
-gather (``hash_brick.py:309-354, 441-456``) and :func:`corner_prep` +
-gather (``models/instant_ngp.py::hash_encode``), with ``index_add_`` for
-the backwards, in slices of :data:`CHUNK` points. The wrappers run the
-kernel on CUDA tensors (or raise) and the plain version on CPU tensors;
-each counts its launches in ``.launches``. :func:`brick_encode` and
-:func:`corner_encode` are ``torch.autograd.Function``\\ s whose forward is
-the forward kernel and whose backward is the backward kernel; like the JAX
-package's ``custom_vjp``, they give no gradient to the coordinates or the
-resolutions. The backward kernels sum with atomics, in an order that
+gather (``hash_brick.py:309-354, 441-456``), :func:`corner_prep` + gather
+(``models/instant_ngp.py::hash_encode``) and ``hash_math.packed_prep`` +
+gather (``hash_fold.py:265-276, 368-381``), with ``index_add_`` for the
+backwards, in slices of :data:`CHUNK` points. The wrappers run the kernel
+on CUDA tensors (or raise) and the plain version on CPU tensors; each
+counts its launches in ``.launches``. :func:`brick_encode`,
+:func:`corner_encode` and :func:`fold_encode` are
+``torch.autograd.Function``\\ s whose forward is the forward kernel and
+whose backward is the backward kernel; like the JAX package's
+``custom_vjp``, they give no gradient to the coordinates, the resolutions
+or the offsets. The backward kernels sum with atomics, in an order that
 changes from run to run.
 """
 
@@ -39,7 +47,7 @@ import ctypes
 import numpy as np
 import torch
 
-from torch_nerf_tpu_torch.models.hash_math import CORNERS, LANES, as_int32, hash_axis, lattice_u32
+from torch_nerf_tpu_torch.models.hash_math import CORNERS, LANES, as_int32, hash_axis, lattice_u32, packed_prep
 from torch_nerf_tpu_torch.ops import build
 from torch_nerf_tpu_torch.ops.fused_nerf import check_tensor
 
@@ -48,6 +56,7 @@ BRICK_EDGE = 4  # sites per axis; bricks overlap by one site plane
 STRIDE = BRICK_EDGE - 1
 BRICK_FEAT = LANES // BRICK_EDGE**3  # F = 2: 4^3 sites x F fill a 128-float row
 CORNER_FEATS = (1, 2, 4, 8)  # the corner kernels' feature widths
+FOLD_FEATS = (1, 2, 4, 8, 16)  # a packed row of 8 corners x F divides 128 floats
 # points per slice of the plain versions: the brick's (L, CHUNK, 128) f32
 # weights are 67 MB at L = 16
 CHUNK = 1 << 13
@@ -71,6 +80,25 @@ def check_brick_layout(table_shape, feat_dim: int = BRICK_FEAT) -> None:
     t_b = table_shape[1]
     if t_b < 1 or t_b & (t_b - 1):
         raise ValueError(f"bricked layout needs a power-of-two row count, got T_b={t_b}")
+
+
+def fold_factor(feat_dim: int) -> int:
+    """Packed rows of 8 corners x F in one 128-float line of a folded table."""
+    if feat_dim not in FOLD_FEATS:
+        raise ValueError(f"feat_dim must divide 16 lanes of 8 corners, got {feat_dim}")
+    return LANES // (8 * feat_dim)
+
+
+def check_fold_layout(table_shape, feat_dim: int) -> int:
+    """Raise unless ``table_shape`` is a folded packed table (L, rows/fold,
+    128) with a power-of-two packed row count; return that count."""
+    fold = fold_factor(feat_dim)
+    if len(table_shape) != 3 or table_shape[2] != LANES:
+        raise ValueError(f"folded packed tables must be (L, rows/fold, {LANES}), got {tuple(table_shape)}")
+    rows = table_shape[1] * fold
+    if rows < 1 or rows & (rows - 1):
+        raise ValueError(f"the packed layout needs a power-of-two row count, got {rows}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +219,45 @@ def corner_backward_reference(
     return dflat.reshape(num_level, num_entries, feat_dim)
 
 
+def fold_encode_reference(
+    tables: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, offsets: torch.Tensor, feat_dim: int
+) -> torch.Tensor:
+    """The plain version of kernel 8: folded ``tables (L, rows/fold, 128)``
+    read as the packed (L, rows, 8F) view, one row gathered a (level, point)
+    and its 8 corners blended -> ``(N, L*F)``, differentiable in ``tables``
+    by autograd."""
+    rows = check_fold_layout(tables.shape, feat_dim)
+    num_level, f = tables.shape[0], feat_dim
+    flat = tables.reshape(num_level * rows, 8 * f)
+    offset = (torch.arange(num_level, device=coords.device) * rows)[:, None]
+    outs = [tables.new_zeros((0, num_level * f))]
+    for sl in _slices(coords.shape[0]):
+        row, w = packed_prep(coords[sl], resolutions, rows, offsets)
+        corners = flat[row + offset].reshape(num_level, -1, 8, f)
+        out = (corners * w[..., None]).sum(dim=2)  # (L, m, F)
+        outs.append(out.permute(1, 0, 2).reshape(-1, num_level * f))
+    return torch.cat(outs)
+
+
+def fold_backward_reference(
+    g: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, offsets: torch.Tensor,
+    num_lines: int, feat_dim: int,
+) -> torch.Tensor:
+    """The plain version of kernel 9: ``g (N, L*F)`` -> ``dtables (L,
+    num_lines, 128)``, the weighted cotangents scatter-added into the packed
+    rows with ``index_add_``."""
+    num_level, f = resolutions.shape[0], feat_dim
+    rows = check_fold_layout((num_level, num_lines, LANES), f)
+    dflat = torch.zeros((num_level * rows, 8 * f), dtype=torch.float32, device=g.device)
+    offset = (torch.arange(num_level, device=g.device) * rows)[:, None]
+    for sl in _slices(coords.shape[0]):
+        row, w = packed_prep(coords[sl], resolutions, rows, offsets)
+        gl = g[sl].reshape(-1, num_level, 1, f).permute(1, 0, 2, 3)  # (L, m, 1, F)
+        vals = gl * w[..., None]  # (L, m, 8, F)
+        dflat.index_add_(0, (row + offset).reshape(-1), vals.reshape(-1, 8 * f))
+    return dflat.reshape(num_level, num_lines, LANES)
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 
@@ -203,6 +270,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i32
     for name in ("hash_corner_fwd", "hash_corner_bwd"):
         getattr(lib, name).argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        getattr(lib, name).restype = i32
+    for name in ("hash_fold_fwd", "hash_fold_bwd"):
+        getattr(lib, name).argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         getattr(lib, name).restype = i32
     lib.hash_grid_error_string.argtypes = [i32]
     lib.hash_grid_error_string.restype = ctypes.c_char_p
@@ -307,6 +377,7 @@ def hash_corner_bwd(
     num_level = resolutions.shape[0]
     n = _check_points(coords, resolutions, num_level)
     check_tensor("g", g, (n, num_level * feat_dim))
+    _check_aligned("g", g)
     dtables = torch.zeros((num_level, num_entries, feat_dim), dtype=torch.float32, device=coords.device)
     if n:
         _launch("hash_corner_bwd", g, coords, resolutions, dtables, n, num_level, num_entries, feat_dim)
@@ -314,7 +385,63 @@ def hash_corner_bwd(
     return dtables
 
 
-for _fn in (hash_brick_fwd, hash_brick_bwd, hash_corner_fwd, hash_corner_bwd):
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """The kernels read tables and cotangents in 8- or 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned: the kernel reads it in vectors")
+
+
+def _check_offsets(offsets: torch.Tensor, resolutions: torch.Tensor) -> None:
+    check_tensor("offsets", offsets, tuple(resolutions.shape))
+    if offsets.device != resolutions.device:
+        raise ValueError("offsets and resolutions must be on the same device")
+
+
+def hash_fold_fwd(
+    tables: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, offsets: torch.Tensor, feat_dim: int
+) -> torch.Tensor:
+    """Kernel 8 on CUDA tensors (or raise), :func:`fold_encode_reference`
+    on CPU tensors: ``tables (L, rows/fold, 128)``, ``coords (N, 3)``,
+    ``resolutions`` and ``offsets`` (L,) -> ``(N, L*F)``."""
+    if coords.device.type == "cpu":
+        return fold_encode_reference(tables, coords, resolutions, offsets, feat_dim)
+    rows = check_fold_layout(tables.shape, feat_dim)
+    num_level = tables.shape[0]
+    check_tensor("tables", tables, tuple(tables.shape))
+    n = _check_points(coords, resolutions, num_level)
+    _check_offsets(offsets, resolutions)
+    if tables.device != coords.device:
+        raise ValueError("tables and coords must be on the same device")
+    _check_aligned("tables", tables)
+    out = torch.empty((n, num_level * feat_dim), dtype=torch.float32, device=coords.device)
+    if n:
+        _launch("hash_fold_fwd", tables, coords, resolutions, offsets, out, n, num_level, rows, feat_dim)
+        hash_fold_fwd.launches += 1
+    return out
+
+
+def hash_fold_bwd(
+    g: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, offsets: torch.Tensor,
+    num_lines: int, feat_dim: int,
+) -> torch.Tensor:
+    """Kernel 9 on CUDA tensors (or raise), :func:`fold_backward_reference`
+    on CPU tensors: ``g (N, L*F)`` -> ``dtables (L, num_lines, 128)``."""
+    if coords.device.type == "cpu":
+        return fold_backward_reference(g, coords, resolutions, offsets, num_lines, feat_dim)
+    num_level = resolutions.shape[0]
+    rows = check_fold_layout((num_level, num_lines, LANES), feat_dim)
+    n = _check_points(coords, resolutions, num_level)
+    _check_offsets(offsets, resolutions)
+    check_tensor("g", g, (n, num_level * feat_dim))
+    _check_aligned("g", g)
+    dtables = torch.zeros((num_level, num_lines, LANES), dtype=torch.float32, device=coords.device)
+    if n:
+        _launch("hash_fold_bwd", g, coords, resolutions, offsets, dtables, n, num_level, rows, feat_dim)
+        hash_fold_bwd.launches += 1
+    return dtables
+
+
+for _fn in (hash_brick_fwd, hash_brick_bwd, hash_corner_fwd, hash_corner_bwd, hash_fold_fwd, hash_fold_bwd):
     _fn.launches = 0
 
 
@@ -345,6 +472,20 @@ class _CornerEncode(torch.autograd.Function):
         return hash_corner_bwd(g.contiguous(), coords, resolutions, num_entries, f), None, None
 
 
+class _FoldEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tables, coords, resolutions, offsets, feat_dim):
+        ctx.save_for_backward(coords, resolutions, offsets)
+        ctx.num_lines, ctx.feat_dim = tables.shape[1], feat_dim
+        return hash_fold_fwd(tables, coords, resolutions, offsets, feat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, resolutions, offsets = ctx.saved_tensors
+        dtables = hash_fold_bwd(g.contiguous(), coords, resolutions, offsets, ctx.num_lines, ctx.feat_dim)
+        return dtables, None, None, None, None
+
+
 def brick_encode(tables: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor) -> torch.Tensor:
     """Bricked encode ``(N, L*2)`` through kernels 4 (forward) and 5
     (backward); gradients reach ``tables`` only."""
@@ -356,3 +497,10 @@ def corner_encode(tables: torch.Tensor, coords: torch.Tensor, resolutions: torch
     (backward); gradients reach ``tables`` only."""
     return _CornerEncode.apply(tables, coords, resolutions)
 
+
+def fold_encode(
+    tables: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, offsets: torch.Tensor, feat_dim: int
+) -> torch.Tensor:
+    """Voxel-packed encode ``(N, L*F)`` of folded tables through kernels 8
+    (forward) and 9 (backward); gradients reach ``tables`` only."""
+    return _FoldEncode.apply(tables, coords, resolutions, offsets, feat_dim)

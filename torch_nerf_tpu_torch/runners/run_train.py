@@ -58,8 +58,10 @@ def _check_supported(cfg, args) -> None:
 
 
 def main(argv=None) -> dict:
-    """Train; returns ``{"step", "losses", "log_dir"}``, ``losses`` the
-    total loss of every step this call ran."""
+    """Train; returns ``{"step", "losses", "log_dir", "metrics"}``,
+    ``losses`` the total loss of every step this call ran and ``metrics``
+    the last step's (its loss terms: ``coarse_loss``, ``fine_loss``,
+    ``aux_loss`` where the run has them), as floats."""
     args = parse_args(argv)
     log_dir = Path(args.log_dir or f"outputs/{time.strftime('%Y-%m-%d/%H-%M-%S')}")
     stored_cfg = log_dir / "config.yaml"
@@ -129,7 +131,7 @@ def main(argv=None) -> dict:
         except (FileNotFoundError, ValueError) as exc:
             print(f"validation disabled: no val split ({exc})")
 
-    losses = []
+    losses, metrics = [], {}
     for step_idx in range(state.step, total_steps):
         epoch = step_idx // steps_per_epoch
         state, metrics = steps[epoch < 10](state, images, poses, generator)
@@ -160,7 +162,8 @@ def main(argv=None) -> dict:
     _save(log_dir, state)
     logger.close()
     print(f"Training complete at step {state.step}. Logs in {log_dir}.")
-    return {"step": state.step, "losses": [float(v) for v in losses], "log_dir": str(log_dir)}
+    return {"step": state.step, "losses": [float(v) for v in losses], "log_dir": str(log_dir),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 def _save(log_dir, state: train.TrainState) -> None:

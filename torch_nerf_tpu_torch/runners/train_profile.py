@@ -5,13 +5,15 @@ Runs train steps at ``bench.py``'s operating point (8 procedural views at
 path with ``torch.profiler``: for the classic NeRF (64 + 128 samples) the
 fused train pass and autograd through the field; with ``--model
 instant_nerf`` (256 samples, no fine network, Adam 1e-2 at eps 1e-15) the
-bricked and the per-corner hash layouts. Prints one JSON line per path:
+bricked and the per-corner hash layouts, or the ``--layout`` named: a
+packed layout without and with its smoothness loss (weight 1e-3, 1024
+probes). Prints one JSON line per path:
 the host-clock ms per step, the device ms per step of every kernel by name
 (each launch's own device time, summed and divided by the steps), their
 sum, and the device's idle share of the step (1 - busy / step); then the
 card's ``nvidia-smi`` line.
 
-    python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf] [--steps 5]
+    python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--steps 5]
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import time
 
 import torch
 
-from torch_nerf_tpu_torch import renderer, train
+from torch_nerf_tpu_torch import config, renderer, session, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
@@ -69,6 +71,8 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--model", choices=("nerf", "instant_nerf"), default="nerf")
+    parser.add_argument("--layout", choices=("bricked", "hash", "packed", "packed_dual"), default=None,
+                        help="with --model instant_nerf: one table layout (default: bricked and hash)")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
@@ -76,17 +80,24 @@ def main(argv=None) -> dict:
     if args.model == "instant_nerf":
         settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
         optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
-        paths = {layout: (make_instant_ngp_field(compute_dtype=torch.bfloat16, table_layout=layout), False)
-                 for layout in ("bricked", "hash")}
+        paths = {}
+        for layout in (args.layout,) if args.layout else ("bricked", "hash"):
+            field = make_instant_ngp_field(compute_dtype=torch.bfloat16, table_layout=layout)
+            paths[layout] = (field, False, None)
+            if layout.startswith("packed"):
+                cfg = config.resolve("instant_nerf", [f"network.table_layout={layout}",
+                                                      "objective.encode_smoothness_weight=0.001"])
+                paths[f"{layout}+smoothness"] = (field, False, session.build_aux_loss(cfg))
     else:
         settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
         optim = train.OptimConfig()
         field = make_nerf_field(compute_dtype=torch.bfloat16)
-        paths = {"fused": (field, False), "generic": (field, True)}
+        paths = {"fused": (field, False, None), "generic": (field, True, None)}
     out = {}
-    for path, (field, generic) in paths.items():
+    for path, (field, generic, aux) in paths.items():
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
-        step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic,
+                                           aux_loss_fn=aux)
         gen = torch.Generator(device=dev).manual_seed(1)
         out[path] = profile_path(step, state, images, poses, gen, args.steps)
         print(json.dumps({"path": path, **out[path]}), flush=True)

@@ -2,9 +2,9 @@
 config, and the FLOP count of a train step.
 
 Counterpart of ``torch_nerf_tpu/session.py`` for the classic NeRF and the
-Instant-NGP field (``hash`` and ``bricked`` layouts): LLFF, multi-scene
-datasets, occupancy and the packed layouts' smoothness loss come with later
-slices and raise here.
+Instant-NGP field (every table layout, and the packed layouts' smoothness
+loss): LLFF, multi-scene datasets and occupancy come with later slices and
+raise here.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.datasets.blender import PosedImages, load_blender
 from torch_nerf_tpu_torch.encoders import positional_encoding_dim
 from torch_nerf_tpu_torch.fields import Field, make_nerf_field
-from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field
+from torch_nerf_tpu_torch.fields_ngp import make_encode_smoothness_loss, make_instant_ngp_field
 from torch_nerf_tpu_torch.models.nerf import layer_dims
 from torch_nerf_tpu_torch.renderer import RenderSettings
 from torch_nerf_tpu_torch.train import OptimConfig
@@ -115,11 +115,13 @@ def build_field(cfg: cfg_mod.ExperimentConfig) -> Field:
 
 
 def build_aux_loss(cfg: cfg_mod.ExperimentConfig):
-    """The objective group's regularizer: None, as
-    ``objective.encode_smoothness_weight`` is 0 unless a packed layout asks
-    for its voxel-face penalty, which comes with the port's packed-layout
-    slice."""
-    if cfg.objective.encode_smoothness_weight <= 0.0:
+    """The objective group's regularizer, ``session.py:202-235`` of the JAX
+    package: None unless ``objective.encode_smoothness_weight`` > 0, else
+    ``aux(params, draws) -> weight * loss(coarse) [+ weight * loss(fine)]``,
+    the packed layouts' voxel-face penalty on each network, with
+    ``aux.draw(generator)`` drawing one set of probes a network."""
+    weight = cfg.objective.encode_smoothness_weight
+    if weight <= 0.0:
         return None
     net = cfg.network
     if net.type != "instant_nerf" or net.table_layout not in ("packed", "packed_dual"):
@@ -127,7 +129,25 @@ def build_aux_loss(cfg: cfg_mod.ExperimentConfig):
             "encode_smoothness_weight applies to the packed instant-NGP layouts; got "
             f"network.type='{net.type}', table_layout='{net.table_layout}'."
         )
-    raise NotImplementedError("the smoothness loss comes with the port's packed-layout slice")
+    raw = make_encode_smoothness_loss(
+        net.num_level,
+        min_res=net.min_res,
+        max_res=net.max_res,
+        table_feat_dim=net.table_feat_dim,
+        table_layout=net.table_layout,
+        num_probes=cfg.objective.encode_smoothness_probes,
+        use_kernel=cfg.parallel.use_pallas,
+    )
+    networks = 2 if cfg.renderer.num_samples_fine > 0 else 1
+
+    def aux(params, draws):
+        total = weight * raw(params["coarse"], draws[0])
+        if "fine" in params:
+            total = total + weight * raw(params["fine"], draws[1])
+        return total
+
+    aux.draw = lambda generator: tuple(raw.draw(generator) for _ in range(networks))
+    return aux
 
 
 def build_optim_config(cfg: cfg_mod.ExperimentConfig) -> OptimConfig:

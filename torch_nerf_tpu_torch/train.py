@@ -1,10 +1,12 @@
 """Training: optimizer, schedule, loss and the train steps.
 
 Counterpart of ``torch_nerf_tpu/train.py:35-231`` and ``:405-623``, without
-the occupancy-pruned and auxiliary-loss branches (later slices). Adam with
-``lr(t) = init_lr * (end_lr / init_lr)^(t / num_iter)``, stepped once per
-iteration (``ExponentialLR``), and L2 weight decay on hash tables where
-asked for; the loss is coarse MSE + fine MSE summed before one backward.
+the occupancy-pruned branches (a later slice). Adam with ``lr(t) = init_lr
+* (end_lr / init_lr)^(t / num_iter)``, stepped once per iteration
+(``ExponentialLR``), and L2 weight decay on hash tables where asked for;
+the loss is coarse MSE + fine MSE, plus an auxiliary loss where one is
+given (the packed layouts' smoothness penalty), summed before one
+backward.
 
 A field with a ``fused_cfg`` trains through the fused train pass
 (``ops/fused_train.py``: each render pass with its loss gradient in one
@@ -203,24 +205,32 @@ def make_ray_train_step(
     occupancy_cfg: Optional[Any] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Train step over a ray batch: ``step(state, ray_origin (N, 3),
-    ray_dir (N, 3), rgb_gt (N, 3), rand) -> (state, metrics)`` with ``rand``
-    the step's :class:`RayUniforms`. ``optim_cfg`` is the one the state's
-    optimizer was made with."""
+    ray_dir (N, 3), rgb_gt (N, 3), rand, aux_draws=None) -> (state,
+    metrics)`` with ``rand`` the step's :class:`RayUniforms`. ``optim_cfg``
+    is the one the state's optimizer was made with.
+
+    ``aux_loss_fn(params, aux_draws) -> scalar`` (optional; its
+    ``.draw(generator)`` makes ``aux_draws``) is added to the photometric
+    loss, as ``metrics["aux_loss"]``, on the generic autograd path only."""
     if occupancy_cfg is not None:
         raise NotImplementedError("occupancy pruning comes with the port's occupancy slice")
-    if aux_loss_fn is not None:
-        raise NotImplementedError(
-            "auxiliary losses (the packed layouts' smoothness penalty) come with the port's "
-            "packed-layout slice"
-        )
     use_fused = field.fused_cfg is not None and not force_generic
+    if use_fused and aux_loss_fn is not None:
+        raise ValueError("aux_loss_fn requires the generic autodiff path.")
 
-    def step_fn(state: TrainState, ray_origin, ray_dir, rgb_gt, rand: RayUniforms):
+    def step_fn(state: TrainState, ray_origin, ray_dir, rgb_gt, rand: RayUniforms, aux_draws=None):
         if use_fused:
             metrics, grads = fused_loss_and_grad(field, state.params, ray_origin, ray_dir, rgb_gt, rand, settings)
             grads = parameter_list(grads)
         else:
             loss, metrics = ray_loss_fn(field, state.params, ray_origin, ray_dir, rgb_gt, rand, settings)
+            if aux_loss_fn is not None:
+                if aux_draws is None:
+                    raise ValueError("a step with an aux loss needs its aux_draws")
+                aux = aux_loss_fn(state.params, aux_draws)
+                metrics["aux_loss"] = aux
+                loss = loss + aux
+                metrics["loss"] = loss
             grads = list(torch.autograd.grad(loss, parameter_list(state.params)))
             metrics = {k: v.detach() for k, v in metrics.items()}
         _apply_grads(state, grads)
@@ -256,12 +266,14 @@ def sample_pixels_without_replacement(
 class ImageDraws(NamedTuple):
     """The draws of one image train step: which image (an int, or a 0-d
     tensor on the images' device so that no step waits for the card), the
-    uniforms whose top-k picks its pixels, and the render's
-    :class:`RayUniforms`."""
+    uniforms whose top-k picks its pixels, the render's
+    :class:`RayUniforms`, and the aux loss's draws (None without one),
+    drawn in that order."""
 
     image_index: Any
     pixel_u: torch.Tensor
     rays: RayUniforms
+    aux: Any = None
 
 
 def make_image_train_step(
@@ -294,7 +306,9 @@ def make_image_train_step(
         dev = generator.device
         idx = torch.randint(0, num_images, (), generator=generator, device=dev)
         u = torch.rand((num_candidates,), generator=generator, device=dev)
-        return ImageDraws(idx, u, draw_train_randomness(generator, num_pixels, settings))
+        rays = draw_train_randomness(generator, num_pixels, settings)
+        aux = aux_loss_fn.draw(generator) if aux_loss_fn is not None else None
+        return ImageDraws(idx, u, rays, aux)
 
     def step_fn(state: TrainState, images, poses, generator=None, draws: Optional[ImageDraws] = None):
         if draws is None:
@@ -313,7 +327,7 @@ def make_image_train_step(
             pixel_idx, camera, pose, use_ndc=settings.project_to_ndc, ndc_z_near=settings.ndc_z_near
         )
         rgb_gt = images.index_select(0, sel)[0][pixel_idx]
-        return ray_step(state, ray_o, ray_d, rgb_gt, draws.rays)
+        return ray_step(state, ray_o, ray_d, rgb_gt, draws.rays, draws.aux)
 
     step_fn.draw = draw
     step_fn.num_pixels = num_pixels
