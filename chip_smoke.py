@@ -16,9 +16,11 @@ Phases: device, build (one nvcc per source, all at once, sm_90a); kernel
 He-scaled weights, three planted trunk faults that the comparison must
 reject); kernel_bwd (the field's backward on 2^16 + 37 points and at the
 train path's 4096 x 64 and 4096 x 192, every grad against the plain
-version, three planted faults); kernel_train (the fused train pass at
+version, three planted faults in the training kernels' weight images, a
+second launch bit-identical); kernel_train (the fused train pass at
 4096 x 64, 4096 x 192 and a ragged batch, rgb, weights and grads, planted
-faults in the weight layout and in the composite);
+faults in the weight images and in the composite, a second launch
+bit-identical);
 serve (``run_render`` + ``evaluate`` on 128x128 test views, kernel launches
 counted, the kernel's render held against the plain version's); train
 (``run_train`` for 24 steps with a validation, a checkpoint and a
@@ -241,40 +243,44 @@ def judge(err: dict, scale: dict) -> dict:
                 max_rel_err=max(err.values()), max_plain_bf16_rel_err=max(scale.values()))
 
 
-# faults planted in the training kernels' weight layout, the way a wrong
-# pointer or stride would break them: two in the backward-only transposed
-# fragments, one in the forward fragments the backward recomputes with
-def _fault_wt_zeroed(frags, biases, frags_t):
-    frags_t[6] = torch.zeros_like(frags_t[6])
+# faults planted in the training kernels' weight images, the way a wrong
+# pointer, stride or descriptor would break them: a chain image zeroed (the
+# backward's own operand), a forward image's K-slices rolled by one slice
+# (a wrong slice order in the weight ring), and a layer's image written
+# without the 128-byte swizzle (a wrong shared-memory layout)
+def _fault_chain_zeroed(fwd, biases, chain, mats):
+    chain[6] = torch.zeros_like(chain[6])
 
 
-def _fault_wt_k_tiles_shifted(frags, biases, frags_t):
-    w = frags_t[2]  # (K/16 k-tiles x N/8 n-tiles x 32 lanes, 4)
-    frags_t[2] = torch.roll(w, w.shape[0] // (FULL["feat_dim"] // 16), dims=0)
+def _fault_fwd_slices_rolled(fwd, biases, chain, mats):
+    rows = mats[2][0].shape[0]  # fc_2's W^T: one K-slice is rows x 64 elements
+    fwd[2] = torch.roll(fwd[2], rows * 64)
 
 
-def _fault_fwd_swapped(frags, biases, frags_t):
-    frags[3], frags[4] = frags[4], frags[3]
+def _fault_chain_unswizzled(fwd, biases, chain, mats):
+    w = mats[3][2]  # fc_3's W, slice after slice, rows in plain order
+    rows, cols = w.shape
+    chain[3] = w.reshape(rows, cols // 64, 64).permute(1, 0, 2).reshape(-1).contiguous()
 
 
 TRAIN_FAULTS = {
-    "wt_fc_6_zeroed": _fault_wt_zeroed,
-    "wt_fc_2_k_tiles_shifted": _fault_wt_k_tiles_shifted,
-    "fwd_fc_3_fc_4_swapped": _fault_fwd_swapped,
+    "chain_fc_6_zeroed": _fault_chain_zeroed,
+    "fwd_fc_2_k_slices_rolled": _fault_fwd_slices_rolled,
+    "chain_fc_3_unswizzled": _fault_chain_unswizzled,
 }
 
 
 @contextlib.contextmanager
 def planted(fault):
-    """Route the training kernels' weight layout through ``fault``."""
+    """Route the training kernels' weight images through ``fault``."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     real = fn.training_layout
 
     def broken(params, cfg):
-        frags, biases, frags_t = real(params, cfg)
-        fault(frags, biases, frags_t)
-        return frags, biases, frags_t
+        fwd, biases, chain = real(params, cfg)
+        fault(fwd, biases, chain, fn.training_matrices(params, cfg))
+        return fwd, biases, chain
 
     fn.training_layout = broken
     try:
@@ -318,8 +324,9 @@ def phase_kernel_bwd(batch):
     of the dW GEMMs); PyTorch-default weights and their He-scaled copy. Each
     of the 22 grads, dpts and ddirs within 2x the plain bf16 version's
     relative L2 error against f32 (on the same bf16-rounded weights) +
-    1e-3. Then the planted faults on the random points, each of which must
-    fail that check with the He-scaled weights."""
+    1e-3; on the random points a second launch must give the same grads bit
+    for bit (no atomics). Then the planted faults on the random points,
+    each of which must fail that check with the He-scaled weights."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     dev = torch.device("cuda")
@@ -342,20 +349,28 @@ def phase_kernel_bwd(batch):
             ref32 = bwd_reference(bf16_rounded(params), pts, dirs, g_sigma, g_rgb, cfg32)
             scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref32)
 
-            def check():
+            def check(runs=None):
                 before = fn.fused_nerf_bwd.launches
                 grads, dp, dd = fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, cfg)
                 torch.cuda.synchronize()
                 got = named(grads, dpts=dp, ddirs=dd)
+                if runs is not None:
+                    runs.append(got)
                 verdict = judge(rel_l2(got, ref32), scale)
                 verdict["ok"] = verdict["ok"] and fn.fused_nerf_bwd.launches == before + 1
                 verdict["max_abs_err"] = max((got[k] - ref32[k]).abs().max().item() for k in ref32)
                 return verdict
 
-            results[f"{case}/{wname}"] = dict(points=pts.shape[0], **check())
-            max_abs = max(max_abs, results[f"{case}/{wname}"]["max_abs_err"])
+            runs = []
+            key = f"{case}/{wname}"
+            results[key] = dict(points=pts.shape[0], **check(runs))
+            max_abs = max(max_abs, results[key]["max_abs_err"])
             if case != "random":
                 continue
+            # a second launch on the same inputs: the same grads, bit for bit
+            check(runs)
+            same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+            results[key].update(relaunch_bit_identical=same, ok=results[key]["ok"] and same)
             for fname, fault in TRAIN_FAULTS.items():
                 with planted(fault):
                     v = check()
@@ -465,8 +480,9 @@ def phase_kernel_train(batch):
     path's shapes, 4096 x 64 and 4096 x 192 (sorted depths from a real
     draw), and a ragged 4093-ray batch with 4090 real rays; PyTorch-default
     and He-scaled weights. rgb and weights as :func:`composite_errors`
-    measures them; the 22 grads by relative L2 as in kernel_bwd. Then, at
-    the coarse shape, the planted weight-layout faults and composite faults,
+    measures them; the 22 grads by relative L2 as in kernel_bwd; at the
+    coarse shape a second launch bit-identical. Then, at the coarse shape,
+    the planted weight-image faults and composite faults,
     each of which must fail the check with the He-scaled weights (the
     composite faults by rgb and weights alone)."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
@@ -492,10 +508,12 @@ def phase_kernel_train(batch):
             ref32 = named(g32)
             scale = rel_l2(named(gbf), ref32)
 
-            def check(delta_in=delta, out=None):
+            def check(delta_in=delta, out=None, runs=None):
                 before = ftm.fused_train_pass.launches
                 c, w, g = ftm.fused_train_pass(params, o[:n], d[:n], t, delta_in, gt[:n], cfg, real)
                 torch.cuda.synchronize()
+                if runs is not None:
+                    runs.append(named(g, rgb=c, weights=w))
                 if out is not None:
                     c, w = out(c, w)
                 verdict = judge(rel_l2(named(g), ref32), scale)
@@ -507,10 +525,16 @@ def phase_kernel_train(batch):
                     (g[n_][k] - g32[n_][k]).abs().max().item() for n_ in g for k in g[n_]])
                 return verdict
 
-            results[f"{case}/{wname}"] = check()
-            max_abs = max(max_abs, results[f"{case}/{wname}"]["max_abs_err"])
+            runs = []
+            key = f"{case}/{wname}"
+            results[key] = check(runs=runs)
+            max_abs = max(max_abs, results[key]["max_abs_err"])
             if case != "coarse":
                 continue
+            # a second launch on the same inputs: the same outputs, bit for bit
+            check(runs=runs)
+            same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+            results[key].update(relaunch_bit_identical=same, ok=results[key]["ok"] and same)
             for fname, fault in TRAIN_FAULTS.items():
                 with planted(fault):
                     v = check()

@@ -197,20 +197,21 @@ def test_wrappers_take_the_plain_version_on_cpu_and_check_cuda_inputs():
 
 
 def test_training_layout_follows_the_parameters_of_each_call():
-    """The training kernels' layout is built from the parameters as they
-    are at the call, so an optimizer step in place reaches the next launch."""
+    """The training kernels' weight images are built from the parameters as
+    they are at the call, so an optimizer step in place reaches the next
+    launch."""
     bf = fused_nerf.FusedNeRFConfig(coord_encode_level=L_POS, dir_encode_level=L_DIR, feat_dim=FEAT)
     params = params_from_jax(_jax_net(8))
-    frags, _, frags_t = fused_nerf.training_layout(params, bf)
+    fwd, _, chain = fused_nerf.training_layout(params, bf)
     with torch.no_grad():
         params["fc_3"]["w"].add_(1.0)  # what an optimizer step does
-    after, _, after_t = fused_nerf.training_layout(params, bf)
+    after, _, after_chain = fused_nerf.training_layout(params, bf)
     i = LAYER_NAMES.index("fc_3")
     w = params["fc_3"]["w"].to(torch.bfloat16)
-    assert torch.equal(after[i], fused_nerf.fragment_order(w))
-    assert torch.equal(after_t[i], fused_nerf.transposed_fragments(w))
-    assert not torch.equal(after[i], frags[i]) and not torch.equal(after_t[i], frags_t[i])
-    assert all(torch.equal(a, b) for k, (a, b) in enumerate(zip(frags, after)) if k != i)
+    assert torch.equal(after[i], fused_nerf.panel_image(w.t()))
+    assert torch.equal(after_chain[i], fused_nerf.panel_image(w))
+    assert not torch.equal(after[i], fwd[i]) and not torch.equal(after_chain[i], chain[i])
+    assert all(torch.equal(a, b) for k, (a, b) in enumerate(zip(fwd, after)) if k != i)
 
 
 def test_field_fused_cfg_follows_the_kernel_route():
@@ -224,12 +225,14 @@ def _require_hopper():
         pytest.skip("needs a CUDA card of compute capability 9.0 (Hopper); the kernels have no CPU mode")
 
 
-def test_backward_kernel_matches_plain_version_on_the_card():
+# ragged point counts: one point, a 128-point tile short by one and over by
+# one, an odd number of whole tiles, and more
+@pytest.mark.parametrize("m", [1, 127, 129, 3 * 128, 4099])
+def test_backward_kernel_matches_plain_version_on_the_card(m):
     _require_hopper()
     dev = torch.device("cuda")
     cfg = fused_nerf.FusedNeRFConfig()
     params = init_nerf_params(torch.Generator(device=dev).manual_seed(0), 63, 27, 256, dev)
-    m = 4099
     pts, dirs = torch.rand((m, 3), device=dev) * 8 - 4, torch.randn((m, 3), device=dev)
     gs, gr = torch.randn((m,), device=dev), torch.randn((m, 3), device=dev)
     before = fused_nerf.fused_nerf_bwd.launches
@@ -245,22 +248,25 @@ def test_backward_kernel_matches_plain_version_on_the_card():
         assert (a - b).norm() <= 2 * (c - b).norm() + 1e-3 * b.norm()
 
 
-def test_train_kernel_matches_plain_version_on_the_card():
+# (rays, samples): 1, 127, 129 and 384 (three 128-point tiles) points, and
+# 509 rays of 64
+@pytest.mark.parametrize("n,s", [(1, 1), (127, 1), (43, 3), (3, 128), (509, 64)])
+def test_train_kernel_matches_plain_version_on_the_card(n, s):
     _require_hopper()
     dev = torch.device("cuda")
     cfg = fused_nerf.FusedNeRFConfig()
     params = init_nerf_params(torch.Generator(device=dev).manual_seed(0), 63, 27, 256, dev)
-    n, s = 509, 64
     o, d = torch.randn((n, 3), device=dev), torch.randn((n, 3), device=dev)
     gt = torch.rand((n, 3), device=dev)
     t = torch.sort(2 + 4 * torch.rand((n, s), device=dev)).values
     delta = torch.diff(torch.cat([t, torch.full_like(t[:, :1], 1e8)], dim=-1), dim=-1)
-    got = fused_train.fused_train_pass(params, o, d, t, delta, gt, cfg, n - 3)
+    real = max(1, n - 3)
+    got = fused_train.fused_train_pass(params, o, d, t, delta, gt, cfg, real)
     torch.cuda.synchronize()
     rounded = {k: {m: v.to(torch.bfloat16).float() for m, v in p.items()} for k, p in params.items()}
     ref = fused_train.fused_train_pass_reference(rounded, o, d, t, delta, gt,
-                                                 fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32), n - 3)
-    bf = fused_train.fused_train_pass_reference(params, o, d, t, delta, gt, cfg, n - 3)
+                                                 fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32), real)
+    bf = fused_train.fused_train_pass_reference(params, o, d, t, delta, gt, cfg, real)
     for i in (0, 1):
         assert (got[i] - ref[i]).abs().max() <= 2 * (bf[i] - ref[i]).abs().max() + 1e-3
     for name in LAYER_NAMES:

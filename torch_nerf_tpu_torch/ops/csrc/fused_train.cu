@@ -5,7 +5,8 @@
 // Replaces the Pallas TPU kernel torch_nerf_tpu/ops/pallas/fused_train.py::
 // _train_kernel (reached through fused_train_pass's pl.pallas_call). The
 // Pallas tile keeps ~45 MB of activations in VMEM; an SM has 227 KB, so the
-// pass is four kinds of kernel here, all written by hand (nerf_mlp.cuh):
+// pass is five kernels here, all written by hand (nerf_mlp_train.cuh, on
+// wgmma fed by bulk asynchronous copies):
 //
 //   mlp_forward_stash   points o + t d, PE and the forward, every activation
 //                       stashed in device memory;
@@ -27,12 +28,12 @@
 // there and never multiplies an infinity. Bound on an H100 SXM: 3 x
 // 1,186,816 FLOP per point at 989 TFLOP/s dense bf16, 2.83 ms for the fine
 // pass (786,432 points), 0.94 ms for the coarse (262,144); the composite's
-// ~20 bytes per point are noise beside the stashes, which make this first
-// design memory-bound.
+// ~20 bytes per point are noise beside the stashes (~20 KB per point moved),
+// which put this design's floor at ~4.8 ms for the fine pass.
 
-#include "nerf_mlp.cuh"
+#include "nerf_mlp_train.cuh"
 
-using namespace nerf_mlp;
+using namespace nerf_train;
 
 namespace {
 
@@ -132,39 +133,38 @@ size_t composite_bytes(int m) {
 
 extern "C" {
 
-size_t fused_train_workspace_bytes(int m, int feat, int pe_pad, int de_pad) {
-  Net net = {};
-  net.feat = feat;
-  net.pe_pad = pe_pad;
-  net.de_pad = de_pad;
-  return stash_bytes(m, feat, pe_pad, de_pad) + composite_bytes(m) + gemm_ws_bytes(net, m);
+size_t fused_train_workspace_bytes(int m, int feat) {
+  return stash_bytes(m, feat) + composite_bytes(m) + gemm_ws_bytes(m, feat);
 }
 
-size_t fused_train_smem_bytes(int feat, int pe_pad, int de_pad) {
-  const size_t a = forward_smem_bytes(feat, pe_pad, de_pad);
-  const size_t b = chain_smem_bytes(feat, pe_pad, de_pad, false);
-  return a > b ? a : b;
+size_t fused_train_smem_bytes(int feat) {
+  const size_t a = forward_smem_bytes(feat);
+  const size_t b = chain_smem_bytes(feat);
+  const size_t c = gemm_smem_bytes();
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
 const char* fused_train_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches on `stream`; returns the cudaError_t of the launches (0 on success).
+// Launches on `stream`; returns the cudaError_t of the launches (0 on
+// success). weights / weights_t: the forward and chain images of
+// training_layout, biases its biases.
 int fused_train_pass(const float* ray_o, const float* ray_d, const float* t, const float* delta,
                      const float* rgb_gt, int n_rays, int samples, int num_real,
                      const void* const* weights, const void* const* biases,
                      const void* const* weights_t, void* workspace, float* rgb_out,
                      float* weights_out, float* const* grads_w, float* const* grads_b, int feat,
                      int pos_levels, int dir_levels, int include_input, int pe_dim, int de_dim,
-                     int pe_pad, int de_pad, void* stream) {
-  const Net net = make_net(weights, biases, weights_t, feat, pos_levels, dir_levels, include_input,
-                           pe_dim, de_dim, pe_pad, de_pad);
+                     void* stream) {
+  const Net net = make_net(weights, biases, weights_t, pos_levels, dir_levels, include_input, pe_dim,
+                           de_dim);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = n_rays * samples;
   unsigned char* base = static_cast<unsigned char*>(workspace);
   size_t used = 0;
-  const Stash st = carve_stash(base, m, feat, pe_pad, de_pad, &used);
+  const Stash st = carve_stash(base, m, feat, &used);
   float* g_sigma = reinterpret_cast<float*>(base + used);
   used += align256(static_cast<size_t>(m) * sizeof(float));
   float* trans = reinterpret_cast<float*>(base + used);
@@ -174,16 +174,16 @@ int fused_train_pass(const float* ray_o, const float* ray_d, const float* t, con
   float* ws = reinterpret_cast<float*>(base + used);
   const RayInput in = {ray_o, ray_d, t, samples};
 
-  cudaError_t err = run_forward(in, net, st, m, s);
+  cudaError_t err = run_forward(in, net, st, m, feat, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   composite<<<(n_rays + kCompositeWarps - 1) / kCompositeWarps, 32 * kCompositeWarps, 0, s>>>(
       st.sigma, st.rgb, delta, rgb_gt, n_rays, samples, num_real, rgb_out, weights_out, trans,
       g_sigma, g_rgb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = run_chain<false>(in, net, st, g_sigma, g_rgb, nullptr, nullptr, m, s);
+  err = run_chain<false>(in, net, st, g_sigma, g_rgb, nullptr, nullptr, m, feat, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(run_gemms(net, st, m, ws, grads_w, grads_b, s));
+  return static_cast<int>(run_gemms(net, st, m, feat, ws, grads_w, grads_b, s));
 }
 
 }  // extern "C"

@@ -10,20 +10,23 @@ output per point. The kernel keeps every hidden activation in shared memory
 and runs the products on the tensor cores (``mma.sync`` bf16, f32
 accumulation); the source's header note gives the design.
 
-Backward (``csrc/fused_nerf_bwd.cu`` with ``csrc/nerf_mlp.cuh``) replaces
-``_bwd_kernel`` (via ``_fused_bwd``): the recomputed forward, the VJP to
-the 22 parameter grads summed over every point, and to the points and view
-directions. :func:`fused_nerf_bwd_reference` is its plain version, written
-out step by step as ``_backward_tile`` is: the relu masks, every ``dh``
-rounded to bf16 before its mask and its next product, dW and db summed in
-f32, the skip split of ``dh`` into ``h4`` and ``pe``, the view-direction
-split at fc_9.
+Backward (``csrc/fused_nerf_bwd.cu`` with ``csrc/nerf_mlp_train.cuh``)
+replaces ``_bwd_kernel`` (via ``_fused_bwd``): the recomputed forward, the
+VJP to the 22 parameter grads summed over every point, and to the points and
+view directions, on ``wgmma`` with the weights streamed into shared memory
+by bulk asynchronous copies. :func:`fused_nerf_bwd_reference` is its plain
+version, written out step by step as ``_backward_tile`` is: the relu masks,
+every ``dh`` rounded to bf16 before its mask and its next product, dW and db
+summed in f32, the skip split of ``dh`` into ``h4`` and ``pe``, the
+view-direction split at fc_9.
 
 The TPU workarounds of the Pallas kernels are not carried over: the encode
 is plain ``sincosf``, and the public parameter layout reaches the kernels
-with only zero padding (pe 63->64, de 27->32, fc_8 257->264 columns, fc_out
-3->8) and a reordering of each weight (and, for the backward, its
-transpose) into tensor-core fragment order, done here.
+with only zero padding and a reordering, done here: for the forward kernel
+each weight in tensor-core fragment order (pe 63->64, de 27->32, fc_8
+257->264 columns, fc_out 3->8); for the training kernels
+(:func:`training_layout`) each weight and its transpose as images of
+``wgmma``'s 128-byte swizzled shared-memory layout (:func:`panel_image`).
 
 :func:`fused_nerf_apply` takes the public parameter tree through a
 ``torch.autograd.Function``: on CUDA tensors its forward launches the
@@ -51,6 +54,9 @@ KERNEL = "fused_nerf_fwd"
 KERNEL_BWD = "fused_nerf_bwd"
 # max dynamic shared memory of one block on Hopper
 _SMEM_LIMIT = 232_448
+
+# the widths the training kernels are built for
+TRAIN_WIDTHS = (64, 128, 256)
 
 _PRE_SKIP = ("fc_in", "fc_1", "fc_2", "fc_3", "fc_4")
 _POST_SKIP = ("fc_5", "fc_6", "fc_7")
@@ -246,13 +252,6 @@ def fragment_order(w: torch.Tensor) -> torch.Tensor:
     return f.permute(0, 4, 5, 2, 1, 3).reshape(-1, 4).contiguous()
 
 
-def transposed_fragments(w: torch.Tensor) -> torch.Tensor:
-    """Fragments of ``w.T`` for a padded layer weight ``w (K, N)``: the B
-    operand of the backward's ``dh = dz w^T``, its rows (N) padded to 16."""
-    wt = w.t()
-    return fragment_order(torch.nn.functional.pad(wt, (0, 0, 0, _round16(wt.shape[0]) - wt.shape[0])))
-
-
 def _flat(params: Params) -> List[torch.Tensor]:
     return [params[name][leaf] for name in LAYER_NAMES for leaf in ("w", "b")]
 
@@ -335,12 +334,12 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.fused_nerf_bwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ptrs] * 3 + [ctypes.c_void_p] + [ptrs] * 2
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.fused_nerf_bwd.restype = ctypes.c_int
-    lib.fused_nerf_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_nerf_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 2
     lib.fused_nerf_bwd_workspace_bytes.restype = ctypes.c_size_t
-    lib.fused_nerf_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_nerf_bwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_nerf_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.fused_nerf_bwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_nerf_bwd_error_string.restype = ctypes.c_char_p
@@ -365,6 +364,17 @@ def check_config(cfg: FusedNeRFConfig) -> None:
         raise ValueError(f"the fused kernel computes in bfloat16, not {cfg.compute_dtype}")
     if cfg.feat_dim % 32 != 0:
         raise ValueError(f"the fused kernel needs feat_dim % 32 == 0, got {cfg.feat_dim}")
+
+
+def check_train_config(cfg: FusedNeRFConfig) -> None:
+    """Raise unless the training kernels take ``cfg``: bf16, feat_dim 64,
+    128 or 256, encodings at most 64 wide."""
+    check_config(cfg)
+    if cfg.feat_dim not in TRAIN_WIDTHS:
+        raise ValueError(f"the training kernels take feat_dim in {TRAIN_WIDTHS}, got {cfg.feat_dim}")
+    if max(cfg.pos_enc_dim, cfg.dir_enc_dim) > 64:
+        raise ValueError(f"the training kernels take encodings up to 64 wide, got {cfg.pos_enc_dim}, "
+                         f"{cfg.dir_enc_dim}")
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
@@ -419,13 +429,91 @@ def _launch(w: KernelWeights, pts: torch.Tensor, dirs: torch.Tensor, cfg: FusedN
     return sigma, rgb
 
 
+def swizzle128(row, col):
+    """Byte offset of bf16 element ``(row, col)`` in a 64-column panel of
+    128-byte rows under ``wgmma``'s 128-byte swizzle: the 16-byte chunk
+    ``col // 8`` of row ``r`` sits at chunk ``(col // 8) ^ (r % 8)``
+    (``csrc/nerf_mlp_train.cuh``'s ``swizzle128``). Takes ints or integer
+    tensors."""
+    return row * 128 + ((col // 8) ^ (row % 8)) * 16 + (col % 8) * 2
+
+
+_PANEL_INDEX: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def _panel_index(rows: int, device) -> torch.Tensor:
+    """Element offset in a panel of each (row, column) of a (rows, 64)
+    slice, row-major; one tensor per shape and device."""
+    key = (rows, str(device))
+    if key not in _PANEL_INDEX:
+        r = torch.arange(rows, device=device)[:, None]
+        c = torch.arange(64, device=device)[None, :]
+        _PANEL_INDEX[key] = (swizzle128(r, c) // 2).reshape(-1)
+    return _PANEL_INDEX[key]
+
+
+def panel_image(mat: torch.Tensor) -> torch.Tensor:
+    """``(R, C)`` with ``C % 64 == 0`` -> the flat image the training kernels
+    copy into shared memory as it is: K-slice ``s`` (columns ``[64s, 64s +
+    64)`` of every row, 128 bytes a row, at :func:`swizzle128`) after slice
+    ``s - 1``."""
+    rows, cols = mat.shape
+    src = mat.reshape(rows, cols // 64, 64).permute(1, 0, 2).reshape(cols // 64, rows * 64)
+    out = torch.empty_like(src)
+    out[:, _panel_index(rows, mat.device)] = src
+    return out.reshape(-1)
+
+
+def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+def _round64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def training_matrices(params: Params, cfg: FusedNeRFConfig):
+    """Per layer ``(forward, bias, chain)`` in bf16, before the swizzle:
+    ``forward`` the padded W^T (rows: the layer's outputs, fc_8's sigma
+    moved after its features; columns: its inputs in the kernel's K order,
+    each concatenated segment padded to 64), ``bias`` in the same row order,
+    ``chain`` the padded W the backward's ``dh = dz W^T`` reads (rows: the
+    inputs, fc_5's pe and fc_9's de rows after the others; columns: the
+    outputs in the forward's order, padded to 64)."""
+    f, p, d = cfg.feat_dim, cfg.pos_enc_dim, cfg.dir_enc_dim
+    out = []
+    for name in LAYER_NAMES:
+        w = params[name]["w"].detach().to(torch.bfloat16)
+        b = params[name]["b"].detach().to(torch.bfloat16)
+        if name == "fc_in":
+            w = _pad(w, 64, f)
+            fwd, chain = w.t(), w
+        elif name == "fc_5":  # inputs [pe, h4]
+            pe = _pad(w[:p], 64, f)
+            fwd, chain = torch.cat([pe, w[p:]]).t(), torch.cat([w[p:], pe])
+        elif name == "fc_8":  # outputs [sigma, features] -> [features, sigma]
+            w = torch.cat([w[:, 1:], w[:, :1]], dim=1)
+            b = torch.nn.functional.pad(torch.cat([b[1:], b[:1]]), (0, 7))
+            fwd, chain = _pad(w.t(), f + 8, f), _pad(w, f, f + 64)
+        elif name == "fc_9":  # inputs [features, de]
+            w = torch.cat([w[:f], _pad(w[f:], 64, f // 2)])
+            fwd, chain = w.t(), _pad(w, f + 64, _round64(f // 2))
+        elif name == "fc_out":
+            b = torch.nn.functional.pad(b, (0, 5))
+            fwd, chain = _pad(w.t(), 8, _round64(f // 2)), _pad(w, f // 2, 64)
+        else:
+            fwd, chain = w.t(), w
+        out.append((fwd, b, chain))
+    return out
+
+
 def training_layout(params: Params, cfg: FusedNeRFConfig):
-    """``(frags, biases, frags_t)`` of the current parameters: the forward's
-    fragments and biases and the backward's transposed fragments."""
-    layout = kernel_layout(params, cfg)
-    frags = [fragment_order(w) for w, _ in layout]
-    frags_t = [transposed_fragments(w) for w, _ in layout]
-    return frags, [b.contiguous() for _, b in layout], frags_t
+    """``(forward images, biases, chain images)`` of the parameters as they
+    are at this call (an optimizer step reaches the next launch): the
+    :func:`panel_image` of each layer's :func:`training_matrices`."""
+    mats = training_matrices(params, cfg)
+    return ([panel_image(fwd) for fwd, _, _ in mats], [b.contiguous() for _, b, _ in mats],
+            [panel_image(chain) for _, _, chain in mats])
 
 
 def empty_grads(params: Params) -> Params:
@@ -438,7 +526,7 @@ def empty_grads(params: Params) -> Params:
 
 def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig):
     """Launch the backward kernel on the current stream."""
-    check_config(cfg)
+    check_train_config(cfg)
     m = pts.shape[0]
     for name, t, shape in (("pts", pts, (m, 3)), ("dirs", dirs, (m, 3)),
                            ("g_sigma", g_sigma, (m,)), ("g_rgb", g_rgb, (m, 3))):
@@ -446,8 +534,7 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
     if params["fc_in"]["w"].device != pts.device:
         raise ValueError("the network's parameters must be on the same CUDA device as pts")
     lib = _bwd_library()
-    pe_pad, de_pad = _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
-    smem = lib.fused_nerf_bwd_smem_bytes(cfg.feat_dim, pe_pad, de_pad)
+    smem = lib.fused_nerf_bwd_smem_bytes(cfg.feat_dim)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
     grads = empty_grads(params)
@@ -455,20 +542,18 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
     ddirs = torch.empty_like(dirs)
     if m == 0:
         return {n: {k: t.zero_() for k, t in p.items()} for n, p in grads.items()}, dpts, ddirs
-    frags, biases, frags_t = training_layout(params, cfg)
-    workspace = torch.empty(
-        lib.fused_nerf_bwd_workspace_bytes(m, cfg.feat_dim, pe_pad, de_pad),
-        dtype=torch.uint8, device=pts.device,
-    )
+    fwd, biases, chain = training_layout(params, cfg)
+    workspace = torch.empty(lib.fused_nerf_bwd_workspace_bytes(m, cfg.feat_dim), dtype=torch.uint8,
+                            device=pts.device)
     flat = _flat(grads)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         err = lib.fused_nerf_bwd(
             pts.data_ptr(), dirs.data_ptr(), g_sigma.data_ptr(), g_rgb.data_ptr(),
-            pointers(frags), pointers(biases), pointers(frags_t), workspace.data_ptr(),
+            pointers(fwd), pointers(biases), pointers(chain), workspace.data_ptr(),
             pointers(flat[0::2]), pointers(flat[1::2]), dpts.data_ptr(), ddirs.data_ptr(),
             m, cfg.feat_dim, cfg.coord_encode_level, cfg.dir_encode_level,
-            int(cfg.include_input), cfg.pos_enc_dim, cfg.dir_enc_dim, pe_pad, de_pad, stream,
+            int(cfg.include_input), cfg.pos_enc_dim, cfg.dir_enc_dim, stream,
         )
     if err != 0:
         msg = lib.fused_nerf_bwd_error_string(err).decode()

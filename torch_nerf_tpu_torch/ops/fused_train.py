@@ -1,6 +1,6 @@
 """Fused NeRF train pass: o + t d -> PE -> MLP -> composite -> MSE ->
 backward -> parameter gradients, as hand-written Hopper kernels
-(``csrc/fused_train.cu`` with ``csrc/nerf_mlp.cuh``).
+(``csrc/fused_train.cu`` with ``csrc/nerf_mlp_train.cuh``).
 
 Replaces the Pallas TPU kernel ``torch_nerf_tpu/ops/pallas/fused_train.py::
 _train_kernel`` (via ``fused_train_pass`` and its ``pl.pallas_call``),
@@ -10,8 +10,9 @@ and 989 TFLOP/s dense bf16, 2.83 ms for the fine pass of a step (4096 x 192
 points) and 0.94 ms for the coarse (4096 x 64). Hopper gets its own fusion
 boundary: the Pallas tile holds ~45 MB in VMEM, an SM has 227 KB, so the
 kernel stashes the activations and the ``dz``s of the pass in device memory
-and computes dW = A^T dZ in a split-K GEMM of its own (the source's header
-note gives the design). The composite and its VJP run in f32 (one warp per
+and computes dW = A^T dZ in a split-K GEMM of its own, every product on
+``wgmma`` from shared-memory tiles filled by bulk asynchronous copies (the
+header's note gives the design). The composite and its VJP run in f32 (one warp per
 ray), not as the TPU's bf16 masked-matmul scans.
 
 :func:`fused_train_pass` launches the kernels for CUDA tensors (or raises)
@@ -96,17 +97,49 @@ def fused_train_pass_reference(
     return c, w, grads
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def phase_floors(cfg: fn.FusedNeRFConfig, points: int) -> dict:
+    """Each kernel of one pass over ``points`` points with its operations
+    and the device-memory bytes this design must move, each read once: the
+    forward's stash writes, the composite's per-point inputs and outputs,
+    the chain's dz stash writes and relu-bit reads, the dW GEMM's stash
+    reads and partials, the reduce's partials (split as
+    ``nerf_mlp_train.cuh``'s ``gemm_splits`` splits them).
+    ``{kernel name: {"flops", "bytes"}}``."""
+    f = cfg.feat_dim
+    p, h = f // 64, max(1, f // 128)
+    panels = 2 + 9 * p + h  # 64-column panels of each stash, 128 bytes a point
+    flops = fn.flops_per_point(cfg) * points
+    # (A panels, dz panels, column tiles) of each layer's dW GEMM
+    gemms = [(1, p, 1)] + [(p, p, 1)] * 4 + [(1 + p, p, 1)] + [(p, p, 1)] * 2
+    gemms += [(p, p + 1, 2), (p + 1, h, 1), (h, 1, 1)]
+    tiles = sum(_ceil(na, 2) * groups for na, _, groups in gemms)
+    m64 = _ceil(points, 64) * 64
+    splits = _ceil(m64, max(512, _ceil(_ceil(m64 * tiles, 1056), 64) * 64))
+    partials = 4 * splits * sum(64 * nd * (64 * na + 1) for na, nd, _ in gemms)
+    return {
+        "mlp_forward_stash": {"flops": flops, "bytes": points * (128 * panels + 9 * 32 + 16 + 4)},
+        "composite": {"flops": 0, "bytes": points * 40},
+        "mlp_backward_chain": {"flops": flops, "bytes": points * (128 * panels + 9 * 32 + 32)},
+        "dw_gemm": {"flops": flops, "bytes": points * 2 * 128 * panels + partials},
+        "dw_reduce": {"flops": 0, "bytes": partials},
+    }
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_train.cu``."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.fused_train_pass.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ptrs] * 3 + [ctypes.c_void_p] * 3
-        + [ptrs] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        + [ptrs] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     lib.fused_train_pass.restype = ctypes.c_int
-    lib.fused_train_workspace_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fused_train_workspace_bytes.argtypes = [ctypes.c_int] * 2
     lib.fused_train_workspace_bytes.restype = ctypes.c_size_t
-    lib.fused_train_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.fused_train_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_train_smem_bytes.restype = ctypes.c_size_t
     lib.fused_train_error_string.argtypes = [ctypes.c_int]
     lib.fused_train_error_string.restype = ctypes.c_char_p
@@ -119,7 +152,7 @@ def _library() -> ctypes.CDLL:
 
 def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFConfig, num_real_rays: int):
     """Launch the pass on the current stream."""
-    fn.check_config(cfg)
+    fn.check_train_config(cfg)
     n, s = t.shape
     for name, x, shape in (("ray_o", ray_o, (n, 3)), ("ray_d", ray_d, (n, 3)), ("t", t, (n, s)),
                            ("delta", delta, (n, s)), ("rgb_gt", rgb_gt, (n, 3))):
@@ -131,28 +164,27 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
     if n * s >= 2**31:
         raise ValueError(f"{n} x {s} points exceed the kernel's 32-bit point index")
     lib = _library()
-    pe_pad, de_pad = fn._round16(cfg.pos_enc_dim), fn._round16(cfg.dir_enc_dim)
-    smem = lib.fused_train_smem_bytes(cfg.feat_dim, pe_pad, de_pad)
+    smem = lib.fused_train_smem_bytes(cfg.feat_dim)
     if smem > fn._SMEM_LIMIT:
         raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
-    frags, biases, frags_t = fn.training_layout(params, cfg)
+    fwd, biases, chain = fn.training_layout(params, cfg)
     grads = fn.empty_grads(params)
     flat = fn._flat(grads)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=t.device)
     weights = torch.empty((n, s), dtype=torch.float32, device=t.device)
     workspace = torch.empty(
-        lib.fused_train_workspace_bytes(n * s, cfg.feat_dim, pe_pad, de_pad),
+        lib.fused_train_workspace_bytes(n * s, cfg.feat_dim),
         dtype=torch.uint8, device=t.device,
     )
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = lib.fused_train_pass(
             ray_o.data_ptr(), ray_d.data_ptr(), t.data_ptr(), delta.data_ptr(), rgb_gt.data_ptr(),
-            n, s, num_real_rays, fn.pointers(frags), fn.pointers(biases), fn.pointers(frags_t),
+            n, s, num_real_rays, fn.pointers(fwd), fn.pointers(biases), fn.pointers(chain),
             workspace.data_ptr(), rgb.data_ptr(), weights.data_ptr(),
             fn.pointers(flat[0::2]), fn.pointers(flat[1::2]),
             cfg.feat_dim, cfg.coord_encode_level, cfg.dir_encode_level, int(cfg.include_input),
-            cfg.pos_enc_dim, cfg.dir_enc_dim, pe_pad, de_pad, stream,
+            cfg.pos_enc_dim, cfg.dir_enc_dim, stream,
         )
     if err != 0:
         msg = lib.fused_train_error_string(err).decode()

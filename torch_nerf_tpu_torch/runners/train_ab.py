@@ -1,15 +1,20 @@
-"""Time two versions of the fused train pass in turns on one card.
+"""Time two versions of the training kernels in turns on one card.
 
-Builds the repository's ``ops/csrc/fused_train.cu`` and another source with
-the same C interface (a directory holding its ``fused_train.cu`` and the
-headers it includes, for example an earlier version kept under
-``outputs/``), checks that both give the same result on one batch, and
-times each at ``bench.py``'s operating point: one launch at the fine pass
-(4096 x 192 points) and at the coarse pass (4096 x 64) by CUDA events, and
-whole fused train steps by the host clock. Rounds alternate the order
-(other, repo, repo, other, ...). Prints one JSON line per turn with the SM
-clock, temperature and power draw after it, then each side's median and
-quartiles and the card's ``nvidia-smi`` line.
+Each side is a whole checkout of the port: this repository and the one at
+``--other DIR`` (for example ``git archive`` of an earlier commit unpacked
+under ``outputs/``), each with its own kernels and its own weight-layout
+code, so two designs whose layouts differ can be held side by side. Every
+turn is a fresh process run from one side's checkout (``PYTHONPATH`` set to
+it, this file run by its path): it builds that side's kernels into the
+side's own ``_build`` (both sides are built first, at once) and times, at
+``bench.py``'s train point, kernel 3 at the fine (4096 x 192) and the
+coarse (4096 x 64) pass and kernel 2 at the fine points (CUDA events), then
+whole fused and ``force_generic`` train steps (host clock). Turns alternate
+(other, repo, repo, other, ...). The first turn of each side saves its
+fine pass's outputs, and the two sides' largest difference is printed.
+Prints one JSON line per turn with the SM clock, temperature and power
+draw after it, then each side's median and quartiles and the card's
+``nvidia-smi`` line.
 
     python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4]
 """
@@ -18,6 +23,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -27,9 +35,13 @@ from torch_nerf_tpu_torch import cameras, renderer, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
-from torch_nerf_tpu_torch.ops import build, sampling
+from torch_nerf_tpu_torch.ops import fused_nerf as fn
 from torch_nerf_tpu_torch.ops import fused_train as ftm
-from torch_nerf_tpu_torch.runners.timing import event_ms, kernel_library, nvidia_smi, quartiles
+from torch_nerf_tpu_torch.ops import sampling
+from torch_nerf_tpu_torch.runners.timing import event_ms, nvidia_smi, quartiles
+
+REPO = Path(__file__).resolve().parents[2]
+KERNELS = ["fused_nerf_fwd", "fused_nerf_bwd", "fused_train"]
 
 
 def step_batch(step, images, poses, camera, gen):
@@ -42,71 +54,104 @@ def step_batch(step, images, poses, camera, gen):
     return o.contiguous(), d.contiguous(), images[idx][pix].contiguous(), draws.rays
 
 
-def main(argv=None) -> dict:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--other", required=True, help="a directory with a fused_train.cu of the same C interface")
-    parser.add_argument("--rounds", type=int, default=4)
-    parser.add_argument("--steps", type=int, default=10, help="timed train steps per turn")
-    args = parser.parse_args(argv)
+def turn(steps: int, save: str = "") -> dict:
+    """One side's timings, in the checkout this process imports."""
     dev = resolve_device("cuda")
-    libs = {
-        "repo": ftm.bind(build.load(ftm.KERNEL)),
-        "other": ftm.bind(build.load_source(Path(args.other).resolve() / "fused_train.cu")),
-    }
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
     images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
     field = make_nerf_field(compute_dtype=torch.bfloat16)
     cfg = field.fused_cfg
     settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
     optim = train.OptimConfig()
-    state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
-    step = train.make_image_train_step(field, settings, optim, camera, 4096)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for path, generic in (("fused", False), ("generic", True)):
+        state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if path == "fused":
+            # one batch of the step, its coarse and fine depths
+            o, d, gt, rays = step_batch(step, images, poses, camera, gen)
+            params = state.params
+            with torch.no_grad():
+                t_c = sampling.stratified_t_samples_from_uniforms(rays.coarse, settings.t_near, settings.t_far)
+                _, w_c, _ = ftm.fused_train_pass(params["coarse"], o, d, t_c, sampling.t_deltas(t_c), gt, cfg, 4096)
+                t_f = sampling.hierarchical_t_samples_from_uniforms(
+                    w_c, settings.t_near, settings.t_far, rays.fine_coarse, rays.u, rays.fine).contiguous()
+                for name, net, t in (("fine", "fine", t_f), ("coarse", "coarse", t_c)):
+                    delta = sampling.t_deltas(t)
+                    out[f"{name}_ms"] = event_ms(
+                        lambda: ftm.fused_train_pass(params[net], o, d, t, delta, gt, cfg, 4096), 10)
+                pts = (o[:, None, :] + t_f[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
+                dirs = d[:, None, :].expand(-1, t_f.shape[1], -1).reshape(-1, 3).contiguous()
+                g = torch.Generator(device=dev).manual_seed(4)
+                g_sigma = torch.randn((pts.shape[0],), generator=g, device=dev)
+                g_rgb = torch.randn((pts.shape[0], 3), generator=g, device=dev)
+                out["bwd_ms"] = event_ms(lambda: fn.fused_nerf_bwd(params["fine"], pts, dirs, g_sigma, g_rgb, cfg), 5)
+                if save:
+                    rgb, w, grads = ftm.fused_train_pass(params["fine"], o, d, t_f, sampling.t_deltas(t_f), gt, cfg,
+                                                         4096)
+                    torch.save({"rgb": rgb.cpu(), "weights": w.cpu(),
+                                "grads": {n: {k: v.cpu() for k, v in p.items()} for n, p in grads.items()}}, save)
+        state, _ = step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, images, poses, gen)
+        torch.cuda.synchronize()
+        out[f"{path}_step_ms"] = (time.perf_counter() - t0) / steps * 1e3
+    out["sm_clock_temp_power"] = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+    return out
 
-    # one batch of the step, its coarse and fine depths
-    o, d, gt, rays = step_batch(step, images, poses, camera, gen)
-    params = state.params
-    with torch.no_grad():
-        t_c = sampling.stratified_t_samples_from_uniforms(rays.coarse, settings.t_near, settings.t_far)
-        _, w_c, _ = ftm.fused_train_pass(params["coarse"], o, d, t_c, sampling.t_deltas(t_c), gt, cfg, 4096)
-        t_f = sampling.hierarchical_t_samples_from_uniforms(
-            w_c, settings.t_near, settings.t_far, rays.fine_coarse, rays.u, rays.fine
-        ).contiguous()
-    inputs = {name: (params[net], t, sampling.t_deltas(t))
-              for name, net, t in (("fine", "fine", t_f), ("coarse", "coarse", t_c))}
 
-    outs = {}
-    for side, lib in libs.items():
-        with kernel_library(ftm, lib), torch.no_grad():
-            p, t, delta = inputs["fine"]
-            outs[side] = ftm.fused_train_pass(p, o, d, t, delta, gt, cfg, 4096)
-    torch.cuda.synchronize()
-    a, b = outs["repo"], outs["other"]
-    agree = max([(a[0] - b[0]).abs().max().item(), (a[1] - b[1]).abs().max().item()]
-                + [(a[2][n][k] - b[2][n][k]).abs().max().item() for n in a[2] for k in a[2][n]])
-    print(json.dumps({"max_abs_diff_repo_vs_other": agree}), flush=True)
+def _run(side: Path, args) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(side))
+    return subprocess.run([sys.executable, str(Path(__file__).resolve()), *args], cwd=side, env=env,
+                          capture_output=True, text=True, check=True)
 
-    results = {side: {"fine_ms": [], "coarse_ms": [], "step_ms": []} for side in libs}
+
+def _build(side: Path) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(side))
+    code = f"from torch_nerf_tpu_torch.ops import build; build.build({KERNELS!r})"
+    return subprocess.Popen([sys.executable, "-c", code], cwd=side, env=env)
+
+
+def _max_diff(a, b) -> float:
+    if isinstance(a, dict):
+        return max(_max_diff(a[k], b[k]) for k in a)
+    return (a - b).abs().max().item()
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", help="a checkout of another version of the port")
+    parser.add_argument("--rounds", type=int, default=4)
+    parser.add_argument("--steps", type=int, default=10, help="timed train steps per path and turn")
+    parser.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--save", default="", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.turn:
+        print(json.dumps(turn(args.steps, args.save)), flush=True)
+        return {}
+    if not args.other:
+        parser.error("--other is required")
+    sides = {"other": Path(args.other).resolve(), "repo": REPO}
+    builds = [_build(side) for side in sides.values()]
+    if any(p.wait() != 0 for p in builds):
+        raise RuntimeError("a side's kernels did not build")
+    out_dir = REPO / "outputs" / "train_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    results = {side: {} for side in sides}
     for r in range(args.rounds):
-        order = ("other", "repo") if r % 2 == 0 else ("repo", "other")
-        for side in order:
-            row = {"round": r, "side": side}
-            with kernel_library(ftm, libs[side]):
-                with torch.no_grad():
-                    for name, (p, t, delta) in inputs.items():
-                        ms = event_ms(lambda: ftm.fused_train_pass(p, o, d, t, delta, gt, cfg, 4096), 10)
-                        row[f"{name}_ms"] = ms
-                        results[side][f"{name}_ms"].append(ms)
-                state, _ = step(state, images, poses, gen)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(args.steps):
-                    state, _ = step(state, images, poses, gen)
-                torch.cuda.synchronize()
-            row["step_ms"] = (time.perf_counter() - t0) / args.steps * 1e3
-            results[side]["step_ms"].append(row["step_ms"])
-            row["sm_clock_temp_power"] = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
-            print(json.dumps(row), flush=True)
+        for side in (("other", "repo") if r % 2 == 0 else ("repo", "other")):
+            extra = ["--save", str(out_dir / f"{side}.pt")] if r == 0 else []
+            row = json.loads(_run(sides[side], ["--turn", "--steps", str(args.steps), *extra]).stdout.splitlines()[-1])
+            for k, v in row.items():
+                if k != "sm_clock_temp_power":
+                    results[side].setdefault(k, []).append(v)
+            print(json.dumps({"round": r, "side": side, **row}), flush=True)
+        if r == 0:
+            a, b = (torch.load(out_dir / f"{s}.pt") for s in ("repo", "other"))
+            print(json.dumps({"max_abs_diff_repo_vs_other": _max_diff(a, b)}), flush=True)
 
     summary = {side: {k: quartiles(v) for k, v in res.items()} for side, res in results.items()}
     print(json.dumps({"summary": summary, "card": nvidia_smi("name,power.limit")}), flush=True)

@@ -10,8 +10,11 @@ packed layout without and with its smoothness loss (weight 1e-3, 1024
 probes). Prints one JSON line per path:
 the host-clock ms per step, the device ms per step of every kernel by name
 (each launch's own device time, summed and divided by the steps), their
-sum, and the device's idle share of the step (1 - busy / step); then the
-card's ``nvidia-smi`` line.
+sum, and the device's idle share of the step (1 - busy / step); for the
+fused classic path also each kernel of the train pass (forward, composite,
+chain, dW GEMM, reduce) beside its floors by operations (989 TFLOP/s) and
+by the bytes the design moves (3.35 TB/s), over the step's coarse and fine
+passes (``fused_train.phase_floors``); then the card's ``nvidia-smi`` line.
 
     python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--steps 5]
 """
@@ -30,6 +33,7 @@ from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
 from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field
+from torch_nerf_tpu_torch.ops import fused_train
 from torch_nerf_tpu_torch.runners.timing import nvidia_smi
 
 
@@ -38,7 +42,7 @@ def _short(name: str) -> str:
     name = name.replace("(anonymous namespace)::", "")
     name = re.sub(r"\(.*$", "", name)
     name = re.sub(r"<.*>", "", name)
-    return name.replace("void ", "").strip()
+    return re.sub(r"^.*::", "", name.replace("void ", "").strip())
 
 
 def profile_path(step, state, images, poses, gen, steps: int) -> dict:
@@ -65,6 +69,22 @@ def profile_path(step, state, images, poses, gen, steps: int) -> dict:
     step_ms = elapsed / steps * 1e3
     return dict(step_ms=step_ms, device_busy_ms=busy, idle_share=1.0 - busy / step_ms,
                 kernels_ms_per_step=dict(sorted(kernels.items(), key=lambda kv: -kv[1])))
+
+
+# H100 SXM data-sheet peaks: dense bf16, HBM3
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+
+
+def phases(kernels_ms: dict, cfg, passes) -> dict:
+    """The train pass's kernels' ms per step beside their floors over the
+    step's passes (points each)."""
+    out = {}
+    for name in fused_train.phase_floors(cfg, 1):
+        flops = sum(fused_train.phase_floors(cfg, m)[name]["flops"] for m in passes)
+        nbytes = sum(fused_train.phase_floors(cfg, m)[name]["bytes"] for m in passes)
+        out[name] = dict(ms=kernels_ms.get(name, 0.0), floor_ops_ms=flops / PEAK_FLOPS * 1e3,
+                         floor_bytes_ms=nbytes / PEAK_BYTES * 1e3)
+    return out
 
 
 def main(argv=None) -> dict:
@@ -100,6 +120,10 @@ def main(argv=None) -> dict:
                                            aux_loss_fn=aux)
         gen = torch.Generator(device=dev).manual_seed(1)
         out[path] = profile_path(step, state, images, poses, gen, args.steps)
+        if path == "fused":
+            out[path]["phases"] = phases(out[path]["kernels_ms_per_step"], field.fused_cfg,
+                                         (4096 * settings.num_samples_coarse,
+                                          4096 * (settings.num_samples_coarse + settings.num_samples_fine)))
         print(json.dumps({"path": path, **out[path]}), flush=True)
     print(json.dumps({"card": nvidia_smi("name,power.limit,clocks.sm,power.draw")}), flush=True)
     return out
