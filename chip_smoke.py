@@ -13,8 +13,9 @@ the ``kernels`` line, the card's name and power limit, and last
 
 Phases: device, build (one nvcc per source, all at once, sm_90a); kernel
 (the field's forward at full width, ragged tail, PyTorch-default and
-He-scaled weights, three planted trunk faults that the comparison must
-reject); kernel_bwd (the field's backward on 2^16 + 37 points and at the
+He-scaled weights, on its wgmma route at widths 256, 128 and 64 and its
+mma.sync route at width 96, three trunk faults planted in the forward
+images that the comparison must reject); kernel_bwd (the field's backward on 2^16 + 37 points and at the
 train path's 4096 x 64 and 4096 x 192, every grad against the plain
 version, three planted faults in the training kernels' weight images, a
 second launch bit-identical); kernel_train (the fused train pass at
@@ -25,7 +26,8 @@ serve (``run_render`` + ``evaluate`` on 128x128 test views, kernel launches
 counted, the kernel's render held against the plain version's); train
 (``run_train`` for 24 steps with a validation, a checkpoint and a
 visualisation, a resume for 8 more, then ``run_render`` + ``evaluate``;
-2 fused-pass launches per step); train_bench (train steps at ``bench.py``'s
+2 fused-pass launches per step, 2 forward launches per render chunk);
+train_bench (train steps at ``bench.py``'s
 operating point, fused and through autograd, each kernel timed beside its
 bound and its plain version); bench (800x800 frames at ``bench.py
 --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
@@ -42,7 +44,8 @@ bench_ngp (800x800 NGP frames at ``bench.py --render
 --model=instant_nerf``'s point, all four layouts); kernel_fold (kernels
 8-9, the packed layouts' folded encode forward and backward, at full width
 for ``packed`` and ``packed_dual`` on the same points, four planted faults
-that must be rejected); train_packed (``run_train`` of ``packed`` with the
+that must be rejected, then kernel 9 on two contention cases: every point
+in one voxel, and long runs of samples along rays); train_packed (``run_train`` of ``packed`` with the
 smoothness loss for 24 steps, a resume for 8, ``run_render`` +
 ``evaluate``, then 8 steps of ``packed_dual``; two forward and two
 backward fold launches per step, one forward per render chunk).
@@ -129,14 +132,19 @@ def he_scaled(params):
     return {n: {"w": v["w"] * math.sqrt(6.0), "b": v["b"]} for n, v in params.items()}
 
 
-def kernel_errors(params, pts, dirs) -> dict:
+def width_cfg(feat: int = FULL["feat_dim"], dtype=torch.bfloat16):
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    return fn.FusedNeRFConfig(**dict(FULL, feat_dim=feat), compute_dtype=dtype)
+
+
+def kernel_errors(params, pts, dirs, feat: int = FULL["feat_dim"]) -> dict:
     """One kernel launch against the plain version in f32 on the same
     bf16-rounded weights; the plain bf16 version's own error is the scale.
     ``ok`` when the kernel's max-abs error is within 2x that + 1e-3."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    cfg = fn.FusedNeRFConfig(**FULL)
-    cfg32 = fn.FusedNeRFConfig(**FULL, compute_dtype=torch.float32)
+    cfg, cfg32 = width_cfg(feat), width_cfg(feat, torch.float32)
     public = params.public if isinstance(params, fn.KernelWeights) else params
     params_r = {n: {k: t.to(torch.bfloat16).float() for k, t in v.items()} for n, v in public.items()}
     before = fn.fused_nerf_apply.launches
@@ -148,48 +156,62 @@ def kernel_errors(params, pts, dirs) -> dict:
     err = {"sigma": (sigma - s32).abs().max().item(), "rgb": (rgb - c32).abs().max().item()}
     scale = {"sigma": (sbf - s32).abs().max().item(), "rgb": (cbf - c32).abs().max().item()}
     ok = launched == 1 and all(math.isfinite(err[k]) and err[k] <= 2.0 * scale[k] + 1e-3 for k in err)
-    return dict(points=pts.shape[0], max_abs_err=err, plain_bf16_err=scale,
-                tolerance="err <= 2 * plain_bf16_err + 1e-3",
+    return dict(points=pts.shape[0], feat_dim=feat, route=fn.forward_route(cfg), max_abs_err=err,
+                plain_bf16_err=scale, tolerance="err <= 2 * plain_bf16_err + 1e-3",
                 sigma_f32_max=s32.max().item(), sigma_positive_share=(s32 > 0).float().mean().item(),
                 rgb_f32_std=c32.std().item(), launches=launched, ok=ok)
 
 
-def compare_with_plain(params, pts, dirs) -> dict:
+def compare_with_plain(params, pts, dirs, feat: int = FULL["feat_dim"]) -> dict:
     """:func:`kernel_errors`, raising unless ``ok``."""
-    result = kernel_errors(params, pts, dirs)
+    result = kernel_errors(params, pts, dirs, feat)
     if not result["ok"]:
         emit("kernel", **result)
         raise SystemExit("chip_smoke: kernel disagrees with its plain version")
     return result
 
 
-def planted_faults(w) -> dict:
-    """Copies of the kernel weights ``w`` with one trunk layer broken the
-    way a wrong pointer or stride in the kernel would break it."""
+def planted_faults(w, params) -> dict:
+    """Copies of the wgmma route's forward images ``w`` with one trunk
+    layer broken the way a wrong pointer, slice order or shared-memory
+    layout in the kernel would break it: fc_1's image zeroed, fc_6's
+    K-slices rolled by one slice, fc_3's image written without the
+    128-byte swizzle."""
     import dataclasses  # noqa: PLC0415
 
     from torch_nerf_tpu_torch.models.nerf import LAYER_NAMES  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     i = {name: k for k, name in enumerate(LAYER_NAMES)}
-    frags = list(w.frags)
-    zero, swap, roll = list(frags), list(frags), list(frags)
-    zero[i["fc_1"]] = torch.zeros_like(frags[i["fc_1"]])
-    swap[i["fc_2"]], swap[i["fc_3"]] = frags[i["fc_3"]], frags[i["fc_2"]]
-    f6 = frags[i["fc_6"]]  # (K/16 k-tiles x N/8 n-tiles x 32 lanes, 4)
-    roll[i["fc_6"]] = torch.roll(f6, f6.shape[0] // (FULL["feat_dim"] // 16), dims=0)
+    mats = fn.training_matrices(params, width_cfg())
+    images = list(w.weights)
+    zero, roll, plain = list(images), list(images), list(images)
+    zero[i["fc_1"]] = torch.zeros_like(images[i["fc_1"]])
+    rows = mats[i["fc_6"]][0].shape[0]  # one K-slice of fc_6's W^T: rows x 64 elements
+    roll[i["fc_6"]] = torch.roll(images[i["fc_6"]], rows * 64)
+    fwd3 = mats[i["fc_3"]][0]
+    r, c = fwd3.shape
+    plain[i["fc_3"]] = fwd3.reshape(r, c // 64, 64).permute(1, 0, 2).reshape(-1).contiguous()
     return {
-        "fc_1_zeroed": dataclasses.replace(w, frags=tuple(zero)),
-        "fc_2_fc_3_swapped": dataclasses.replace(w, frags=tuple(swap)),
-        "fc_6_k_tiles_shifted": dataclasses.replace(w, frags=tuple(roll)),
+        "fc_1_image_zeroed": dataclasses.replace(w, weights=tuple(zero)),
+        "fc_6_k_slices_rolled": dataclasses.replace(w, weights=tuple(roll)),
+        "fc_3_image_unswizzled": dataclasses.replace(w, weights=tuple(plain)),
     }
 
 
+# (width, route) of every kernel-1 check: the wgmma route at the training
+# widths, the mma.sync route at a width outside them
+KERNEL1_WIDTHS = ((256, "wgmma"), (128, "wgmma"), (64, "wgmma"), (96, "mma_sync"))
+
+
 def phase_kernel():
-    """Kernel vs plain version at full width on 2^17 + 37 points (a ragged
-    tail), with the seeded port-init weights and their He-scaled copy; then
-    three planted trunk faults, which the check must reject with the
-    He-scaled weights. The main path's chunk shapes are compared in the
-    bench phase."""
+    """Kernel 1 vs its plain version on 2^17 + 37 points (a ragged tail),
+    with seeded port-init weights and their He-scaled copy, at every
+    width of :data:`KERNEL1_WIDTHS` (each on its route, the launch counted
+    on it); then, at full width, three trunk faults planted in the forward
+    images, which the check must reject with the He-scaled weights. The
+    main path's chunk shapes are compared in the bench phase."""
+    from torch_nerf_tpu_torch.models.nerf import init_nerf_params  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     dev = torch.device("cuda")
@@ -197,19 +219,25 @@ def phase_kernel():
     m = 2**17 + 37
     pts = torch.rand((m, 3), generator=gen, device=dev) * 8.0 - 4.0
     dirs = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1)
+    results, routes_ok = {}, True
+    for feat, route in KERNEL1_WIDTHS:
+        base = init_nerf_params(torch.Generator(device=dev).manual_seed(0), 63, 27, feat, device=dev)
+        for wname, params in (("port_init", base), ("he", he_scaled(base))):
+            before = dict(fn.fused_nerf_apply.route_launches)
+            results[f"{feat}/{wname}"] = compare_with_plain(params, pts, dirs, feat)
+            counted = {k: fn.fused_nerf_apply.route_launches[k] - before[k] for k in before}
+            routes_ok = routes_ok and results[f"{feat}/{wname}"]["route"] == route and counted[route] == 1
     base = _seeded_params(0, dev)
-    weight_sets = {"port_init": base, "he": he_scaled(base)}
-    results = {k: compare_with_plain(p, pts, dirs) for k, p in weight_sets.items()}
     faults = {}
-    for wname, params in weight_sets.items():
-        for fault, bad in planted_faults(fn.prepare(params, fn.FusedNeRFConfig(**FULL))).items():
+    for wname, params in (("port_init", base), ("he", he_scaled(base))):
+        for fault, bad in planted_faults(fn.prepare(params, width_cfg()), params).items():
             r = kernel_errors(bad, pts, dirs)
             faults[f"{wname}/{fault}"] = {"rejected": not r["ok"], "max_abs_err": r["max_abs_err"]}
-    ok = all(v["rejected"] for k, v in faults.items() if k.startswith("he/"))
-    emit("kernel", weights=results, planted_faults=faults,
-         rule="every planted fault rejected with the he weights", ok=ok)
+    ok = routes_ok and all(v["rejected"] for k, v in faults.items() if k.startswith("he/"))
+    emit("kernel", weights=results, routes_ok=routes_ok, planted_faults=faults,
+         rule="each width on its route; every planted fault rejected with the he weights", ok=ok)
     if not ok:
-        raise SystemExit("chip_smoke: a planted kernel fault passed the comparison")
+        raise SystemExit("chip_smoke: kernel phase failed (a route, or a planted fault passed the comparison)")
     return max(e for r in results.values() for e in r["max_abs_err"].values())
 
 
@@ -579,13 +607,14 @@ def phase_serve(work: Path):
     _, params = _field_and_params(dev)
     checkpoints.save_checkpoint(run, 0, params)
 
-    fn.fused_nerf_apply.launches = 0
+    fn.reset_launches()
     t0 = time.perf_counter()
     run_render.main(["--log-dir", str(run), "--render-test-views", "--num-views", "2",
                      "--out-dir", str(out)])
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = fn.fused_nerf_apply.launches
+    routes = dict(fn.fused_nerf_apply.route_launches)
 
     data = session.build_dataset(cfg, "test", device=dev)
     gt.mkdir(parents=True)
@@ -631,9 +660,9 @@ def phase_serve(work: Path):
                             plain_f32_std=ref.std().item())
         ok = ok and finite and list(img.shape) == [128, 128, 3] and kernel_psnr >= limit
     want = 2 * 4 * 2  # views x 4096-ray chunks of a 128x128 view x passes
-    ok = (ok and launches == want and shapes == [[128, 128, 3]] * 2
+    ok = (ok and launches == want and routes["wgmma"] == want and shapes == [[128, 128, 3]] * 2
           and all(math.isfinite(v) for v in scores.values()))
-    emit("serve", render_seconds=render_s, launches=launches, expected_launches=want,
+    emit("serve", render_seconds=render_s, launches=launches, route_launches=routes, expected_launches=want,
          png_shapes=shapes, psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"],
          kernel_vs_plain=agree,
          tolerance="kernel psnr vs plain f32 >= plain bf16 psnr vs plain f32 - 12.04 dB", ok=ok)
@@ -664,7 +693,7 @@ def phase_bench(smi: str):
     img = frame(1)  # warm-up
     torch.cuda.synchronize()
     frames = 3
-    before = fn.fused_nerf_apply.launches
+    before, before_wgmma = fn.fused_nerf_apply.launches, fn.fused_nerf_apply.route_launches["wgmma"]
     t0 = time.perf_counter()
     for i in range(frames):
         img = frame(2 + i)
@@ -672,6 +701,7 @@ def phase_bench(smi: str):
     elapsed = time.perf_counter() - t0
     clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
     per_frame_launches = (fn.fused_nerf_apply.launches - before) / frames
+    per_frame_wgmma = (fn.fused_nerf_apply.route_launches["wgmma"] - before_wgmma) / frames
     s_per_frame = elapsed / frames
 
     # the kernel at the fine and coarse chunk shapes, on points of a real chunk
@@ -691,7 +721,7 @@ def phase_bench(smi: str):
         kernel_ms = cuda_ms(lambda: fn.fused_nerf_apply(prepared, pts, dirs, cfg), 20)
         plain_ms = cuda_ms(lambda: fn.fused_nerf_apply_reference(params["fine"], pts, dirs, cfg), 5)
         flops = fn.flops_per_point(cfg) * m
-        nbytes = m * (3 + 3 + 1 + 3) * 4 + sum(t.numel() * 2 for t in prepared.frags + prepared.biases)
+        nbytes = m * (3 + 3 + 1 + 3) * 4 + sum(t.numel() * 2 for t in prepared.weights + prepared.biases)
         bound = max(flops / peak_flops, nbytes / peak_bw) * 1e3
         shapes[name] = dict(points=m, max_abs_err=check["max_abs_err"],
                             plain_bf16_err=check["plain_bf16_err"],
@@ -702,10 +732,11 @@ def phase_bench(smi: str):
                             tflops=flops / kernel_ms / 1e9, share_of_bound=bound / kernel_ms)
     chunks = -(-800 * 800 // 4096)
     kernel_s = chunks * (shapes["fine"]["ms"] + shapes["coarse"]["ms"]) / 1e3
-    ok = bool(torch.isfinite(img).all()) and per_frame_launches == 2 * chunks
+    ok = bool(torch.isfinite(img).all()) and per_frame_launches == per_frame_wgmma == 2 * chunks
     emit("bench", card=smi, sm_clock_temp_power=clocks, frames=frames,
          seconds_per_frame=s_per_frame,
          rays_per_sec=800 * 800 / s_per_frame, launches_per_frame=per_frame_launches,
+         wgmma_launches_per_frame=per_frame_wgmma,
          kernel_seconds_per_frame=kernel_s, kernel_share_of_frame=kernel_s / s_per_frame,
          peak_flops=peak_flops, peak_bytes_per_s=peak_bw, kernel=shapes, ok=ok)
     if not ok:
@@ -718,9 +749,13 @@ def phase_train(work: Path):
     400x400 (8 views), 24 steps with one validation, one checkpoint and one
     visualisation, then a resume for 8 more steps, then run_render +
     evaluate on two test views. Kernel 3 launches counted over the two
-    train runs: exactly 2 per step."""
+    train runs: exactly 2 per step. Kernel 1 launches counted over the
+    three CLI calls, all on its wgmma route: 2 per 4096-ray chunk of the
+    validation's 800x800 view and the visualisation's 400x400 one, none in
+    the resume, 2 x 157 per 800x800 test view."""
     from torch_nerf_tpu_torch import config, session  # noqa: PLC0415
     from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
 
@@ -728,21 +763,28 @@ def phase_train(work: Path):
     overrides = ["data.dataset_type=gaussian_blobs", "data.img_size=400",
                  "train_params.validation.validate_every=3", "train_params.validation.num_batch=1",
                  "train_params.log.epoch_btw_ckpt=3", "train_params.log.epoch_btw_vis=3"]
-    logs, results, launches = [], [], []
+    logs, results, launches, k1 = [], [], [], []
     t0 = time.perf_counter()
     for max_steps in (24, 32):
         ftm.fused_train_pass.launches = 0
+        fn.reset_launches()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             results.append(run_train.main(["--config", "default", "--log-dir", str(run),
                                            "--max-steps", str(max_steps)] + overrides))
         torch.cuda.synchronize()
         launches.append(ftm.fused_train_pass.launches)
+        k1.append(dict(fn.fused_nerf_apply.route_launches))
         logs.append(buf.getvalue())
     train_s = time.perf_counter() - t0
     losses = results[0]["losses"] + results[1]["losses"]
 
+    fn.reset_launches()
     run_render.main(["--log-dir", str(run), "--render-test-views", "--num-views", "2", "--out-dir", str(out)])
+    torch.cuda.synchronize()
+    k1.append(dict(fn.fused_nerf_apply.route_launches))
+    chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
+    want_k1 = [2 * (chunks_800 + chunks_400), 0, 2 * 2 * chunks_800]
     cfg = config.load_config(run / "config.yaml")
     data = session.build_dataset(cfg, "test", device=torch.device("cuda"))
     gt.mkdir(parents=True)
@@ -753,18 +795,19 @@ def phase_train(work: Path):
     vis = sorted(str(p.relative_to(run)) for p in (run / "vis").rglob("*.png"))
     val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
     first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
-    ok = (launches == [48, 16] and len(losses) == 32 and all(math.isfinite(v) for v in losses)
+    ok = (launches == [48, 16] and [c["wgmma"] for c in k1] == want_k1 and all(c["mma_sync"] == 0 for c in k1)
+          and len(losses) == 32 and all(math.isfinite(v) for v in losses)
           and last8 < first8 and "Resumed from step 24." in logs[1] and len(val) == 1
           and vis == ["vis/epoch_3/pred_imgs/view_000.png"]
           and (run / "ckpt" / "ckpt_000024.pt").exists() and (run / "ckpt" / "ckpt_000032.pt").exists()
           and shapes == [[800, 800, 3]] * 2 and all(math.isfinite(v) for v in scores.values()))
     emit("train", seconds=train_s, steps=[r["step"] for r in results], kernel3_launches=launches,
-         expected_launches=[48, 16], losses=losses, mean_loss_first8=first8, mean_loss_last8=last8,
+         expected_launches=[48, 16], kernel1_route_launches=k1, expected_kernel1_wgmma=want_k1, losses=losses, mean_loss_first8=first8, mean_loss_last8=last8,
          validation=val, resumed="Resumed from step 24." in logs[1], vis=vis,
          png_shapes=shapes, psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"], ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: train phase failed")
-    return sum(launches)
+    return {"fused_train_pass": sum(launches), "fused_nerf_fwd": sum(c["wgmma"] + c["mma_sync"] for c in k1)}
 
 
 def phase_train_bench(smi: str):
@@ -798,7 +841,8 @@ def phase_train_bench(smi: str):
         for _ in range(3):
             state, _ = step(state, images, poses, gen)
         torch.cuda.synchronize()
-        ftm.fused_train_pass.launches = fn.fused_nerf_apply.launches = fn.fused_nerf_bwd.launches = 0
+        ftm.fused_train_pass.launches = fn.fused_nerf_bwd.launches = 0
+        fn.reset_launches()
         losses = []
         t0 = time.perf_counter()
         for _ in range(timed):
@@ -1181,13 +1225,74 @@ def phase_kernel_fold():
                                integral_points_base_levels_max_abs=quirk,
                                integral_points_staggered_levels_max_abs=staggered, ok=ok)
         max_abs[layout] = {"fwd": verdict["err"]["fwd_max_abs"], "bwd": verdict["err"]["grad_max_abs"]}
-    ok = all(r["ok"] for r in results.values())
-    emit("kernel_fold", layouts=results,
+    contention = fold_contention(dev, gen)
+    ok = all(r["ok"] for r in results.values()) and all(c["ok"] for c in contention.values())
+    emit("kernel_fold", layouts=results, contention=contention,
          rule="kernels within the limits; every planted fault rejected; integral points 0 on the base "
-              "levels only", ok=ok)
+              "levels only; the contention cases within the limits", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel_fold failed")
     return max_abs
+
+
+def contention_points(dev, gen):
+    """Kernel 9's worst cases for its warp pre-reduction, 2^20 points each:
+    ``one_voxel``, every point within 1e-4 of one point, chosen so that on
+    every level of both layouts they share one voxel (checked); and
+    ``long_runs``, 4096 rays of 256 samples packed into t in [2, 2.05], so
+    that runs of consecutive samples share a voxel on every level (about
+    10 on the finest, whole warps on the coarse ones)."""
+    from torch_nerf_tpu_torch import cameras  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+
+    def one_voxel_per_level(pts, res, off):
+        # the voxel of every point on every level, as packed_prep floors it
+        v = torch.floor((res.double()[:, None, None] * pts.double()[None] + off.double()[:, None, None]).float())
+        return bool((v.amin(dim=1) == v.amax(dim=1)).all())
+
+    spread = torch.rand((2**20, 3), generator=gen, device=dev) * 1e-4
+    for k in range(64):
+        center = torch.tensor([0.3 + 0.0137 * k, -0.41 + 0.0071 * k, 0.17 - 0.0093 * k], device=dev)
+        one = (center + spread).contiguous()
+        if all(one_voxel_per_level(one, *fold_grid(layout, dev)) for layout in PACKED_LAYOUTS):
+            break
+    else:
+        raise SystemExit("chip_smoke: no centre whose 1e-4 neighbourhood lies in one voxel of every level")
+    camera = cameras.CameraParams(480.0, 480.0, 400, 400)
+    pose = torch.as_tensor(synthetic.split_poses(8, "train")[0], device=dev)
+    pix = torch.randperm(400 * 400, generator=gen, device=dev)[:4096]
+    o, d = cameras.rays_for_pixels(pix, camera, pose)
+    t = torch.sort(2.0 + 0.05 * torch.rand((4096, 256), generator=gen, device=dev)).values
+    runs, _ = ray_points(o, d, t)
+    return {"one_voxel": one, "long_runs": runs}
+
+
+def fold_contention(dev, gen) -> dict:
+    """Kernels 8-9 on :func:`contention_points` for both packed layouts,
+    held as :func:`fold_verdict` holds them (the table grad within relative
+    L2 1e-5), with kernel 9's time on each. The table grad's plain version
+    sums in f64 here: with up to 2^20 points on one row, its f32
+    ``index_add_`` rounds by about as much as the limit
+    (``plain_f32_rel_l2`` says how much), so only the exact sum tells the
+    kernel's error."""
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
+
+    f = NGP["table_feat_dim"]
+    out = {}
+    for case, pts in contention_points(dev, gen).items():
+        for layout in PACKED_LAYOUTS:
+            res, off = fold_grid(layout, dev)
+            tables = torch.rand(fold_table_shape(layout), generator=gen, device=dev) * 2.0 - 1.0
+            g = torch.randn((pts.shape[0], res.shape[0] * f), generator=gen, device=dev)
+            ref_out = hg.fold_encode_reference(tables, pts, res, off, f)
+            ref_grad = hg.fold_backward_reference(g.double(), pts, res, off, tables.shape[1], f)
+            plain32 = hg.fold_backward_reference(g, pts, res, off, tables.shape[1], f)
+            v = fold_verdict(tables, pts, res, off, g, ref_out, ref_grad)
+            ms = cuda_ms(lambda: hg.hash_fold_bwd(g, pts, res, off, tables.shape[1], f), 5)
+            out[f"{case}/{layout}"] = dict(points=pts.shape[0], ok=v["ok"], err=v["err"], limit=v["limit"],
+                                           plain_f32_rel_l2=rel_l2({"x": plain32}, {"x": ref_grad})["x"],
+                                           bwd_ms=ms)
+    return out
 
 
 SMOOTHNESS = ["objective.encode_smoothness_weight=0.001"]
@@ -1391,7 +1496,8 @@ def kernel_lines(done: dict) -> list:
     """The ``kernels`` line: each kernel with its main-path launches, its
     largest max-abs error against the plain f32 version, and its time,
     the plain version's and its bound at the main path's largest shape
-    (the hash kernels: their launches over ``train_ngp``'s CLI calls, their
+    (kernel 1: its launches over ``train``'s CLI calls, renders included,
+    and serve's beside them; the hash kernels: their launches over ``train_ngp``'s CLI calls, their
     errors from kernel_hash, their times at the NGP train step's 2^20
     points; the fold kernels: their launches over ``train_packed``'s CLI
     calls, their errors from kernel_fold, their times on the ``packed``
@@ -1405,7 +1511,8 @@ def kernel_lines(done: dict) -> list:
     return [
         {"name": "fused_nerf_fwd", "route": "cuda",
          "source": "torch_nerf_tpu_torch/ops/csrc/fused_nerf_fwd.cu",
-         "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:397", "launches": done["serve"],
+         "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:397",
+         "launches": done["train"]["fused_nerf_fwd"], "serve_launches": done["serve"],
          "max_abs_err": k1_err, "ms": fine["ms"], "plain_ms": fine["plain_ms"],
          "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"], "library_ms": None},
         {"name": "fused_nerf_bwd", "route": "cuda",
@@ -1416,7 +1523,7 @@ def kernel_lines(done: dict) -> list:
          "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "fused_train_pass", "route": "cuda",
          "source": "torch_nerf_tpu_torch/ops/csrc/fused_train.cu",
-         "replaces": "torch_nerf_tpu/ops/pallas/fused_train.py:196", "launches": done["train"],
+         "replaces": "torch_nerf_tpu/ops/pallas/fused_train.py:196", "launches": done["train"]["fused_train_pass"],
          "max_abs_err": done["kernel_train"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None},
     ] + [

@@ -179,7 +179,7 @@ def test_wrapper_uses_plain_version_on_cpu_and_never_launches():
     pts, dirs = (torch.from_numpy(a) for a in _data(50, seed=8))
     out = fused_nerf.fused_nerf_apply(params, pts, dirs, CFG32)
     prepared = fused_nerf.prepare(params, CFG32)
-    assert prepared.frags is None and fused_nerf.prepare(prepared, CFG32) is prepared
+    assert prepared.weights is None and prepared.route is None and fused_nerf.prepare(prepared, CFG32) is prepared
     out2 = fused_nerf.fused_nerf_apply(prepared, pts, dirs, CFG32)
     ref = fused_nerf.fused_nerf_apply_reference(params, pts, dirs, CFG32)
     for a, b, c in zip(out, out2, ref):

@@ -15,27 +15,31 @@
 // Bound on an H100 SXM: 1,186,816 FLOP per point at width 256 (593,408 MACs),
 // against 40 bytes of input and output per point and 1.2 MB of weights: the
 // kernel is bound by tensor-core operations (0.94 ms per 786,432-point fine
-// chunk at 989 TFLOP/s). The design keeps every activation on chip so no
-// hidden layer touches device memory:
-//   * one block of 8 warps per tile of 64 points; the encoded inputs and a
-//     ping-pong pair of activation buffers live in dynamic shared memory
-//     (80 KB at width 256, so two blocks share an SM and one block's encode
-//     and epilogues overlap the other's products), rows padded by 16 bytes
-//     so ldmatrix is free of bank conflicts;
-//   * products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); each warp owns all 64 rows x 32 columns per pass, so
-//     each weight fragment is read by one warp of the block, and the B
-//     fragments are loaded two k-steps ahead of their products;
-//   * weights stay in device memory (L2-resident), pre-arranged by the
-//     wrapper into mma fragment order so a warp reads one B fragment with one
-//     coalesced 256-byte load;
-//   * the ragged tail is encoded as zeros and masked at the stores.
-// wgmma, TMA and warp specialisation are left for later work. The encode,
-// the layer product (tile_product) and the bias epilogue are nerf_mlp.cuh's,
-// shared with the training kernels; this kernel is their forward without
-// the stash.
+// chunk at 989 TFLOP/s). Every activation stays on chip, so no hidden layer
+// touches device memory. Two routes, chosen by the wrapper
+// (torch_nerf_tpu_torch/ops/fused_nerf.py::forward_route):
 //
-// Layout contract with torch_nerf_tpu_torch/ops/fused_nerf.py:
+//   fused_nerf_fwd      widths 64, 128, 256 with encodings up to 64 wide:
+//                       nerf_mlp_train.cuh's forward without its stash
+//                       (forward_consumer<F, false>), the product loop of
+//                       kernels 2 and 3: 128-point CTAs, two consumer
+//                       warpgroups on wgmma holding a layer's 64 x F sums
+//                       in registers, a producer warpgroup streaming every
+//                       layer's weights through a 3-stage shared-memory ring
+//                       by bulk asynchronous copies. The weights are its
+//                       forward images (W^T in K-major 128-byte swizzled
+//                       panels, fc_8's sigma row after the features, biases
+//                       in that row order). Writes sigma (m,) and rgb (m, 3).
+//   fused_nerf_fwd_mma  any other width F % 32 == 0: the first design, one block
+//                       of 8 warps per 64-point tile on mma.sync m16n8k16,
+//                       weights read from L2 in B-fragment order, the encode,
+//                       product and bias epilogue of nerf_mlp.cuh.
+//
+// fused_nerf_fwd_layout() returns 1: fused_nerf_fwd reads forward panel
+// images (a library without the symbol reads fragment order there).
+//
+// Layout contract of the mma.sync route with
+// torch_nerf_tpu_torch/ops/fused_nerf.py:
 //   w[l]  fragment-ordered bf16 weights of layer l: for k-tile kt, n-tile nt
 //         and lane, 4 values W[16kt + 2(lane%4) + {0,1,8,9}][8nt + lane/4];
 //         the rows of a concatenated input are padded per segment
@@ -43,14 +47,15 @@
 //   b[l]  bf16 bias padded with zeros to the padded column count.
 
 #include "nerf_mlp.cuh"
-
-using namespace nerf_mlp;
+#include "nerf_mlp_train.cuh"
 
 namespace {
 
+using namespace nerf_mlp;
+
 __global__ void __launch_bounds__(kThreads, 2)
-    fused_nerf_fwd_kernel(PointInput in, Net net, float* __restrict__ sigma,
-                          float* __restrict__ rgb, int m) {
+    fused_nerf_fwd_mma_kernel(PointInput in, Net net, float* __restrict__ sigma,
+                              float* __restrict__ rgb, int m) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int f = net.feat;
   const int ld_pe = net.pe_pad + kRowPad;
@@ -134,30 +139,75 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// the wgmma route: kernel 3's forward without the stash
+template <int F>
+__global__ void __launch_bounds__(nerf_train::kThreads, 1)
+    fused_nerf_fwd_kernel(nerf_train::PointInput in, const __grid_constant__ nerf_train::Net net,
+                          const __grid_constant__ nerf_train::Stash st, int m,
+                          const __grid_constant__ nerf_train::Plan plan) {
+  nerf_train::forward_block<F, false>(in, net, st, m, plan);
+}
+
+template <int F>
+cudaError_t launch_wgmma(const nerf_train::PointInput& in, const nerf_train::Net& net,
+                         const nerf_train::Stash& st, int m, cudaStream_t stream) {
+  const size_t smem = nerf_train::forward_smem_bytes(F);
+  cudaError_t err = nerf_train::set_smem(fused_nerf_fwd_kernel<F>, smem);
+  if (err != cudaSuccess) return err;
+  fused_nerf_fwd_kernel<F><<<st.m_pad / nerf_train::kRows, nerf_train::kThreads, smem, stream>>>(
+      in, net, st, m, nerf_train::forward_plan(net, F));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-size_t fused_nerf_fwd_smem_bytes(int feat, int pe_pad, int de_pad) {
-  return forward_smem_bytes(feat, pe_pad, de_pad);
-}
+int fused_nerf_fwd_layout(void) { return 1; }
 
 const char* fused_nerf_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 on success).
+// Launches the wgmma route on `stream`; returns the cudaError_t of the launch
+// (0 on success). weights, biases: the forward images and biases of
+// training_layout; feat in {64, 128, 256}; pe_pad and de_pad are not read
+// (the images pad each encoding to 64 columns).
 int fused_nerf_fwd(const float* pts, const float* dirs, const void* const* weights,
                    const void* const* biases, float* sigma, float* rgb, int m, int feat,
                    int pos_levels, int dir_levels, int include_input, int pe_dim,
                    int de_dim, int pe_pad, int de_pad, void* stream) {
+  (void)pe_pad;
+  (void)de_pad;
+  const nerf_train::Net net = nerf_train::make_net(weights, biases, nullptr, pos_levels, dir_levels,
+                                                   include_input, pe_dim, de_dim);
+  nerf_train::Stash st = {};
+  st.sigma = sigma;
+  st.rgb = rgb;
+  st.m_pad = nerf_train::padded_points(m);
+  const nerf_train::PointInput in = {pts, dirs};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (feat) {
+    case 64: return static_cast<int>(launch_wgmma<64>(in, net, st, m, s));
+    case 128: return static_cast<int>(launch_wgmma<128>(in, net, st, m, s));
+    case 256: return static_cast<int>(launch_wgmma<256>(in, net, st, m, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launches the mma.sync route on `stream`, weights in fragment order;
+// returns the cudaError_t of the launch (0 on success).
+int fused_nerf_fwd_mma(const float* pts, const float* dirs, const void* const* weights,
+                       const void* const* biases, float* sigma, float* rgb, int m, int feat,
+                       int pos_levels, int dir_levels, int include_input, int pe_dim,
+                       int de_dim, int pe_pad, int de_pad, void* stream) {
   const Net net = make_net(weights, biases, nullptr, feat, pos_levels, dir_levels, include_input,
                            pe_dim, de_dim, pe_pad, de_pad);
   const size_t smem = forward_smem_bytes(feat, pe_pad, de_pad);
-  cudaError_t err = set_smem(fused_nerf_fwd_kernel, smem);
+  cudaError_t err = nerf_mlp::set_smem(fused_nerf_fwd_mma_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + kTileRows - 1) / kTileRows);
-  fused_nerf_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fused_nerf_fwd_mma_kernel<<<grid, nerf_mlp::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       PointInput{pts, dirs}, net, sigma, rgb, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,7 +48,10 @@
 // that share a row, and the many points of a coarse level, accumulate. The
 // order of those sums changes from run to run. No gradient reaches the
 // coordinates, the resolutions or the offsets, as in the JAX package's
-// custom_vjp.
+// custom_vjp. The packed backward (kernel 9) first sums, within a warp of
+// 32 consecutive points of one level, the points that share a packed row,
+// and adds each row's sums with float4 atomics (sm_90's vector atomicAdd):
+// 2F atomics a run of points where the scalar form took up to 8F a point.
 //
 // Bound on an H100 SXM: bytes. Each (point, level) does ~60 flops against
 // a data-dependent gather of 8 x F floats from a 64 MiB table that does not
@@ -59,9 +62,10 @@
 // fastest, so a warp's loads of the coordinates broadcast and its F-wide
 // stores fill whole output rows; the brick reads only the 4 runs of 2
 // sites x F floats that carry weight, not its 128-float row; the packed row
-// is read whole, being all weight. Vector atomics, warp pre-reduction on
-// coarse levels and a deterministic sort-based scatter are left for later
-// work.
+// is read whole, being all weight. The bricked and per-corner backwards
+// keep one thread per (point, level) and scalar atomics; the packed one
+// runs point-fastest with the warp pre-reduction above. A deterministic
+// sort-based scatter is left for later work.
 
 #include <cuda_runtime.h>
 
@@ -382,24 +386,73 @@ __global__ void __launch_bounds__(kThreads)
   store<F>(out, i, acc);
 }
 
+// Kernel 9: warp = one level of a window of 32 consecutive points, lane =
+// point (the block's 8 warps take neighbouring levels of one window, so
+// they share its coordinates and its rows of g in L1). A ray's samples come
+// one after another, so on the coarse levels neighbouring lanes often fall
+// in the same voxel and so the same packed row: each run of lanes with
+// equal rows sums its 8F weighted cotangents by a segmented shuffle scan
+// (as many steps as the warp's longest run needs), and the run's first
+// lane adds the sums to the row with 2F float4 atomics, skipping a float4
+// whose four sums are all zero (a corner of zero weight contributes an
+// exact zero, as the scalar kernel skipped it). Lanes past n take part in
+// the shuffles with zeros and issue nothing.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     hash_fold_bwd_kernel(const float* __restrict__ g, const float* __restrict__ coords,
                          const float* __restrict__ res, const float* __restrict__ off,
                          float* __restrict__ dtables, int n, int levels, int rows) {
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * levels) return;
-  const int p = static_cast<int>(i / levels);
-  const int l = static_cast<int>(i % levels);
-  const Packed k = packed_of(coords, res, off, p, l, rows, F);
-  float gv[F];
-  load<F>(g, i, gv);
-  float* row = dtables + k.row;
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const size_t warp = (blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x) >> 5;
+  if (warp >= static_cast<size_t>((n + 31) / 32) * levels) return;  // warp-uniform
+  const int l = static_cast<int>(warp % levels);
+  const int p = static_cast<int>(warp / levels) * 32 + lane;
+  const bool valid = p < n;
+
+  // corner c's feature f at c*F + f, as in the packed row
+  float v[8 * F];
+  size_t row = 0;
+  uint32_t key = 0xffffffffu;  // never a row's: lanes past n form runs of their own
+  if (valid) {
+    const Packed k = packed_of(coords, res, off, p, l, rows, F);
+    float gv[F];
+    load<F>(g, static_cast<size_t>(p) * levels + l, gv);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    if (k.w[c] == 0.f) continue;
+    for (int c = 0; c < 8; ++c)
 #pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(row + c * F + f, __fmul_rn(gv[f], k.w[c]));
+      for (int f = 0; f < F; ++f) v[c * F + f] = k.w[c] == 0.f ? 0.f : __fmul_rn(gv[f], k.w[c]);
+    row = k.row;
+    // rows of one level differ by less than 2^32 floats: the low word
+    // tells them apart
+    key = static_cast<uint32_t>(row);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8 * F; ++e) v[e] = 0.f;
+  }
+
+  // runs of equal keys among consecutive lanes; run_end: the run's last lane
+  const uint32_t prev = __shfl_up_sync(kFull, key, 1);
+  const bool head = lane == 0 || key != prev;
+  const uint32_t heads = __ballot_sync(kFull, head);
+  const uint32_t later = lane == 31 ? 0u : heads & (kFull << (lane + 1));
+  const int run_end = later ? __ffs(later) - 2 : 31;
+  const unsigned longest = __reduce_max_sync(kFull, static_cast<unsigned>(run_end - lane + 1));
+  // after the step of offset o, lane i holds the sum over [i, min(i + 2o - 1, run_end)]
+  for (int o = 1; o < static_cast<int>(longest); o <<= 1) {
+    const bool take = lane + o <= run_end;
+#pragma unroll
+    for (int e = 0; e < 8 * F; ++e) {
+      const float u = __shfl_down_sync(kFull, v[e], o);
+      if (take) v[e] += u;
+    }
+  }
+  if (!head || !valid) return;
+  float4* dst = reinterpret_cast<float4*>(dtables + row);
+#pragma unroll
+  for (int q = 0; q < 2 * F; ++q) {
+    const float4 s = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    if (s.x != 0.f || s.y != 0.f || s.z != 0.f || s.w != 0.f) atomicAdd(dst + q, s);
   }
 }
 
@@ -454,7 +507,8 @@ template <int F>
 struct FoldBwd {
   static int run(const float* g, const float* coords, const float* res, const float* off,
                  float* dtables, int n, int levels, int rows, cudaStream_t stream) {
-    hash_fold_bwd_kernel<F><<<grid_for(n, levels), kThreads, 0, stream>>>(
+    // one warp per (window of 32 points, level)
+    hash_fold_bwd_kernel<F><<<grid_for((n + 31) / 32 * 32, levels), kThreads, 0, stream>>>(
         g, coords, res, off, dtables, n, levels, rows);
     return static_cast<int>(cudaGetLastError());
   }

@@ -1,7 +1,9 @@
-// The NeRF MLP's building blocks for the field's forward kernel
-// (fused_nerf_fwd.cu): the encode, the layer product of a 64-point tile on
+// The NeRF MLP's building blocks for the field's forward kernel on its
+// mma.sync route (fused_nerf_fwd.cu's fused_nerf_fwd_mma, the widths outside
+// 64, 128 and 256): the encode, the layer product of a 64-point tile on
 // mma.sync and the bias epilogue. The training kernels (fused_train.cu,
-// fused_nerf_bwd.cu) have their own wgmma design in nerf_mlp_train.cuh.
+// fused_nerf_bwd.cu) and the forward's wgmma route have their own design in
+// nerf_mlp_train.cuh.
 //
 // Precision: bf16 operands, f32 accumulation; forward roundings as
 // nerf_apply(compute_dtype=bf16).

@@ -1,5 +1,7 @@
 // The NeRF MLP's training kernels on Hopper, shared by fused_nerf_bwd.cu (the
-// backward of the fused field) and fused_train.cu (the fused train pass).
+// backward of the fused field) and fused_train.cu (the fused train pass);
+// fused_nerf_fwd.cu (kernel 1, the field's forward) runs the forward below
+// without its stash.
 //
 // The Pallas kernels they replace keep a whole tile's activations in VMEM
 // between the forward and the backward and sum the parameter gradients over
@@ -502,9 +504,9 @@ __device__ __forceinline__ void zero_upper_half(unsigned char* tile, int t) {
   }
 }
 
-// relu(bf16(bf16(acc) + b)), and its relu bits (bit i of the thread's
-// words: accumulator i > 0)
-template <int N>
+// relu(bf16(bf16(acc) + b)), and with kBits its relu bits (bit i of the
+// thread's words: accumulator i > 0)
+template <int N, bool kBits>
 __device__ __forceinline__ void relu_epilogue(const float (&acc)[N / 2], const bf16* __restrict__ bias,
                                               unsigned char* tile, uint4* bits, int t) {
   const bf162 zero2 = __float2bfloat162_rn(0.f);
@@ -514,10 +516,12 @@ __device__ __forceinline__ void relu_epilogue(const float (&acc)[N / 2], const b
     const int c = acc_col(t, i);
     const bf162 y = __hmax2(bias_add(acc[i], acc[i + 1], bias, c), zero2);
     *reinterpret_cast<bf162*>(tile + swizzle128(acc_row(t, i), c, kPanel)) = y;
-    w[i >> 5] |= (__low2float(y) > 0.f ? 1u : 0u) << (i & 31);
-    w[i >> 5] |= (__high2float(y) > 0.f ? 1u : 0u) << ((i + 1) & 31);
+    if constexpr (kBits) {
+      w[i >> 5] |= (__low2float(y) > 0.f ? 1u : 0u) << (i & 31);
+      w[i >> 5] |= (__high2float(y) > 0.f ? 1u : 0u) << ((i + 1) & 31);
+    }
   }
-  *bits = make_uint4(w[0], w[1], w[2], w[3]);
+  if constexpr (kBits) *bits = make_uint4(w[0], w[1], w[2], w[3]);
   zero_upper_half<N>(tile, t);
 }
 
@@ -590,13 +594,17 @@ __device__ __forceinline__ Smem carve_smem(unsigned char* raw, int stages) {
 __host__ __device__ inline size_t smem_slack(int stages) { return 1024 + 2 * stages * sizeof(uint64_t); }
 
 // ---------------------------------------------------------------------------
-// 1. forward with a stash of every activation
+// 1. the forward, with a stash of every activation (kernels 2 and 3) or
+//    without (kernel 1, fused_nerf_fwd.cu: sigma and rgb only)
 
 __host__ __device__ inline size_t forward_smem_bytes(int feat) {
   return static_cast<size_t>(feat / 64 + 2) * kPanel + kStages * stage_bytes(feat) + smem_slack(kStages);
 }
 
-template <int F, class In>
+// With kStash every activation goes to st.acts and the relu bits to
+// st.bits; without, only st.sigma and st.rgb are written (the other stash
+// pointers are not read). The products and roundings are the same.
+template <int F, bool kStash, class In>
 __device__ __forceinline__ void forward_consumer(const In& in, const Net& net, const Stash& st, int m,
                                                  unsigned char* act, unsigned char* pe, unsigned char* de,
                                                  Ring& ring, const Warpgroup& g) {
@@ -613,8 +621,10 @@ __device__ __forceinline__ void forward_consumer(const In& in, const Net& net, c
   encode([&](int i, int c) { return in.dir(i, c); }, g.row0, m, net.dir_levels, net.include_input,
          net.de_dim, de, t);
   g.publish();
-  g.store(st, st.acts, pn.pe(), pe, 1);
-  g.store(st, st.acts, pn.de(), de, 1);
+  if constexpr (kStash) {
+    g.store(st, st.acts, pn.pe(), pe, 1);
+    g.store(st, st.acts, pn.de(), de, 1);
+  }
 
   uint32_t a[P + 1];
   const uint32_t act_a = smem_u32(act);
@@ -630,9 +640,9 @@ __device__ __forceinline__ void forward_consumer(const In& in, const Net& net, c
       for (int p = 0; p < P; ++p) a[n++] = act_a + p * kPanel;
     product<F, 0>(ring, a, n, 4, false, 0, acc, unused);
     g.before_write();
-    relu_epilogue<F>(acc, net.b[l], act, st.bits_word(l, g.tile64, t), t);
+    relu_epilogue<F, kStash>(acc, net.b[l], act, kStash ? st.bits_word(l, g.tile64, t) : nullptr, t);
     g.publish();
-    g.store(st, st.acts, pn.act(l), act, P);
+    if constexpr (kStash) g.store(st, st.acts, pn.act(l), act, P);
   }
 
   // fc_8: the features (no relu) in place, sigma from the n8 group on the
@@ -656,7 +666,7 @@ __device__ __forceinline__ void forward_consumer(const In& in, const Net& net, c
       }
     }
     g.publish();
-    g.store(st, st.acts, pn.feat(), act, P);
+    if constexpr (kStash) g.store(st, st.acts, pn.feat(), act, P);
   }
 
   // fc_9 reads [feat, de] -> h9 (F/2) in place
@@ -666,9 +676,9 @@ __device__ __forceinline__ void forward_consumer(const In& in, const Net& net, c
     a[P] = smem_u32(de);
     product<F / 2, 0>(ring, a, P + 1, 4, false, 0, acc9, unused);
     g.before_write();
-    relu_epilogue<F / 2>(acc9, net.b[9], act, st.bits_word(8, g.tile64, t), t);
+    relu_epilogue<F / 2, kStash>(acc9, net.b[9], act, kStash ? st.bits_word(8, g.tile64, t) : nullptr, t);
     g.publish();
-    g.store(st, st.acts, pn.h9(), act, H);
+    if constexpr (kStash) g.store(st, st.acts, pn.h9(), act, H);
   }
 
   // fc_out -> sigmoid
@@ -687,13 +697,16 @@ __device__ __forceinline__ void forward_consumer(const In& in, const Net& net, c
         if (c + e < 3 && gr < m) st.rgb[static_cast<size_t>(gr) * 3 + c + e] = 1.f / (1.f + expf(-v[e]));
     }
   }
-  if (t == 0) bulk_wait_all();
+  if constexpr (kStash) {
+    if (t == 0) bulk_wait_all();
+  }
 }
 
-template <int F, class In>
-__global__ void __launch_bounds__(kThreads, 1)
-    mlp_forward_stash(In in, const __grid_constant__ Net net, const __grid_constant__ Stash st, int m,
-                      const __grid_constant__ Plan plan) {
+// one 128-point CTA of the forward: the producer warpgroup streams the plan's
+// weight slices, the two consumer warpgroups run forward_consumer
+template <int F, bool kStash, class In>
+__device__ __forceinline__ void forward_block(const In& in, const Net& net, const Stash& st, int m,
+                                              const Plan& plan) {
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = carve_smem(smem_raw, kStages);
   unsigned char* act = sm.data;
@@ -708,8 +721,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int tile64 = 2 * blockIdx.x + wg;
     const Warpgroup g = {wg, static_cast<int>(threadIdx.x & 127), tile64, 64 * tile64};
-    forward_consumer<F>(in, net, st, m, act, pe, de, ring, g);
+    forward_consumer<F, kStash>(in, net, st, m, act, pe, de, ring, g);
   }
+}
+
+template <int F, class In>
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_forward_stash(In in, const __grid_constant__ Net net, const __grid_constant__ Stash st, int m,
+                      const __grid_constant__ Plan plan) {
+  forward_block<F, true>(in, net, st, m, plan);
 }
 
 // ---------------------------------------------------------------------------
@@ -1209,7 +1229,7 @@ inline Net make_net(const void* const* fwd, const void* const* bias, const void*
   Net net;
   for (int l = 0; l < kLayers; ++l) {
     net.fwd[l] = static_cast<const unsigned char*>(fwd[l]);
-    net.chain[l] = static_cast<const unsigned char*>(chain[l]);
+    net.chain[l] = chain ? static_cast<const unsigned char*>(chain[l]) : nullptr;  // null: kernel 1
     net.b[l] = static_cast<const bf16*>(bias[l]);
   }
   net.pos_levels = pos_levels;

@@ -7,8 +7,13 @@ Forward (``csrc/fused_nerf_fwd.cu``) replaces the Pallas TPU kernel
 the tensor cores: 1,186,816 FLOP per point at width 256, 0.94 ms for a
 786,432-point fine chunk at 989 TFLOP/s bf16, against 40 bytes of input and
 output per point. The kernel keeps every hidden activation in shared memory
-and runs the products on the tensor cores (``mma.sync`` bf16, f32
-accumulation); the source's header note gives the design.
+and runs the products on the tensor cores, bf16 with f32 accumulation, on
+one of two routes that :func:`forward_route` picks from the config: widths
+64, 128 and 256 with encodings up to 64 wide take ``wgmma``, the training
+kernels' forward without its stash (``csrc/nerf_mlp_train.cuh``), reading
+the forward images of :func:`forward_layout`; any other width ``F % 32 ==
+0`` takes ``mma.sync`` on 64-point tiles, reading weights in fragment order
+(:func:`fragment_order`). The source's header note gives the design.
 
 Backward (``csrc/fused_nerf_bwd.cu`` with ``csrc/nerf_mlp_train.cuh``)
 replaces ``_bwd_kernel`` (via ``_fused_bwd``): the recomputed forward, the
@@ -22,20 +27,23 @@ view-direction split at fc_9.
 
 The TPU workarounds of the Pallas kernels are not carried over: the encode
 is plain ``sincosf``, and the public parameter layout reaches the kernels
-with only zero padding and a reordering, done here: for the forward kernel
-each weight in tensor-core fragment order (pe 63->64, de 27->32, fc_8
-257->264 columns, fc_out 3->8); for the training kernels
-(:func:`training_layout`) each weight and its transpose as images of
-``wgmma``'s 128-byte swizzled shared-memory layout (:func:`panel_image`).
+with only zero padding and a reordering, done here: on the ``wgmma`` route
+and for the training kernels (:func:`training_layout`) each weight, and for
+the backward its transpose, as images of ``wgmma``'s 128-byte swizzled
+shared-memory layout (:func:`panel_image`); on the ``mma.sync`` route each
+weight in tensor-core fragment order (pe 63->64, de 27->32, fc_8 257->264
+columns, fc_out 3->8).
 
 :func:`fused_nerf_apply` takes the public parameter tree through a
 ``torch.autograd.Function``: on CUDA tensors its forward launches the
 forward kernel on a layout built from the parameters of that call, and its
 backward launches the backward kernel; on CPU tensors both directions run
 the plain versions. A :func:`prepare`-d :class:`KernelWeights` (serving:
-built once per image) takes the forward kernel alone.
-``fused_nerf_apply.launches`` and ``fused_nerf_bwd.launches`` count kernel
-launches.
+built once per image, in its route's layout only) takes the forward kernel
+alone. ``fused_nerf_apply.launches`` and ``fused_nerf_bwd.launches`` count
+kernel launches; ``fused_nerf_apply.route_launches`` counts the forward's by
+route (their sum is ``fused_nerf_apply.launches``). A build or launch
+failure raises: no route gives way to another or to the plain version.
 """
 
 from __future__ import annotations
@@ -55,8 +63,12 @@ KERNEL_BWD = "fused_nerf_bwd"
 # max dynamic shared memory of one block on Hopper
 _SMEM_LIMIT = 232_448
 
-# the widths the training kernels are built for
+# the widths the training kernels, and the forward's wgmma route, are built for
 TRAIN_WIDTHS = (64, 128, 256)
+ROUTES = ("wgmma", "mma_sync")
+# what a forward library's fused_nerf_fwd reads (fused_nerf_fwd_layout(); a
+# library without that symbol reads fragment order)
+LAYOUT_FRAGMENTS, LAYOUT_IMAGES = 0, 1
 
 _PRE_SKIP = ("fc_in", "fc_1", "fc_2", "fc_3", "fc_4")
 _POST_SKIP = ("fc_5", "fc_6", "fc_7")
@@ -263,10 +275,13 @@ def _tree(tensors: Sequence[torch.Tensor]) -> Params:
 @dataclasses.dataclass(frozen=True)
 class KernelWeights:
     """One network's parameters: the public tree plus, for parameters on the
-    card, the kernel layout (bf16 fragments and padded biases per layer)."""
+    card, the forward's route and its weight layout per layer (``wgmma``:
+    forward panel images and biases in their row order; ``mma_sync``: bf16
+    fragments and padded biases). On the CPU only ``public`` is set."""
 
     public: Params
-    frags: Optional[Tuple[torch.Tensor, ...]]
+    route: Optional[str]
+    weights: Optional[Tuple[torch.Tensor, ...]]
     biases: Optional[Tuple[torch.Tensor, ...]]
 
 
@@ -292,17 +307,62 @@ def kernel_layout(params: Params, cfg: FusedNeRFConfig):
     return out
 
 
+def mma_smem_bytes(cfg: FusedNeRFConfig) -> int:
+    """Shared memory of a block of the ``mma.sync`` route: pe, de and two
+    activation buffers of 64 rows, each row padded by 8 bf16
+    (``nerf_mlp.cuh``'s ``forward_smem_bytes``)."""
+    pe_pad, de_pad = _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
+    return 64 * ((pe_pad + 8) + (de_pad + 8) + 2 * (cfg.feat_dim + 8)) * 2
+
+
+def forward_route(cfg: FusedNeRFConfig) -> str:
+    """The forward kernel's route for ``cfg``: ``"wgmma"`` for feat_dim 64,
+    128 or 256 with both encodings at most 64 wide, else ``"mma_sync"`` for
+    any feat_dim % 32 == 0 whose block fits in shared memory; raise for
+    anything else (and for a compute dtype other than bfloat16)."""
+    check_config(cfg)
+    if cfg.feat_dim in TRAIN_WIDTHS and max(cfg.pos_enc_dim, cfg.dir_enc_dim) <= 64:
+        return "wgmma"
+    smem = mma_smem_bytes(cfg)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
+    return "mma_sync"
+
+
+def forward_layout(params: Params, cfg: FusedNeRFConfig):
+    """``(forward images, biases)`` of the ``wgmma`` route: the
+    :func:`panel_image` of each layer's forward matrix of
+    :func:`training_matrices` and its bias in that matrix's row order (no
+    chain images: the forward does not read them)."""
+    mats = training_matrices(params, cfg)
+    return [panel_image(fwd) for fwd, _, _ in mats], [b.contiguous() for _, b, _ in mats]
+
+
 def prepare(params, cfg: FusedNeRFConfig) -> KernelWeights:
-    """Public params -> :class:`KernelWeights` (idempotent). The kernel layout
-    is built once here, not on every launch."""
+    """Public params -> :class:`KernelWeights` (idempotent): for parameters
+    on the card, :func:`kernel_weights` of :func:`forward_route`, built once
+    here, not on every launch."""
     if isinstance(params, KernelWeights):
         return params
     if params["fc_in"]["w"].device.type != "cuda":
-        return KernelWeights(public=params, frags=None, biases=None)
+        return KernelWeights(public=params, route=None, weights=None, biases=None)
+    return kernel_weights(params, cfg, forward_route(cfg))
+
+
+def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWeights:
+    """The forward's weight layout of ``route`` on the parameters' device:
+    ``wgmma``, the forward images and biases of :func:`forward_layout`;
+    ``mma_sync``, the fragments and padded biases of :func:`kernel_layout`."""
+    if route == "wgmma":
+        images, biases = forward_layout(params, cfg)
+        return KernelWeights(public=params, route=route, weights=tuple(images), biases=tuple(biases))
+    if route != "mma_sync":
+        raise ValueError(f"unknown forward route {route!r}; routes are {ROUTES}")
     layout = kernel_layout(params, cfg)
     return KernelWeights(
         public=params,
-        frags=tuple(fragment_order(w) for w, _ in layout),
+        route=route,
+        weights=tuple(fragment_order(w) for w, _ in layout),
         biases=tuple(b.contiguous() for _, b in layout),
     )
 
@@ -313,20 +373,44 @@ def prepare(params, cfg: FusedNeRFConfig) -> KernelWeights:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from
-    ``csrc/fused_nerf_fwd.cu`` (or a source with the same interface)."""
-    lib.fused_nerf_fwd.argtypes = (
-        [ctypes.c_void_p] * 2
-        + [ctypes.POINTER(ctypes.c_void_p)] * 2
-        + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 9
-        + [ctypes.c_void_p]
-    )
-    lib.fused_nerf_fwd.restype = ctypes.c_int
-    lib.fused_nerf_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.fused_nerf_fwd_smem_bytes.restype = ctypes.c_size_t
+    ``csrc/fused_nerf_fwd.cu``, or from an earlier version of it (which has
+    no ``fused_nerf_fwd_layout`` and one entry, ``fused_nerf_fwd``, reading
+    fragment order)."""
+    entries = ["fused_nerf_fwd"]
+    if hasattr(lib, "fused_nerf_fwd_layout"):
+        lib.fused_nerf_fwd_layout.argtypes = []
+        lib.fused_nerf_fwd_layout.restype = ctypes.c_int
+        entries.append("fused_nerf_fwd_mma")
+    for name in entries:
+        getattr(lib, name).argtypes = (
+            [ctypes.c_void_p] * 2
+            + [ctypes.POINTER(ctypes.c_void_p)] * 2
+            + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 9
+            + [ctypes.c_void_p]
+        )
+        getattr(lib, name).restype = ctypes.c_int
     lib.fused_nerf_fwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_nerf_fwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def library_layout(lib: ctypes.CDLL) -> int:
+    """What ``lib.fused_nerf_fwd`` reads: :data:`LAYOUT_IMAGES` or, for a
+    library without ``fused_nerf_fwd_layout``, :data:`LAYOUT_FRAGMENTS`."""
+    return lib.fused_nerf_fwd_layout() if hasattr(lib, "fused_nerf_fwd_layout") else LAYOUT_FRAGMENTS
+
+
+def _entry(lib: ctypes.CDLL, route: str):
+    """The C function of ``lib`` that runs ``route``: in this source,
+    ``fused_nerf_fwd`` (wgmma) and ``fused_nerf_fwd_mma``; in an earlier
+    one, ``fused_nerf_fwd`` runs ``mma_sync`` and nothing runs ``wgmma``."""
+    if library_layout(lib) == LAYOUT_IMAGES:
+        return lib.fused_nerf_fwd if route == "wgmma" else lib.fused_nerf_fwd_mma
+    if route == "wgmma":
+        raise ValueError("this library's fused_nerf_fwd reads fragment order: lay its weights out "
+                         "with kernel_weights(..., 'mma_sync')")
+    return lib.fused_nerf_fwd
 
 
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -397,18 +481,16 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor, w: KernelWeights, cfg: 
     check_tensor("dirs", dirs, tuple(pts.shape))
     if pts.device != dirs.device:
         raise ValueError("pts and dirs must be on the same device")
-    if w.frags is None or w.frags[0].device != pts.device:
+    if w.weights is None or w.weights[0].device != pts.device:
         raise ValueError("the network's parameters must be on the same CUDA device as pts")
 
 
 def _launch(w: KernelWeights, pts: torch.Tensor, dirs: torch.Tensor, cfg: FusedNeRFConfig):
-    """Launch the forward kernel on the current stream."""
+    """Launch the forward kernel of ``w``'s route on the current stream."""
     _check_inputs(pts, dirs, w, cfg)
     lib = _library()
+    entry = _entry(lib, w.route)
     pe_pad, de_pad = _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
-    smem = lib.fused_nerf_fwd_smem_bytes(cfg.feat_dim, pe_pad, de_pad)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
     m = pts.shape[0]
     sigma = torch.empty((m,), dtype=torch.float32, device=pts.device)
     rgb = torch.empty((m, 3), dtype=torch.float32, device=pts.device)
@@ -416,16 +498,17 @@ def _launch(w: KernelWeights, pts: torch.Tensor, dirs: torch.Tensor, cfg: FusedN
         return sigma, rgb
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        err = lib.fused_nerf_fwd(
-            pts.data_ptr(), dirs.data_ptr(), pointers(w.frags), pointers(w.biases),
+        err = entry(
+            pts.data_ptr(), dirs.data_ptr(), pointers(w.weights), pointers(w.biases),
             sigma.data_ptr(), rgb.data_ptr(), m, cfg.feat_dim,
             cfg.coord_encode_level, cfg.dir_encode_level, int(cfg.include_input),
             cfg.pos_enc_dim, cfg.dir_enc_dim, pe_pad, de_pad, stream,
         )
     if err != 0:
         msg = lib.fused_nerf_fwd_error_string(err).decode()
-        raise RuntimeError(f"fused_nerf_fwd launch failed: {msg} (cudaError {err})")
+        raise RuntimeError(f"fused_nerf_fwd ({w.route}) launch failed: {msg} (cudaError {err})")
     fused_nerf_apply.launches += 1
+    fused_nerf_apply.route_launches[w.route] += 1
     return sigma, rgb
 
 
@@ -585,8 +668,8 @@ class _FusedField(torch.autograd.Function):
         params = _tree(tensors)
         if pts.device.type == "cpu":
             return fused_nerf_apply_reference(params, pts, dirs, cfg)
-        # the layout of this call's parameters, never one built before an
-        # optimizer step
+        # the layout of this call's parameters (the wgmma route: their
+        # forward images), never one built before an optimizer step
         return _launch(prepare(params, cfg), pts, dirs, cfg)
 
     @staticmethod
@@ -614,3 +697,10 @@ def fused_nerf_apply(
 
 
 fused_nerf_apply.launches = 0
+fused_nerf_apply.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def reset_launches() -> None:
+    """Set the forward's launch counts, total and by route, to 0."""
+    fused_nerf_apply.launches = 0
+    fused_nerf_apply.route_launches = dict.fromkeys(ROUTES, 0)

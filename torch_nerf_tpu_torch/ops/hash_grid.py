@@ -245,10 +245,11 @@ def fold_backward_reference(
 ) -> torch.Tensor:
     """The plain version of kernel 9: ``g (N, L*F)`` -> ``dtables (L,
     num_lines, 128)``, the weighted cotangents scatter-added into the packed
-    rows with ``index_add_``."""
+    rows with ``index_add_``, summed in ``g``'s dtype (f32; f64 for a
+    reference that many points summed into one row must not round)."""
     num_level, f = resolutions.shape[0], feat_dim
     rows = check_fold_layout((num_level, num_lines, LANES), f)
-    dflat = torch.zeros((num_level * rows, 8 * f), dtype=torch.float32, device=g.device)
+    dflat = torch.zeros((num_level * rows, 8 * f), dtype=g.dtype, device=g.device)
     offset = (torch.arange(num_level, device=g.device) * rows)[:, None]
     for sl in _slices(coords.shape[0]):
         row, w = packed_prep(coords[sl], resolutions, rows, offsets)

@@ -73,6 +73,9 @@ def main(argv=None) -> dict:
         cfg = cfg_mod.resolve(args.config, args.overrides)
     _check_supported(cfg, args)
     device = resolve_device(args.device or cfg.device.platform)
+    # a config the card's training kernels cannot take fails here, before
+    # the run directory is written and any data loads
+    session.check_trainable(cfg, device)
     cfg.log_dir = str(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     cfg_mod.save_config(cfg, stored_cfg)

@@ -20,6 +20,7 @@ from torch_nerf_tpu_torch.encoders import positional_encoding_dim
 from torch_nerf_tpu_torch.fields import Field, make_nerf_field
 from torch_nerf_tpu_torch.fields_ngp import make_encode_smoothness_loss, make_instant_ngp_field
 from torch_nerf_tpu_torch.models.nerf import layer_dims
+from torch_nerf_tpu_torch.ops import fused_nerf
 from torch_nerf_tpu_torch.renderer import RenderSettings
 from torch_nerf_tpu_torch.train import OptimConfig
 
@@ -112,6 +113,47 @@ def build_field(cfg: cfg_mod.ExperimentConfig) -> Field:
         compute_dtype=compute_dtype,
         use_kernel=cfg.parallel.use_pallas,
     )
+
+
+def check_trainable(cfg: cfg_mod.ExperimentConfig, device: torch.device) -> None:
+    """Raise, before any data loads, when training ``cfg`` on ``device``
+    would reach the card's fused training kernels and they cannot take it:
+    a classic NeRF (``network.type`` nerf) on a CUDA device with
+    ``parallel.use_pallas`` not false trains through kernels 2 and 3, which
+    take ``network.feat_dim`` in {64, 128, 256}, encodings at most 64 wide
+    (``signal_encoder.coord_encode_level`` and ``dir_encode_level`` <= 10)
+    and ``device.compute_dtype`` bfloat16 (``fused_nerf.check_train_config``).
+    The message names each offending key and that
+    ``parallel.use_pallas=false`` trains the config on the card through the
+    plain path; nothing falls back to it unasked. Needs no card."""
+    net, enc = cfg.network, cfg.signal_encoder
+    if device.type != "cuda" or net.type != "nerf" or cfg.parallel.use_pallas is False:
+        return
+    fcfg = fused_nerf.FusedNeRFConfig(
+        coord_encode_level=enc.coord_encode_level,
+        dir_encode_level=enc.dir_encode_level,
+        include_input=enc.include_input,
+        feat_dim=net.feat_dim,
+        compute_dtype=getattr(torch, cfg.device.compute_dtype),
+    )
+    try:
+        fused_nerf.check_train_config(fcfg)
+    except ValueError as err:
+        bad = []
+        if net.feat_dim not in fused_nerf.TRAIN_WIDTHS:
+            bad.append(f"network.feat_dim={net.feat_dim} (the kernels take 64, 128 or 256)")
+        if fcfg.pos_enc_dim > 64:
+            bad.append(f"signal_encoder.coord_encode_level={enc.coord_encode_level} (the kernels take <= 10, "
+                       f"{fcfg.pos_enc_dim} encoded columns > 64)")
+        if fcfg.dir_enc_dim > 64:
+            bad.append(f"signal_encoder.dir_encode_level={enc.dir_encode_level} (the kernels take <= 10, "
+                       f"{fcfg.dir_enc_dim} encoded columns > 64)")
+        if fcfg.compute_dtype != torch.bfloat16:
+            bad.append(f"device.compute_dtype={cfg.device.compute_dtype} (the kernels take bfloat16)")
+        raise ValueError(
+            "the card's fused training kernels cannot train this config: " + "; ".join(bad or [str(err)])
+            + ". Set parallel.use_pallas=false to train it on the card through the plain path."
+        ) from err
 
 
 def build_aux_loss(cfg: cfg_mod.ExperimentConfig):
