@@ -33,7 +33,10 @@ bound and its plain version); bench (800x800 frames at ``bench.py
 --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
 per-corner hash encodes forward and backward, at full width on the 2^20
 points of a train batch plus 37 negative, integral and large ones, three
-planted faults that must be rejected); train_ngp (``run_train`` with the
+planted faults that must be rejected, then kernels 5 and 7 on three
+contention cases: every point in one voxel, long runs of samples along
+rays, and integral points heading and inside runs of their voxel);
+train_ngp (``run_train`` with the
 ``instant_nerf_tpu`` preset for 24 steps, a resume for 8, ``run_render`` +
 ``evaluate``, then 8 steps of ``instant_nerf``; one forward and one
 backward hash launch per step); train_bench_ngp (NGP train steps at
@@ -1008,7 +1011,7 @@ def phase_kernel_hash():
     all-zero-weight quirk on the integral points. Then three faults planted
     in the kernels' inputs, each of which the check must reject: the table
     rolled by one row, two levels' resolutions swapped, one point's x and y
-    swapped."""
+    swapped. Then :func:`hash_contention`."""
     dev = torch.device("cuda")
     pts = ngp_points(dev)
     n = pts.shape[0]
@@ -1042,11 +1045,94 @@ def phase_kernel_hash():
                                integral_points_max_abs=quirk,
                                ok=verdict["ok"] and quirk == 0.0 and all(f["rejected"] for f in rejected.values()))
         max_abs[layout] = {"fwd": verdict["err"]["fwd_max_abs"], "bwd": verdict["err"]["grad_max_abs"]}
-    ok = all(r["ok"] for r in results.values())
-    emit("kernel_hash", layouts=results, rule="kernels within the limits; every planted fault rejected", ok=ok)
+    contention = hash_contention(dev, gen)
+    widths = hash_widths(dev, gen)
+    ok = (all(r["ok"] for r in results.values()) and all(c["ok"] for c in contention.values())
+          and all(w["ok"] for w in widths.values()))
+    emit("kernel_hash", layouts=results, contention=contention, widths=widths,
+         rule="kernels within the limits; every planted fault rejected; the contention cases within the limits "
+              "against the f64 sum, integral points 0; every corner width and a ragged n within the limits", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel_hash failed")
     return max_abs
+
+
+def hash_widths(dev, gen) -> dict:
+    """Kernels 6-7 at every feature width F in {1, 2, 4, 8}, at T = 2^16 and
+    at T = 1000 (the signed-remainder rows), and kernels 4-5, on 1, 33 and
+    4099 points (a ragged last window) of :func:`ngp_points` at the
+    presets' 16 levels, held as :func:`pair_verdict` holds them."""
+    from torch_nerf_tpu_torch.ops.hash_grid import CORNER_FEATS  # noqa: PLC0415
+
+    res = ngp_resolutions(dev)
+    pts = ngp_points(dev)[-4099:].contiguous()  # the last 37 are the negative, integral and far ones
+    shapes = [("bricked", (16, 512, 128))] + [("hash", (16, t, f)) for f in CORNER_FEATS for t in (2**16, 1000)]
+    out = {}
+    for layout, shape in shapes:
+        fwd, bwd, fwd_ref, bwd_ref = hash_ops(layout)
+        tables = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+        for n in (1, 33, 4099):
+            p = pts[-n:].contiguous()
+            g = torch.randn((n, 16 * (2 if layout == "bricked" else shape[2])), generator=gen, device=dev)
+            v = pair_verdict(fwd, bwd, lambda: fwd(tables, p, res), lambda: bwd(g, p, res, *table_args(tables)),
+                             fwd_ref(tables, p, res), bwd_ref(g, p, res, *table_args(tables)))
+            out[f"{layout}/{list(shape)}/n{n}"] = dict(ok=v["ok"], err=v["err"])
+    return out
+
+
+def integral_runs(dev, gen, n=2**20):
+    """Kernel 7's trap at full width: ``n`` points in groups of 8 in the
+    voxel of a point integral on every axis (every other group on y and z
+    only, x + 0.3), within 1e-4 of it; that point heads its group in half
+    the groups and sits 4th, behind three points of its voxel, in the rest.
+    Its weights are all 0 and its ceil-side corners sit on the floor's
+    vertex, so its rows are not its voxel's. -> (points, the integral
+    points' indices)."""
+    groups = n // 8
+    c = torch.randint(-40, 41, (groups, 3), generator=gen, device=dev).float()
+    c[1::2, 0] += 0.3
+    near = c[:, None, :] + 1e-5 + 9e-5 * torch.rand((groups, 7, 3), generator=gen, device=dev)
+    first = torch.arange(groups, device=dev) % 4 < 2
+    heads = torch.cat([c[:, None], near], dim=1)
+    inside = torch.cat([near[:, :3], c[:, None], near[:, 3:]], dim=1)
+    pts = torch.where(first[:, None, None], heads, inside).reshape(-1, 3).contiguous()
+    return pts, torch.arange(groups, device=dev) * 8 + torch.where(first, 0, 3)
+
+
+def hash_contention(dev, gen) -> dict:
+    """Kernels 4-7 on :func:`contention_points` and :func:`integral_runs`
+    for both layouts, held as :func:`hash_verdict` holds them, with the
+    table grad's plain version summed in f64 (in f32 it rounds by about the
+    limit where 2^20 points share a row; ``plain_f32_rel_l2`` says how
+    much), each backward's time beside, and on the integral runs the
+    integral points' features exactly 0 and how many of them have the next
+    point in their floor voxel on every level."""
+    res = ngp_resolutions(dev)
+    cases = {k: (v, None) for k, v in contention_points(dev, gen).items()}
+    cases["integral_runs"] = integral_runs(dev, gen)
+    out = {}
+    for case, (pts, integral) in cases.items():
+        for layout in NGP_LAYOUTS:
+            _, bwd, fwd_ref, bwd_ref = hash_ops(layout)
+            tables = torch.rand(ngp_table_shape(layout), generator=gen, device=dev) * 2.0 - 1.0
+            g = torch.randn((pts.shape[0], res.shape[0] * NGP["table_feat_dim"]), generator=gen, device=dev)
+            ref_out = fwd_ref(tables, pts, res)
+            ref_grad = bwd_ref(g.double(), pts, res, *table_args(tables))
+            plain32 = bwd_ref(g, pts, res, *table_args(tables))
+            v = hash_verdict(layout, tables, pts, res, g, ref_out, ref_grad)
+            entry = dict(points=pts.shape[0], err=v["err"], limit=v["limit"],
+                         plain_f32_rel_l2=rel_l2({"x": plain32}, {"x": ref_grad})["x"],
+                         bwd_ms=cuda_ms(lambda: bwd(g, pts, res, *table_args(tables)), 5))
+            ok = v["ok"]
+            if integral is not None:
+                floor = torch.floor(res[:, None, None] * pts[None])
+                entry["integral_points"] = integral.shape[0]
+                entry["integral_max_abs"] = v["out"][integral].abs().max().item()
+                entry["integral_with_next_in_voxel"] = int(
+                    (floor[:, integral] == floor[:, integral + 1]).all(dim=-1).all(dim=0).sum())
+                ok = ok and entry["integral_max_abs"] == 0.0 and entry["integral_with_next_in_voxel"] > 0
+            out[f"{case}/{layout}"] = dict(entry, ok=ok)
+    return out
 
 
 NGP_TRAIN_OVERRIDES = ["data.dataset_type=gaussian_blobs", "data.img_size=400",
@@ -1236,9 +1322,11 @@ def phase_kernel_fold():
 
 
 def contention_points(dev, gen):
-    """Kernel 9's worst cases for its warp pre-reduction, 2^20 points each:
-    ``one_voxel``, every point within 1e-4 of one point, chosen so that on
-    every level of both layouts they share one voxel (checked); and
+    """The backwards' worst cases for their warp pre-reduction (kernels 5,
+    7 and 9), 2^20 points each: ``one_voxel``, every point within 1e-4 of
+    one point, chosen so that on every level of both packed layouts (the
+    base levels are the bricked and hash layouts' too) they share one voxel
+    (checked); and
     ``long_runs``, 4096 rays of 256 samples packed into t in [2, 2.05], so
     that runs of consecutive samples share a voxel on every level (about
     10 on the finest, whole warps on the coarse ones)."""

@@ -43,29 +43,45 @@
 // face, in floor); v / 3 is an IEEE division (the build has no
 // --use_fast_math).
 //
-// The backward scatter-adds g[point, level*F + f] * w into a zeroed f32
-// table gradient with atomicAdd, skipping zero weights; corners of one point
-// that share a row, and the many points of a coarse level, accumulate. The
-// order of those sums changes from run to run. No gradient reaches the
-// coordinates, the resolutions or the offsets, as in the JAX package's
-// custom_vjp. The packed backward (kernel 9) first sums, within a warp of
-// 32 consecutive points of one level, the points that share a packed row,
-// and adds each row's sums with float4 atomics (sm_90's vector atomicAdd):
-// 2F atomics a run of points where the scalar form took up to 8F a point.
+// The backwards scatter-add g[point, level*F + f] * w into a zeroed f32
+// table gradient; corners of one point that share a row, and the many
+// points of a coarse level, accumulate. The order of those sums changes
+// from run to run. No gradient reaches the coordinates, the resolutions or
+// the offsets, as in the JAX package's custom_vjp.
 //
 // Bound on an H100 SXM: bytes. Each (point, level) does ~60 flops against
 // a data-dependent gather of 8 x F floats from a 64 MiB table that does not
 // fit in the 50 MB L2; counting each input once, one encode of 2^20 points
-// moves the table (67.1 MB, twice that for the dual layout), the
-// coordinates (12.6 MB) and the output or its cotangent (134.2 MB at L*F =
-// 32). Design: one thread per (point, level) with the level varying
-// fastest, so a warp's loads of the coordinates broadcast and its F-wide
-// stores fill whole output rows; the brick reads only the 4 runs of 2
-// sites x F floats that carry weight, not its 128-float row; the packed row
-// is read whole, being all weight. The bricked and per-corner backwards
-// keep one thread per (point, level) and scalar atomics; the packed one
-// runs point-fastest with the warp pre-reduction above. A deterministic
-// sort-based scatter is left for later work.
+// moves the table or its gradient (67.1 MB, twice that for the dual
+// layout), the coordinates (12.6 MB) and the output or its cotangent (134.2
+// MB at L*F = 32): 0.064 ms at 3.35 TB/s (0.124 ms dual).
+//
+// Forwards: one thread per (point, level) with the level varying fastest,
+// so a warp's loads of the coordinates broadcast and its F-wide stores fill
+// whole output rows; the brick reads only the 4 runs of 2 sites x F floats
+// that carry weight, not its 128-float row; the packed row is read whole,
+// being all weight.
+//
+// Backwards (kernels 5, 7, 9): what holds them is the scatter, not the
+// bytes above: up to 8F updates a (point, level) at random rows of a table
+// that misses L2, each a read-modify-write of a 32-byte sector. So they cut
+// the number of atomics. A warp takes one level of 32 consecutive points,
+// lane = point; a ray's samples come one after another, so on the coarse
+// levels neighbouring lanes fall in one voxel. Each run of consecutive
+// lanes that write the same rows (the same brick row and floor site; the
+// same 8 corner rows; the same packed row) sums its weighted cotangents by
+// a segmented shuffle scan, and the run's first lane adds the sums with
+// sm_90's vector atomics: 4-8 (float4 or float2 pairs) a run for the brick
+// where the scalar form took up to 16 a point, 8 F-wide ones for the
+// corners where it took up to 8F, 2F float4 for the packed row where it
+// took up to 8F. A sum whose components are all 0 is not added. On
+// the 2^20 points of an NGP train batch (L 16, F 2, T 2^19), NVIDIA H100
+// 80GB HBM3 at 700.00 W (PERF.md section 6): kernel 5 1.48 ms (3.43 with
+// scalar atomics, one thread per (point, level)), kernel 7 2.35 ms (3.93),
+// kernel 9 1.18 ms (3.37); counted, at most 57-68 G vector atomics a
+// second each, so the count of atomics, not the bytes, sets the time. A
+// deterministic sort-based scatter, or a brick row staged in shared
+// memory, is left for later work.
 
 #include <cuda_runtime.h>
 
@@ -187,6 +203,63 @@ __device__ __forceinline__ void load(const float* __restrict__ g, size_t i, floa
 }
 
 // --------------------------------------------------------------------------
+// the backwards' warp layout: a warp per level of a window of 32 consecutive
+// points, lane = point
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// This warp's level and this lane's point; false for a warp past the last
+// window (warp-uniform). Lanes with p >= n take part in the shuffles.
+__device__ __forceinline__ bool warp_point(int n, int levels, int* l, int* p) {
+  const size_t warp = (blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x) >> 5;
+  if (warp >= static_cast<size_t>((n + 31) / 32) * levels) return false;
+  *l = static_cast<int>(warp % levels);
+  *p = static_cast<int>(warp / levels) * 32 + static_cast<int>(threadIdx.x & 31);
+  return true;
+}
+
+// Runs of consecutive lanes: one starts at lane 0 and at every lane whose
+// `starts` is set. Leaves in each run's first lane the run's sum of every
+// v[e] (a segmented shuffle scan: after the step of offset o, lane i holds
+// the sum over [i, min(i + 2o - 1, run_end)], as many steps as the warp's
+// longest run needs) and returns whether this lane heads its run.
+template <int E>
+__device__ __forceinline__ bool sum_runs(bool starts, float (&v)[E]) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const bool head = lane == 0 || starts;
+  const uint32_t heads = __ballot_sync(kFull, head);
+  const uint32_t later = lane == 31 ? 0u : heads & (kFull << (lane + 1));
+  const int run_end = later ? __ffs(later) - 2 : 31;
+  const unsigned longest = __reduce_max_sync(kFull, static_cast<unsigned>(run_end - lane + 1));
+  for (int o = 1; o < static_cast<int>(longest); o <<= 1) {
+    const bool take = lane + o <= run_end;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float u = __shfl_down_sync(kFull, v[e], o);
+      if (take) v[e] += u;
+    }
+  }
+  return head;
+}
+
+// Vector atomics (sm_90) of 1, 2 or 4 sums to dst (aligned to their size),
+// none where every sum is zero: a site or corner of zero weight contributes
+// an exact zero, as the scalar kernels skipped it.
+__device__ __forceinline__ void add1(float* dst, const float* s) {
+  if (s[0] != 0.f) atomicAdd(dst, s[0]);
+}
+
+__device__ __forceinline__ void add2(float* dst, const float* s) {
+  if (s[0] != 0.f || s[1] != 0.f) atomicAdd(reinterpret_cast<float2*>(dst), make_float2(s[0], s[1]));
+}
+
+__device__ __forceinline__ void add4(float* dst, const float* s) {
+  if (s[0] != 0.f || s[1] != 0.f || s[2] != 0.f || s[3] != 0.f) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(s[0], s[1], s[2], s[3]));
+  }
+}
+
+// --------------------------------------------------------------------------
 // bricked layout, F = 2
 
 __global__ void __launch_bounds__(kThreads)
@@ -219,34 +292,66 @@ __global__ void __launch_bounds__(kThreads)
   store<F>(out, i, acc);
 }
 
+// Kernel 5: a warp per level of 32 consecutive points (warp_point). Lanes
+// in one voxel share the brick row and the floor site, so all 8 sites: a
+// run of them sums its 16 weighted cotangents (sum_runs), and its first
+// lane adds each (dx, dy)'s run of two z-sites, 4 consecutive floats, with
+// one float4 atomic where the floor site is even (16-byte aligned) or two
+// float2 atomics where it is odd.
 __global__ void __launch_bounds__(kThreads)
     hash_brick_bwd_kernel(const float* __restrict__ g, const float* __restrict__ coords,
                           const float* __restrict__ res, float* __restrict__ dtables, int n,
                           int levels, int bricks) {
   constexpr int F = 2;
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * levels) return;
-  const int p = static_cast<int>(i / levels);
-  const int l = static_cast<int>(i % levels);
-  const Brick k = brick_of(coords, res, p, l, bricks);
-  float gv[F];
-  load<F>(g, i, gv);
-  float* row = dtables + k.row;
+  int l, p;
+  if (!warp_point(n, levels, &l, &p)) return;
+  const bool valid = p < n;
+  // site (dx, dy, dz), feature f at ((dx*2 + dy)*2 + dz)*F + f: (dx, dy)'s
+  // two z-sites are 4 consecutive floats of the row, as here
+  float v[8 * F];
+  size_t at = 0;  // the floor site's first float in the table
+  uint32_t key = kFull;  // never a voxel's: lanes past n form runs of their own
+  if (valid) {
+    const Brick k = brick_of(coords, res, p, l, bricks);
+    float gv[F];
+    load<F>(g, static_cast<size_t>(p) * levels + l, gv);
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
+    for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const float wxy = __fmul_rn(k.w[0][dx], k.w[1][dy]);
+#pragma unroll
+        for (int dz = 0; dz < 2; ++dz) {
+          const float w = __fmul_rn(wxy, k.w[2][dz]);
+#pragma unroll
+          for (int f = 0; f < F; ++f) v[((dx * 2 + dy) * 2 + dz) * F + f] = w == 0.f ? 0.f : __fmul_rn(gv[f], w);
+        }
+      }
+    const int site = (k.site[0] * kBrickEdge + k.site[1]) * kBrickEdge + k.site[2];
+    at = k.row + static_cast<size_t>(site) * F;
+    // rows are multiples of 128 floats and of one level less than 2^32
+    // floats apart, a site index is below 64: the low word of the row ORed
+    // with the site tells the voxels of a level apart (and is never kFull)
+    key = static_cast<uint32_t>(k.row) | static_cast<uint32_t>(site);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8 * F; ++e) v[e] = 0.f;
+  }
+  if (!sum_runs(key != __shfl_up_sync(kFull, key, 1), v) || !valid) return;
+  const bool even = (at & 3) == 0;  // the floor site's z is even
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx)
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
-      const float wxy = __fmul_rn(k.w[0][dx], k.w[1][dy]);
-      const int site = ((k.site[0] + dx) * kBrickEdge + k.site[1] + dy) * kBrickEdge + k.site[2];
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const float w = __fmul_rn(wxy, k.w[2][dz]);
-        if (w == 0.f) continue;
-#pragma unroll
-        for (int f = 0; f < F; ++f) atomicAdd(row + (site + dz) * F + f, __fmul_rn(gv[f], w));
+      float* dst = dtables + at + (dx * kBrickEdge + dy) * kBrickEdge * F;
+      const float* s = v + (dx * 2 + dy) * 2 * F;
+      if (even) {
+        add4(dst, s);
+      } else {
+        add2(dst, s);
+        add2(dst + F, s + F);
       }
     }
-  }
 }
 
 // --------------------------------------------------------------------------
@@ -282,30 +387,66 @@ __global__ void __launch_bounds__(kThreads)
   store<F>(out, i, acc);
 }
 
+// Kernel 7: a warp per level of 32 consecutive points (warp_point). A run
+// is consecutive lanes whose 8 corner rows all agree; the voxel fixes them,
+// but not its floor alone: at an integral scaled coordinate span = 0 puts
+// the ceil-side corners on the floor's vertex, so such a lane (all its
+// weights 0) never joins its neighbours' run. The run sums its 8F weighted
+// cotangents (sum_runs) and its first lane adds each corner's F sums with
+// one F-wide atomic (scalar, float2, one or two float4; rows are F floats,
+// so aligned to F*4 bytes): corners of one point on one row still
+// accumulate.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     hash_corner_bwd_kernel(const float* __restrict__ g, const float* __restrict__ coords,
                            const float* __restrict__ res, float* __restrict__ dtables, int n,
                            int levels, int entries) {
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * levels) return;
-  const int p = static_cast<int>(i / levels);
-  const int l = static_cast<int>(i % levels);
-  const float r = __ldg(res + l);
-  Axis a[3];
+  int l, p;
+  if (!warp_point(n, levels, &l, &p)) return;
+  const bool valid = p < n;
+  // corner c's feature f at c*F + f
+  float v[8 * F];
+  size_t row[8];
+  if (valid) {
+    const float r = __ldg(res + l);
+    Axis a[3];
 #pragma unroll
-  for (int axis = 0; axis < 3; ++axis) {
-    a[axis] = axis_geometry(__ldg(coords + 3 * static_cast<size_t>(p) + axis), r);
+    for (int axis = 0; axis < 3; ++axis) {
+      a[axis] = axis_geometry(__ldg(coords + 3 * static_cast<size_t>(p) + axis), r);
+    }
+    float gv[F];
+    load<F>(g, static_cast<size_t>(p) * levels + l, gv);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float w = corner_of(a, c, l, entries, &row[c]);
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[c * F + f] = w == 0.f ? 0.f : __fmul_rn(gv[f], w);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) row[c] = ~static_cast<size_t>(0);  // no row's: runs of their own
+#pragma unroll
+    for (int e = 0; e < 8 * F; ++e) v[e] = 0.f;
   }
-  float gv[F];
-  load<F>(g, i, gv);
+  // rows of one level differ by less than 2^32: the low words tell them apart
+  bool starts = false;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    size_t row;
-    const float w = corner_of(a, c, l, entries, &row);
-    if (w == 0.f) continue;
+    const uint32_t mine = static_cast<uint32_t>(row[c]);
+    starts |= mine != __shfl_up_sync(kFull, mine, 1);
+  }
+  if (!sum_runs(starts, v) || !valid) return;
 #pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(dtables + row * F + f, __fmul_rn(gv[f], w));
+  for (int c = 0; c < 8; ++c) {
+    float* dst = dtables + row[c] * F;
+    if constexpr (F == 1) {
+      add1(dst, v + c);
+    } else if constexpr (F == 2) {
+      add2(dst, v + 2 * c);
+    } else {
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q) add4(dst + 4 * q, v + c * F + 4 * q);
+    }
   }
 }
 
@@ -386,34 +527,25 @@ __global__ void __launch_bounds__(kThreads)
   store<F>(out, i, acc);
 }
 
-// Kernel 9: warp = one level of a window of 32 consecutive points, lane =
-// point (the block's 8 warps take neighbouring levels of one window, so
-// they share its coordinates and its rows of g in L1). A ray's samples come
-// one after another, so on the coarse levels neighbouring lanes often fall
-// in the same voxel and so the same packed row: each run of lanes with
-// equal rows sums its 8F weighted cotangents by a segmented shuffle scan
-// (as many steps as the warp's longest run needs), and the run's first
-// lane adds the sums to the row with 2F float4 atomics, skipping a float4
-// whose four sums are all zero (a corner of zero weight contributes an
-// exact zero, as the scalar kernel skipped it). Lanes past n take part in
-// the shuffles with zeros and issue nothing.
+// Kernel 9: a warp per level of 32 consecutive points (warp_point; the
+// block's 8 warps take neighbouring levels of one window, so they share its
+// coordinates and its rows of g in L1). A ray's samples come one after
+// another, so on the coarse levels neighbouring lanes often fall in the
+// same voxel and so the same packed row: each run of lanes with equal rows
+// sums its 8F weighted cotangents (sum_runs), and the run's first lane adds
+// the sums to the row with 2F float4 atomics.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     hash_fold_bwd_kernel(const float* __restrict__ g, const float* __restrict__ coords,
                          const float* __restrict__ res, const float* __restrict__ off,
                          float* __restrict__ dtables, int n, int levels, int rows) {
-  constexpr unsigned kFull = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const size_t warp = (blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x) >> 5;
-  if (warp >= static_cast<size_t>((n + 31) / 32) * levels) return;  // warp-uniform
-  const int l = static_cast<int>(warp % levels);
-  const int p = static_cast<int>(warp / levels) * 32 + lane;
+  int l, p;
+  if (!warp_point(n, levels, &l, &p)) return;
   const bool valid = p < n;
-
   // corner c's feature f at c*F + f, as in the packed row
   float v[8 * F];
   size_t row = 0;
-  uint32_t key = 0xffffffffu;  // never a row's: lanes past n form runs of their own
+  uint32_t key = kFull;  // never a row's: lanes past n form runs of their own
   if (valid) {
     const Packed k = packed_of(coords, res, off, p, l, rows, F);
     float gv[F];
@@ -430,36 +562,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 8 * F; ++e) v[e] = 0.f;
   }
-
-  // runs of equal keys among consecutive lanes; run_end: the run's last lane
-  const uint32_t prev = __shfl_up_sync(kFull, key, 1);
-  const bool head = lane == 0 || key != prev;
-  const uint32_t heads = __ballot_sync(kFull, head);
-  const uint32_t later = lane == 31 ? 0u : heads & (kFull << (lane + 1));
-  const int run_end = later ? __ffs(later) - 2 : 31;
-  const unsigned longest = __reduce_max_sync(kFull, static_cast<unsigned>(run_end - lane + 1));
-  // after the step of offset o, lane i holds the sum over [i, min(i + 2o - 1, run_end)]
-  for (int o = 1; o < static_cast<int>(longest); o <<= 1) {
-    const bool take = lane + o <= run_end;
+  if (!sum_runs(key != __shfl_up_sync(kFull, key, 1), v) || !valid) return;
 #pragma unroll
-    for (int e = 0; e < 8 * F; ++e) {
-      const float u = __shfl_down_sync(kFull, v[e], o);
-      if (take) v[e] += u;
-    }
-  }
-  if (!head || !valid) return;
-  float4* dst = reinterpret_cast<float4*>(dtables + row);
-#pragma unroll
-  for (int q = 0; q < 2 * F; ++q) {
-    const float4 s = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    if (s.x != 0.f || s.y != 0.f || s.z != 0.f || s.w != 0.f) atomicAdd(dst + q, s);
-  }
+  for (int q = 0; q < 2 * F; ++q) add4(dtables + row + 4 * q, v + 4 * q);
 }
 
 dim3 grid_for(int n, int levels) {
   const size_t threads = static_cast<size_t>(n) * levels;
   return dim3(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
 }
+
+// the backwards: one warp per (window of 32 points, level)
+dim3 warp_grid_for(int n, int levels) { return grid_for((n + 31) / 32 * 32, levels); }
 
 template <template <int> class Launch, typename... Args>
 int by_feat(int feat, Args... args) {
@@ -487,7 +601,7 @@ template <int F>
 struct CornerBwd {
   static int run(const float* g, const float* coords, const float* res, float* dtables, int n,
                  int levels, int entries, cudaStream_t stream) {
-    hash_corner_bwd_kernel<F><<<grid_for(n, levels), kThreads, 0, stream>>>(
+    hash_corner_bwd_kernel<F><<<warp_grid_for(n, levels), kThreads, 0, stream>>>(
         g, coords, res, dtables, n, levels, entries);
     return static_cast<int>(cudaGetLastError());
   }
@@ -507,8 +621,7 @@ template <int F>
 struct FoldBwd {
   static int run(const float* g, const float* coords, const float* res, const float* off,
                  float* dtables, int n, int levels, int rows, cudaStream_t stream) {
-    // one warp per (window of 32 points, level)
-    hash_fold_bwd_kernel<F><<<grid_for((n + 31) / 32 * 32, levels), kThreads, 0, stream>>>(
+    hash_fold_bwd_kernel<F><<<warp_grid_for(n, levels), kThreads, 0, stream>>>(
         g, coords, res, off, dtables, n, levels, rows);
     return static_cast<int>(cudaGetLastError());
   }
@@ -525,7 +638,7 @@ const char* hash_grid_error_string(int code) {
 // Each launches on `stream` and returns the cudaError_t of the launch (0 on
 // success). n > 0 points; `bricks` and `rows` powers of two; feat in {1, 2,
 // 4, 8} for the corner layout, {1, 2, 4, 8, 16} for the packed layout;
-// `tables` of the packed layout 16-byte aligned.
+// `tables` of the packed layout and every `dtables` 16-byte aligned.
 
 int hash_brick_fwd(const float* tables, const float* coords, const float* res, float* out, int n,
                    int levels, int bricks, void* stream) {
@@ -536,7 +649,7 @@ int hash_brick_fwd(const float* tables, const float* coords, const float* res, f
 
 int hash_brick_bwd(const float* g, const float* coords, const float* res, float* dtables, int n,
                    int levels, int bricks, void* stream) {
-  hash_brick_bwd_kernel<<<grid_for(n, levels), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  hash_brick_bwd_kernel<<<warp_grid_for(n, levels), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       g, coords, res, dtables, n, levels, bricks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,8 +36,10 @@ counts its launches in ``.launches``. :func:`brick_encode`,
 ``torch.autograd.Function``\\ s whose forward is the forward kernel and
 whose backward is the backward kernel; like the JAX package's
 ``custom_vjp``, they give no gradient to the coordinates, the resolutions
-or the offsets. The backward kernels sum with atomics, in an order that
-changes from run to run.
+or the offsets. The backward kernels first sum, within a warp of 32
+consecutive points of one level, the points that write the same rows, then
+add the sums with vector atomics, in an order that changes from run to
+run.
 """
 
 from __future__ import annotations
@@ -157,9 +159,11 @@ def brick_backward_reference(
     g: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, num_bricks: int
 ) -> torch.Tensor:
     """The plain version of kernel 5: ``g (N, L*F)`` -> ``dtables (L, T_b,
-    128)``, the weighted cotangents scatter-added with ``index_add_``."""
+    128)``, the weighted cotangents scatter-added with ``index_add_``,
+    summed in ``g``'s dtype (f32; f64 for a reference that many points
+    summed into one row must not round)."""
     num_level, f = resolutions.shape[0], BRICK_FEAT
-    dflat = torch.zeros((num_level * num_bricks, LANES), dtype=torch.float32, device=g.device)
+    dflat = torch.zeros((num_level * num_bricks, LANES), dtype=g.dtype, device=g.device)
     offset = (torch.arange(num_level, device=g.device) * num_bricks)[:, None]
     for sl in _slices(coords.shape[0]):
         idx, w128 = brick_prep(coords[sl], resolutions, num_bricks, f)
@@ -209,9 +213,10 @@ def corner_backward_reference(
     g: torch.Tensor, coords: torch.Tensor, resolutions: torch.Tensor, num_entries: int, feat_dim: int
 ) -> torch.Tensor:
     """The plain version of kernel 7: ``g (N, L*F)`` -> ``dtables (L, T,
-    F)``; corners that share a row accumulate."""
+    F)``; corners that share a row accumulate, summed in ``g``'s dtype (as
+    :func:`brick_backward_reference`)."""
     num_level = resolutions.shape[0]
-    dflat = torch.zeros((num_level * num_entries, feat_dim), dtype=torch.float32, device=g.device)
+    dflat = torch.zeros((num_level * num_entries, feat_dim), dtype=g.dtype, device=g.device)
     for sl in _slices(coords.shape[0]):
         idx, w = corner_prep(coords[sl], resolutions, num_entries)
         vals = g[sl].reshape(-1, num_level, 1, feat_dim) * w.reshape(-1, num_level, 8, 1)
@@ -337,7 +342,9 @@ def hash_brick_bwd(
     check_brick_layout((num_level, num_bricks, LANES))
     n = _check_points(coords, resolutions, num_level)
     check_tensor("g", g, (n, num_level * BRICK_FEAT))
+    _check_aligned("g", g)
     dtables = torch.zeros((num_level, num_bricks, LANES), dtype=torch.float32, device=coords.device)
+    _check_aligned("dtables", dtables)
     if n:
         _launch("hash_brick_bwd", g, coords, resolutions, dtables, n, num_level, num_bricks)
         hash_brick_bwd.launches += 1
@@ -380,6 +387,7 @@ def hash_corner_bwd(
     check_tensor("g", g, (n, num_level * feat_dim))
     _check_aligned("g", g)
     dtables = torch.zeros((num_level, num_entries, feat_dim), dtype=torch.float32, device=coords.device)
+    _check_aligned("dtables", dtables)
     if n:
         _launch("hash_corner_bwd", g, coords, resolutions, dtables, n, num_level, num_entries, feat_dim)
         hash_corner_bwd.launches += 1
@@ -387,9 +395,10 @@ def hash_corner_bwd(
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """The kernels read tables and cotangents in 8- or 16-byte vectors."""
+    """The kernels read tables and cotangents, and add to table gradients,
+    in 8- or 16-byte vectors."""
     if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned: the kernel reads it in vectors")
+        raise ValueError(f"{name} must be 16-byte aligned: the kernel reads or adds to it in vectors")
 
 
 def _check_offsets(offsets: torch.Tensor, resolutions: torch.Tensor) -> None:
@@ -436,6 +445,7 @@ def hash_fold_bwd(
     check_tensor("g", g, (n, num_level * feat_dim))
     _check_aligned("g", g)
     dtables = torch.zeros((num_level, num_lines, LANES), dtype=torch.float32, device=coords.device)
+    _check_aligned("dtables", dtables)
     if n:
         _launch("hash_fold_bwd", g, coords, resolutions, offsets, dtables, n, num_level, rows, feat_dim)
         hash_fold_bwd.launches += 1

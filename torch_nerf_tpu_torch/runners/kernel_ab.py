@@ -16,11 +16,14 @@ fine chunk (786,432 points) and at the coarse chunk (262,144 points) by
 CUDA events, and whole 800x800 frames by the host clock, through a field
 that prepares that side's layout.
 
-``--kernel hash_fold_bwd`` (kernel 9; ``--other`` a ``hash_grid.cu``): the
-table gradient of the ``packed`` and ``packed_dual`` layouts at the NGP
-train point (L 16, F 2, 2^19 / 8 packed rows a level; 4096 rays x 256
-samples of a 400x400 view), by CUDA events, each side held against the
-plain version (relative L2).
+``--kernel hash_fold_bwd`` (kernel 9), ``hash_brick_bwd`` (kernel 5) or
+``hash_corner_bwd`` (kernel 7), ``--other`` a ``hash_grid.cu``: the table
+gradient of the kernel's layouts (``packed`` and ``packed_dual``;
+``bricked``; ``hash``) at the NGP train point (L 16, F 2, T 2^19; 4096
+rays x 256 samples of a 400x400 view, 2^20 points), by CUDA events, each
+side held against the plain version (relative L2); then whole train steps
+of each layout at ``bench.py --model=instant_nerf``'s point (host clock,
+each side's library taking the step's hash forward and backward).
 
     python -m torch_nerf_tpu_torch.runners.kernel_ab --other OLD.cu [--kernel K] [--rounds 4]
 """
@@ -35,10 +38,11 @@ from pathlib import Path
 
 import torch
 
-from torch_nerf_tpu_torch import cameras, renderer
+from torch_nerf_tpu_torch import cameras, renderer, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
+from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field
 from torch_nerf_tpu_torch.models import hash_math, instant_ngp
 from torch_nerf_tpu_torch.models.nerf import init_nerf_params
 from torch_nerf_tpu_torch.ops import build, fused_nerf, hash_grid, sampling
@@ -118,34 +122,76 @@ def field_forward(other: Path, rounds: int, frames: int, dev) -> dict:
     return results
 
 
-def fold_backward(other: Path, rounds: int, dev) -> dict:
+HASH_BACKWARDS = {"hash_fold_bwd": ("packed", "packed_dual"), "hash_brick_bwd": ("bricked",),
+                  "hash_corner_bwd": ("hash",)}
+NGP_GRID = dict(num_level=16, log_max_entry_per_level=19, table_feat_dim=2, min_res=16, max_res=512)
+TRAIN_STEPS = 10  # timed train steps a layout and turn, after one untimed
+
+
+def _hash_backward_call(layout, g, pts, base):
+    """(the kernel's call, its plain version's) for ``layout``'s table
+    gradient of cotangent ``g`` at ``pts``."""
+    f, log_t = NGP_GRID["table_feat_dim"], NGP_GRID["log_max_entry_per_level"]
+    if layout == "bricked":
+        bricks = hash_grid.bricks_per_level(log_t, f)
+        return (lambda: hash_grid.hash_brick_bwd(g, pts, base, bricks),
+                lambda: hash_grid.brick_backward_reference(g, pts, base, bricks))
+    if layout == "hash":
+        return (lambda: hash_grid.hash_corner_bwd(g, pts, base, 2**log_t, f),
+                lambda: hash_grid.corner_backward_reference(g, pts, base, 2**log_t, f))
+    res, off = (base, torch.zeros_like(base)) if layout == "packed" else instant_ngp.dual_resolutions_offsets(base)
+    lines = 2**log_t // 8 // hash_grid.fold_factor(f)
+    return (lambda: hash_grid.hash_fold_bwd(g, pts, res, off, lines, f),
+            lambda: hash_grid.fold_backward_reference(g, pts, res, off, lines, f))
+
+
+def hash_backward(kernel: str, other: Path, rounds: int, dev) -> dict:
     libs = {
         "repo": hash_grid.bind(build.load(hash_grid.KERNEL)),
         "other": hash_grid.bind(build.load_source(other)),
     }
     gen = torch.Generator(device=dev).manual_seed(0)
-    camera = cameras.CameraParams(480.0, 480.0, 400, 400)
-    pose = torch.as_tensor(synthetic.split_poses(8, "train")[0], device=dev)
-    o, d = cameras.rays_for_pixels(torch.randperm(400 * 400, generator=gen, device=dev)[:4096], camera, pose)
-    uni = renderer.draw_uniforms(gen, 4096, renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0))
-    t = sampling.stratified_t_samples_from_uniforms(uni.coarse, 2.0, 6.0)
+    images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
+    images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
+    settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
+    o, d = cameras.rays_for_pixels(torch.randperm(400 * 400, generator=gen, device=dev)[:4096], camera, poses[0])
+    t = sampling.stratified_t_samples_from_uniforms(renderer.draw_uniforms(gen, 4096, settings).coarse, 2.0, 6.0)
     pts = (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
-    base = torch.as_tensor(hash_math.level_resolutions(16, 16, 512), device=dev)
-    f, lines = 2, 2**19 // 8 // hash_grid.fold_factor(2)
-    cases = {"packed": (base, torch.zeros_like(base)), "packed_dual": instant_ngp.dual_resolutions_offsets(base)}
-    grads = {k: torch.randn((pts.shape[0], r.shape[0] * f), generator=gen, device=dev) for k, (r, _) in cases.items()}
-    check = {}
-    for layout, (res, off) in cases.items():
-        ref = hash_grid.fold_backward_reference(grads[layout], pts, res, off, lines, f)
+    base = torch.as_tensor(
+        hash_math.level_resolutions(NGP_GRID["num_level"], NGP_GRID["min_res"], NGP_GRID["max_res"]), device=dev)
+    calls, check = {}, {}
+    for layout in HASH_BACKWARDS[kernel]:
+        levels = 2 * base.shape[0] if layout == "packed_dual" else base.shape[0]
+        g = torch.randn((pts.shape[0], levels * NGP_GRID["table_feat_dim"]), generator=gen, device=dev)
+        calls[layout], plain = _hash_backward_call(layout, g, pts, base)
+        ref = plain()
         for side, lib in libs.items():
             with kernel_library(hash_grid, lib):
-                got = hash_grid.hash_fold_bwd(grads[layout], pts, res, off, lines, f)
+                got = calls[layout]()
             check[f"{side}/{layout}"] = ((got - ref).norm() / ref.norm()).item()
     print(json.dumps({"rel_l2_vs_plain": check}), flush=True)
 
+    optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
+    trainers = {}
+    for layout in HASH_BACKWARDS[kernel]:
+        field = make_instant_ngp_field(**NGP_GRID, compute_dtype=torch.bfloat16, table_layout=layout)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096)
+        # each side steps a state of its own from the same seed
+        trainers[layout] = (step, {side: train.create_train_state(torch.Generator(device=dev).manual_seed(0), field,
+                                                                 settings, optim, dev) for side in libs})
+
     def measure(side):
-        return {f"{layout}_ms": event_ms(lambda: hash_grid.hash_fold_bwd(grads[layout], pts, res, off, lines, f), 20)
-                for layout, (res, off) in cases.items()}
+        row = {f"{layout}_ms": event_ms(run, 20) for layout, run in calls.items()}
+        for layout, (step, states) in trainers.items():
+            step_gen = torch.Generator(device=dev).manual_seed(1)
+            states[side], _ = step(states[side], images, poses, step_gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                states[side], _ = step(states[side], images, poses, step_gen)
+            torch.cuda.synchronize()
+            row[f"{layout}_step_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        return row
 
     results = {side: {} for side in libs}
     _turns(rounds, libs, hash_grid, measure, results)
@@ -155,7 +201,7 @@ def fold_backward(other: Path, rounds: int, dev) -> dict:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="the other version's .cu, with the same C interface")
-    parser.add_argument("--kernel", choices=("fused_nerf_fwd", "hash_fold_bwd"), default="fused_nerf_fwd")
+    parser.add_argument("--kernel", choices=("fused_nerf_fwd", *HASH_BACKWARDS), default="fused_nerf_fwd")
     parser.add_argument("--rounds", type=int, default=4)
     parser.add_argument("--frames", type=int, default=1, help="timed frames per turn (fused_nerf_fwd)")
     args = parser.parse_args(argv)
@@ -164,7 +210,7 @@ def main(argv=None) -> dict:
     if args.kernel == "fused_nerf_fwd":
         results = field_forward(other, args.rounds, args.frames, dev)
     else:
-        results = fold_backward(other, args.rounds, dev)
+        results = hash_backward(args.kernel, other, args.rounds, dev)
     smi = nvidia_smi("name,power.limit")
     summary = {side: {k: quartiles(v) for k, v in res.items()} for side, res in results.items()}
     print(json.dumps({"kernel": args.kernel, "summary": summary, "card": smi}), flush=True)
