@@ -33,9 +33,10 @@ bound and its plain version); bench (800x800 frames at ``bench.py
 --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
 per-corner hash encodes forward and backward, at full width on the 2^20
 points of a train batch plus 37 negative, integral and large ones, three
-planted faults that must be rejected, then kernels 5 and 7 on three
+planted faults that must be rejected, then kernels 4-7 on three
 contention cases: every point in one voxel, long runs of samples along
-rays, and integral points heading and inside runs of their voxel);
+rays, and integral points heading and inside runs of their voxel, then
+every corner width at 16 and 3 levels on 1, 33 and 4099 points);
 train_ngp (``run_train`` with the
 ``instant_nerf_tpu`` preset for 24 steps, a resume for 8, ``run_render`` +
 ``evaluate``, then 8 steps of ``instant_nerf``; one forward and one
@@ -47,8 +48,10 @@ bench_ngp (800x800 NGP frames at ``bench.py --render
 --model=instant_nerf``'s point, all four layouts); kernel_fold (kernels
 8-9, the packed layouts' folded encode forward and backward, at full width
 for ``packed`` and ``packed_dual`` on the same points, four planted faults
-that must be rejected, then kernel 9 on two contention cases: every point
-in one voxel, and long runs of samples along rays); train_packed (``run_train`` of ``packed`` with the
+that must be rejected, then kernels 8-9 on two contention cases: every
+point in one voxel, and long runs of samples along rays, then every
+packed width F 1-16 of both layouts at 16 and 3 levels on 1, 33 and 4099
+points); train_packed (``run_train`` of ``packed`` with the
 smoothness loss for 24 steps, a resume for 8, ``run_render`` +
 ``evaluate``, then 8 steps of ``packed_dual``; two forward and two
 backward fold launches per step, one forward per render chunk).
@@ -1058,22 +1061,25 @@ def phase_kernel_hash():
 
 
 def hash_widths(dev, gen) -> dict:
-    """Kernels 6-7 at every feature width F in {1, 2, 4, 8}, at T = 2^16 and
-    at T = 1000 (the signed-remainder rows), and kernels 4-5, on 1, 33 and
-    4099 points (a ragged last window) of :func:`ngp_points` at the
-    presets' 16 levels, held as :func:`pair_verdict` holds them."""
+    """Kernels 6-7 at every feature width F in {1, 2, 4, 8}, at T = 2^16, at
+    T = 1000 (the signed-remainder rows) and at T = 999 (odd: kernel 6
+    reads no x-pairs), and kernels 4-5, on 1, 33 and 4099 points (a ragged
+    last window) of :func:`ngp_points` at the presets' 16 levels and at 3
+    (kernel 6's last level group partial), held as :func:`pair_verdict`
+    holds them."""
     from torch_nerf_tpu_torch.ops.hash_grid import CORNER_FEATS  # noqa: PLC0415
 
-    res = ngp_resolutions(dev)
     pts = ngp_points(dev)[-4099:].contiguous()  # the last 37 are the negative, integral and far ones
-    shapes = [("bricked", (16, 512, 128))] + [("hash", (16, t, f)) for f in CORNER_FEATS for t in (2**16, 1000)]
+    shapes = [("bricked", (levels, 512, 128)) for levels in (16, 3)] + [
+        ("hash", (levels, t, f)) for f in CORNER_FEATS for t in (2**16, 1000, 999) for levels in (16, 3)]
     out = {}
     for layout, shape in shapes:
         fwd, bwd, fwd_ref, bwd_ref = hash_ops(layout)
+        res = ngp_resolutions(dev)[:shape[0]]
         tables = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
         for n in (1, 33, 4099):
             p = pts[-n:].contiguous()
-            g = torch.randn((n, 16 * (2 if layout == "bricked" else shape[2])), generator=gen, device=dev)
+            g = torch.randn((n, shape[0] * (2 if layout == "bricked" else shape[2])), generator=gen, device=dev)
             v = pair_verdict(fwd, bwd, lambda: fwd(tables, p, res), lambda: bwd(g, p, res, *table_args(tables)),
                              fwd_ref(tables, p, res), bwd_ref(g, p, res, *table_args(tables)))
             out[f"{layout}/{list(shape)}/n{n}"] = dict(ok=v["ok"], err=v["err"])
@@ -1101,10 +1107,11 @@ def integral_runs(dev, gen, n=2**20):
 
 def hash_contention(dev, gen) -> dict:
     """Kernels 4-7 on :func:`contention_points` and :func:`integral_runs`
-    for both layouts, held as :func:`hash_verdict` holds them, with the
-    table grad's plain version summed in f64 (in f32 it rounds by about the
+    for both layouts, held as :func:`hash_verdict` holds them (the forward
+    within max-abs and relative L2 1e-5 of its plain version, the table
+    grad's plain version summed in f64: in f32 it rounds by about the
     limit where 2^20 points share a row; ``plain_f32_rel_l2`` says how
-    much), each backward's time beside, and on the integral runs the
+    much), each kernel's time beside, and on the integral runs the
     integral points' features exactly 0 and how many of them have the next
     point in their floor voxel on every level."""
     res = ngp_resolutions(dev)
@@ -1113,7 +1120,7 @@ def hash_contention(dev, gen) -> dict:
     out = {}
     for case, (pts, integral) in cases.items():
         for layout in NGP_LAYOUTS:
-            _, bwd, fwd_ref, bwd_ref = hash_ops(layout)
+            fwd, bwd, fwd_ref, bwd_ref = hash_ops(layout)
             tables = torch.rand(ngp_table_shape(layout), generator=gen, device=dev) * 2.0 - 1.0
             g = torch.randn((pts.shape[0], res.shape[0] * NGP["table_feat_dim"]), generator=gen, device=dev)
             ref_out = fwd_ref(tables, pts, res)
@@ -1122,6 +1129,7 @@ def hash_contention(dev, gen) -> dict:
             v = hash_verdict(layout, tables, pts, res, g, ref_out, ref_grad)
             entry = dict(points=pts.shape[0], err=v["err"], limit=v["limit"],
                          plain_f32_rel_l2=rel_l2({"x": plain32}, {"x": ref_grad})["x"],
+                         fwd_ms=cuda_ms(lambda: fwd(tables, pts, res), 5),
                          bwd_ms=cuda_ms(lambda: bwd(g, pts, res, *table_args(tables)), 5))
             ok = v["ok"]
             if integral is not None:
@@ -1312,13 +1320,47 @@ def phase_kernel_fold():
                                integral_points_staggered_levels_max_abs=staggered, ok=ok)
         max_abs[layout] = {"fwd": verdict["err"]["fwd_max_abs"], "bwd": verdict["err"]["grad_max_abs"]}
     contention = fold_contention(dev, gen)
-    ok = all(r["ok"] for r in results.values()) and all(c["ok"] for c in contention.values())
-    emit("kernel_fold", layouts=results, contention=contention,
+    widths = fold_widths(dev, gen)
+    ok = (all(r["ok"] for r in results.values()) and all(c["ok"] for c in contention.values())
+          and all(w["ok"] for w in widths.values()))
+    emit("kernel_fold", layouts=results, contention=contention, widths=widths,
          rule="kernels within the limits; every planted fault rejected; integral points 0 on the base "
-              "levels only; the contention cases within the limits", ok=ok)
+              "levels only; the contention cases within the limits; every packed width and a ragged n "
+              "within the limits", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel_fold failed")
     return max_abs
+
+
+def fold_widths(dev, gen) -> dict:
+    """Kernels 8-9 at every feature width F in {1, 2, 4, 8, 16} (kernel 8's
+    level group is 8 levels at F <= 2, then 16 / F), for ``packed`` and
+    ``packed_dual``, at 2^13 packed rows a level, on 1, 33 and 4099 points
+    (a ragged tile) of :func:`ngp_points` at the presets' 16 levels and at
+    3 (a partial last group), held as :func:`pair_verdict` holds them."""
+    from torch_nerf_tpu_torch.models.instant_ngp import dual_resolutions_offsets  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
+
+    fwd, bwd = fold_ops()
+    pts = ngp_points(dev)[-4099:].contiguous()
+    out = {}
+    for f in hg.FOLD_FEATS:
+        for levels in (16, 3):
+            base = ngp_resolutions(dev)[:levels]
+            for layout in PACKED_LAYOUTS:
+                res, off = (base, torch.zeros_like(base)) if layout == "packed" else dual_resolutions_offsets(base)
+                tables = torch.rand((res.shape[0], 2**13 // hg.fold_factor(f), 128), generator=gen,
+                                    device=dev) * 2.0 - 1.0
+                lines = tables.shape[1]
+                for n in (1, 33, 4099):
+                    p = pts[-n:].contiguous()
+                    g = torch.randn((n, res.shape[0] * f), generator=gen, device=dev)
+                    v = pair_verdict(fwd, bwd, lambda: fwd(tables, p, res, off, f),
+                                     lambda: bwd(g, p, res, off, lines, f),
+                                     hg.fold_encode_reference(tables, p, res, off, f),
+                                     hg.fold_backward_reference(g, p, res, off, lines, f))
+                    out[f"{layout}/{list(tables.shape)}/F{f}/n{n}"] = dict(ok=v["ok"], err=v["err"])
+    return out
 
 
 def contention_points(dev, gen):
@@ -1357,8 +1399,9 @@ def contention_points(dev, gen):
 
 def fold_contention(dev, gen) -> dict:
     """Kernels 8-9 on :func:`contention_points` for both packed layouts,
-    held as :func:`fold_verdict` holds them (the table grad within relative
-    L2 1e-5), with kernel 9's time on each. The table grad's plain version
+    held as :func:`fold_verdict` holds them (the forward within max-abs and
+    relative L2 1e-5, the table grad within relative L2 1e-5), with each
+    kernel's time on each. The table grad's plain version
     sums in f64 here: with up to 2^20 points on one row, its f32
     ``index_add_`` rounds by about as much as the limit
     (``plain_f32_rel_l2`` says how much), so only the exact sum tells the
@@ -1376,10 +1419,11 @@ def fold_contention(dev, gen) -> dict:
             ref_grad = hg.fold_backward_reference(g.double(), pts, res, off, tables.shape[1], f)
             plain32 = hg.fold_backward_reference(g, pts, res, off, tables.shape[1], f)
             v = fold_verdict(tables, pts, res, off, g, ref_out, ref_grad)
-            ms = cuda_ms(lambda: hg.hash_fold_bwd(g, pts, res, off, tables.shape[1], f), 5)
-            out[f"{case}/{layout}"] = dict(points=pts.shape[0], ok=v["ok"], err=v["err"], limit=v["limit"],
-                                           plain_f32_rel_l2=rel_l2({"x": plain32}, {"x": ref_grad})["x"],
-                                           bwd_ms=ms)
+            out[f"{case}/{layout}"] = dict(
+                points=pts.shape[0], ok=v["ok"], err=v["err"], limit=v["limit"],
+                plain_f32_rel_l2=rel_l2({"x": plain32}, {"x": ref_grad})["x"],
+                fwd_ms=cuda_ms(lambda: hg.hash_fold_fwd(tables, pts, res, off, f), 5),
+                bwd_ms=cuda_ms(lambda: hg.hash_fold_bwd(g, pts, res, off, tables.shape[1], f), 5))
     return out
 
 
@@ -1580,6 +1624,17 @@ def bound_entry(ms, plain_ms, flops, nbytes, peak_flops, peak_bw, points) -> dic
                 share_of_bound=bound / ms, tflops=flops / ms / 1e9, library_ms=None)
 
 
+# what the kernels line says of the forwards' design; their earlier
+# thread-per-(point, level) form's times are in PERF.md section 6
+HASH_FWD_DESIGNS = {
+    "hash_corner_fwd": "level-group-major walk, groups of a 32-byte output sector, lane = point, warp = level, "
+                       "corner rows read as x-pairs, the tile staged in shared memory; replaces the "
+                       "thread-per-(point, level) form",
+    "hash_fold_fwd": "level-group-major walk, groups of 64 output bytes, lane = point, warp = level, the tile "
+                     "staged in shared memory; replaces the thread-per-(point, level) form",
+}
+
+
 def kernel_lines(done: dict) -> list:
     """The ``kernels`` line: each kernel with its main-path launches, its
     largest max-abs error against the plain f32 version, and its time,
@@ -1618,7 +1673,8 @@ def kernel_lines(done: dict) -> list:
         {"name": name, "route": "cuda", "source": "torch_nerf_tpu_torch/ops/csrc/hash_grid.cu",
          "replaces": replaces, "launches": done["train_ngp"][name],
          "max_abs_err": done["kernel_hash"][layout][part], "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+         **({"design": HASH_FWD_DESIGNS[name]} if name in HASH_FWD_DESIGNS else {})}
         for name, layout, part, replaces in (
             ("hash_brick_fwd", "bricked", "fwd", "torch_nerf_tpu/ops/pallas/hash_brick.py:228"),
             ("hash_brick_bwd", "bricked", "bwd", "torch_nerf_tpu/ops/pallas/hash_brick.py:361"),
@@ -1630,12 +1686,14 @@ def kernel_lines(done: dict) -> list:
         {"name": name, "route": "cuda", "source": "torch_nerf_tpu_torch/ops/csrc/hash_grid.cu",
          "replaces": replaces, "launches": done["train_packed"][name],
          "max_abs_err": max(v[part] for v in done["kernel_fold"].values()), "ms": k["ms"],
-         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+         "packed_dual": {key: dual[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         **({"design": HASH_FWD_DESIGNS[name]} if name in HASH_FWD_DESIGNS else {})}
         for name, part, replaces in (
             ("hash_fold_fwd", "fwd", "torch_nerf_tpu/ops/pallas/hash_fold.py:199"),
             ("hash_fold_bwd", "bwd", "torch_nerf_tpu/ops/pallas/hash_fold.py:283"),
         )
-        for k in (done["train_bench_ngp"][f"packed/{part}"],)
+        for k, dual in ((done["train_bench_ngp"][f"packed/{part}"], done["train_bench_ngp"][f"packed_dual/{part}"]),)
     ]
 
 

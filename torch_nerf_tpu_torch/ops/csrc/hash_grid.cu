@@ -56,11 +56,51 @@
 // layout), the coordinates (12.6 MB) and the output or its cotangent (134.2
 // MB at L*F = 32): 0.064 ms at 3.35 TB/s (0.124 ms dual).
 //
-// Forwards: one thread per (point, level) with the level varying fastest,
-// so a warp's loads of the coordinates broadcast and its F-wide stores fill
-// whole output rows; the brick reads only the 4 runs of 2 sites x F floats
-// that carry weight, not its 128-float row; the packed row is read whole,
-// being all weight.
+// Forward of the brick (kernel 4): one thread per (point, level) with the
+// level varying fastest, so a warp's loads of the coordinates broadcast and
+// its F-wide stores fill whole output rows; it reads only the 4 runs of 2
+// sites x F floats that carry weight, not its 128-float row. Under that
+// order all L levels are gathered at once, so the whole table (67.1 MB,
+// 134.2 MB dual) is live against the 50 MB L2, and on the ~10 fine levels,
+// where each sample reads a new row, most gathers go to HBM as random
+// 32-byte sectors.
+//
+// Forwards of the corner and packed layouts (kernels 6, 8): a level-group-
+// major walk that keeps the tables being gathered in L2. The grid walks the
+// levels in groups of G consecutive (pseudo-)levels, with the group varying
+// slowest: block b takes group b / tiles and tile b % tiles of P = 256 / G
+// points (FwdTile). A group fills 32 output bytes of a point in kernel 6
+// (G = 4 at F = 2, a sector) and 64 in kernel 8 (G = 8). One level of one
+// table is 4 MB at the presets' size (2^19 x F x 4 B; 2^16 packed rows x
+// 64 B), so a group's 16 or 32 MB stays in L2 while every point passes
+// through it, and HBM supplies each table byte about once a launch. The
+// design assumes that the blocks resident at any moment (~8 an SM, ~1000 of
+// a group's 2^20 / P) are neighbours in blockIdx order, as the hardware
+// dispatches a 1-D grid in rising order in practice; the programming model
+// does not promise it, and the results do not depend on it, only where the
+// gathers are served from. Inside a block, lane = point and warp = a level
+// of the group: on the coarse levels consecutive samples of a ray share a
+// voxel, so their lanes ask for the same rows in one request. Each (point,
+// level)'s F sums are staged in shared memory, and the tile is stored as
+// whole sectors of out[p, l0*F : (l0 + G)*F] (store_tile): without the
+// staging, lane = point would make every F-wide store a partial sector.
+// Kernel 6 reads its 8 corner rows of F floats as 4 x-pairs (corner_pair):
+// the x prime is 1, so where the floor's x is even two corners that differ
+// only in x land on one aligned pair of rows, and one vector load serves
+// both. The address math (axis_geometry, corner_of, packed_of) and the
+// order of the sums over the corners are the backwards' and the
+// reference's, so the outputs are those of the thread-per-(point, level)
+// forwards they replace bit for bit. On the NGP train batch (2^20 points),
+// NVIDIA H100 80GB HBM3 at 700.00 W (runners/kernel_ab.py against the
+// thread-per-(point, level) forwards, PERF.md section 6): kernel 6 0.594
+// ms (1.012), kernel 8 0.301 ms (0.333), 0.591 ms dual (0.805); 32-byte
+// groups for kernel 8 took 0.314 (0.630 dual), 64-byte groups for kernel
+// 6 0.661, kernel 6 without x-pairs 0.641. What holds them now is not HBM
+// but their load requests: kernel 8 issues 4 float4 loads a (point,
+// level), each lane's to its own sector, at 0.85-0.87 a clock an SM in
+// both layouts at 1980 MHz; reading a warp's 32 packed rows together
+// through shared memory (half the sectors a load instruction touches) was
+// slower.
 //
 // Backwards (kernels 5, 7, 9): what holds them is the scatter, not the
 // bytes above: up to 8F updates a (point, level) at random rows of a table
@@ -90,6 +130,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+// output bytes of a point a forward's level group fills (FwdTile)
+constexpr int kCornerGroupBytes = 32;  // kernel 6: a sector; G = 4 at F = 2
+constexpr int kFoldGroupBytes = 64;    // kernel 8: G = 8 at F = 2
 constexpr int kBrickEdge = 4;
 constexpr int kBrickLanes = 128;
 __constant__ uint32_t kPrimes[3] = {1u, 2654435761u, 805459861u};
@@ -199,6 +242,66 @@ __device__ __forceinline__ void load(const float* __restrict__ g, size_t i, floa
   } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) v[f] = __ldg(g + i * F + f);
+  }
+}
+
+// --------------------------------------------------------------------------
+// the forwards' level-group-major walk (kernels 6 and 8)
+
+// One block's share of the walk. A group is G consecutive (pseudo-)levels
+// whose G*F floats of a point fill kBytes of output (at most 8 levels, a
+// warp each): block b takes level group b / tiles (levels [l0, l0 + G)) and
+// tile b % tiles (points [p0, p0 + P)). Warp w takes level l0 + w % G and
+// the window of 32 points from p0 + 32 * (w / G), lane = point, so a block
+// of 8 warps covers P = 256 / G points of G levels.
+template <int F, int kBytes>
+struct FwdTile {
+  static constexpr int kLevels = kBytes / (4 * F) < 1 ? 1 : kBytes / (4 * F) > 8 ? 8 : kBytes / (4 * F);
+  static constexpr int kPoints = kThreads / kLevels;
+  static constexpr int kCols = kLevels * F;  // staged floats a point
+  static_assert((kThreads / 32) % kLevels == 0, "a block's warps cover whole windows of the group's levels");
+  int l0, p0;  // the group's first level, the tile's first point
+  int j, pp;   // this warp's level in the group, this lane's point in the tile
+};
+
+template <class Tile>
+__device__ __forceinline__ Tile fwd_tile(int n) {
+  Tile t;
+  const unsigned tiles = (static_cast<unsigned>(n) + Tile::kPoints - 1) / Tile::kPoints;
+  t.l0 = static_cast<int>(blockIdx.x / tiles) * Tile::kLevels;
+  t.p0 = static_cast<int>(blockIdx.x % tiles) * Tile::kPoints;
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  t.j = warp % Tile::kLevels;
+  t.pp = (warp / Tile::kLevels) * 32 + static_cast<int>(threadIdx.x & 31);
+  return t;
+}
+
+// Stores the staged tile (kPoints rows of kCols floats) to the group's
+// columns of its points: as float4 when `vec` (L*F a multiple of 4 and
+// `out` 16-byte aligned, so every point's G*F floats are whole aligned
+// vectors and a warp writes whole sectors), else float by float. A group
+// past the last level stores only the levels that exist.
+template <int F, class Tile>
+__device__ __forceinline__ void store_tile(const float* staged, float* __restrict__ out, const Tile& t,
+                                           int n, int levels, bool vec) {
+  const int cols = min(Tile::kLevels, levels - t.l0) * F;
+  const int points = min(Tile::kPoints, n - t.p0);
+  const size_t stride = static_cast<size_t>(levels) * F;
+  float* base = out + static_cast<size_t>(t.p0) * stride + static_cast<size_t>(t.l0) * F;
+  if (vec) {
+    const int quads = cols / 4;
+    for (int i = static_cast<int>(threadIdx.x); i < points * quads; i += kThreads) {
+      const int pp = i / quads;
+      const int c = 4 * (i - pp * quads);
+      *reinterpret_cast<float4*>(base + pp * stride + c) =
+          *reinterpret_cast<const float4*>(staged + pp * Tile::kCols + c);
+    }
+  } else {
+    for (int i = static_cast<int>(threadIdx.x); i < points * cols; i += kThreads) {
+      const int pp = i / cols;
+      const int c = i - pp * cols;
+      base[pp * stride + c] = staged[pp * Tile::kCols + c];
+    }
   }
 }
 
@@ -357,34 +460,80 @@ __global__ void __launch_bounds__(kThreads)
 // --------------------------------------------------------------------------
 // corner layout, F features a row
 
+// Corners c0 and c1 (the same but for x) of rows row[c0], row[c1] into
+// v[c0], v[c1]: one load of the aligned pair of rows that holds row[c0]
+// (2F floats, 8F-byte aligned: one vector where F <= 2) where `pairs`
+// allows it, and row[c1] from it too where it lies in the same pair; a load
+// of its own otherwise.
+template <int F>
+__device__ __forceinline__ void corner_pair(const float* __restrict__ tables, const size_t* row,
+                                            int c0, int c1, bool pairs, float (&v)[8][F]) {
+  if (F > 2 || !pairs) {
+    load<F>(tables, row[c0], v[c0]);
+    load<F>(tables, row[c1], v[c1]);
+    return;
+  }
+  float two[2 * F];
+  load<2 * F>(tables, row[c0] >> 1, two);
+  const bool hi0 = row[c0] & 1;
+  const bool hi1 = row[c1] & 1;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    v[c0][f] = hi0 ? two[F + f] : two[f];
+    v[c1][f] = hi1 ? two[F + f] : two[f];
+  }
+  if ((row[c1] >> 1) != (row[c0] >> 1)) load<F>(tables, row[c1], v[c1]);
+}
+
+// Kernel 6: the level-group-major walk (fwd_tile) in groups of a 32-byte
+// output sector (G = 4 at F = 2): lane = point, warp = a level of the
+// group. The 8 corner rows are read as x-pairs (corner_pair):
+// the x prime is 1, so where the floor's x is even the two corners that
+// differ only in x hash to rows 2m and 2m + 1, one aligned pair, and one
+// load of 2F floats serves both. The 8 corners are blended in the
+// reference's order, the (point, level)'s F sums staged, then the tile
+// stored (store_tile).
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     hash_corner_fwd_kernel(const float* __restrict__ tables, const float* __restrict__ coords,
                            const float* __restrict__ res, float* __restrict__ out, int n,
-                           int levels, int entries) {
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * levels) return;
-  const int p = static_cast<int>(i / levels);
-  const int l = static_cast<int>(i % levels);
-  const float r = __ldg(res + l);
-  Axis a[3];
+                           int levels, int entries, bool vec) {
+  using Tile = FwdTile<F, kCornerGroupBytes>;
+  __shared__ __align__(16) float staged[Tile::kPoints * Tile::kCols];
+  const Tile t = fwd_tile<Tile>(n);
+  const int l = t.l0 + t.j;
+  const int p = t.p0 + t.pp;
+  if (l < levels && p < n) {
+    const float r = __ldg(res + l);
+    Axis a[3];
 #pragma unroll
-  for (int axis = 0; axis < 3; ++axis) {
-    a[axis] = axis_geometry(__ldg(coords + 3 * static_cast<size_t>(p) + axis), r);
+    for (int axis = 0; axis < 3; ++axis) {
+      a[axis] = axis_geometry(__ldg(coords + 3 * static_cast<size_t>(p) + axis), r);
+    }
+    size_t row[8];
+    float w[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) w[c] = corner_of(a, c, l, entries, &row[c]);
+    // an odd T would pair the last row of a level with the next level's
+    // first (or, at the last level, with no row)
+    const bool pairs = (entries & 1) == 0;
+    float v[8][F];
+    corner_pair<F>(tables, row, 0, 1, pairs, v);
+    corner_pair<F>(tables, row, 2, 4, pairs, v);
+    corner_pair<F>(tables, row, 3, 5, pairs, v);
+    corner_pair<F>(tables, row, 6, 7, pairs, v);
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] += v[c][f] * w[c];
+    }
+    store<F>(staged + t.pp * Tile::kCols, t.j, acc);
   }
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    size_t row;
-    const float w = corner_of(a, c, l, entries, &row);
-    float v[F];
-    load<F>(tables, row, v);
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] += v[f] * w;
-  }
-  store<F>(out, i, acc);
+  __syncthreads();
+  store_tile<F>(staged, out, t, n, levels, vec);
 }
 
 // Kernel 7: a warp per level of 32 consecutive points (warp_point). A run
@@ -498,33 +647,44 @@ __device__ __forceinline__ Packed packed_of(const float* __restrict__ coords,
   return k;
 }
 
+// Kernel 8: the level-group-major walk (fwd_tile), as kernel 6, in groups
+// of 64 output bytes (G = 8 at F = 2): a packed row is read whole, two
+// 32-byte sectors of the table a (point, level), and on the NGP batch and
+// a render chunk, 32 MB of live tables cost less than the 32-byte groups'
+// second pass over the coordinates and the output rows (PERF.md section 6).
+// Each lane reads its row as 2F float4 vectors.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     hash_fold_fwd_kernel(const float* __restrict__ tables, const float* __restrict__ coords,
                          const float* __restrict__ res, const float* __restrict__ off,
-                         float* __restrict__ out, int n, int levels, int rows) {
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * levels) return;
-  const int p = static_cast<int>(i / levels);
-  const int l = static_cast<int>(i % levels);
-  const Packed k = packed_of(coords, res, off, p, l, rows, F);
-  const float4* row = reinterpret_cast<const float4*>(tables + k.row);
-  float acc[F];
+                         float* __restrict__ out, int n, int levels, int rows, bool vec) {
+  using Tile = FwdTile<F, kFoldGroupBytes>;
+  __shared__ __align__(16) float staged[Tile::kPoints * Tile::kCols];
+  const Tile t = fwd_tile<Tile>(n);
+  const int l = t.l0 + t.j;
+  const int p = t.p0 + t.pp;
+  if (l < levels && p < n) {
+    const Packed k = packed_of(coords, res, off, p, l, rows, F);
+    const float4* row = reinterpret_cast<const float4*>(tables + k.row);
+    float acc[F];
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.f;
-  // the row's 8F floats in corner order, four at a time: element e is
-  // corner e / F, feature e % F
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
+    // the row's 8F floats in corner order, four at a time: element e is
+    // corner e / F, feature e % F
 #pragma unroll
-  for (int q = 0; q < 2 * F; ++q) {
-    const float4 x = __ldg(row + q);
-    const float e4[4] = {x.x, x.y, x.z, x.w};
+    for (int q = 0; q < 2 * F; ++q) {
+      const float4 x = __ldg(row + q);
+      const float e4[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int e = 4 * q + j;
-      acc[e % F] += e4[j] * k.w[e / F];
+      for (int j = 0; j < 4; ++j) {
+        const int e = 4 * q + j;
+        acc[e % F] += e4[j] * k.w[e / F];
+      }
     }
+    store<F>(staged + t.pp * Tile::kCols, t.j, acc);
   }
-  store<F>(out, i, acc);
+  __syncthreads();
+  store_tile<F>(staged, out, t, n, levels, vec);
 }
 
 // Kernel 9: a warp per level of 32 consecutive points (warp_point; the
@@ -587,12 +747,25 @@ int by_feat(int feat, Args... args) {
   }
 }
 
+// the forwards: one block per (level group, tile of points), the group
+// varying slowest
+template <class Tile>
+dim3 fwd_grid_for(int n, int levels) {
+  const unsigned groups = (levels + Tile::kLevels - 1) / Tile::kLevels;
+  return dim3(groups * ((static_cast<unsigned>(n) + Tile::kPoints - 1) / Tile::kPoints));
+}
+
+// float4 stores of the staged tiles: every point's columns aligned to 16 bytes
+bool vec_stores(const float* out, int levels, int feat) {
+  return (levels * feat) % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
 template <int F>
 struct CornerFwd {
   static int run(const float* tables, const float* coords, const float* res, float* out, int n,
                  int levels, int entries, cudaStream_t stream) {
-    hash_corner_fwd_kernel<F><<<grid_for(n, levels), kThreads, 0, stream>>>(
-        tables, coords, res, out, n, levels, entries);
+    hash_corner_fwd_kernel<F><<<fwd_grid_for<FwdTile<F, kCornerGroupBytes>>(n, levels), kThreads, 0, stream>>>(
+        tables, coords, res, out, n, levels, entries, vec_stores(out, levels, F));
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -611,8 +784,8 @@ template <int F>
 struct FoldFwd {
   static int run(const float* tables, const float* coords, const float* res, const float* off,
                  float* out, int n, int levels, int rows, cudaStream_t stream) {
-    hash_fold_fwd_kernel<F><<<grid_for(n, levels), kThreads, 0, stream>>>(
-        tables, coords, res, off, out, n, levels, rows);
+    hash_fold_fwd_kernel<F><<<fwd_grid_for<FwdTile<F, kFoldGroupBytes>>(n, levels), kThreads, 0, stream>>>(
+        tables, coords, res, off, out, n, levels, rows, vec_stores(out, levels, F));
     return static_cast<int>(cudaGetLastError());
   }
 };

@@ -16,14 +16,18 @@ fine chunk (786,432 points) and at the coarse chunk (262,144 points) by
 CUDA events, and whole 800x800 frames by the host clock, through a field
 that prepares that side's layout.
 
-``--kernel hash_fold_bwd`` (kernel 9), ``hash_brick_bwd`` (kernel 5) or
-``hash_corner_bwd`` (kernel 7), ``--other`` a ``hash_grid.cu``: the table
-gradient of the kernel's layouts (``packed`` and ``packed_dual``;
-``bricked``; ``hash``) at the NGP train point (L 16, F 2, T 2^19; 4096
-rays x 256 samples of a 400x400 view, 2^20 points), by CUDA events, each
-side held against the plain version (relative L2); then whole train steps
-of each layout at ``bench.py --model=instant_nerf``'s point (host clock,
-each side's library taking the step's hash forward and backward).
+``--kernel hash_fold_bwd`` (kernel 9), ``hash_brick_bwd`` (kernel 5),
+``hash_corner_bwd`` (kernel 7), ``hash_corner_fwd`` (kernel 6) or
+``hash_fold_fwd`` (kernel 8), ``--other`` a ``hash_grid.cu``: the table
+gradient (a backward) or the features (a forward) of the kernel's layouts
+(``packed`` and ``packed_dual``; ``bricked``; ``hash``) at the NGP train
+point (L 16, F 2, T 2^19; 4096 rays x 256 samples of a 400x400 view, 2^20
+points), by CUDA events, each side held against the plain version
+(relative L2, and the two sides' largest difference); then whole train
+steps of each layout at ``bench.py --model=instant_nerf``'s point (host
+clock, each side's library taking the step's hash forward and backward)
+and, for a forward, one 800x800 frame of each layout at ``bench.py
+--render --model=instant_nerf``'s point (157 forward launches).
 
     python -m torch_nerf_tpu_torch.runners.kernel_ab --other OLD.cu [--kernel K] [--rounds 4]
 """
@@ -122,8 +126,9 @@ def field_forward(other: Path, rounds: int, frames: int, dev) -> dict:
     return results
 
 
-HASH_BACKWARDS = {"hash_fold_bwd": ("packed", "packed_dual"), "hash_brick_bwd": ("bricked",),
-                  "hash_corner_bwd": ("hash",)}
+HASH_KERNELS = {"hash_fold_bwd": ("packed", "packed_dual"), "hash_brick_bwd": ("bricked",),
+                "hash_corner_bwd": ("hash",), "hash_corner_fwd": ("hash",),
+                "hash_fold_fwd": ("packed", "packed_dual")}
 NGP_GRID = dict(num_level=16, log_max_entry_per_level=19, table_feat_dim=2, min_res=16, max_res=512)
 TRAIN_STEPS = 10  # timed train steps a layout and turn, after one untimed
 
@@ -145,11 +150,25 @@ def _hash_backward_call(layout, g, pts, base):
             lambda: hash_grid.fold_backward_reference(g, pts, res, off, lines, f))
 
 
-def hash_backward(kernel: str, other: Path, rounds: int, dev) -> dict:
+def _hash_forward_call(layout, tables, pts, base):
+    """(the kernel's call, its plain version's) for ``layout``'s features of
+    ``tables`` (the corner layout's (L, T, F); the packed layouts' folded
+    (L', rows/fold, 128)) at ``pts``."""
+    if layout == "hash":
+        return (lambda: hash_grid.hash_corner_fwd(tables, pts, base),
+                lambda: hash_grid.corner_encode_reference(tables, pts, base))
+    f = NGP_GRID["table_feat_dim"]
+    res, off = (base, torch.zeros_like(base)) if layout == "packed" else instant_ngp.dual_resolutions_offsets(base)
+    return (lambda: hash_grid.hash_fold_fwd(tables, pts, res, off, f),
+            lambda: hash_grid.fold_encode_reference(tables, pts, res, off, f))
+
+
+def hash_kernel(kernel: str, other: Path, rounds: int, dev) -> dict:
     libs = {
         "repo": hash_grid.bind(build.load(hash_grid.KERNEL)),
         "other": hash_grid.bind(build.load_source(other)),
     }
+    forward = kernel.endswith("_fwd")
     gen = torch.Generator(device=dev).manual_seed(0)
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
     images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
@@ -159,26 +178,39 @@ def hash_backward(kernel: str, other: Path, rounds: int, dev) -> dict:
     pts = (o[:, None, :] + t[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
     base = torch.as_tensor(
         hash_math.level_resolutions(NGP_GRID["num_level"], NGP_GRID["min_res"], NGP_GRID["max_res"]), device=dev)
+    f, log_t = NGP_GRID["table_feat_dim"], NGP_GRID["log_max_entry_per_level"]
     calls, check = {}, {}
-    for layout in HASH_BACKWARDS[kernel]:
+    for layout in HASH_KERNELS[kernel]:
         levels = 2 * base.shape[0] if layout == "packed_dual" else base.shape[0]
-        g = torch.randn((pts.shape[0], levels * NGP_GRID["table_feat_dim"]), generator=gen, device=dev)
-        calls[layout], plain = _hash_backward_call(layout, g, pts, base)
+        if forward:
+            shape = (levels, 2**log_t, f) if layout == "hash" else (
+                levels, 2**log_t // 8 // hash_grid.fold_factor(f), 128)
+            tables = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+            calls[layout], plain = _hash_forward_call(layout, tables, pts, base)
+        else:
+            g = torch.randn((pts.shape[0], levels * f), generator=gen, device=dev)
+            calls[layout], plain = _hash_backward_call(layout, g, pts, base)
         ref = plain()
+        got = {}
         for side, lib in libs.items():
             with kernel_library(hash_grid, lib):
-                got = calls[layout]()
-            check[f"{side}/{layout}"] = ((got - ref).norm() / ref.norm()).item()
+                got[side] = calls[layout]()
+            check[f"{side}/{layout}"] = ((got[side] - ref).norm() / ref.norm()).item()
+        check[f"max_abs_diff_repo_vs_other/{layout}"] = (got["repo"] - got["other"]).abs().max().item()
     print(json.dumps({"rel_l2_vs_plain": check}), flush=True)
 
     optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
-    trainers = {}
-    for layout in HASH_BACKWARDS[kernel]:
+    trainers, fields = {}, {}
+    frame_camera = cameras.CameraParams(960.0, 960.0, 800, 800)
+    frame_pose = torch.as_tensor(synthetic.split_poses(1, "train")[0], device=dev)
+    for layout in HASH_KERNELS[kernel]:
         field = make_instant_ngp_field(**NGP_GRID, compute_dtype=torch.bfloat16, table_layout=layout)
         step = train.make_image_train_step(field, settings, optim, camera, 4096)
         # each side steps a state of its own from the same seed
         trainers[layout] = (step, {side: train.create_train_state(torch.Generator(device=dev).manual_seed(0), field,
                                                                  settings, optim, dev) for side in libs})
+        if forward:
+            fields[layout] = (field, field.init(torch.Generator(device=dev).manual_seed(0), dev))
 
     def measure(side):
         row = {f"{layout}_ms": event_ms(run, 20) for layout, run in calls.items()}
@@ -191,6 +223,13 @@ def hash_backward(kernel: str, other: Path, rounds: int, dev) -> dict:
                 states[side], _ = step(states[side], images, poses, step_gen)
             torch.cuda.synchronize()
             row[f"{layout}_step_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        for layout, (field, params) in fields.items():
+            renderer.render_image(field, params, None, frame_camera, frame_pose, 1, settings, chunk_size=4096)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            renderer.render_image(field, params, None, frame_camera, frame_pose, 2, settings, chunk_size=4096)
+            torch.cuda.synchronize()
+            row[f"{layout}_s_per_frame"] = time.perf_counter() - t0
         return row
 
     results = {side: {} for side in libs}
@@ -201,7 +240,7 @@ def hash_backward(kernel: str, other: Path, rounds: int, dev) -> dict:
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="the other version's .cu, with the same C interface")
-    parser.add_argument("--kernel", choices=("fused_nerf_fwd", *HASH_BACKWARDS), default="fused_nerf_fwd")
+    parser.add_argument("--kernel", choices=("fused_nerf_fwd", *HASH_KERNELS), default="fused_nerf_fwd")
     parser.add_argument("--rounds", type=int, default=4)
     parser.add_argument("--frames", type=int, default=1, help="timed frames per turn (fused_nerf_fwd)")
     args = parser.parse_args(argv)
@@ -210,7 +249,7 @@ def main(argv=None) -> dict:
     if args.kernel == "fused_nerf_fwd":
         results = field_forward(other, args.rounds, args.frames, dev)
     else:
-        results = hash_backward(args.kernel, other, args.rounds, dev)
+        results = hash_kernel(args.kernel, other, args.rounds, dev)
     smi = nvidia_smi("name,power.limit")
     summary = {side: {k: quartiles(v) for k, v in res.items()} for side, res in results.items()}
     print(json.dumps({"kernel": args.kernel, "summary": summary, "card": smi}), flush=True)
