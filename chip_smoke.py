@@ -1063,10 +1063,10 @@ def phase_kernel_hash():
 def hash_widths(dev, gen) -> dict:
     """Kernels 6-7 at every feature width F in {1, 2, 4, 8}, at T = 2^16, at
     T = 1000 (the signed-remainder rows) and at T = 999 (odd: kernel 6
-    reads no x-pairs), and kernels 4-5, on 1, 33 and 4099 points (a ragged
-    last window) of :func:`ngp_points` at the presets' 16 levels and at 3
-    (kernel 6's last level group partial), held as :func:`pair_verdict`
-    holds them."""
+    reads no x-pairs), and kernels 4-5 at T_b = 512, on 1, 33 and 4099
+    points (a ragged last window and tile) of :func:`ngp_points` at the
+    presets' 16 levels and at 3 (the forwards' last level group partial,
+    L*F = 6: no float4 stores), held as :func:`pair_verdict` holds them."""
     from torch_nerf_tpu_torch.ops.hash_grid import CORNER_FEATS  # noqa: PLC0415
 
     pts = ngp_points(dev)[-4099:].contiguous()  # the last 37 are the negative, integral and far ones
@@ -1482,7 +1482,7 @@ def phase_train_bench_ngp(smi: str):
     a level): 3 warm-up and 20 timed steps, launches counted over the timed
     ones; then each hash kernel alone on the 2^20 points of a batch of the
     step's own, with a seeded random cotangent (CUDA events), beside its
-    bound and its plain version's time."""
+    bound, its share of it and its plain version's time."""
     from torch_nerf_tpu_torch import config, renderer, session, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
@@ -1538,9 +1538,11 @@ def phase_train_bench_ngp(smi: str):
         tables = state.params["coarse"]["tables"].detach()
         levels = tables.shape[0] if packed else NGP["num_level"]
         g = torch.randn((m, levels * f), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
-        # the table (or its gradient), the coordinates, the (N, L*F) output
-        # (or its cotangent): each read or written once
-        nbytes = 4 * (tables.numel() + 3 * m + levels * f * m)
+        # the coordinates and the (N, L*F) output (or its cotangent), each
+        # read or written once; besides, a forward reads the table's sectors
+        # that this batch blends, and a backward writes its dense gradient
+        # whole (the wrapper zeroes it, then the kernel adds)
+        io_bytes = 4 * (3 * m + levels * f * m)
         # the blend's (or the scatter's) multiply and add of 8 sites x F a (point, level)
         flops = 2 * 8 * f * levels * m
         if packed:
@@ -1552,13 +1554,15 @@ def phase_train_bench_ngp(smi: str):
         else:
             res = ngp_resolutions(dev)
             _, _, fwd_ref, bwd_ref = hash_ops(layout)
+            off = None
             ops = (("fwd", lambda: fwd(tables, pts, res), lambda: fwd_ref(tables, pts, res)),
                    ("bwd", lambda: bwd(g, pts, res, *table_args(tables)),
                     lambda: bwd_ref(g, pts, res, *table_args(tables))))
         with torch.no_grad():
+            table_bytes = {"fwd": forward_table_bytes(layout, tables, pts, res, off), "bwd": 4 * tables.numel()}
             for name, run, plain in ops:
-                kernels[f"{layout}/{name}"] = bound_entry(cuda_ms(run, 20), cuda_ms(plain, 3), flops, nbytes,
-                                                          F32_PEAK, peak_bw, m)
+                kernels[f"{layout}/{name}"] = bound_entry(cuda_ms(run, 20), cuda_ms(plain, 3), flops,
+                                                          io_bytes + table_bytes[name], F32_PEAK, peak_bw, m)
         hash_ms = kernels[f"{layout}/fwd"]["ms"] + kernels[f"{layout}/bwd"]["ms"]
         paths[path].update(hash_kernels_ms_per_step=hash_ms,
                            hash_kernels_share_of_step=hash_ms / paths[path]["ms_per_step"])
@@ -1614,6 +1618,43 @@ def phase_bench_ngp(smi: str):
     return layouts
 
 
+SECTOR = 32  # bytes: the least that the card's memory moves to or from L2
+
+
+def forward_table_bytes(layout, tables, pts, res, off) -> int:
+    """The bytes of ``tables`` that a forward at ``pts`` must read: the
+    distinct 32-byte sectors that hold a site it blends, counted on this
+    batch (a coarse level's points reach few of its rows). A brick row is
+    16 sectors, one an (x, y) line of 4 z-sites x F = 2, and a point reads
+    the 4 lines of its floor site's (x, y) and the next; a corner row is F
+    floats, 8 rows at F = 2 to a sector; a packed row is F sectors."""
+    from torch_nerf_tpu_torch.models.hash_math import packed_prep  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
+
+    num_level, t = tables.shape[0], tables.shape[1]
+    first = (torch.arange(num_level, device=pts.device) * t)[:, None]  # each level's first row
+    seen = torch.zeros(tables.numel() * 4 // SECTOR, dtype=torch.bool, device=pts.device)
+    for a in range(0, pts.shape[0], hg.CHUNK):
+        p = pts[a:a + hg.CHUNK]
+        if layout == "bricked":
+            row, _ = hg.brick_prep(p, res, t)
+            v = torch.floor(res[:, None, None] * p[None])  # (L, m, 3), as brick_prep
+            site = (v - float(hg.STRIDE) * torch.floor(v / float(hg.STRIDE))).long()
+            line = (row + first) * 16 + site[..., 0] * hg.BRICK_EDGE + site[..., 1]
+            for dxy in (0, 1, hg.BRICK_EDGE, hg.BRICK_EDGE + 1):
+                seen[line + dxy] = True
+        elif layout == "hash":
+            row, _ = hg.corner_prep(p, res, t)  # rows of the flat (L*T, F) table
+            seen[row * tables.shape[2] * 4 // SECTOR] = True
+        else:
+            f = NGP["table_feat_dim"]
+            rows = hg.check_fold_layout(tables.shape, f)
+            row, _ = packed_prep(p, res, rows, off)
+            flat = row + (torch.arange(num_level, device=pts.device) * rows)[:, None]
+            seen[(flat * f)[..., None] + torch.arange(f, device=pts.device)] = True
+    return int(seen.sum()) * SECTOR
+
+
 def bound_entry(ms, plain_ms, flops, nbytes, peak_flops, peak_bw, points) -> dict:
     """A kernel's time beside its bound: the larger of its operations over
     the peak for their type and its bytes (each input read once, each output written
@@ -1627,6 +1668,9 @@ def bound_entry(ms, plain_ms, flops, nbytes, peak_flops, peak_bw, points) -> dic
 # what the kernels line says of the forwards' design; their earlier
 # thread-per-(point, level) form's times are in PERF.md section 6
 HASH_FWD_DESIGNS = {
+    "hash_brick_fwd": "level-group-major walk, groups of a 32-byte output sector, lane = point, warp = level, "
+                      "each run of two z-sites read as one float4 where the floor site's z is even, the tile "
+                      "staged in shared memory; replaces the thread-per-(point, level) form",
     "hash_corner_fwd": "level-group-major walk, groups of a 32-byte output sector, lane = point, warp = level, "
                        "corner rows read as x-pairs, the tile staged in shared memory; replaces the "
                        "thread-per-(point, level) form",

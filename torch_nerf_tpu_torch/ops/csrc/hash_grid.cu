@@ -52,55 +52,59 @@
 // Bound on an H100 SXM: bytes. Each (point, level) does ~60 flops against
 // a data-dependent gather of 8 x F floats from a 64 MiB table that does not
 // fit in the 50 MB L2; counting each input once, one encode of 2^20 points
-// moves the table or its gradient (67.1 MB, twice that for the dual
-// layout), the coordinates (12.6 MB) and the output or its cotangent (134.2
-// MB at L*F = 32): 0.064 ms at 3.35 TB/s (0.124 ms dual).
+// moves the coordinates (12.6 MB), the output or its cotangent (134.2 MB at
+// L*F = 32) and, for a backward, the dense table gradient (67.1 MB, twice
+// that for the dual layout): 0.064 ms at 3.35 TB/s (0.124 ms dual). A
+// forward reads only the table's 32-byte sectors its points blend: on an
+// NGP train batch 86-96% of the table, 0.061-0.063 ms (0.122 ms dual;
+// chip_smoke.py's forward_table_bytes counts them).
 //
-// Forward of the brick (kernel 4): one thread per (point, level) with the
-// level varying fastest, so a warp's loads of the coordinates broadcast and
-// its F-wide stores fill whole output rows; it reads only the 4 runs of 2
-// sites x F floats that carry weight, not its 128-float row. Under that
-// order all L levels are gathered at once, so the whole table (67.1 MB,
-// 134.2 MB dual) is live against the 50 MB L2, and on the ~10 fine levels,
-// where each sample reads a new row, most gathers go to HBM as random
-// 32-byte sectors.
-//
-// Forwards of the corner and packed layouts (kernels 6, 8): a level-group-
-// major walk that keeps the tables being gathered in L2. The grid walks the
-// levels in groups of G consecutive (pseudo-)levels, with the group varying
-// slowest: block b takes group b / tiles and tile b % tiles of P = 256 / G
-// points (FwdTile). A group fills 32 output bytes of a point in kernel 6
+// Forwards (kernels 4, 6, 8): a level-group-major walk that keeps the
+// tables being gathered in L2. One thread per (point, level), the level
+// fastest, would gather all L levels at once: the whole table (67.1 MB,
+// 134.2 MB dual) live against the 50 MB L2, and on the ~10 fine levels,
+// where each sample reads a new row, most gathers going to HBM as random
+// 32-byte sectors. The grid instead walks the levels in groups of G
+// consecutive (pseudo-)levels, with the group varying slowest: block b
+// takes group b / tiles and tile b % tiles of P = 256 / G points
+// (FwdTile). A group fills 32 output bytes of a point in kernels 4 and 6
 // (G = 4 at F = 2, a sector) and 64 in kernel 8 (G = 8). One level of one
-// table is 4 MB at the presets' size (2^19 x F x 4 B; 2^16 packed rows x
-// 64 B), so a group's 16 or 32 MB stays in L2 while every point passes
-// through it, and HBM supplies each table byte about once a launch. The
-// design assumes that the blocks resident at any moment (~8 an SM, ~1000 of
-// a group's 2^20 / P) are neighbours in blockIdx order, as the hardware
-// dispatches a 1-D grid in rising order in practice; the programming model
-// does not promise it, and the results do not depend on it, only where the
-// gathers are served from. Inside a block, lane = point and warp = a level
-// of the group: on the coarse levels consecutive samples of a ray share a
-// voxel, so their lanes ask for the same rows in one request. Each (point,
-// level)'s F sums are staged in shared memory, and the tile is stored as
-// whole sectors of out[p, l0*F : (l0 + G)*F] (store_tile): without the
-// staging, lane = point would make every F-wide store a partial sector.
-// Kernel 6 reads its 8 corner rows of F floats as 4 x-pairs (corner_pair):
-// the x prime is 1, so where the floor's x is even two corners that differ
-// only in x land on one aligned pair of rows, and one vector load serves
-// both. The address math (axis_geometry, corner_of, packed_of) and the
-// order of the sums over the corners are the backwards' and the
-// reference's, so the outputs are those of the thread-per-(point, level)
-// forwards they replace bit for bit. On the NGP train batch (2^20 points),
-// NVIDIA H100 80GB HBM3 at 700.00 W (runners/kernel_ab.py against the
-// thread-per-(point, level) forwards, PERF.md section 6): kernel 6 0.594
-// ms (1.012), kernel 8 0.301 ms (0.333), 0.591 ms dual (0.805); 32-byte
-// groups for kernel 8 took 0.314 (0.630 dual), 64-byte groups for kernel
-// 6 0.661, kernel 6 without x-pairs 0.641. What holds them now is not HBM
-// but their load requests: kernel 8 issues 4 float4 loads a (point,
-// level), each lane's to its own sector, at 0.85-0.87 a clock an SM in
-// both layouts at 1980 MHz; reading a warp's 32 packed rows together
-// through shared memory (half the sectors a load instruction touches) was
-// slower.
+// table is 4 MB at the presets' size (2^19 x F x 4 B; 2^13 brick rows x
+// 512 B; 2^16 packed rows x 64 B), so a group's 16 or 32 MB stays in L2
+// while every point passes through it, and HBM supplies each table byte
+// about once a launch. The design assumes that the blocks resident at any
+// moment (~8 an SM, ~1000 of a group's 2^20 / P) are neighbours in
+// blockIdx order, as the hardware dispatches a 1-D grid in rising order in
+// practice; the programming model does not promise it, and the results do
+// not depend on it, only where the gathers are served from. Inside a
+// block, lane = point and warp = a level of the group: on the coarse
+// levels consecutive samples of a ray share a voxel, so their lanes ask
+// for the same rows in one request. Each (point, level)'s F sums are
+// staged in shared memory, and the tile is stored as whole sectors of
+// out[p, l0*F : (l0 + G)*F] (store_tile): without the staging, lane =
+// point would make every F-wide store a partial sector. fwd_walk is that
+// frame, shared by the three; each passes only its blend. Kernel 4 reads
+// each of its 4 runs of two z-sites (4 floats, never across a 32-byte
+// sector) as one float4 where the floor site's z is even, 16-byte aligned,
+// and as two float2 where it is odd: 5.3 loads a (point, level) where the
+// floor sites spread evenly, not 8. Kernel 6 reads its 8 corner rows of F floats as 4
+// x-pairs (corner_pair): the x prime is 1, so where the floor's x is even
+// two corners that differ only in x land on one aligned pair of rows, and
+// one vector load serves both. The address math (brick_of, axis_geometry,
+// corner_of, packed_of) and the order of the sums are the backwards' and
+// the reference's, so the outputs are those of the thread-per-(point,
+// level) forwards they replace bit for bit. On the NGP train batch (2^20
+// points), NVIDIA H100 80GB HBM3 at 700.00 W (runners/kernel_ab.py against
+// the thread-per-(point, level) forwards, PERF.md section 6): kernel 4
+// 0.394 ms (0.495), kernel 6 0.594 ms (1.012), kernel 8 0.301 ms (0.333),
+// 0.591 ms dual (0.805); 64-byte groups for kernel 4 took 0.411, kernel 4
+// without float4 runs 0.442, 32-byte groups for kernel 8 0.314 (0.630
+// dual), 64-byte groups for kernel 6 0.661, kernel 6 without x-pairs
+// 0.641. What holds them now is not HBM but their load requests: kernel 8
+// issues 4 float4 loads a (point, level), each lane's to its own sector,
+// at 0.85-0.87 a clock an SM in both layouts at 1980 MHz, kernel 4 ~5.3 at
+// about the same rate; reading a warp's 32 packed rows together through
+// shared memory (half the sectors a load instruction touches) was slower.
 //
 // Backwards (kernels 5, 7, 9): what holds them is the scatter, not the
 // bytes above: up to 8F updates a (point, level) at random rows of a table
@@ -131,10 +135,12 @@ namespace {
 
 constexpr int kThreads = 256;
 // output bytes of a point a forward's level group fills (FwdTile)
+constexpr int kBrickGroupBytes = 32;   // kernel 4: a sector; G = 4
 constexpr int kCornerGroupBytes = 32;  // kernel 6: a sector; G = 4 at F = 2
 constexpr int kFoldGroupBytes = 64;    // kernel 8: G = 8 at F = 2
 constexpr int kBrickEdge = 4;
 constexpr int kBrickLanes = 128;
+constexpr int kBrickFeat = 2;  // 4^3 sites x F fill a row of kBrickLanes floats
 __constant__ uint32_t kPrimes[3] = {1u, 2654435761u, 805459861u};
 // the reference's corner order: fff, cff, fcf, ffc, ccf, cfc, fcc, ccc
 __constant__ int kCorners[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
@@ -246,7 +252,7 @@ __device__ __forceinline__ void load(const float* __restrict__ g, size_t i, floa
 }
 
 // --------------------------------------------------------------------------
-// the forwards' level-group-major walk (kernels 6 and 8)
+// the forwards' level-group-major walk (kernels 4, 6 and 8)
 
 // One block's share of the walk. A group is G consecutive (pseudo-)levels
 // whose G*F floats of a point fill kBytes of output (at most 8 levels, a
@@ -256,6 +262,7 @@ __device__ __forceinline__ void load(const float* __restrict__ g, size_t i, floa
 // of 8 warps covers P = 256 / G points of G levels.
 template <int F, int kBytes>
 struct FwdTile {
+  static constexpr int kFeat = F;
   static constexpr int kLevels = kBytes / (4 * F) < 1 ? 1 : kBytes / (4 * F) > 8 ? 8 : kBytes / (4 * F);
   static constexpr int kPoints = kThreads / kLevels;
   static constexpr int kCols = kLevels * F;  // staged floats a point
@@ -277,13 +284,14 @@ __device__ __forceinline__ Tile fwd_tile(int n) {
 }
 
 // Stores the staged tile (kPoints rows of kCols floats) to the group's
-// columns of its points: as float4 when `vec` (L*F a multiple of 4 and
-// `out` 16-byte aligned, so every point's G*F floats are whole aligned
+// columns of its points: as float4 where L*F is a multiple of 4 and `out`
+// is 16-byte aligned (every point's G*F floats are then whole aligned
 // vectors and a warp writes whole sectors), else float by float. A group
 // past the last level stores only the levels that exist.
 template <int F, class Tile>
 __device__ __forceinline__ void store_tile(const float* staged, float* __restrict__ out, const Tile& t,
-                                           int n, int levels, bool vec) {
+                                           int n, int levels) {
+  const bool vec = (levels * F) % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int cols = min(Tile::kLevels, levels - t.l0) * F;
   const int points = min(Tile::kPoints, n - t.p0);
   const size_t stride = static_cast<size_t>(levels) * F;
@@ -303,6 +311,25 @@ __device__ __forceinline__ void store_tile(const float* staged, float* __restric
       base[pp * stride + c] = staged[pp * Tile::kCols + c];
     }
   }
+}
+
+// One block of a forward's walk: each thread with a (point p, level l)
+// computes its F sums by blend(p, l, acc), they are staged, and the block
+// stores its tile whole (store_tile).
+template <class Tile, class Blend>
+__device__ __forceinline__ void fwd_walk(float* __restrict__ out, int n, int levels, Blend blend) {
+  constexpr int F = Tile::kFeat;
+  __shared__ __align__(16) float staged[Tile::kPoints * Tile::kCols];
+  const Tile t = fwd_tile<Tile>(n);
+  const int l = t.l0 + t.j;
+  const int p = t.p0 + t.pp;
+  if (l < levels && p < n) {
+    float acc[F];
+    blend(p, l, acc);
+    store<F>(staged + t.pp * Tile::kCols, t.j, acc);
+  }
+  __syncthreads();
+  store_tile<F>(staged, out, t, n, levels);
 }
 
 // --------------------------------------------------------------------------
@@ -365,34 +392,48 @@ __device__ __forceinline__ void add4(float* dst, const float* s) {
 // --------------------------------------------------------------------------
 // bricked layout, F = 2
 
+// The run of two z-sites (z, z + 1) of one (x, y) line of a brick row from
+// float `at` of the table: 4 consecutive floats, (z, f) at 2z + f, inside
+// one 32-byte sector. One float4 where z is even (16-byte aligned), two
+// float2 where it is odd.
+__device__ __forceinline__ float4 z_run(const float* __restrict__ tables, size_t at, bool even) {
+  if (even) return __ldg(reinterpret_cast<const float4*>(tables + at));
+  const float2 lo = __ldg(reinterpret_cast<const float2*>(tables + at));
+  const float2 hi = __ldg(reinterpret_cast<const float2*>(tables + at + kBrickFeat));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Kernel 4: the level-group-major walk (fwd_walk) in groups of a 32-byte
+// output sector (G = 4), lane = point, warp = a level of the group. On the
+// coarse levels neighbouring samples of a ray share a brick row, so the
+// lanes' loads merge. Each (dx, dy)'s run of two z-sites is read by z_run,
+// by the lane's own parity, and blended in the order of the
+// thread-per-(point, level) form.
 __global__ void __launch_bounds__(kThreads)
     hash_brick_fwd_kernel(const float* __restrict__ tables, const float* __restrict__ coords,
                           const float* __restrict__ res, float* __restrict__ out, int n,
                           int levels, int bricks) {
-  constexpr int F = 2;
-  const size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * levels) return;
-  const int p = static_cast<int>(i / levels);
-  const int l = static_cast<int>(i % levels);
-  const Brick k = brick_of(coords, res, p, l, bricks);
-  const float* row = tables + k.row;
-  float acc[F] = {0.f, 0.f};
+  constexpr int F = kBrickFeat;
+  fwd_walk<FwdTile<F, kBrickGroupBytes>>(out, n, levels, [&](int p, int l, float (&acc)[F]) {
+    const Brick k = brick_of(coords, res, p, l, bricks);
+    const bool even = (k.site[2] & 1) == 0;  // the floor site's z
+    acc[0] = acc[1] = 0.f;
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
+    for (int dx = 0; dx < 2; ++dx) {
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const float wxy = __fmul_rn(k.w[0][dx], k.w[1][dy]);
-      const int site = ((k.site[0] + dx) * kBrickEdge + k.site[1] + dy) * kBrickEdge + k.site[2];
-      // the run of two z-sites: 4 consecutive floats, 8-byte aligned
-      const float2 lo = __ldg(reinterpret_cast<const float2*>(row + site * F));
-      const float2 hi = __ldg(reinterpret_cast<const float2*>(row + site * F + F));
-      const float w0 = __fmul_rn(wxy, k.w[2][0]);
-      const float w1 = __fmul_rn(wxy, k.w[2][1]);
-      acc[0] += lo.x * w0 + hi.x * w1;
-      acc[1] += lo.y * w0 + hi.y * w1;
+      for (int dy = 0; dy < 2; ++dy) {
+        const float wxy = __fmul_rn(k.w[0][dx], k.w[1][dy]);
+        const int site = ((k.site[0] + dx) * kBrickEdge + k.site[1] + dy) * kBrickEdge + k.site[2];
+        const float4 run = z_run(tables, k.row + static_cast<size_t>(site) * F, even);
+        const float2 lo = make_float2(run.x, run.y);
+        const float2 hi = make_float2(run.z, run.w);
+        const float w0 = __fmul_rn(wxy, k.w[2][0]);
+        const float w1 = __fmul_rn(wxy, k.w[2][1]);
+        acc[0] += lo.x * w0 + hi.x * w1;
+        acc[1] += lo.y * w0 + hi.y * w1;
+      }
     }
-  }
-  store<F>(out, i, acc);
+  });
 }
 
 // Kernel 5: a warp per level of 32 consecutive points (warp_point). Lanes
@@ -405,7 +446,7 @@ __global__ void __launch_bounds__(kThreads)
     hash_brick_bwd_kernel(const float* __restrict__ g, const float* __restrict__ coords,
                           const float* __restrict__ res, float* __restrict__ dtables, int n,
                           int levels, int bricks) {
-  constexpr int F = 2;
+  constexpr int F = kBrickFeat;
   int l, p;
   if (!warp_point(n, levels, &l, &p)) return;
   const bool valid = p < n;
@@ -485,25 +526,19 @@ __device__ __forceinline__ void corner_pair(const float* __restrict__ tables, co
   if ((row[c1] >> 1) != (row[c0] >> 1)) load<F>(tables, row[c1], v[c1]);
 }
 
-// Kernel 6: the level-group-major walk (fwd_tile) in groups of a 32-byte
+// Kernel 6: the level-group-major walk (fwd_walk) in groups of a 32-byte
 // output sector (G = 4 at F = 2): lane = point, warp = a level of the
 // group. The 8 corner rows are read as x-pairs (corner_pair):
 // the x prime is 1, so where the floor's x is even the two corners that
 // differ only in x hash to rows 2m and 2m + 1, one aligned pair, and one
 // load of 2F floats serves both. The 8 corners are blended in the
-// reference's order, the (point, level)'s F sums staged, then the tile
-// stored (store_tile).
+// reference's order.
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     hash_corner_fwd_kernel(const float* __restrict__ tables, const float* __restrict__ coords,
                            const float* __restrict__ res, float* __restrict__ out, int n,
-                           int levels, int entries, bool vec) {
-  using Tile = FwdTile<F, kCornerGroupBytes>;
-  __shared__ __align__(16) float staged[Tile::kPoints * Tile::kCols];
-  const Tile t = fwd_tile<Tile>(n);
-  const int l = t.l0 + t.j;
-  const int p = t.p0 + t.pp;
-  if (l < levels && p < n) {
+                           int levels, int entries) {
+  fwd_walk<FwdTile<F, kCornerGroupBytes>>(out, n, levels, [&](int p, int l, float (&acc)[F]) {
     const float r = __ldg(res + l);
     Axis a[3];
 #pragma unroll
@@ -522,7 +557,6 @@ __global__ void __launch_bounds__(kThreads)
     corner_pair<F>(tables, row, 2, 4, pairs, v);
     corner_pair<F>(tables, row, 3, 5, pairs, v);
     corner_pair<F>(tables, row, 6, 7, pairs, v);
-    float acc[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.f;
 #pragma unroll
@@ -530,10 +564,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int f = 0; f < F; ++f) acc[f] += v[c][f] * w[c];
     }
-    store<F>(staged + t.pp * Tile::kCols, t.j, acc);
-  }
-  __syncthreads();
-  store_tile<F>(staged, out, t, n, levels, vec);
+  });
 }
 
 // Kernel 7: a warp per level of 32 consecutive points (warp_point). A run
@@ -647,7 +678,7 @@ __device__ __forceinline__ Packed packed_of(const float* __restrict__ coords,
   return k;
 }
 
-// Kernel 8: the level-group-major walk (fwd_tile), as kernel 6, in groups
+// Kernel 8: the level-group-major walk (fwd_walk), as kernel 6, in groups
 // of 64 output bytes (G = 8 at F = 2): a packed row is read whole, two
 // 32-byte sectors of the table a (point, level), and on the NGP batch and
 // a render chunk, 32 MB of live tables cost less than the 32-byte groups'
@@ -657,16 +688,10 @@ template <int F>
 __global__ void __launch_bounds__(kThreads)
     hash_fold_fwd_kernel(const float* __restrict__ tables, const float* __restrict__ coords,
                          const float* __restrict__ res, const float* __restrict__ off,
-                         float* __restrict__ out, int n, int levels, int rows, bool vec) {
-  using Tile = FwdTile<F, kFoldGroupBytes>;
-  __shared__ __align__(16) float staged[Tile::kPoints * Tile::kCols];
-  const Tile t = fwd_tile<Tile>(n);
-  const int l = t.l0 + t.j;
-  const int p = t.p0 + t.pp;
-  if (l < levels && p < n) {
+                         float* __restrict__ out, int n, int levels, int rows) {
+  fwd_walk<FwdTile<F, kFoldGroupBytes>>(out, n, levels, [&](int p, int l, float (&acc)[F]) {
     const Packed k = packed_of(coords, res, off, p, l, rows, F);
     const float4* row = reinterpret_cast<const float4*>(tables + k.row);
-    float acc[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.f;
     // the row's 8F floats in corner order, four at a time: element e is
@@ -681,10 +706,7 @@ __global__ void __launch_bounds__(kThreads)
         acc[e % F] += e4[j] * k.w[e / F];
       }
     }
-    store<F>(staged + t.pp * Tile::kCols, t.j, acc);
-  }
-  __syncthreads();
-  store_tile<F>(staged, out, t, n, levels, vec);
+  });
 }
 
 // Kernel 9: a warp per level of 32 consecutive points (warp_point; the
@@ -727,13 +749,11 @@ __global__ void __launch_bounds__(kThreads)
   for (int q = 0; q < 2 * F; ++q) add4(dtables + row + 4 * q, v + 4 * q);
 }
 
-dim3 grid_for(int n, int levels) {
-  const size_t threads = static_cast<size_t>(n) * levels;
+// the backwards: one warp per (window of 32 points, level)
+dim3 warp_grid_for(int n, int levels) {
+  const size_t threads = static_cast<size_t>((n + 31) / 32) * 32 * levels;
   return dim3(static_cast<unsigned>((threads + kThreads - 1) / kThreads));
 }
-
-// the backwards: one warp per (window of 32 points, level)
-dim3 warp_grid_for(int n, int levels) { return grid_for((n + 31) / 32 * 32, levels); }
 
 template <template <int> class Launch, typename... Args>
 int by_feat(int feat, Args... args) {
@@ -755,17 +775,12 @@ dim3 fwd_grid_for(int n, int levels) {
   return dim3(groups * ((static_cast<unsigned>(n) + Tile::kPoints - 1) / Tile::kPoints));
 }
 
-// float4 stores of the staged tiles: every point's columns aligned to 16 bytes
-bool vec_stores(const float* out, int levels, int feat) {
-  return (levels * feat) % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-}
-
 template <int F>
 struct CornerFwd {
   static int run(const float* tables, const float* coords, const float* res, float* out, int n,
                  int levels, int entries, cudaStream_t stream) {
     hash_corner_fwd_kernel<F><<<fwd_grid_for<FwdTile<F, kCornerGroupBytes>>(n, levels), kThreads, 0, stream>>>(
-        tables, coords, res, out, n, levels, entries, vec_stores(out, levels, F));
+        tables, coords, res, out, n, levels, entries);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -785,7 +800,7 @@ struct FoldFwd {
   static int run(const float* tables, const float* coords, const float* res, const float* off,
                  float* out, int n, int levels, int rows, cudaStream_t stream) {
     hash_fold_fwd_kernel<F><<<fwd_grid_for<FwdTile<F, kFoldGroupBytes>>(n, levels), kThreads, 0, stream>>>(
-        tables, coords, res, off, out, n, levels, rows, vec_stores(out, levels, F));
+        tables, coords, res, off, out, n, levels, rows);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -811,12 +826,13 @@ const char* hash_grid_error_string(int code) {
 // Each launches on `stream` and returns the cudaError_t of the launch (0 on
 // success). n > 0 points; `bricks` and `rows` powers of two; feat in {1, 2,
 // 4, 8} for the corner layout, {1, 2, 4, 8, 16} for the packed layout;
-// `tables` of the packed layout and every `dtables` 16-byte aligned.
+// `tables` of the brick and packed layouts and every `dtables` 16-byte
+// aligned.
 
 int hash_brick_fwd(const float* tables, const float* coords, const float* res, float* out, int n,
                    int levels, int bricks, void* stream) {
-  hash_brick_fwd_kernel<<<grid_for(n, levels), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tables, coords, res, out, n, levels, bricks);
+  hash_brick_fwd_kernel<<<fwd_grid_for<FwdTile<kBrickFeat, kBrickGroupBytes>>(n, levels), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(tables, coords, res, out, n, levels, bricks);
   return static_cast<int>(cudaGetLastError());
 }
 

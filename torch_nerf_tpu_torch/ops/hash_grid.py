@@ -36,16 +36,17 @@ counts its launches in ``.launches``. :func:`brick_encode`,
 ``torch.autograd.Function``\\ s whose forward is the forward kernel and
 whose backward is the backward kernel; like the JAX package's
 ``custom_vjp``, they give no gradient to the coordinates, the resolutions
-or the offsets. The corner and packed forwards (kernels 6 and 8) walk the
-levels in groups of 4 (corner) or 8 (packed) levels at F = 2, the group
+or the offsets. The forwards (kernels 4, 6 and 8) walk the levels in
+groups of 4 (brick, corner) or 8 (packed) levels at F = 2, the group
 slowest, so that the tables being gathered stay in the card's L2; a warp
 takes one level of 32 consecutive points and a block stores its staged
-tile of the group's columns whole; kernel 6 reads its corner rows in
-x-adjacent pairs. Their outputs equal the thread-per-(point, level) form's
-bit for bit. The backward kernels first sum, within a warp of 32
-consecutive points of one level, the points that write the same rows, then
-add the sums with vector atomics, in an order that changes from run to
-run.
+tile of the group's columns whole; kernel 4 reads each run of two z-sites
+as one 16-byte vector where the floor site's z is even, kernel 6 its
+corner rows in x-adjacent pairs. Their outputs equal the
+thread-per-(point, level) form's bit for bit. The backward kernels first
+sum, within a warp of 32 consecutive points of one level, the points that
+write the same rows, then add the sums with vector atomics, in an order
+that changes from run to run.
 """
 
 from __future__ import annotations
@@ -330,6 +331,7 @@ def hash_brick_fwd(tables: torch.Tensor, coords: torch.Tensor, resolutions: torc
     n = _check_points(coords, resolutions, num_level)
     if tables.device != coords.device:
         raise ValueError("tables and coords must be on the same device")
+    _check_aligned("tables", tables)
     out = torch.empty((n, num_level * BRICK_FEAT), dtype=torch.float32, device=coords.device)
     if n:
         _launch("hash_brick_fwd", tables, coords, resolutions, out, n, num_level, t_b)

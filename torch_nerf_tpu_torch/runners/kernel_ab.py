@@ -17,11 +17,12 @@ CUDA events, and whole 800x800 frames by the host clock, through a field
 that prepares that side's layout.
 
 ``--kernel hash_fold_bwd`` (kernel 9), ``hash_brick_bwd`` (kernel 5),
-``hash_corner_bwd`` (kernel 7), ``hash_corner_fwd`` (kernel 6) or
-``hash_fold_fwd`` (kernel 8), ``--other`` a ``hash_grid.cu``: the table
-gradient (a backward) or the features (a forward) of the kernel's layouts
-(``packed`` and ``packed_dual``; ``bricked``; ``hash``) at the NGP train
-point (L 16, F 2, T 2^19; 4096 rays x 256 samples of a 400x400 view, 2^20
+``hash_corner_bwd`` (kernel 7), ``hash_brick_fwd`` (kernel 4),
+``hash_corner_fwd`` (kernel 6) or ``hash_fold_fwd`` (kernel 8), ``--other``
+a ``hash_grid.cu``: the table gradient (a backward) or the features (a
+forward) of the kernel's layouts (``packed`` and ``packed_dual``;
+``bricked``; ``hash``) at the NGP train point (L 16, F 2, T 2^19, the brick
+table (16, 8192, 128); 4096 rays x 256 samples of a 400x400 view, 2^20
 points), by CUDA events, each side held against the plain version
 (relative L2, and the two sides' largest difference); then whole train
 steps of each layout at ``bench.py --model=instant_nerf``'s point (host
@@ -127,7 +128,7 @@ def field_forward(other: Path, rounds: int, frames: int, dev) -> dict:
 
 
 HASH_KERNELS = {"hash_fold_bwd": ("packed", "packed_dual"), "hash_brick_bwd": ("bricked",),
-                "hash_corner_bwd": ("hash",), "hash_corner_fwd": ("hash",),
+                "hash_corner_bwd": ("hash",), "hash_brick_fwd": ("bricked",), "hash_corner_fwd": ("hash",),
                 "hash_fold_fwd": ("packed", "packed_dual")}
 NGP_GRID = dict(num_level=16, log_max_entry_per_level=19, table_feat_dim=2, min_res=16, max_res=512)
 TRAIN_STEPS = 10  # timed train steps a layout and turn, after one untimed
@@ -152,8 +153,11 @@ def _hash_backward_call(layout, g, pts, base):
 
 def _hash_forward_call(layout, tables, pts, base):
     """(the kernel's call, its plain version's) for ``layout``'s features of
-    ``tables`` (the corner layout's (L, T, F); the packed layouts' folded
-    (L', rows/fold, 128)) at ``pts``."""
+    ``tables`` (the brick layout's (L, T_b, 128); the corner layout's (L, T,
+    F); the packed layouts' folded (L', rows/fold, 128)) at ``pts``."""
+    if layout == "bricked":
+        return (lambda: hash_grid.hash_brick_fwd(tables, pts, base),
+                lambda: hash_grid.brick_encode_reference(tables, pts, base))
     if layout == "hash":
         return (lambda: hash_grid.hash_corner_fwd(tables, pts, base),
                 lambda: hash_grid.corner_encode_reference(tables, pts, base))
@@ -183,8 +187,12 @@ def hash_kernel(kernel: str, other: Path, rounds: int, dev) -> dict:
     for layout in HASH_KERNELS[kernel]:
         levels = 2 * base.shape[0] if layout == "packed_dual" else base.shape[0]
         if forward:
-            shape = (levels, 2**log_t, f) if layout == "hash" else (
-                levels, 2**log_t // 8 // hash_grid.fold_factor(f), 128)
+            if layout == "bricked":
+                shape = (levels, hash_grid.bricks_per_level(log_t, f), 128)
+            elif layout == "hash":
+                shape = (levels, 2**log_t, f)
+            else:
+                shape = (levels, 2**log_t // 8 // hash_grid.fold_factor(f), 128)
             tables = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
             calls[layout], plain = _hash_forward_call(layout, tables, pts, base)
         else:
