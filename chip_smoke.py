@@ -3,8 +3,9 @@
 Drives the port's main paths through its own entry points (render a trained
 classic NeRF; train one, by the fused train pass and by autograd through the
 field; train, resume, render and evaluate both Instant-NGP presets and the
-packed table layouts with their smoothness loss) and holds every kernel on
-them against its plain PyTorch version.
+packed table layouts with their smoothness loss, a forward-facing LLFF scene
+through NDC rays, and occupancy-pruned runs) and holds every kernel on them
+against its plain PyTorch version.
 Each phase prints one JSON line; any failure exits non-zero. Then it prints
 the ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
@@ -33,8 +34,9 @@ bound and its plain version); bench (800x800 frames at ``bench.py
 --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
 per-corner hash encodes forward and backward, at full width on the 2^20
 points of a train batch plus 37 negative, integral and large ones, three
-planted faults that must be rejected, then kernels 4-7 on three
-contention cases: every point in one voxel, long runs of samples along
+planted faults that must be rejected, then kernels 4-7 on the points of
+the occupancy paths, a pruned step's 4096 x 128 and a sweep's 64^3, then
+on three contention cases: every point in one voxel, long runs of samples along
 rays, and integral points heading and inside runs of their voxel, then
 every corner width at 16 and 3 levels on 1, 33 and 4099 points);
 train_ngp (``run_train`` with the
@@ -54,7 +56,22 @@ packed width F 1-16 of both layouts at 16 and 3 levels on 1, 33 and 4099
 points); train_packed (``run_train`` of ``packed`` with the
 smoothness loss for 24 steps, a resume for 8, ``run_render`` +
 ``evaluate``, then 8 steps of ``packed_dual``; two forward and two
-backward fold launches per step, one forward per render chunk).
+backward fold launches per step, one forward per render chunk);
+train_llff (``run_train`` of the classic defaults on a generated
+forward-facing LLFF scene, 1008x756 PNGs minified by the loader to fern's
+factor-8 size 504x378, NDC rays, 24 steps, a resume for 8, ``run_render`` +
+``evaluate`` of the held-out view; 2 kernel-3 launches a step, t-bounds (0,
+1); the held-out frame and the same view from an origin on z = 0 through
+kernel 1 and the plain versions, non-finite pixels counted before any PNG
+cast and the finite masks equal); train_occ (``run_train`` with occupancy
+pruning, the grid sweeping every 4 steps after a warmup of 8: the classic
+defaults at 32 + 128 kept samples through kernel 3, ``instant_nerf_tpu``
+at 128 through kernels 4-5, 8 steps of ``instant_nerf`` through kernels
+6-7; the sidecar at both checkpoints and restored bit for bit, the grid
+at step 32 neither all occupied nor all empty, the sweep's and the pruned
+passes' launches and shapes counted). kernel_train holds
+kernel 3 also on occupancy-pruned planes, and train_bench and
+train_bench_ngp time the pruned steps beside the dense ones.
 """
 
 from __future__ import annotations
@@ -70,6 +87,7 @@ from pathlib import Path
 
 import torch
 
+from torch_nerf_tpu_torch.ops import launch_count
 from torch_nerf_tpu_torch.runners.timing import event_ms as cuda_ms
 from torch_nerf_tpu_torch.runners.timing import nvidia_smi
 
@@ -472,28 +490,33 @@ def fine_depths(w_coarse, uni, settings):
     ).contiguous()
 
 
-def composite_errors(c, w, c32, w32, cbf, wbf) -> dict:
+def composite_errors(c, w, c32, w32, cbf, wbf, tail) -> dict:
     """rgb (N, 3) and weights (N, S) of a pass against the plain f32
     version's, each measure within 2x the plain bf16 version's own + 1e-3:
-    the relative L2 error of each; the max-abs error of the weights without
-    the last interval, whose weight jumps between 0 and the ray's
-    transmittance when sigma's bf16 rounding crosses 0 there (its delta is
-    1e8); and the max-abs error of rgb on the rays where neither the pass
-    nor the plain bf16 version moved that weight by more than 1e-3."""
-    flip = ((w[:, -1] - w32[:, -1]).abs() > 1e-3) | ((wbf[:, -1] - w32[:, -1]).abs() > 1e-3)
+    the relative L2 error of each; the max-abs error of the weights but at
+    the ray's tail, the intervals of ``tail`` (N, S) (delta 1e8: the last
+    one of a dense plane, the last kept sample's of a pruned ray that took
+    the tail), whose weight jumps between 0 and the ray's transmittance
+    when sigma's bf16 rounding crosses 0 there; and the max-abs error of rgb
+    on the rays where neither the pass nor the plain bf16 version moved a
+    tail weight by more than 1e-3."""
+    def moved(w_):
+        return (((w_ - w32).abs() > 1e-3) & tail).any(dim=-1)
+
+    flip = moved(w) | moved(wbf)
     keep = ~flip
 
     def measures(c_, w_):
         return {"rgb_rel_l2": rel_l2({"x": c_}, {"x": c32})["x"],
                 "weights_rel_l2": rel_l2({"x": w_}, {"x": w32})["x"],
-                "weights_max_abs_but_last": (w_[:, :-1] - w32[:, :-1]).abs().max().item(),
+                "weights_max_abs_but_last": ((w_ - w32).abs() * ~tail).max().item(),
                 "rgb_max_abs_unflipped": (c_[keep] - c32[keep]).abs().max().item() if keep.any() else 0.0}
 
     err, scale = measures(c, w), measures(cbf, wbf)
     limit = {k: 2.0 * scale[k] + 1e-3 for k in err}
     ok = all(math.isfinite(err[k]) and err[k] <= limit[k] for k in err)
     return dict(ok=ok, err=err, limit=limit, flipped_rays=int(flip.sum()),
-                plain_flipped_rays=int(((wbf[:, -1] - w32[:, -1]).abs() > 1e-3).sum()),
+                plain_flipped_rays=int(moved(wbf).sum()),
                 max_abs_err=max((c - c32).abs().max().item(), (w - w32).abs().max().item()))
 
 
@@ -509,13 +532,40 @@ COMPOSITE_FAULTS = {
 }
 
 
+def pruned_planes(batch, dev):
+    """The occupancy-pruned ``(t, delta)`` planes of the batch's rays
+    (``occupancy.prune_t_samples``, bench.py --occupancy's budgets): K = 32
+    of the 64 coarse depths and K = 128 of the 192 merged fine ones, on a
+    64^3 grid over [-4, 4]^3 with 60% of its cells occupied at random (no
+    warmup), so that some rays are over budget (the last kept sample takes
+    the 1e8 tail where the last dense one is occupied) and some under (their
+    padding after the kept samples, out of t order); with counts of each."""
+    from torch_nerf_tpu_torch import occupancy  # noqa: PLC0415
+
+    cfg = occupancy.OccupancyConfig(resolution=64, bound=4.0, threshold=0.4, warmup_steps=0)
+    grid = torch.rand((64**3,), generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    planes, stats = {}, {}
+    for name, t, keep in (("pruned_coarse", batch["t_c"], 32), ("pruned_fine", batch["t_f"], 128)):
+        pts = batch["o"][:, None, :] + t[..., None] * batch["d"][:, None, :]
+        kept = occupancy.quota_keep_mask(occupancy.occupied_mask(grid, pts, cfg, 0), keep).sum(-1)
+        tp, dp = occupancy.prune_t_samples(grid, cfg, batch["o"], batch["d"], t, 0, keep=keep)
+        planes[name] = (tp.contiguous(), dp.contiguous())
+        stats[name] = dict(shape=list(tp.shape), rays_over_budget=int((kept == keep).sum()),
+                           rays_with_tail=int((dp >= 1e7).any(-1).sum()),
+                           rays_padded_out_of_t_order=int(((tp[:, 1:] < tp[:, :-1]).any(-1) & (kept < keep)).sum()))
+    return planes, stats
+
+
 def phase_kernel_train(batch):
     """Kernel 3 (the fused train pass) against its plain version at the main
     path's shapes, 4096 x 64 and 4096 x 192 (sorted depths from a real
-    draw), and a ragged 4093-ray batch with 4090 real rays; PyTorch-default
+    draw), a ragged 4093-ray batch with 4090 real rays, and the occupancy-
+    pruned planes of the same rays (:func:`pruned_planes`: 4096 x 32 and
+    4096 x 128, covered spans as deltas, some rays with the 1e8 tail on
+    their last kept sample and padding out of t order); PyTorch-default
     and He-scaled weights. rgb and weights as :func:`composite_errors`
     measures them; the 22 grads by relative L2 as in kernel_bwd; at the
-    coarse shape a second launch bit-identical. Then, at the coarse shape,
+    coarse and the pruned shapes a second launch bit-identical. Then, at the coarse shape,
     the planted weight-image faults and composite faults,
     each of which must fail the check with the He-scaled weights (the
     composite faults by rgb and weights alone)."""
@@ -529,12 +579,15 @@ def phase_kernel_train(batch):
     o, d, gt = batch["o"], batch["d"], batch["gt"]
     base = _seeded_params(0, dev)
     sets = {"port_init": base, "he": he_scaled(base)}
-    cases = {"coarse": (4096, 4096, batch["t_c"]), "fine": (4096, 4096, batch["t_f"]),
-             "ragged": (4093, 4090, batch["t_c"][:4093])}
+    planes, plane_stats = pruned_planes(batch, dev)
+    cases = {"coarse": (4096, 4096, batch["t_c"], None), "fine": (4096, 4096, batch["t_f"], None),
+             "ragged": (4093, 4090, batch["t_c"][:4093], None),
+             **{name: (4096, 4096, tp, dp) for name, (tp, dp) in planes.items()}}
     results, faults, max_abs = {}, {}, 0.0
-    for case, (n, real, t) in cases.items():
+    for case, (n, real, t, delta) in cases.items():
         t = t.contiguous()
-        delta = sampling.t_deltas(t)
+        delta = sampling.t_deltas(t) if delta is None else delta
+        tail = delta >= 1e7
         args = (o[:n], d[:n], t, delta, gt[:n])
         for wname, params in sets.items():
             c32, w32, g32 = train_reference(bf16_rounded(params), *args, cfg32, real)
@@ -551,7 +604,7 @@ def phase_kernel_train(batch):
                 if out is not None:
                     c, w = out(c, w)
                 verdict = judge(rel_l2(named(g), ref32), scale)
-                comp = composite_errors(c, w, c32, w32, cbf, wbf)
+                comp = composite_errors(c, w, c32, w32, cbf, wbf, tail)
                 verdict.update(grads_ok=verdict["ok"], composite=comp)
                 verdict["ok"] = (verdict["ok"] and comp["ok"]
                                  and ftm.fused_train_pass.launches == before + 1)
@@ -563,12 +616,14 @@ def phase_kernel_train(batch):
             key = f"{case}/{wname}"
             results[key] = check(runs=runs)
             max_abs = max(max_abs, results[key]["max_abs_err"])
-            if case != "coarse":
+            if case not in ("coarse", "pruned_coarse", "pruned_fine"):
                 continue
             # a second launch on the same inputs: the same outputs, bit for bit
             check(runs=runs)
             same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
             results[key].update(relaunch_bit_identical=same, ok=results[key]["ok"] and same)
+            if case != "coarse":
+                continue
             for fname, fault in TRAIN_FAULTS.items():
                 with planted(fault):
                     v = check()
@@ -580,8 +635,9 @@ def phase_kernel_train(batch):
                                              "composite_err": v["composite"]["err"],
                                              "composite_limit": v["composite"]["limit"]}
     ok = all(r["ok"] for r in results.values()) and all(
-        v["rejected"] for k, v in faults.items() if k.startswith("he/"))
-    emit("kernel_train", cases=results, planted_faults=faults,
+        v["rejected"] for k, v in faults.items() if k.startswith("he/")) and all(
+        v["rays_over_budget"] and v["rays_with_tail"] and v["rays_padded_out_of_t_order"] for v in plane_stats.values())
+    emit("kernel_train", cases=results, pruned_planes=plane_stats, planted_faults=faults,
          tolerance="rgb, weights as composite_errors (rel L2; max-abs of weights but the last "
                    "interval; max-abs of rgb on unflipped rays), grads rel L2: each <= 2 * plain bf16 + 1e-3",
          rule="every planted fault rejected with the he weights (composite faults by rgb, weights alone)",
@@ -772,7 +828,7 @@ def phase_train(work: Path):
     logs, results, launches, k1 = [], [], [], []
     t0 = time.perf_counter()
     for max_steps in (24, 32):
-        ftm.fused_train_pass.launches = 0
+        launch_count.reset(ftm.fused_train_pass)
         fn.reset_launches()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -816,14 +872,26 @@ def phase_train(work: Path):
     return {"fused_train_pass": sum(launches), "fused_nerf_fwd": sum(c["wgmma"] + c["mma_sync"] for c in k1)}
 
 
+def bench_step(step, state, grid, images, poses, gen):
+    """One image train step, threading the occupancy grid where there is one."""
+    if grid is None:
+        state, metrics = step(state, images, poses, gen)
+    else:
+        state, grid, metrics = step(state, grid, images, poses, gen)
+    return state, grid, metrics
+
+
 def phase_train_bench(smi: str):
     """Train steps at bench.py's operating point (8 views at 400x400, 4096
     rays, 64 + 128 samples, make_image_train_step(precrop=False)): 3 warm-up
-    and 20 timed steps, fused and force_generic, with the launches of each
-    path counted over its timed steps; then kernel 3 alone per coarse and
+    and 20 timed steps, fused, force_generic, and fused with occupancy
+    pruning at ``bench.py --occupancy``'s point (32 of 64 coarse, 128 of 192
+    fine, the default grid: its warmup of 512 steps reads every cell
+    occupied, a sweep every 16 steps), with the launches of each path
+    counted over its timed steps; then kernel 3 alone per coarse and
     fine pass and kernel 2 at the fine shape (CUDA events), beside their
     bounds and the plain versions' times."""
-    from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch import occupancy, renderer, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
@@ -840,19 +908,22 @@ def phase_train_bench(smi: str):
     optim = train.OptimConfig()
     timed = 20
     paths, states = {}, {}
-    for path, generic in (("fused", False), ("generic", True)):
+    occ_bench = occupancy.OccupancyConfig(keep_samples=32, keep_samples_fine=128)
+    for path, generic, occ in (("fused", False, None), ("generic", True, None), ("fused_occupancy", False, occ_bench)):
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
-        step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic,
+                                           occupancy_cfg=occ)
+        grid = occupancy.init_grid(occ, dev) if occ else None
         gen = torch.Generator(device=dev).manual_seed(1)
         for _ in range(3):
-            state, _ = step(state, images, poses, gen)
+            state, grid, _ = bench_step(step, state, grid, images, poses, gen)
         torch.cuda.synchronize()
-        ftm.fused_train_pass.launches = fn.fused_nerf_bwd.launches = 0
+        launch_count.reset(ftm.fused_train_pass)
         fn.reset_launches()
         losses = []
         t0 = time.perf_counter()
         for _ in range(timed):
-            state, metrics = step(state, images, poses, gen)
+            state, grid, metrics = bench_step(step, state, grid, images, poses, gen)
             losses.append(metrics["loss"])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
@@ -861,9 +932,11 @@ def phase_train_bench(smi: str):
                            launches={"fused_train_pass": ftm.fused_train_pass.launches,
                                      "fused_nerf_fwd": fn.fused_nerf_apply.launches,
                                      "fused_nerf_bwd": fn.fused_nerf_bwd.launches},
+                           kernel3_shapes={f"{n}x{s_}": c for (n, s_), c in ftm.fused_train_pass.shapes.items()},
                            loss_first=losses[0], loss_last=losses[-1],
                            finite=all(math.isfinite(v) for v in losses))
-        states[path] = (state, step, gen)
+        if occ is None:
+            states[path] = (state, step, gen)
     clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
 
     # the kernels alone, on a batch of the fused path's own step
@@ -904,7 +977,11 @@ def phase_train_bench(smi: str):
     ok = (all(p["finite"] for p in paths.values())
           and paths["fused"]["launches"] == {"fused_train_pass": 2 * timed, "fused_nerf_fwd": 0, "fused_nerf_bwd": 0}
           and paths["generic"]["launches"] == {"fused_train_pass": 0, "fused_nerf_fwd": 2 * timed,
-                                               "fused_nerf_bwd": 2 * timed})
+                                               "fused_nerf_bwd": 2 * timed}
+          # one sweep (state.step 16) among the timed steps 3..22
+          and paths["fused_occupancy"]["launches"] == {"fused_train_pass": 2 * timed, "fused_nerf_fwd": 1,
+                                                       "fused_nerf_bwd": 0}
+          and paths["fused_occupancy"]["kernel3_shapes"] == {"4096x32": timed, "4096x128": timed})
     emit("train_bench", card=smi, sm_clock_temp_power=clocks, timed_steps=timed, paths=paths,
          kernels=kernels, kernel3_ms_per_step=k3, kernel3_share_of_step=k3 / fused["ms_per_step"],
          step_bound_ms=step_bound, peak_flops=peak_flops, peak_bytes_per_s=peak_bw, ok=ok)
@@ -954,28 +1031,51 @@ def ngp_table_shape(layout):
     return (levels, 2**log_t, f)
 
 
-def ngp_points(dev, seed=6):
-    """The 4096 x 256 = 2^20 sample points of an NGP train batch (random
-    pixels of a 400x400 training view, stratified depths in [2, 6]) and 37
-    more: 12 with negative coordinates, 12 with integral scaled coordinates
-    on one or more axes, 13 far out (|x| up to 900)."""
+def ngp_rays(gen, dev):
+    """An NGP train batch's rays, 4096 random pixels of a 400x400 training
+    view, and their 256 stratified depths in [2, 6]: ``(o, d, t)``."""
     from torch_nerf_tpu_torch import cameras, renderer  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
     camera = cameras.CameraParams(480.0, 480.0, 400, 400)
     pose = torch.as_tensor(synthetic.split_poses(8, "train")[0], device=dev)
     pix = torch.randperm(400 * 400, generator=gen, device=dev)[:4096]
     o, d = cameras.rays_for_pixels(pix, camera, pose)
     uni = renderer.draw_uniforms(gen, 4096, renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0))
-    t = sampling.stratified_t_samples_from_uniforms(uni.coarse, 2.0, 6.0)
-    pts, _ = ray_points(o, d, t)
+    return o, d, sampling.stratified_t_samples_from_uniforms(uni.coarse, 2.0, 6.0)
+
+
+def ngp_points(dev, seed=6):
+    """The 4096 x 256 = 2^20 sample points of an NGP train batch
+    (:func:`ngp_rays`) and 37 more: 12 with negative coordinates, 12 with
+    integral scaled coordinates on one or more axes, 13 far out (|x| up to
+    900)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pts, _ = ray_points(*ngp_rays(gen, dev))
     negative = -1.5 * torch.rand((12, 3), generator=gen, device=dev)
     integral = torch.randint(-3, 4, (12, 3), generator=gen, device=dev).float()
     integral[6:, 0] += 0.3  # integral on the other two axes only
     far = torch.rand((13, 3), generator=gen, device=dev) * 1800.0 - 900.0
     return torch.cat([pts, negative, integral, far]).contiguous()
+
+
+def occupancy_points(dev, seed=10) -> dict:
+    """The points that the occupancy paths give kernels 4-7 (train_occ):
+    a pruned NGP step's 4096 x 128, ``occupancy.prune_t_samples`` keeping
+    128 of :func:`ngp_rays`' 256 depths on a 64^3 grid over [-4, 4]^3 with
+    half its cells occupied at random (no warmup: rays over and under
+    budget, padding after the kept samples), and one sweep's 64^3 jittered
+    cell points (``occupancy.sweep_points``)."""
+    from torch_nerf_tpu_torch import occupancy  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = occupancy.OccupancyConfig(resolution=64, bound=4.0, threshold=0.5, warmup_steps=0)
+    grid = torch.rand((cfg.resolution**3,), generator=gen, device=dev)
+    o, d, t = ngp_rays(gen, dev)
+    t_sel, _ = occupancy.prune_t_samples(grid, cfg, o, d, t, 0, keep=128)
+    pruned, _ = ray_points(o, d, t_sel)
+    return {"pruned_step": pruned, "sweep": occupancy.sweep_points(occupancy.draw_jitter(gen, cfg), cfg).contiguous()}
 
 
 def pair_verdict(fwd, bwd, run_fwd, run_bwd, ref_out, ref_grad) -> dict:
@@ -1014,7 +1114,8 @@ def phase_kernel_hash():
     all-zero-weight quirk on the integral points. Then three faults planted
     in the kernels' inputs, each of which the check must reject: the table
     rolled by one row, two levels' resolutions swapped, one point's x and y
-    swapped. Then :func:`hash_contention`."""
+    swapped. Then kernels 4-7 on :func:`occupancy_points`, then
+    :func:`hash_contention` and :func:`hash_widths`."""
     dev = torch.device("cuda")
     pts = ngp_points(dev)
     n = pts.shape[0]
@@ -1048,13 +1149,23 @@ def phase_kernel_hash():
                                integral_points_max_abs=quirk,
                                ok=verdict["ok"] and quirk == 0.0 and all(f["rejected"] for f in rejected.values()))
         max_abs[layout] = {"fwd": verdict["err"]["fwd_max_abs"], "bwd": verdict["err"]["grad_max_abs"]}
+    occ = {}
+    for case, p in occupancy_points(dev).items():
+        for layout in NGP_LAYOUTS:
+            _, _, fwd_ref, bwd_ref = hash_ops(layout)
+            tables = torch.rand(ngp_table_shape(layout), generator=gen, device=dev) * 2.0 - 1.0
+            g = torch.randn((p.shape[0], 32), generator=gen, device=dev)
+            ref_out, ref_grad = fwd_ref(tables, p, res), bwd_ref(g, p, res, *table_args(tables))
+            v = hash_verdict(layout, tables, p, res, g, ref_out, ref_grad)
+            occ[f"{case}/{layout}"] = dict(points=p.shape[0], err=v["err"], limit=v["limit"], ok=v["ok"])
     contention = hash_contention(dev, gen)
     widths = hash_widths(dev, gen)
-    ok = (all(r["ok"] for r in results.values()) and all(c["ok"] for c in contention.values())
-          and all(w["ok"] for w in widths.values()))
-    emit("kernel_hash", layouts=results, contention=contention, widths=widths,
-         rule="kernels within the limits; every planted fault rejected; the contention cases within the limits "
-              "against the f64 sum, integral points 0; every corner width and a ragged n within the limits", ok=ok)
+    ok = (all(r["ok"] for r in results.values()) and all(o["ok"] for o in occ.values())
+          and all(c["ok"] for c in contention.values()) and all(w["ok"] for w in widths.values()))
+    emit("kernel_hash", layouts=results, occupancy_points=occ, contention=contention, widths=widths,
+         rule="kernels within the limits; every planted fault rejected; the occupancy paths' points within the "
+              "limits; the contention cases within the limits against the f64 sum, integral points 0; every "
+              "corner width and a ragged n within the limits", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel_hash failed")
     return max_abs
@@ -1150,14 +1261,14 @@ NGP_TRAIN_OVERRIDES = ["data.dataset_type=gaussian_blobs", "data.img_size=400",
 
 def run_cli(fn, argv, counted):
     """``fn(argv)`` with its stdout captured and the launch counts of the
-    ``counted`` wrappers set to 0 just before and read just after."""
-    for w in counted:
-        w.launches = 0
+    ``counted`` wrappers, total and by shape, set to 0 just before and read
+    just after: ``(result, stdout, launches, shapes)``."""
+    launch_count.reset(*counted)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         result = fn(argv)
     torch.cuda.synchronize()
-    return result, buf.getvalue(), [w.launches for w in counted]
+    return result, buf.getvalue(), [w.launches for w in counted], [dict(w.shapes) for w in counted]
 
 
 def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
@@ -1170,17 +1281,18 @@ def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
     from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
 
     run, out, gt = work / f"{name}_run", work / f"{name}_render", work / f"{name}_gt"
-    logs, results, launches = [], [], []
+    logs, results, launches, launch_shapes = [], [], [], []
     t0 = time.perf_counter()
     for max_steps in (24, 32):
-        r, log, c = run_cli(run_train.main, ["--log-dir", str(run), "--max-steps", str(max_steps)] + train_args,
-                            counted)
+        r, log, c, sh = run_cli(run_train.main, ["--log-dir", str(run), "--max-steps", str(max_steps)] + train_args,
+                                counted)
         results.append(r)
         logs.append(log)
         launches.append(c)
+        launch_shapes.append(sh)
     train_s = time.perf_counter() - t0
-    _, _, render_launches = run_cli(run_render.main, ["--log-dir", str(run), "--render-test-views",
-                                                      "--num-views", "2", "--out-dir", str(out)], counted)
+    _, _, render_launches, render_shapes = run_cli(run_render.main, [
+        "--log-dir", str(run), "--render-test-views", "--num-views", "2", "--out-dir", str(out)], counted)
     cfg = config.load_config(run / "config.yaml")
     data = session.build_dataset(cfg, "test", device=torch.device("cuda"))
     gt.mkdir(parents=True)
@@ -1197,6 +1309,7 @@ def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
           and (run / "ckpt" / "ckpt_000032.pt").exists() and shapes == [[800, 800, 3]] * 2
           and all(math.isfinite(v) for v in scores.values()))
     return dict(ok=ok, seconds=train_s, results=results, launches=launches, render_launches=render_launches,
+                shapes=launch_shapes, render_shapes=render_shapes, run=run,
                 report=dict(steps=[r["step"] for r in results], losses=losses, mean_loss_first8=first8,
                             mean_loss_last8=last8, validation=val, resumed=resumed, png_shapes=shapes,
                             psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"]))
@@ -1214,7 +1327,7 @@ def phase_train_ngp(work: Path):
 
     counted = hash_ops("bricked")[:2] + hash_ops("hash")[:2]
     done = train_resume_render(work, "ngp", ["--config", "instant_nerf_tpu"] + NGP_TRAIN_OVERRIDES, counted)
-    hash_result, _, hash_launches = run_cli(run_train.main, [
+    hash_result, _, hash_launches, _ = run_cli(run_train.main, [
         "--config", "instant_nerf", "--log-dir", str(work / "ngp_hash_run"), "--max-steps", "8"]
         + NGP_TRAIN_OVERRIDES, counted)
     chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
@@ -1444,7 +1557,7 @@ def phase_train_packed(work: Path):
     counted = fold_ops() + hash_ops("bricked")[:2] + hash_ops("hash")[:2]
     done = train_resume_render(work, "packed", ["--config", "instant_nerf", "network.table_layout=packed"]
                                + SMOOTHNESS + NGP_TRAIN_OVERRIDES, counted)
-    dual, _, dual_launches = run_cli(run_train.main, [
+    dual, _, dual_launches, _ = run_cli(run_train.main, [
         "--config", "instant_nerf", "--log-dir", str(work / "packed_dual_run"), "--max-steps", "8",
         "network.table_layout=packed_dual"] + SMOOTHNESS + NGP_TRAIN_OVERRIDES, counted)
     chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
@@ -1468,6 +1581,286 @@ def phase_train_packed(work: Path):
     return {"hash_fold_fwd": sum(c[0] for c in calls), "hash_fold_bwd": sum(c[1] for c in calls)}
 
 
+# ---------------------------------------------------------------------------
+# LLFF + NDC, and occupancy pruning: kernels 1, 3 and 4-7 on their paths
+
+# fern's images as captured are 4032 x 3024; data.factor=2 of these makes
+# 504 x 378, fern's size at the reference's factor 8
+LLFF_SIZE = (756, 1008)  # (H, W) of the images written to disk
+LLFF_FOCAL = 815.0  # fern's focal scaled to that width
+
+
+def write_llff_scene(root: Path, views: int = 20, seed: int = 0) -> Path:
+    """A forward-facing capture under ``root/fern``: ``views`` cameras on a
+    4-wide grid of positions 0.1 apart, each moved and turned a little at
+    random (0.05 rad about each axis, 0.05 in depth), looking down -z;
+    ``poses_bounds.npy`` rows as LLFF writes them (bounds 2 and 6) and
+    1008x756 PNGs of a smooth pattern that moves with the camera, plus
+    noise."""
+    import numpy as np  # noqa: PLC0415
+
+    from torch_nerf_tpu_torch.logging_utils import save_png  # noqa: PLC0415
+
+    rng = np.random.default_rng(seed)
+    h, w = LLFF_SIZE
+    img_dir = root / "fern" / "images"
+    img_dir.mkdir(parents=True)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    rows = []
+    for i in range(views):
+        a, b, c = rng.normal(0.0, 0.05, 3)
+        rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+        ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
+        rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0], [0, 0, 1]])
+        pos = np.array([0.1 * (i % 4), 0.1 * (i // 4), rng.normal(0.0, 0.05)])
+        c2w = np.concatenate([rx @ ry @ rz, pos[:, None]], axis=1)
+        sx, sy = xx / w + 0.5 * pos[0], yy / h - 0.5 * pos[1]
+        img = np.stack([0.5 + 0.4 * np.sin(6.0 * sx), 0.5 + 0.4 * np.cos(5.0 * sy),
+                        0.5 + 0.3 * np.sin(4.0 * (sx + sy))], axis=-1)
+        save_png(img_dir / f"img_{i:03d}.png", img + rng.normal(0.0, 0.015, img.shape))
+        raw = np.stack([-c2w[:, 1], c2w[:, 0], c2w[:, 2], c2w[:, 3]], axis=1)
+        hwf = np.array([[h], [w], [LLFF_FOCAL]])
+        rows.append(np.concatenate([np.concatenate([raw, hwf], axis=1).reshape(-1), [2.0, 6.0]]))
+    np.save(root / "fern" / "poses_bounds.npy", np.stack(rows))
+    return root
+
+
+def frame_agreement(images: dict) -> dict:
+    """Kernel 1's frame against the plain versions' (bf16, f32) on the same
+    draws: the non-finite pixels of each, whether the finite masks are
+    equal, and on the finite pixels the kernel's PSNR against plain f32
+    beside plain bf16's less 12.04 dB (4x the RMS error), as serve holds it."""
+    from torch_nerf_tpu_torch import metrics  # noqa: PLC0415
+
+    finite = {k: torch.isfinite(v).all(dim=-1) for k, v in images.items()}
+    out = dict(non_finite_pixels={k: int((~m).sum()) for k, m in finite.items()},
+               masks_equal=all(torch.equal(finite["kernel"], m) for m in finite.values()))
+    mask = finite["plain_f32"]
+    ok = out["masks_equal"]
+    if mask.any():
+        ref = images["plain_f32"][mask]
+        out["kernel_vs_plain_f32_psnr"] = metrics.psnr(images["kernel"][mask], ref)
+        out["psnr_limit"] = metrics.psnr(images["plain_bf16"][mask], ref) - 12.04
+        ok = ok and out["kernel_vs_plain_f32_psnr"] >= out["psnr_limit"]
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_train_llff(work: Path):
+    """``run_train`` of the classic defaults on a forward-facing scene
+    (:func:`write_llff_scene`, 20 views) with ``data.dataset_type=nerf_llff
+    data.factor=2 renderer.project_to_ndc=true``: the loader pools the
+    1008x756 images to 504x378 and writes its ``images_2/`` cache; 19
+    training views (the view nearest the average pose held out), 24 steps
+    with a validation, a checkpoint and a visualisation at the end of the
+    first epoch, then a resume for 8 more; ``run_render`` + ``evaluate`` of
+    the held-out view. Kernel 3 launches: 2 a step, at 4096 x 64 and 4096 x
+    192; kernel 1: 2 a 4096-ray chunk of each render (47 chunks a view).
+    The t-bounds must be (0, 1). Then the held-out view's frame through
+    kernel 1 and the plain versions on the checkpoint's weights and the same
+    draws, before any PNG cast, and the same view from its pose moved onto
+    the plane z = 0, where every NDC ray's origin divides by 0 (the JAX
+    package's NaN frame): the non-finite pixels counted, the finite masks
+    equal, the finite pixels as serve holds them."""
+    from torch_nerf_tpu_torch import checkpoints, config, renderer, session  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    data_root = write_llff_scene(work / "llff_data")
+    write_s = time.perf_counter() - t0
+    run, out, gt = work / "llff_run", work / "llff_render", work / "llff_gt"
+    over = ["data.dataset_type=nerf_llff", "data.scene_name=fern", f"data.data_root={data_root}", "data.factor=2",
+            "renderer.project_to_ndc=true", "train_params.validation.validate_every=1",
+            "train_params.validation.num_batch=1", "train_params.log.epoch_btw_ckpt=1",
+            "train_params.log.epoch_btw_vis=1"]
+    counted = [ftm.fused_train_pass, fn.fused_nerf_apply]
+    results, logs, launches, shapes = [], [], [], []
+    t0 = time.perf_counter()
+    for max_steps in (24, 32):
+        r, log, c, sh = run_cli(run_train.main, ["--config", "default", "--log-dir", str(run), "--max-steps",
+                                                 str(max_steps)] + over, counted)
+        results.append(r)
+        logs.append(log)
+        launches.append(c)
+        shapes.append(sh)
+    train_s = time.perf_counter() - t0
+    _, _, render_launches, render_shapes = run_cli(run_render.main, [
+        "--log-dir", str(run), "--render-test-views", "--num-views", "1", "--out-dir", str(out)], counted)
+    cfg = config.load_config(run / "config.yaml")
+    test = session.build_dataset(cfg, "test", device=dev)
+    settings = session.build_render_settings(cfg, test)
+    gt.mkdir(parents=True)
+    save_png(gt / "0000.png", test.images[0])
+    scores = evaluate.main([str(out), str(gt)])
+    png_shape = list(load_png(out / "0000.png").shape)
+
+    params = checkpoints.restore_latest(run, device=dev)["params"]
+    draws = {}
+
+    def uniforms(first, n):
+        if first not in draws:
+            draws[first] = renderer.draw_uniforms(torch.Generator(device=dev).manual_seed(77 + first), n, settings)
+        return draws[first]
+
+    pose = torch.as_tensor(test.poses[0], device=dev)
+    planar = pose.clone()
+    planar[2, 3] = 0.0
+    frames = {}
+    for view, p in (("held_out", pose), ("origin_on_z0", planar)):
+        images = {}
+        for name, use_kernel, dtype in (("kernel", True, torch.bfloat16), ("plain_bf16", False, torch.bfloat16),
+                                        ("plain_f32", False, torch.float32)):
+            field = make_nerf_field(compute_dtype=dtype, use_kernel=use_kernel)
+            images[name] = renderer.render_image(field, params["coarse"], params["fine"], test.camera, p, 0,
+                                                 settings, chunk_size=4096, uniforms_for_chunk=uniforms)
+        frames[view] = frame_agreement(images)
+    losses = results[0]["losses"] + results[1]["losses"]
+    first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
+    chunks = -(-378 * 504 // 4096)
+    want = [[48, 2 * 2 * chunks], [16, 0]]
+    want_shapes = [{(4096, 64): 24, (4096, 192): 24}, {(4096, 64): 8, (4096, 192): 8}]
+    val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
+    ok = (launches == want and render_launches == [0, 2 * chunks] and [sh[0] for sh in shapes] == want_shapes
+          and (settings.t_near, settings.t_far, settings.project_to_ndc) == (0.0, 1.0, True)
+          and test.images.shape[1:3] == (378, 504) and (data_root / "fern" / "images_2").is_dir()
+          and len(losses) == 32 and all(math.isfinite(v) for v in losses) and last8 < first8
+          and "Resumed from step 24." in logs[1] and len(val) == 1 and png_shape == [378, 504, 3]
+          and all(math.isfinite(v) for v in scores.values()) and all(f["ok"] for f in frames.values())
+          and frames["held_out"]["non_finite_pixels"]["plain_f32"] == 0
+          and frames["origin_on_z0"]["non_finite_pixels"]["plain_f32"] == 378 * 504)
+    emit("train_llff", scene_seconds=write_s, seconds=train_s, steps=[r["step"] for r in results],
+         image_size=list(test.images.shape[1:3]), t_bounds=[settings.t_near, settings.t_far],
+         launches_kernel3_kernel1={"train": launches, "render": render_launches},
+         expected={"train": want, "render": [0, 2 * chunks]},
+         kernel3_shapes=[{f"{n}x{s_}": c for (n, s_), c in sh[0].items()} for sh in shapes],
+         kernel1_points=[sh[1] for sh in shapes] + [render_shapes[1]], losses=losses, mean_loss_first8=first8,
+         mean_loss_last8=last8, validation=val, png_shape=png_shape, psnr_vs_gt=scores["psnr"],
+         ssim_vs_gt=scores["ssim"], frames=frames,
+         tolerance="finite masks equal; finite pixels: kernel psnr vs plain f32 >= plain bf16's - 12.04 dB", ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_llff phase failed")
+    return {"fused_train_pass": sum(c[0] for c in launches),
+            "fused_nerf_fwd": sum(c[1] for c in launches) + render_launches[1]}
+
+
+# occupancy changed so that the grid prunes within a 24-step run: sweeps
+# at every 4th step, the warmup over after 8, and the density threshold
+# raised from 0.01, which every cell of these young fields exceeds. On an
+# H100 the grids at step 32 read, at their 10th, 50th and 90th
+# percentiles, 2.47, 2.89 and 3.53 (classic, at a threshold of 1.0 all
+# occupied) and 1.033, 1.039 and 1.050 (bricked NGP: 2**out near 1)
+OCC_RUN = ["occupancy.enabled=true", "occupancy.warmup_steps=8", "occupancy.update_every=4"]
+OCC_THRESHOLD = {"classic": 3.0, "bricked": 1.05}
+
+
+def resumed_grid_bit_exact(run: Path, step: int, train_args) -> bool:
+    """Whether ``run_train`` restores the grid of ``ckpt_<step>`` bit for
+    bit: a resume that runs no step saves the grid it restored, which must
+    be the sidecar's bytes."""
+    from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
+
+    sidecar = run / "ckpt" / f"ckpt_{step:06d}.occ.npy"
+    saved = sidecar.read_bytes()
+    _, log, _, _ = run_cli(run_train.main, ["--log-dir", str(run), "--max-steps", str(step)] + train_args, [])
+    return f"Resumed from step {step}." in log and sidecar.read_bytes() == saved
+
+
+def grid_report(run: Path, step: int, threshold: float) -> dict:
+    """The saved grid's size, its share of cells above ``threshold`` and
+    the 10th, 50th and 90th percentiles of its densities."""
+    import numpy as np  # noqa: PLC0415
+
+    grid = np.load(run / "ckpt" / f"ckpt_{step:06d}.occ.npy")
+    return dict(cells=int(grid.size), threshold=threshold, occupied_share=float((grid > threshold).mean()),
+                percentiles_10_50_90=[float(v) for v in np.percentile(grid, [10, 50, 90])])
+
+
+def phase_train_occ(work: Path):
+    """``run_train`` with ``occupancy.enabled=true`` (64^3 grid, sweeps every
+    4 steps, warmup 8, the threshold raised: :data:`OCC_RUN`) on
+    gaussian_blobs at 400x400 through :func:`train_resume_render`: the
+    classic defaults at ``bench.py --occupancy``'s budgets (32 of 64 coarse,
+    128 of the 192 merged fine) through the fused pruned step, and
+    ``instant_nerf_tpu`` (bricked) at 128 of 256 through the generic one;
+    then 8 steps of ``instant_nerf`` (per-corner) at 128. Each run: the
+    sidecar beside both checkpoints, the grid restored from it bit for bit,
+    the grid at step 32 neither all occupied nor all empty at its
+    threshold, losses finite and falling, render and evaluate finite. Launches: kernel
+    3 twice a step at 4096 x 32 and 4096 x 128; kernel 1 once a sweep at
+    262,144 points besides the renders; kernels 4-5 (6-7) once a step at
+    4096 x 128 points, kernel 4 (6) once a sweep."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
+
+    cells, step_points = 64**3, 4096 * 128
+    chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
+    sweeps = [6, 2]  # state.step % 4 == 0 in 0..23, then in 24..31
+    classic_args = ["--config", "default", "occupancy.keep_samples=32", "occupancy.keep_samples_fine=128",
+                    f"occupancy.threshold={OCC_THRESHOLD['classic']}"] + OCC_RUN
+    classic = train_resume_render(work, "occ", classic_args + NGP_TRAIN_OVERRIDES, [ftm.fused_train_pass,
+                                                                                   fn.fused_nerf_apply])
+    ngp_args = ["--config", "instant_nerf_tpu", "occupancy.keep_samples=128",
+                f"occupancy.threshold={OCC_THRESHOLD['bricked']}"] + OCC_RUN
+    counted = hash_ops("bricked")[:2] + hash_ops("hash")[:2]
+    ngp = train_resume_render(work, "occ_ngp", ngp_args + NGP_TRAIN_OVERRIDES, counted)
+    hash_result, _, hash_launches, hash_shapes = run_cli(run_train.main, [
+        "--config", "instant_nerf", "--log-dir", str(work / "occ_hash_run"), "--max-steps", "8",
+        "occupancy.keep_samples=128", f"occupancy.threshold={OCC_THRESHOLD['bricked']}"] + OCC_RUN
+        + NGP_TRAIN_OVERRIDES, counted)
+
+    renders = [2 * (chunks_800 + chunks_400), 0]
+    want = {"classic": [[48, sweeps[0] + renders[0]], [16, sweeps[1]]],
+            "classic_render": [0, 2 * 2 * chunks_800],
+            "bricked": [[24 + sweeps[0] + renders[0] // 2, 24, 0, 0], [8 + sweeps[1], 8, 0, 0]],
+            "bricked_render": [2 * chunks_800, 0, 0, 0], "hash": [0, 0, 8 + 2, 8]}
+    got = {"classic": classic["launches"], "classic_render": classic["render_launches"],
+           "bricked": ngp["launches"], "bricked_render": ngp["render_launches"], "hash": hash_launches}
+    k3_shapes = [{(4096, 32): n, (4096, 128): n} for n in (24, 8)]
+    checks = {
+        "launches": got == want,
+        "kernel3_shapes": [sh[0] for sh in classic["shapes"]] == k3_shapes,
+        # a sweep's 64^3 points are as many as a coarse render chunk's 4096 x 64
+        "kernel1_sweeps": [sh[1] for sh in classic["shapes"]] == [
+            {cells: sweeps[0] + chunks_800 + chunks_400, 4096 * 192: chunks_800 + chunks_400}, {cells: sweeps[1]}],
+        "kernel4_steps_and_sweeps": [(sh[0].get(step_points, 0), sh[0].get(cells, 0)) for sh in ngp["shapes"]]
+        == [(24, sweeps[0]), (8, sweeps[1])],
+        "kernel5_steps": [sh[1] for sh in ngp["shapes"]] == [{step_points: 24}, {step_points: 8}],
+        "kernel67_steps_and_sweeps": hash_shapes[2] == {step_points: 8, cells: 2} and hash_shapes[3] == {step_points: 8},
+        "classic_run": classic["ok"], "bricked_run": ngp["ok"],
+        "hash_losses_finite": len(hash_result["losses"]) == 8 and all(math.isfinite(v) for v in hash_result["losses"]),
+    }
+    runs = {}
+    for name, done, args in (("classic", classic, classic_args), ("bricked", ngp, ngp_args)):
+        run = done["run"]
+        sidecars = sorted(p.name for p in (run / "ckpt").glob("*.occ.npy"))
+        runs[name] = dict(sidecars=sidecars, grid_at_32=grid_report(run, 32, OCC_THRESHOLD[name]),
+                          resumed_grid_bit_exact=resumed_grid_bit_exact(run, 32, args + NGP_TRAIN_OVERRIDES),
+                          **done["report"])
+        checks[f"{name}_sidecars"] = sidecars == ["ckpt_000024.occ.npy", "ckpt_000032.occ.npy"]
+        checks[f"{name}_grid_bit_exact"] = runs[name]["resumed_grid_bit_exact"]
+        checks[f"{name}_grid_prunes"] = 0.0 < runs[name]["grid_at_32"]["occupied_share"] < 1.0
+    ok = all(checks.values())
+    emit("train_occ", occupancy="64^3 over [-4, 4]^3; update_every 4, warmup_steps 8 and threshold 3.0 (classic) "
+         "or 1.05 (NGP), changed from 16, 512 and 0.01 so that the grid prunes within the run",
+         launches=got, expected=want,
+         kernel3_shapes=[{f"{n}x{s_}": c for (n, s_), c in sh[0].items()} for sh in classic["shapes"]],
+         kernel1_points=[sh[1] for sh in classic["shapes"]], bricked_points=ngp["shapes"], hash_points=hash_shapes,
+         runs=runs, hash_losses=hash_result["losses"], checks=checks, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_occ phase failed")
+    return {"fused_train_pass": sum(c[0] for c in classic["launches"]),
+            "fused_nerf_fwd": sum(c[1] for c in classic["launches"]) + classic["render_launches"][1],
+            "hash_brick_fwd": sum(c[0] for c in ngp["launches"]) + ngp["render_launches"][0],
+            "hash_brick_bwd": sum(c[1] for c in ngp["launches"]),
+            "hash_corner_fwd": hash_launches[2], "hash_corner_bwd": hash_launches[3]}
+
+
 def ngp_field(layout, use_kernel=True):
     from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field  # noqa: PLC0415
 
@@ -1479,11 +1872,14 @@ def phase_train_bench_ngp(smi: str):
     at 400x400, 4096 rays x 256 samples, no fine network, Adam 1e-2 -> 1e-3
     at eps 1e-15, ``make_image_train_step(precrop=False)``), every layout,
     the packed ones also with the smoothness loss (weight 1e-3, 1024 probes
-    a level): 3 warm-up and 20 timed steps, launches counted over the timed
-    ones; then each hash kernel alone on the 2^20 points of a batch of the
-    step's own, with a seeded random cotangent (CUDA events), beside its
-    bound, its share of it and its plain version's time."""
-    from torch_nerf_tpu_torch import config, renderer, session, train  # noqa: PLC0415
+    a level), and ``bricked`` with occupancy pruning at ``bench.py
+    --model=instant_nerf --occupancy``'s point (128 of 256, the default
+    grid, a sweep every 16 steps): 3 warm-up and 20 timed steps, launches
+    counted over the timed ones; then each hash kernel alone on the 2^20
+    points of a dense batch of the step's own, with a seeded random
+    cotangent (CUDA events), beside its bound, its share of it and its
+    plain version's time."""
+    from torch_nerf_tpu_torch import config, occupancy, renderer, session, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
@@ -1498,38 +1894,47 @@ def phase_train_bench_ngp(smi: str):
     f = NGP["table_feat_dim"]
     timed = 20
     paths, kernels = {}, {}
-    for layout, smooth in [(x, False) for x in NGP_LAYOUTS + PACKED_LAYOUTS] + [(x, True) for x in PACKED_LAYOUTS]:
+    variants = ([(x, None) for x in NGP_LAYOUTS + PACKED_LAYOUTS] + [(x, "smoothness") for x in PACKED_LAYOUTS]
+                + [("bricked", "occupancy")])
+    for layout, extra in variants:
         packed = layout in PACKED_LAYOUTS
+        smooth = extra == "smoothness"
         fwd, bwd = fold_ops() if packed else hash_ops(layout)[:2]
         aux = None
         if smooth:
             aux = session.build_aux_loss(config.resolve("instant_nerf", [f"network.table_layout={layout}"]
                                                          + SMOOTHNESS))
-        path = f"{layout}+smoothness" if smooth else layout
+        occ = occupancy.OccupancyConfig(keep_samples=128) if extra == "occupancy" else None
+        path = f"{layout}+{extra}" if extra else layout
         field = ngp_field(layout)
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
-        step = train.make_image_train_step(field, settings, optim, camera, 4096, aux_loss_fn=aux)
+        step = train.make_image_train_step(field, settings, optim, camera, 4096, aux_loss_fn=aux, occupancy_cfg=occ)
+        grid = occupancy.init_grid(occ, dev) if occ else None
         gen = torch.Generator(device=dev).manual_seed(1)
         for _ in range(3):
-            state, _ = step(state, images, poses, gen)
+            state, grid, _ = bench_step(step, state, grid, images, poses, gen)
         torch.cuda.synchronize()
-        fwd.launches = bwd.launches = 0
+        launch_count.reset(fwd, bwd)
         losses = []
         t0 = time.perf_counter()
         for _ in range(timed):
-            state, metrics = step(state, images, poses, gen)
+            state, grid, metrics = bench_step(step, state, grid, images, poses, gen)
             losses.append(metrics["loss"])
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         losses = [float(v) for v in losses]
         per_step = 2 if smooth else 1
+        # a pruned step's forward sees 4096 x 128 points, and one sweep
+        # (state.step 16, 64^3 points) falls among the timed steps 3..22
+        want_fwd = {4096 * 128: timed, 64**3: 1} if occ else None
         paths[path] = dict(ms_per_step=elapsed / timed * 1e3, rays_per_sec=4096 * timed / elapsed,
                            launches={"fwd": fwd.launches, "bwd": bwd.launches},
-                           expected_launches={"fwd": per_step * timed, "bwd": per_step * timed},
+                           expected_launches={"fwd": per_step * timed + (1 if occ else 0), "bwd": per_step * timed},
+                           fwd_points=dict(fwd.shapes), expected_fwd_points=want_fwd,
                            loss_first=losses[0], loss_last=losses[-1],
                            aux_loss_last=float(metrics["aux_loss"]) if smooth else None,
                            finite=all(math.isfinite(v) for v in losses))
-        if smooth:
+        if extra:
             continue
         o, d, _, uni = step_batch(step, images, poses, camera, gen)
         t = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far)
@@ -1568,6 +1973,7 @@ def phase_train_bench_ngp(smi: str):
                            hash_kernels_share_of_step=hash_ms / paths[path]["ms_per_step"])
     clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
     ok = all(p["finite"] and p["launches"] == p["expected_launches"]
+             and (p["expected_fwd_points"] is None or p["fwd_points"] == p["expected_fwd_points"])
              and (p["aux_loss_last"] is None or p["aux_loss_last"] > 0.0) for p in paths.values())
     emit("train_bench_ngp", card=smi, sm_clock_temp_power=clocks, timed_steps=timed, paths=paths,
          kernels=kernels, peak_bytes_per_s=peak_bw, ok=ok)
@@ -1599,7 +2005,7 @@ def phase_bench_ngp(smi: str):
 
         img = frame(1)
         torch.cuda.synchronize()
-        fwd.launches = 0
+        launch_count.reset(fwd)
         t0 = time.perf_counter()
         for i in range(frames):
             img = frame(2 + i)
@@ -1688,7 +2094,18 @@ def kernel_lines(done: dict) -> list:
     errors from kernel_hash, their times at the NGP train step's 2^20
     points; the fold kernels: their launches over ``train_packed``'s CLI
     calls, their errors from kernel_fold, their times on the ``packed``
-    layout's tables)."""
+    layout's tables); ``launches_by_path`` adds each kernel's launches over
+    ``train_llff``'s and ``train_occ``'s CLI calls."""
+    lines = _kernel_entries(done)
+    for entry in lines:
+        # the launches of the LLFF + NDC and occupancy paths, each counted
+        # over its own CLI calls
+        entry["launches_by_path"] = {path: done[path][entry["name"]] for path in ("train_llff", "train_occ")
+                                     if entry["name"] in done[path]}
+    return lines
+
+
+def _kernel_entries(done: dict) -> list:
     shapes = done["bench"]
     fine = shapes["fine"]
     k1_err = max([done["kernel"]] + [e for s in shapes.values()
@@ -1764,6 +2181,8 @@ def main() -> int:
         "bench": phase_bench(smi),
         "train_ngp": phase_train_ngp(work),
         "train_packed": phase_train_packed(work),
+        "train_llff": phase_train_llff(work),
+        "train_occ": phase_train_occ(work),
         "train_bench_ngp": phase_train_bench_ngp(smi),
         "bench_ngp": phase_bench_ngp(smi),
     }

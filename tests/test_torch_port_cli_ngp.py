@@ -19,7 +19,7 @@ from torch_nerf_tpu import session as jsession
 from torch_nerf_tpu_torch import checkpoints, config, session
 from torch_nerf_tpu_torch.logging_utils import load_png, save_png
 from torch_nerf_tpu_torch.models.hash_math import level_resolutions
-from torch_nerf_tpu_torch.ops import hash_grid
+from torch_nerf_tpu_torch.ops import hash_grid, launch_count
 from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train
 
 TINY_NGP = [
@@ -43,8 +43,7 @@ PRESETS = {"instant_nerf_tpu": (hash_grid.hash_brick_fwd, hash_grid.hash_brick_b
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_ngp_train_resume_render_evaluate_on_cpu(preset, tmp_path, capsys):
-    for fn in PRESETS[preset]:
-        fn.launches = 0
+    launch_count.reset(*PRESETS[preset])
     log_dir = tmp_path / "run"
     base = ["--config", preset, "--log-dir", str(log_dir), "--device", "cpu"]
     first = run_train.main(base + ["--max-steps", "4"] + TINY_NGP)

@@ -21,7 +21,7 @@ from torch_nerf_tpu.datasets import blender as jblender
 from torch_nerf_tpu_torch import config, session
 from torch_nerf_tpu_torch.datasets import load_blender
 from torch_nerf_tpu_torch.logging_utils import load_png, save_png
-from torch_nerf_tpu_torch.ops import fused_nerf, fused_train
+from torch_nerf_tpu_torch.ops import fused_nerf, fused_train, launch_count
 from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train
 
 TINY_OVERRIDES = [
@@ -88,14 +88,15 @@ def test_session_builders_match_jax(blender_root):
     for bad in (["train_params.optim.optim_type=sgd"], ["objective.loss_type=l1"], ["scene.type=sphere"]):
         with pytest.raises(ValueError):
             session.build_optim_config(config.resolve("default", bad))
-    with pytest.raises(NotImplementedError, match="LLFF"):
+    # LLFF is ported: a scene that is not an LLFF one is refused, as in JAX
+    with pytest.raises(ValueError, match="Unsupported scene"):
         session.build_dataset(config.resolve("default", ["data.dataset_type=nerf_llff"]))
 
 
 @pytest.fixture(scope="module")
 def trained_run(tmp_path_factory):
-    fused_train.fused_train_pass.launches = 0
-    fused_nerf.fused_nerf_apply.launches = fused_nerf.fused_nerf_bwd.launches = 0
+    launch_count.reset(fused_train.fused_train_pass)
+    fused_nerf.reset_launches()
     log_dir = tmp_path_factory.mktemp("port_cli_run")
     result = run_train.main(["--config", "default", "--log-dir", str(log_dir), "--max-steps", "16",
                              "--device", "cpu"] + TINY_OVERRIDES)
@@ -141,8 +142,7 @@ def test_train_cli_round_trip_on_cpu(trained_run, tmp_path, capsys):
 def test_train_cli_raises_for_later_slices_and_without_a_card(tmp_path):
     base = ["--log-dir", str(tmp_path / "r"), "--device", "cpu"] + TINY_OVERRIDES
     for extra, match in ((["--profile-steps", "3"], "profil"), (["--distributed"], "parallelism"),
-                         (["data.num_scenes=2"], "multi-scene"), (["parallel.data_axis_size=4"], "parallelism"),
-                         (["occupancy.enabled=true"], "occupancy")):
+                         (["data.num_scenes=2"], "multi-scene"), (["parallel.data_axis_size=4"], "parallelism")):
         with pytest.raises(NotImplementedError, match=match):
             run_train.main(base + extra)
     if not torch.cuda.is_available():

@@ -41,7 +41,7 @@ from torch_nerf_tpu_torch.fields_ngp import SmoothnessDraws, make_encode_smoothn
 from torch_nerf_tpu_torch.logging_utils import load_png, save_png
 from torch_nerf_tpu_torch.models import hash_math, instant_ngp
 from torch_nerf_tpu_torch.models.nerf import params_from_jax, params_to_jax
-from torch_nerf_tpu_torch.ops import hash_grid
+from torch_nerf_tpu_torch.ops import hash_grid, launch_count
 from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -419,8 +419,7 @@ TINY_DUAL = [
 
 
 def test_packed_dual_train_resume_render_evaluate_on_cpu(tmp_path, capsys):
-    for fn in FOLD:
-        fn.launches = 0
+    launch_count.reset(*FOLD)
     log_dir = tmp_path / "run"
     base = ["--config", "instant_nerf", "--log-dir", str(log_dir), "--device", "cpu"]
     first = run_train.main(base + ["--max-steps", "4"] + TINY_DUAL)

@@ -206,11 +206,12 @@ def test_build_field_selects_kernel_or_plain():
     assert session.build_field(cfg).name == "nerf"
     cfg = config.resolve("default", ["device.compute_dtype=float32"])
     assert session.build_field(cfg).name == "nerf_fused"
-    # the Blender loader reads its scene from data_root; LLFF has a slice of its own
+    # the Blender and LLFF loaders read their scenes from data_root
     with pytest.raises(FileNotFoundError, match="transforms_test.json"):
         session.build_dataset(config.resolve("default", ["data.data_root=/nonexistent"]), "test")
-    with pytest.raises(NotImplementedError, match="LLFF"):
-        session.build_dataset(config.resolve("default", ["data.dataset_type=nerf_llff"]), "test")
+    with pytest.raises(FileNotFoundError, match="poses_bounds.npy"):
+        session.build_dataset(config.resolve("default", ["data.dataset_type=nerf_llff", "data.scene_name=fern",
+                                                         "data.data_root=/nonexistent"]), "test")
 
 
 def test_build_field_float32_config_takes_kernel_route(monkeypatch):

@@ -26,7 +26,7 @@ from torch_nerf_tpu.ops import sampling as jsampling
 from torch_nerf_tpu.ops.pallas import fused_nerf as jfused
 from torch_nerf_tpu.ops.pallas.fused_train import fused_train_pass as jax_fused_train_pass
 from torch_nerf_tpu.renderer import RenderSettings as JaxRenderSettings
-from torch_nerf_tpu_torch import cameras, checkpoints, train
+from torch_nerf_tpu_torch import cameras, checkpoints, occupancy, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.fields import make_nerf_field
 from torch_nerf_tpu_torch.models.nerf import LAYER_NAMES, init_nerf_params, params_from_jax
@@ -447,8 +447,10 @@ def test_params_only_checkpoint_still_loads(tmp_path):
 
 def test_unported_branches_raise_and_name_their_slice():
     settings = RenderSettings(num_samples_coarse=8, num_samples_fine=0)
-    with pytest.raises(NotImplementedError, match="occupancy slice"):
-        train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(), occupancy_cfg=object())
+    # occupancy pruning is ported: a budget above the candidates is refused, as in JAX
+    with pytest.raises(ValueError, match="keep_samples must be <= num_samples_coarse"):
+        train.make_ray_train_step(PORT_FIELD, settings, train.OptimConfig(),
+                                  occupancy_cfg=occupancy.OccupancyConfig(keep_samples=9))
     # an aux loss takes the generic autograd path: the fused pass raises, as in JAX
     assert PORT_FIELD.fused_cfg is not None
     with pytest.raises(ValueError, match="requires the generic autodiff path"):

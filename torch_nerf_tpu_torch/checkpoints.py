@@ -7,6 +7,11 @@ from a trainer, the ``"optimizer"`` (Adam's moments and step counts) and
 ``"scheduler"`` state dicts, so a resumed run continues the moments and the
 learning rate exactly. A checkpoint with params only (as rendering needs)
 still loads.
+
+An occupancy-pruned run keeps its grid beside the checkpoint, in the sidecar
+``ckpt_<step:06d>.occ.npy``: the flat ``(R^3,)`` float32 grid as ``np.save``
+writes it (the JAX package's sidecar format), written atomically, so a
+resume restores it bit for bit. A checkpoint without one still loads.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import re
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 _CKPT_RE = re.compile(r"^ckpt_(\d{6,})\.pt$")
@@ -30,9 +36,10 @@ def save_checkpoint(
     params: Dict[str, Any],
     optimizer: Optional[torch.optim.Optimizer] = None,
     scheduler: Optional[Any] = None,
+    occ_grid: Optional[torch.Tensor] = None,
 ) -> Path:
     """Write ``<log_dir>/ckpt/ckpt_<step:06d>.pt`` (atomically), tensors on
-    the CPU."""
+    the CPU, and ``occ_grid``'s sidecar where given."""
     path = ckpt_dir(log_dir) / f"ckpt_{int(step):06d}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.tmp")
@@ -43,7 +50,27 @@ def save_checkpoint(
         state["scheduler"] = scheduler.state_dict()
     torch.save(state, tmp)
     tmp.replace(path)
+    if occ_grid is not None:
+        sidecar = occ_sidecar_path(path)
+        tmp = sidecar.with_name(f".{sidecar.name}.tmp")
+        with open(tmp, "wb") as f:  # np.save on a handle keeps the exact name
+            np.save(f, occ_grid.detach().cpu().numpy())
+        tmp.replace(sidecar)
     return path
+
+
+def occ_sidecar_path(ckpt_path: str | Path) -> Path:
+    """``ckpt_<step>.occ.npy`` beside ``ckpt_<step>.pt``."""
+    ckpt_path = Path(ckpt_path)
+    return ckpt_path.with_name(f"{ckpt_path.stem}.occ.npy")
+
+
+def load_occupancy_grid(ckpt_path: str | Path, device: Optional[torch.device] = None) -> Optional[torch.Tensor]:
+    """The grid saved beside ``ckpt_path`` on ``device``, or None."""
+    sidecar = occ_sidecar_path(ckpt_path)
+    if not sidecar.exists():
+        return None
+    return torch.as_tensor(np.load(sidecar), device=device)
 
 
 def latest_checkpoint(log_dir: str | Path) -> Optional[Path]:

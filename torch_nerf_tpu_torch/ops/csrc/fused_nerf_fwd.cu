@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto relu_layer = [&](Seg a, Seg b, int l, int ntiles, bf16* out) {
     const bf16* bias = net.b[l];
     tile_product(a, b, net.w[l], ntiles, 0, ntiles, [&](int r, int n, float v0, float v1) {
-      *reinterpret_cast<bf162*>(out + r * ld_h + n) = __hmax2(bias_add(v0, v1, bias, n), zero2);
+      *reinterpret_cast<bf162*>(out + r * ld_h + n) = __hmax2_nan(bias_add(v0, v1, bias, n), zero2);
     });
     __syncthreads();
   };
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                    for (int e = 0; e < 2; ++e) {
                      const int c = n + e;
                      if (c == 0) {
-                       if (r < rows) sigma[row0 + r] = fmaxf(__bfloat162float(v[e]), 0.f);
+                       if (r < rows) sigma[row0 + r] = nerf_train::relu_nan(__bfloat162float(v[e]));
                      } else if (c <= f) {
                        ha[r * ld_h + c - 1] = v[e];
                      }

@@ -259,6 +259,11 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 
 __device__ __forceinline__ uint32_t bits_of(bf162 v) { return *reinterpret_cast<uint32_t*>(&v); }
 
+// relu that keeps a NaN, as torch.relu and jnp.maximum do (fmaxf and
+// __hmax2 return the other operand): a non-finite input, as NDC rays from
+// an origin on the z = 0 plane give, stays non-finite in the outputs
+__device__ __forceinline__ float relu_nan(float v) { return v != v ? v : fmaxf(v, 0.f); }
+
 __device__ __forceinline__ bf162 bias_add(float v0, float v1, const bf16* __restrict__ bias, int n) {
   // bf16(bf16(acc) + b) for the column pair: a bf16x2 add rounds the exact
   // sum once, as rounding its f32 sum does
@@ -514,7 +519,7 @@ __device__ __forceinline__ void relu_epilogue(const float (&acc)[N / 2], const b
 #pragma unroll
   for (int i = 0; i < N / 2; i += 2) {
     const int c = acc_col(t, i);
-    const bf162 y = __hmax2(bias_add(acc[i], acc[i + 1], bias, c), zero2);
+    const bf162 y = __hmax2_nan(bias_add(acc[i], acc[i + 1], bias, c), zero2);
     *reinterpret_cast<bf162*>(tile + swizzle128(acc_row(t, i), c, kPanel)) = y;
     if constexpr (kBits) {
       w[i >> 5] |= (__low2float(y) > 0.f ? 1u : 0u) << (i & 31);
@@ -662,7 +667,7 @@ __device__ __forceinline__ void forward_consumer(const In& in, const Net& net, c
       for (int i = 0; i < 4; i += 2) {
         const int gr = g.row0 + acc_row(t, i);
         const bf162 y = bias_add(acc8[i], acc8[i + 1], net.b[8], F);
-        if (gr < m) st.sigma[gr] = fmaxf(__low2float(y), 0.f);
+        if (gr < m) st.sigma[gr] = relu_nan(__low2float(y));
       }
     }
     g.publish();

@@ -41,8 +41,9 @@ backward launches the backward kernel; on CPU tensors both directions run
 the plain versions. A :func:`prepare`-d :class:`KernelWeights` (serving:
 built once per image, in its route's layout only) takes the forward kernel
 alone. ``fused_nerf_apply.launches`` and ``fused_nerf_bwd.launches`` count
-kernel launches; ``fused_nerf_apply.route_launches`` counts the forward's by
-route (their sum is ``fused_nerf_apply.launches``). A build or launch
+kernel launches, their ``.shapes`` by point count (:mod:`launch_count`);
+``fused_nerf_apply.route_launches`` counts the forward's by route (their
+sum is ``fused_nerf_apply.launches``). A build or launch
 failure raises: no route gives way to another or to the plain version.
 """
 
@@ -56,7 +57,7 @@ import torch
 
 from torch_nerf_tpu_torch import encoders
 from torch_nerf_tpu_torch.models.nerf import LAYER_NAMES, Params, nerf_apply
-from torch_nerf_tpu_torch.ops import build
+from torch_nerf_tpu_torch.ops import build, launch_count
 
 KERNEL = "fused_nerf_fwd"
 KERNEL_BWD = "fused_nerf_bwd"
@@ -507,7 +508,7 @@ def _launch(w: KernelWeights, pts: torch.Tensor, dirs: torch.Tensor, cfg: FusedN
     if err != 0:
         msg = lib.fused_nerf_fwd_error_string(err).decode()
         raise RuntimeError(f"fused_nerf_fwd ({w.route}) launch failed: {msg} (cudaError {err})")
-    fused_nerf_apply.launches += 1
+    launch_count.count(fused_nerf_apply, m)
     fused_nerf_apply.route_launches[w.route] += 1
     return sigma, rgb
 
@@ -641,7 +642,7 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
     if err != 0:
         msg = lib.fused_nerf_bwd_error_string(err).decode()
         raise RuntimeError(f"fused_nerf_bwd launch failed: {msg} (cudaError {err})")
-    fused_nerf_bwd.launches += 1
+    launch_count.count(fused_nerf_bwd, m)
     return grads, dpts, ddirs
 
 
@@ -652,8 +653,6 @@ def fused_nerf_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConf
         return fused_nerf_bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg)
     return _launch_bwd(params, pts, dirs, g_sigma.contiguous(), g_rgb.contiguous(), cfg)
 
-
-fused_nerf_bwd.launches = 0
 
 
 class _FusedField(torch.autograd.Function):
@@ -696,11 +695,11 @@ def fused_nerf_apply(
     return _FusedField.apply(cfg, pts, dirs, *_flat(params))
 
 
-fused_nerf_apply.launches = 0
-fused_nerf_apply.route_launches = dict.fromkeys(ROUTES, 0)
-
-
 def reset_launches() -> None:
-    """Set the forward's launch counts, total and by route, to 0."""
-    fused_nerf_apply.launches = 0
+    """Set the forward's and the backward's launch counts, total, by shape
+    and (the forward's) by route, to 0."""
+    launch_count.reset(fused_nerf_apply, fused_nerf_bwd)
     fused_nerf_apply.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

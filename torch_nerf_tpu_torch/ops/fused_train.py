@@ -18,7 +18,8 @@ ray), not as the TPU's bf16 masked-matmul scans.
 :func:`fused_train_pass` launches the kernels for CUDA tensors (or raises)
 and runs :func:`fused_train_pass_reference`, its plain version written out
 in the same steps, for CPU tensors. ``fused_train_pass.launches`` counts
-kernel launches (one per pass).
+kernel launches (one per pass), ``fused_train_pass.shapes`` them by their
+``(N, S)`` (:mod:`launch_count`).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Tuple
 import torch
 
 from torch_nerf_tpu_torch.models.nerf import Params
-from torch_nerf_tpu_torch.ops import build
+from torch_nerf_tpu_torch.ops import build, launch_count
 from torch_nerf_tpu_torch.ops import fused_nerf as fn
 
 KERNEL = "fused_train"
@@ -189,7 +190,7 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
     if err != 0:
         msg = lib.fused_train_error_string(err).decode()
         raise RuntimeError(f"fused_train_pass launch failed: {msg} (cudaError {err})")
-    fused_train_pass.launches += 1
+    launch_count.count(fused_train_pass, (n, s))
     return rgb, weights, grads
 
 
@@ -216,4 +217,4 @@ def fused_train_pass(
     )
 
 
-fused_train_pass.launches = 0
+launch_count.reset(fused_train_pass)

@@ -31,7 +31,8 @@ gather (``hash_brick.py:309-354, 441-456``), :func:`corner_prep` + gather
 gather (``hash_fold.py:265-276, 368-381``), with ``index_add_`` for the
 backwards, in slices of :data:`CHUNK` points. The wrappers run the kernel
 on CUDA tensors (or raise) and the plain version on CPU tensors; each
-counts its launches in ``.launches``. :func:`brick_encode`,
+counts its launches in ``.launches``, and in ``.shapes`` by their point
+count (:mod:`launch_count`). :func:`brick_encode`,
 :func:`corner_encode` and :func:`fold_encode` are
 ``torch.autograd.Function``\\ s whose forward is the forward kernel and
 whose backward is the backward kernel; like the JAX package's
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 
 from torch_nerf_tpu_torch.models.hash_math import CORNERS, LANES, as_int32, hash_axis, lattice_u32, packed_prep
-from torch_nerf_tpu_torch.ops import build
+from torch_nerf_tpu_torch.ops import build, launch_count
 from torch_nerf_tpu_torch.ops.fused_nerf import check_tensor
 
 KERNEL = "hash_grid"
@@ -335,7 +336,7 @@ def hash_brick_fwd(tables: torch.Tensor, coords: torch.Tensor, resolutions: torc
     out = torch.empty((n, num_level * BRICK_FEAT), dtype=torch.float32, device=coords.device)
     if n:
         _launch("hash_brick_fwd", tables, coords, resolutions, out, n, num_level, t_b)
-        hash_brick_fwd.launches += 1
+        launch_count.count(hash_brick_fwd, n)
     return out
 
 
@@ -355,7 +356,7 @@ def hash_brick_bwd(
     _check_aligned("dtables", dtables)
     if n:
         _launch("hash_brick_bwd", g, coords, resolutions, dtables, n, num_level, num_bricks)
-        hash_brick_bwd.launches += 1
+        launch_count.count(hash_brick_bwd, n)
     return dtables
 
 
@@ -379,7 +380,7 @@ def hash_corner_fwd(tables: torch.Tensor, coords: torch.Tensor, resolutions: tor
     out = torch.empty((n, num_level * f), dtype=torch.float32, device=coords.device)
     if n:
         _launch("hash_corner_fwd", tables, coords, resolutions, out, n, num_level, num_entries, f)
-        hash_corner_fwd.launches += 1
+        launch_count.count(hash_corner_fwd, n)
     return out
 
 
@@ -399,7 +400,7 @@ def hash_corner_bwd(
     _check_aligned("dtables", dtables)
     if n:
         _launch("hash_corner_bwd", g, coords, resolutions, dtables, n, num_level, num_entries, feat_dim)
-        hash_corner_bwd.launches += 1
+        launch_count.count(hash_corner_bwd, n)
     return dtables
 
 
@@ -435,7 +436,7 @@ def hash_fold_fwd(
     out = torch.empty((n, num_level * feat_dim), dtype=torch.float32, device=coords.device)
     if n:
         _launch("hash_fold_fwd", tables, coords, resolutions, offsets, out, n, num_level, rows, feat_dim)
-        hash_fold_fwd.launches += 1
+        launch_count.count(hash_fold_fwd, n)
     return out
 
 
@@ -457,12 +458,11 @@ def hash_fold_bwd(
     _check_aligned("dtables", dtables)
     if n:
         _launch("hash_fold_bwd", g, coords, resolutions, offsets, dtables, n, num_level, rows, feat_dim)
-        hash_fold_bwd.launches += 1
+        launch_count.count(hash_fold_bwd, n)
     return dtables
 
 
-for _fn in (hash_brick_fwd, hash_brick_bwd, hash_corner_fwd, hash_corner_bwd, hash_fold_fwd, hash_fold_bwd):
-    _fn.launches = 0
+launch_count.reset(hash_brick_fwd, hash_brick_bwd, hash_corner_fwd, hash_corner_bwd, hash_fold_fwd, hash_fold_bwd)
 
 
 class _BrickEncode(torch.autograd.Function):

@@ -1,0 +1,25 @@
+"""The launch counts of the kernel wrappers.
+
+A wrapper ``fn`` carries ``fn.launches``, its kernel's launches, and
+``fn.shapes``, the same launches by the shape it was given (a
+``collections.Counter``, so ``fn.launches == sum(fn.shapes.values())``).
+:func:`count` adds one to both where the wrapper launches its kernel, and
+nowhere else; :func:`reset` sets both to 0.
+"""
+
+from __future__ import annotations
+
+import collections
+
+
+def reset(*fns) -> None:
+    """Set each wrapper's counts to 0."""
+    for fn in fns:
+        fn.launches = 0
+        fn.shapes = collections.Counter()
+
+
+def count(fn, shape) -> None:
+    """One launch of ``fn``'s kernel, given ``shape``."""
+    fn.launches += 1
+    fn.shapes[shape] += 1

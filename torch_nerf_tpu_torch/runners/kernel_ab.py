@@ -14,7 +14,9 @@ each side on its own weight layout, as its library's
 route; fragment order in a library without that symbol); one launch at the
 fine chunk (786,432 points) and at the coarse chunk (262,144 points) by
 CUDA events, and whole 800x800 frames by the host clock, through a field
-that prepares that side's layout.
+that prepares that side's layout. Before the turns, each side's count of
+non-finite output rows on the fine chunk with every 4th point NaN, beside
+the plain version's.
 
 ``--kernel hash_fold_bwd`` (kernel 9), ``hash_brick_bwd`` (kernel 5),
 ``hash_corner_bwd`` (kernel 7), ``hash_brick_fwd`` (kernel 4),
@@ -101,6 +103,17 @@ def field_forward(other: Path, rounds: int, frames: int, dev) -> dict:
     torch.cuda.synchronize()
     agree = max((a - b).abs().max().item() for a, b in zip(outs["repo"], outs["other"]))
     print(json.dumps({"max_abs_diff_repo_vs_other": agree}), flush=True)
+    # every 4th point NaN, as NDC rays from an origin on z = 0 give: the
+    # plain version's sigma and rgb are NaN there, and a side's must be too
+    bad = pts.clone()
+    bad[::4] = float("nan")
+    plain_sigma, _ = fused_nerf.fused_nerf_apply_reference(params["fine"], bad, dirs, cfg)
+    nan_rows = {"plain": int((~torch.isfinite(plain_sigma)).sum())}
+    for side, lib in libs.items():
+        with kernel_library(fused_nerf, lib):
+            sigma, rgb = fused_nerf.fused_nerf_apply(prepared[side], bad, dirs, cfg)
+        nan_rows[side] = int((~torch.isfinite(sigma) | ~torch.isfinite(rgb).all(-1)).sum())
+    print(json.dumps({"nan_points": bad.shape[0] // 4, "non_finite_rows": nan_rows}), flush=True)
 
     base = make_nerf_field(compute_dtype=torch.bfloat16)
     fields = {side: dataclasses.replace(base, prepare=lambda p, r=route: fused_nerf.kernel_weights(p, cfg, r))

@@ -12,8 +12,12 @@ first 10 epochs; validation (PSNR/SSIM on the val split at full
 resolution), a checkpoint and a visualisation every so many epochs, and a
 checkpoint at the end; resume from the stored config and the latest
 checkpoint in ``--log-dir`` (parameters, Adam's state and the schedule).
-Multi-scene runs, data-parallel training, ``--distributed`` and
-``--profile-steps`` come with later slices and raise here.
+With ``occupancy.enabled=true`` the occupancy grid threads through every
+step and is saved beside every checkpoint; a resume restores it from that
+sidecar, or, where there is none, rebuilds it from the restored field by 8
+sweeps with the seeds ``seed + 2 + sweep``. Multi-scene runs, data-parallel
+training, ``--distributed`` and ``--profile-steps`` come with later slices
+and raise here.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from torch_nerf_tpu_torch import checkpoints, config as cfg_mod, metrics as metrics_mod
-from torch_nerf_tpu_torch import session, train
+from torch_nerf_tpu_torch import occupancy, session, train
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.logging_utils import MetricsLogger, StepTimer, save_png
 from torch_nerf_tpu_torch.renderer import render_image
@@ -53,8 +57,6 @@ def _check_supported(cfg, args) -> None:
         raise NotImplementedError("multi-scene training comes with the port's multi-scene slice")
     if cfg.parallel.data_axis_size not in (-1, 1):
         raise NotImplementedError("data-parallel training comes with the port's parallelism slice")
-    if cfg.occupancy.enabled:
-        raise NotImplementedError("occupancy pruning comes with the port's occupancy slice")
 
 
 def main(argv=None) -> dict:
@@ -85,11 +87,13 @@ def main(argv=None) -> dict:
     field = session.build_field(cfg)
     optim_cfg = session.build_optim_config(cfg)
     aux_loss_fn = session.build_aux_loss(cfg)
+    occ_cfg = session.build_occupancy_cfg(cfg)
 
     state = train.create_train_state(
         torch.Generator(device=device).manual_seed(cfg.seed), field, settings, optim_cfg, device
     )
-    restored = checkpoints.restore_latest(log_dir, device=device)
+    ckpt_path = checkpoints.latest_checkpoint(log_dir)
+    restored = checkpoints.load_checkpoint(ckpt_path, device) if ckpt_path else None
     if restored is not None:
         with torch.no_grad():
             for leaf, saved in zip(train.parameter_list(state.params), train.parameter_list(restored["params"])):
@@ -99,6 +103,23 @@ def main(argv=None) -> dict:
             state.scheduler.load_state_dict(restored["scheduler"])
         state.step = restored["step"]
         print(f"Resumed from step {state.step}.")
+
+    grid = None
+    if occ_cfg is not None:
+        grid = occupancy.init_grid(occ_cfg, device)
+        if restored is not None and state.step > 0:
+            saved_grid = checkpoints.load_occupancy_grid(ckpt_path, device)
+            if saved_grid is not None:
+                grid = saved_grid
+            else:
+                # a checkpoint without the sidecar: sweeps of the restored
+                # field, so that a resume past warmup never prunes by an
+                # empty grid
+                density = occupancy.make_density_fn(field)
+                for sweep in range(8):
+                    gen = torch.Generator(device=device).manual_seed(cfg.seed + 2 + sweep)
+                    grid = occupancy.update_grid(grid, density, state.params, occupancy.draw_jitter(gen, occ_cfg),
+                                                 occ_cfg)
 
     camera = dataset.camera
     images = torch.as_tensor(dataset.flat_images(), device=device)
@@ -112,7 +133,7 @@ def main(argv=None) -> dict:
     steps = {
         precrop: train.make_image_train_step(
             field, settings, optim_cfg, camera, cfg.renderer.num_pixels, precrop=precrop,
-            aux_loss_fn=aux_loss_fn,
+            aux_loss_fn=aux_loss_fn, occupancy_cfg=occ_cfg,
         )
         for precrop in (True, False)
     }
@@ -137,7 +158,10 @@ def main(argv=None) -> dict:
     losses, metrics = [], {}
     for step_idx in range(state.step, total_steps):
         epoch = step_idx // steps_per_epoch
-        state, metrics = steps[epoch < 10](state, images, poses, generator)
+        if grid is not None:
+            state, grid, metrics = steps[epoch < 10](state, grid, images, poses, generator)
+        else:
+            state, metrics = steps[epoch < 10](state, images, poses, generator)
         losses.append(metrics["loss"])
 
         perf = timer.tick()
@@ -156,21 +180,21 @@ def main(argv=None) -> dict:
         if (step_idx + 1) % steps_per_epoch == 0:
             epoch_done = (step_idx + 1) // steps_per_epoch
             if epoch_done % log_cfg.epoch_btw_ckpt == 0:
-                _save(log_dir, state)
+                _save(log_dir, state, grid)
             if val_dataset is not None and epoch_done % val_cfg.validate_every == 0:
                 _validate(cfg, field, state, val_dataset, settings, logger, step_idx + 1, device)
             if epoch_done % log_cfg.epoch_btw_vis == 0:
                 _visualize(cfg, field, state, camera, dataset, settings, log_dir, epoch_done, device)
 
-    _save(log_dir, state)
+    _save(log_dir, state, grid)
     logger.close()
     print(f"Training complete at step {state.step}. Logs in {log_dir}.")
     return {"step": state.step, "losses": [float(v) for v in losses], "log_dir": str(log_dir),
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def _save(log_dir, state: train.TrainState) -> None:
-    checkpoints.save_checkpoint(log_dir, state.step, state.params, state.optimizer, state.scheduler)
+def _save(log_dir, state: train.TrainState, grid) -> None:
+    checkpoints.save_checkpoint(log_dir, state.step, state.params, state.optimizer, state.scheduler, occ_grid=grid)
 
 
 def _validate(cfg, field, state, dataset, settings, logger, step, device) -> None:

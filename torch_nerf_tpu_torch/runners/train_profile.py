@@ -7,7 +7,11 @@ fused train pass and autograd through the field; with ``--model
 instant_nerf`` (256 samples, no fine network, Adam 1e-2 at eps 1e-15) the
 bricked and the per-corner hash layouts, or the ``--layout`` named: a
 packed layout without and with its smoothness loss (weight 1e-3, 1024
-probes). Prints one JSON line per path:
+probes). ``--occupancy`` adds the occupancy-pruned step of each model at
+``bench.py --occupancy``'s point (classic: 32 of 64 coarse and 128 of 192
+fine samples kept, through the fused pass; NGP: 128 of 256; the default
+grid, whose warmup reads every cell occupied, swept at steps 0, 16, ...).
+Prints one JSON line per path:
 the host-clock ms per step, the device ms per step of every kernel by name
 (each launch's own device time, summed and divided by the steps), their
 sum, and the device's idle share of the step (1 - busy / step); for the
@@ -16,7 +20,7 @@ chain, dW GEMM, reduce) beside its floors by operations (989 TFLOP/s) and
 by the bytes the design moves (3.35 TB/s), over the step's coarse and fine
 passes (``fused_train.phase_floors``); then the card's ``nvidia-smi`` line.
 
-    python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--steps 5]
+    python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--occupancy] [--steps 5]
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import time
 
 import torch
 
-from torch_nerf_tpu_torch import config, renderer, session, train
+from torch_nerf_tpu_torch import config, occupancy, renderer, session, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
@@ -45,15 +49,23 @@ def _short(name: str) -> str:
     return re.sub(r"^.*::", "", name.replace("void ", "").strip())
 
 
-def profile_path(step, state, images, poses, gen, steps: int) -> dict:
+def profile_path(step, state, grid, images, poses, gen, steps: int) -> dict:
+    """``steps`` traced steps after 3 untraced ones; ``grid`` is the
+    occupancy grid the step threads, or None."""
+    def one(state, grid):
+        if grid is None:
+            return step(state, images, poses, gen)[0], None
+        state, grid, _ = step(state, grid, images, poses, gen)
+        return state, grid
+
     for _ in range(3):
-        state, _ = step(state, images, poses, gen)
+        state, grid = one(state, grid)
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step(state, images, poses, gen)
+            state, grid = one(state, grid)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     kernels = {}
@@ -93,6 +105,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--model", choices=("nerf", "instant_nerf"), default="nerf")
     parser.add_argument("--layout", choices=("bricked", "hash", "packed", "packed_dual"), default=None,
                         help="with --model instant_nerf: one table layout (default: bricked and hash)")
+    parser.add_argument("--occupancy", action="store_true", help="also the occupancy-pruned step")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
@@ -103,23 +116,29 @@ def main(argv=None) -> dict:
         paths = {}
         for layout in (args.layout,) if args.layout else ("bricked", "hash"):
             field = make_instant_ngp_field(compute_dtype=torch.bfloat16, table_layout=layout)
-            paths[layout] = (field, False, None)
+            paths[layout] = (field, False, None, None)
             if layout.startswith("packed"):
                 cfg = config.resolve("instant_nerf", [f"network.table_layout={layout}",
                                                       "objective.encode_smoothness_weight=0.001"])
-                paths[f"{layout}+smoothness"] = (field, False, session.build_aux_loss(cfg))
+                paths[f"{layout}+smoothness"] = (field, False, session.build_aux_loss(cfg), None)
+            if args.occupancy:
+                paths[f"{layout}+occupancy"] = (field, False, None, occupancy.OccupancyConfig(keep_samples=128))
     else:
         settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
         optim = train.OptimConfig()
         field = make_nerf_field(compute_dtype=torch.bfloat16)
-        paths = {"fused": (field, False, None), "generic": (field, True, None)}
+        paths = {"fused": (field, False, None, None), "generic": (field, True, None, None)}
+        if args.occupancy:
+            paths["fused_occupancy"] = (field, False, None,
+                                        occupancy.OccupancyConfig(keep_samples=32, keep_samples_fine=128))
     out = {}
-    for path, (field, generic, aux) in paths.items():
+    for path, (field, generic, aux, occ) in paths.items():
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
         step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic,
-                                           aux_loss_fn=aux)
+                                           aux_loss_fn=aux, occupancy_cfg=occ)
         gen = torch.Generator(device=dev).manual_seed(1)
-        out[path] = profile_path(step, state, images, poses, gen, args.steps)
+        grid = occupancy.init_grid(occ, dev) if occ else None
+        out[path] = profile_path(step, state, grid, images, poses, gen, args.steps)
         if path == "fused":
             out[path]["phases"] = phases(out[path]["kernels_ms_per_step"], field.fused_cfg,
                                          (4096 * settings.num_samples_coarse,

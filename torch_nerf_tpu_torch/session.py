@@ -3,12 +3,13 @@ config, and the FLOP count of a train step.
 
 Counterpart of ``torch_nerf_tpu/session.py`` for the classic NeRF and the
 Instant-NGP field (every table layout, and the packed layouts' smoothness
-loss): LLFF, multi-scene datasets and occupancy come with later slices and
-raise here.
+loss), the Blender, LLFF and procedural datasets, and occupancy pruning;
+multi-scene datasets come with a later slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -16,10 +17,12 @@ import torch
 from torch_nerf_tpu_torch import config as cfg_mod
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.datasets.blender import PosedImages, load_blender
+from torch_nerf_tpu_torch.datasets.llff import llff_holdout_index, llff_t_bounds, load_llff
 from torch_nerf_tpu_torch.encoders import positional_encoding_dim
 from torch_nerf_tpu_torch.fields import Field, make_nerf_field
 from torch_nerf_tpu_torch.fields_ngp import make_encode_smoothness_loss, make_instant_ngp_field
 from torch_nerf_tpu_torch.models.nerf import layer_dims
+from torch_nerf_tpu_torch.occupancy import OccupancyConfig
 from torch_nerf_tpu_torch.ops import fused_nerf
 from torch_nerf_tpu_torch.renderer import RenderSettings
 from torch_nerf_tpu_torch.train import OptimConfig
@@ -31,7 +34,9 @@ def build_dataset(
     """The dataset named by the config. Val and test splits are served at
     full resolution whatever ``data.half_res`` says (the reference loads them
     with ``half_res=False``); for ``gaussian_blobs`` that is 2x the training
-    size when ``data.half_res``, its ground truth rendered on ``device``."""
+    size when ``data.half_res``, its ground truth rendered on ``device``.
+    LLFF ships no split files: the view nearest the average pose is held
+    out, ``train`` is every other view and ``val``/``test`` that one."""
     data = cfg.data
     if data.dataset_type == "nerf_synthetic":
         return load_blender(
@@ -57,24 +62,29 @@ def build_dataset(
             image_names=[f"blob_{split}_{i:03d}" for i in range(v)],
         )
     if data.dataset_type == "nerf_llff":
-        raise NotImplementedError(
-            "dataset_type 'nerf_llff' comes with the port's LLFF + NDC slice "
-            "(ROADMAP Queue 1, the item after training)"
-        )
+        full = load_llff(data.data_root, data.scene_name, factor=data.factor, recenter=data.recenter,
+                         bd_factor=data.bd_factor, spherify=data.spherify)
+        holdout = llff_holdout_index(full.poses)
+        keep = [i for i in range(full.num_views) if i != holdout] if split == "train" else [holdout]
+        return dataclasses.replace(full, images=full.images[keep], poses=full.poses[keep],
+                                   image_names=[full.image_names[i] for i in keep])
     raise ValueError(f"Unsupported dataset_type '{data.dataset_type}'.")
 
 
 def build_render_settings(
     cfg: cfg_mod.ExperimentConfig, dataset: Optional[PosedImages] = None
 ) -> RenderSettings:
+    """RenderSettings from the config; a dataset with depth bounds (LLFF)
+    rewrites the t-bounds through :func:`llff_t_bounds`."""
     r = cfg.renderer
+    t_near, t_far = r.t_near, r.t_far
     if dataset is not None and dataset.z_bounds is not None:
-        raise NotImplementedError("LLFF depth bounds come with the port's LLFF + NDC slice")
+        t_near, t_far = llff_t_bounds(dataset.z_bounds, r.project_to_ndc)
     return RenderSettings(
         num_samples_coarse=r.num_samples_coarse,
         num_samples_fine=r.num_samples_fine,
-        t_near=r.t_near,
-        t_far=r.t_far,
+        t_near=t_near,
+        t_far=t_far,
         project_to_ndc=r.project_to_ndc,
     )
 
@@ -208,6 +218,32 @@ def build_optim_config(cfg: cfg_mod.ExperimentConfig) -> OptimConfig:
         end_lr=o.end_lr,
         eps=o.eps,
         table_weight_decay=o.table_weight_decay,
+    )
+
+
+def build_occupancy_cfg(cfg: cfg_mod.ExperimentConfig) -> Optional[OccupancyConfig]:
+    """The occupancy group as an :class:`OccupancyConfig`, or None when
+    disabled. A budget above its candidate count is clamped to it, with a
+    printed line (``make_ray_train_step`` raises for it instead)."""
+    o = cfg.occupancy
+    if not o.enabled:
+        return None
+    coarse = cfg.renderer.num_samples_coarse
+    if o.keep_samples > coarse:
+        print(f"occupancy.keep_samples={o.keep_samples} clamped to renderer.num_samples_coarse={coarse}")
+    max_fine = coarse + cfg.renderer.num_samples_fine
+    if o.keep_samples_fine > max_fine:
+        print(f"occupancy.keep_samples_fine={o.keep_samples_fine} clamped to the merged fine candidate "
+              f"count {max_fine}")
+    return OccupancyConfig(
+        resolution=o.resolution,
+        bound=o.bound,
+        update_every=o.update_every,
+        decay=o.decay,
+        threshold=o.threshold,
+        keep_samples=min(o.keep_samples, coarse),
+        warmup_steps=o.warmup_steps,
+        keep_samples_fine=min(o.keep_samples_fine, max_fine),
     )
 
 

@@ -1,7 +1,7 @@
 """Training: optimizer, schedule, loss and the train steps.
 
-Counterpart of ``torch_nerf_tpu/train.py:35-231`` and ``:405-623``, without
-the occupancy-pruned branches (a later slice). Adam with ``lr(t) = init_lr
+Counterpart of ``torch_nerf_tpu/train.py``, the occupancy-pruned steps
+included. Adam with ``lr(t) = init_lr
 * (end_lr / init_lr)^(t / num_iter)``, stepped once per iteration
 (``ExponentialLR``), and L2 weight decay on hash tables where asked for;
 the loss is coarse MSE + fine MSE, plus an auxiliary loss where one is
@@ -12,7 +12,11 @@ A field with a ``fused_cfg`` trains through the fused train pass
 (``ops/fused_train.py``: each render pass with its loss gradient in one
 kernel call); ``force_generic=True`` or a field without one trains by
 autograd through ``field.apply`` (for the fused field, the forward and
-backward kernels of ``ops/fused_nerf.py``).
+backward kernels of ``ops/fused_nerf.py``). With an
+:class:`~torch_nerf_tpu_torch.occupancy.OccupancyConfig` the step threads the
+occupancy grid, sweeps it every ``update_every`` steps and renders only the
+kept samples of each pass (``occupancy.prune_t_samples``); the fused field
+then runs the fused train pass on the pruned ``(t, delta)`` planes.
 
 Randomness is explicit: every draw of a step comes from a
 ``torch.Generator`` through a ``*_from_uniforms`` core, or is handed in, so
@@ -30,10 +34,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from torch_nerf_tpu_torch import cameras
+from torch_nerf_tpu_torch import cameras, occupancy
 from torch_nerf_tpu_torch.fields import Field
 from torch_nerf_tpu_torch.models.nerf import Params
-from torch_nerf_tpu_torch.ops import sampling
+from torch_nerf_tpu_torch.ops import integration, sampling
 from torch_nerf_tpu_torch.ops.fused_train import fused_train_pass
 from torch_nerf_tpu_torch.renderer import RayUniforms, RenderSettings, draw_uniforms, render_rays
 
@@ -185,6 +189,120 @@ def fused_loss_and_grad(
     return metrics, grads
 
 
+def _pruned_pass(field, params, grid, occ_cfg, ray_origin, ray_dir, t_dense, step, keep):
+    """One pruned render pass through ``field.apply``: (rgb, weights, t_sel)."""
+    t_sel, delta_sel = occupancy.prune_t_samples(grid, occ_cfg, ray_origin, ray_dir, t_dense, step, keep=keep)
+    pts = sampling.points_along_rays(ray_origin, ray_dir, t_sel)
+    sigma, radiance = field.apply(params, pts, ray_dir[:, None, :].expand_as(pts))
+    rgb, weights = integration.composite(sigma, radiance, delta_sel)
+    return rgb, weights, t_sel
+
+
+def pruned_ray_loss_fn(
+    field: Field,
+    params: Dict[str, Params],
+    grid: torch.Tensor,
+    occ_cfg: occupancy.OccupancyConfig,
+    ray_origin: torch.Tensor,
+    ray_dir: torch.Tensor,
+    rgb_gt: torch.Tensor,
+    rand: RayUniforms,
+    settings: RenderSettings,
+    step: int,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The photometric loss of a single-pass model on the ``keep_samples``
+    kept of its ``num_samples_coarse`` stratified candidates (jitter
+    ``rand.coarse``), each composited over its covered span."""
+    t_dense = sampling.stratified_t_samples_from_uniforms(rand.coarse, settings.t_near, settings.t_far)
+    rgb, _, _ = _pruned_pass(field, params["coarse"], grid, occ_cfg, ray_origin, ray_dir, t_dense, step,
+                             occ_cfg.keep_samples)
+    loss = torch.mean((rgb - rgb_gt) ** 2)
+    return loss, {"coarse_loss": loss, "loss": loss}
+
+
+def pruned_hierarchical_loss_fn(
+    field: Field,
+    params: Dict[str, Params],
+    grid: torch.Tensor,
+    occ_cfg: occupancy.OccupancyConfig,
+    ray_origin: torch.Tensor,
+    ray_dir: torch.Tensor,
+    rgb_gt: torch.Tensor,
+    rand: RayUniforms,
+    settings: RenderSettings,
+    step: int,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The hierarchical loss with both passes pruned: the coarse pass keeps
+    ``keep_samples`` of its candidates; its detached weights go back onto
+    the uniform coarse bins (``occupancy.scatter_weights_to_bins``), the
+    fine pass merges a fresh stratification with inverse-CDF draws from
+    them, and the merged set is pruned to ``keep_samples_fine`` (to its
+    whole size when that is 0)."""
+    s_c = settings.num_samples_coarse
+    t_dense = sampling.stratified_t_samples_from_uniforms(rand.coarse, settings.t_near, settings.t_far)
+    rgb_c, weights_c, t_c = _pruned_pass(field, params["coarse"], grid, occ_cfg, ray_origin, ray_dir, t_dense,
+                                         step, occ_cfg.keep_samples)
+    coarse_loss = torch.mean((rgb_c - rgb_gt) ** 2)
+    w_dense = occupancy.scatter_weights_to_bins(t_c, weights_c.detach(), settings.t_near, settings.t_far, s_c)
+    t_merged = sampling.hierarchical_t_samples_from_uniforms(
+        w_dense, settings.t_near, settings.t_far, rand.fine_coarse, rand.u, rand.fine
+    )
+    keep_fine = occ_cfg.keep_samples_fine or t_merged.shape[-1]
+    rgb_f, _, _ = _pruned_pass(field, params["fine"], grid, occ_cfg, ray_origin, ray_dir, t_merged, step,
+                               keep_fine)
+    fine_loss = torch.mean((rgb_f - rgb_gt) ** 2)
+    loss = coarse_loss + fine_loss
+    return loss, {"coarse_loss": coarse_loss, "fine_loss": fine_loss, "loss": loss}
+
+
+def fused_pruned_loss_and_grad(
+    field: Field,
+    params: Dict[str, Params],
+    grid: torch.Tensor,
+    occ_cfg: occupancy.OccupancyConfig,
+    ray_origin: torch.Tensor,
+    ray_dir: torch.Tensor,
+    rgb_gt: torch.Tensor,
+    rand: RayUniforms,
+    settings: RenderSettings,
+    step: int,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, Params]]:
+    """The pruned losses' metrics and gradients through the fused train
+    pass: the same sampling as :func:`pruned_ray_loss_fn` and
+    :func:`pruned_hierarchical_loss_fn`, the pruning done on the ``(N, S)``
+    depths before each pass, which sees ``K`` samples a ray and their
+    covered spans. The fine pass keeps ``keep_samples_fine`` of the merged
+    set, or all of it, unpruned, when that is 0."""
+    num_rays = ray_origin.shape[0]
+    cfg = field.fused_cfg
+    s_c = settings.num_samples_coarse
+    with torch.no_grad():
+        t_dense = sampling.stratified_t_samples_from_uniforms(rand.coarse, settings.t_near, settings.t_far)
+        t_c, delta_c = occupancy.prune_t_samples(grid, occ_cfg, ray_origin, ray_dir, t_dense, step)
+        rgb_c, weights_c, grads_c = fused_train_pass(params["coarse"], ray_origin, ray_dir, t_c, delta_c, rgb_gt,
+                                                     cfg, num_rays)
+        coarse_loss = torch.mean((rgb_c - rgb_gt) ** 2)
+        metrics = {"coarse_loss": coarse_loss, "loss": coarse_loss}
+        grads: Dict[str, Params] = {"coarse": grads_c}
+        if settings.hierarchical:
+            w_dense = occupancy.scatter_weights_to_bins(t_c, weights_c, settings.t_near, settings.t_far, s_c)
+            t_merged = sampling.hierarchical_t_samples_from_uniforms(
+                w_dense, settings.t_near, settings.t_far, rand.fine_coarse, rand.u, rand.fine
+            )
+            if occ_cfg.keep_samples_fine > 0:
+                t_f, delta_f = occupancy.prune_t_samples(grid, occ_cfg, ray_origin, ray_dir, t_merged, step,
+                                                         keep=occ_cfg.keep_samples_fine)
+            else:
+                t_f, delta_f = t_merged, sampling.t_deltas(t_merged)
+            rgb_f, _, grads_f = fused_train_pass(params["fine"], ray_origin, ray_dir, t_f, delta_f, rgb_gt, cfg,
+                                                 num_rays)
+            fine_loss = torch.mean((rgb_f - rgb_gt) ** 2)
+            metrics["fine_loss"] = fine_loss
+            metrics["loss"] = coarse_loss + fine_loss
+            grads["fine"] = grads_f
+    return metrics, grads
+
+
 def _apply_grads(state: TrainState, grads: list) -> None:
     """One Adam step and one schedule step with ``grads`` in
     :func:`parameter_list` order."""
@@ -202,8 +320,8 @@ def make_ray_train_step(
     optim_cfg: OptimConfig,
     force_generic: bool = False,
     aux_loss_fn: Optional[Callable] = None,
-    occupancy_cfg: Optional[Any] = None,
-) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    occupancy_cfg: Optional[occupancy.OccupancyConfig] = None,
+) -> Callable[..., Tuple]:
     """Train step over a ray batch: ``step(state, ray_origin (N, 3),
     ray_dir (N, 3), rgb_gt (N, 3), rand, aux_draws=None) -> (state,
     metrics)`` with ``rand`` the step's :class:`RayUniforms`. ``optim_cfg``
@@ -211,28 +329,66 @@ def make_ray_train_step(
 
     ``aux_loss_fn(params, aux_draws) -> scalar`` (optional; its
     ``.draw(generator)`` makes ``aux_draws``) is added to the photometric
-    loss, as ``metrics["aux_loss"]``, on the generic autograd path only."""
-    if occupancy_cfg is not None:
-        raise NotImplementedError("occupancy pruning comes with the port's occupancy slice")
+    loss, as ``metrics["aux_loss"]``, on the generic autograd path only.
+
+    With ``occupancy_cfg`` the step is ``step(state, grid, ray_origin,
+    ray_dir, rgb_gt, rand, aux_draws=None, occ_jitter=None) -> (state, grid,
+    metrics)``: on a step whose ``state.step`` is a multiple of
+    ``update_every`` it first sweeps the grid at the ``(R^3, 3)`` jitter
+    ``occ_jitter`` (the coarse network's density), then renders the pruned
+    passes from ``rand`` (``rand.coarse`` the stratified candidates' jitter,
+    the other three the fine pass's, as in the dense step); fused when the
+    field has a ``fused_cfg`` and no aux loss is given."""
     use_fused = field.fused_cfg is not None and not force_generic
     if use_fused and aux_loss_fn is not None:
         raise ValueError("aux_loss_fn requires the generic autodiff path.")
+
+    def generic_grads(loss_fn, state, aux_draws):
+        loss, metrics = loss_fn(state.params)
+        if aux_loss_fn is not None:
+            if aux_draws is None:
+                raise ValueError("a step with an aux loss needs its aux_draws")
+            aux = aux_loss_fn(state.params, aux_draws)
+            metrics["aux_loss"] = aux
+            loss = loss + aux
+            metrics["loss"] = loss
+        grads = list(torch.autograd.grad(loss, parameter_list(state.params)))
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    if occupancy_cfg is not None:
+        if occupancy_cfg.keep_samples > settings.num_samples_coarse:
+            raise ValueError("keep_samples must be <= num_samples_coarse.")
+        if occupancy_cfg.keep_samples_fine > settings.num_samples_coarse + settings.num_samples_fine:
+            raise ValueError(
+                "keep_samples_fine must be <= num_samples_coarse + num_samples_fine (the merged fine candidate count)."
+            )
+        density_fn = occupancy.make_density_fn(field)
+        pruned_loss = pruned_hierarchical_loss_fn if settings.hierarchical else pruned_ray_loss_fn
+
+        def occ_step_fn(state: TrainState, grid, ray_origin, ray_dir, rgb_gt, rand: RayUniforms, aux_draws=None,
+                        occ_jitter=None):
+            grid = occupancy.maybe_update_grid(grid, density_fn, state.params, occ_jitter, state.step,
+                                               occupancy_cfg)
+            args = (grid, occupancy_cfg, ray_origin, ray_dir, rgb_gt, rand, settings, state.step)
+            if use_fused:
+                metrics, grads = fused_pruned_loss_and_grad(field, state.params, *args)
+                grads = parameter_list(grads)
+            else:
+                metrics, grads = generic_grads(lambda params: pruned_loss(field, params, *args), state, aux_draws)
+            _apply_grads(state, grads)
+            return state, grid, metrics
+
+        return occ_step_fn
 
     def step_fn(state: TrainState, ray_origin, ray_dir, rgb_gt, rand: RayUniforms, aux_draws=None):
         if use_fused:
             metrics, grads = fused_loss_and_grad(field, state.params, ray_origin, ray_dir, rgb_gt, rand, settings)
             grads = parameter_list(grads)
         else:
-            loss, metrics = ray_loss_fn(field, state.params, ray_origin, ray_dir, rgb_gt, rand, settings)
-            if aux_loss_fn is not None:
-                if aux_draws is None:
-                    raise ValueError("a step with an aux loss needs its aux_draws")
-                aux = aux_loss_fn(state.params, aux_draws)
-                metrics["aux_loss"] = aux
-                loss = loss + aux
-                metrics["loss"] = loss
-            grads = list(torch.autograd.grad(loss, parameter_list(state.params)))
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics, grads = generic_grads(
+                lambda params: ray_loss_fn(field, params, ray_origin, ray_dir, rgb_gt, rand, settings),
+                state, aux_draws,
+            )
         _apply_grads(state, grads)
         return state, metrics
 
@@ -267,13 +423,15 @@ class ImageDraws(NamedTuple):
     """The draws of one image train step: which image (an int, or a 0-d
     tensor on the images' device so that no step waits for the card), the
     uniforms whose top-k picks its pixels, the render's
-    :class:`RayUniforms`, and the aux loss's draws (None without one),
-    drawn in that order."""
+    :class:`RayUniforms`, the aux loss's draws (None without one) and, on
+    an occupancy step that sweeps the grid, the sweep's ``(R^3, 3)`` jitter
+    (else None), drawn in that order."""
 
     image_index: Any
     pixel_u: torch.Tensor
     rays: RayUniforms
     aux: Any = None
+    occ_jitter: Optional[torch.Tensor] = None
 
 
 def make_image_train_step(
@@ -285,14 +443,17 @@ def make_image_train_step(
     precrop: bool = False,
     force_generic: bool = False,
     aux_loss_fn: Optional[Callable] = None,
-    occupancy_cfg: Optional[Any] = None,
+    occupancy_cfg: Optional[occupancy.OccupancyConfig] = None,
 ):
     """Full train step from the on-device image and pose pool:
     ``step(state, images (B, H*W, 3), poses (B, 4, 4), generator, draws=None)
     -> (state, metrics)``. Picks an image, samples ``num_pixels`` distinct
     pixels (center-cropped when ``precrop``), makes their rays and applies
     the ray train step. ``draws`` (:class:`ImageDraws`) replaces the draws
-    from ``generator``; ``step.draw(generator, num_images)`` makes them."""
+    from ``generator``; ``step.draw(generator, num_images, step)`` makes
+    them. With ``occupancy_cfg`` the grid threads through: ``step(state,
+    grid, images, poses, generator, draws=None) -> (state, grid,
+    metrics)``."""
     ray_step = make_ray_train_step(field, settings, optim_cfg, force_generic, aux_loss_fn, occupancy_cfg)
     num_total = camera.img_height * camera.img_width
     crop = precrop_pixel_indices(camera.img_height, camera.img_width) if precrop else None
@@ -302,17 +463,20 @@ def make_image_train_step(
     num_candidates = crop.shape[0] if crop is not None else num_total
     crop_cache: Dict[torch.device, torch.Tensor] = {}
 
-    def draw(generator: torch.Generator, num_images: int) -> ImageDraws:
+    def draw(generator: torch.Generator, num_images: int, step: Optional[int] = None) -> ImageDraws:
+        """The step's draws; the sweep's jitter when ``step`` (the state's
+        step) sweeps the grid, or is None."""
         dev = generator.device
         idx = torch.randint(0, num_images, (), generator=generator, device=dev)
         u = torch.rand((num_candidates,), generator=generator, device=dev)
         rays = draw_train_randomness(generator, num_pixels, settings)
         aux = aux_loss_fn.draw(generator) if aux_loss_fn is not None else None
-        return ImageDraws(idx, u, rays, aux)
+        jitter = None
+        if occupancy_cfg is not None and (step is None or occupancy.is_update_step(step, occupancy_cfg)):
+            jitter = occupancy.draw_jitter(generator, occupancy_cfg)
+        return ImageDraws(idx, u, rays, aux, jitter)
 
-    def step_fn(state: TrainState, images, poses, generator=None, draws: Optional[ImageDraws] = None):
-        if draws is None:
-            draws = draw(generator, images.shape[0])
+    def ray_batch(images, poses, draws: ImageDraws):
         pixel_idx = sample_pixels_without_replacement_from_uniforms(draws.pixel_u, num_pixels)
         if crop is not None:
             dev = images.device
@@ -326,8 +490,22 @@ def make_image_train_step(
         ray_o, ray_d = cameras.rays_for_pixels(
             pixel_idx, camera, pose, use_ndc=settings.project_to_ndc, ndc_z_near=settings.ndc_z_near
         )
-        rgb_gt = images.index_select(0, sel)[0][pixel_idx]
-        return ray_step(state, ray_o, ray_d, rgb_gt, draws.rays, draws.aux)
+        return ray_o, ray_d, images.index_select(0, sel)[0][pixel_idx]
+
+    if occupancy_cfg is not None:
+
+        def occ_step_fn(state: TrainState, grid, images, poses, generator=None, draws: Optional[ImageDraws] = None):
+            if draws is None:
+                draws = draw(generator, images.shape[0], state.step)
+            return ray_step(state, grid, *ray_batch(images, poses, draws), draws.rays, draws.aux, draws.occ_jitter)
+
+        step_fn = occ_step_fn
+    else:
+
+        def step_fn(state: TrainState, images, poses, generator=None, draws: Optional[ImageDraws] = None):
+            if draws is None:
+                draws = draw(generator, images.shape[0])
+            return ray_step(state, *ray_batch(images, poses, draws), draws.rays, draws.aux)
 
     step_fn.draw = draw
     step_fn.num_pixels = num_pixels
