@@ -4,7 +4,8 @@ Drives the port's main paths through its own entry points (render a trained
 classic NeRF; train one, by the fused train pass and by autograd through the
 field; train, resume, render and evaluate both Instant-NGP presets and the
 packed table layouts with their smoothness loss, a forward-facing LLFF scene
-through NDC rays, and occupancy-pruned runs) and holds every kernel on them
+through NDC rays, occupancy-pruned runs and two-scene runs; score with
+LPIPS; trace steps with the profiler) and holds every kernel on them
 against its plain PyTorch version.
 Each phase prints one JSON line; any failure exits non-zero. Then it prints
 the ``kernels`` line, the card's name and power limit, and last
@@ -69,7 +70,20 @@ defaults at 32 + 128 kept samples through kernel 3, ``instant_nerf_tpu``
 at 128 through kernels 4-5, 8 steps of ``instant_nerf`` through kernels
 6-7; the sidecar at both checkpoints and restored bit for bit, the grid
 at step 32 neither all occupied nor all empty, the sweep's and the pruned
-passes' launches and shapes counted). kernel_train holds
+passes' launches and shapes counted); train_multi (``run_train
+data.num_scenes=2``, two gaussian_blobs scenes, 24 steps, a resume for 8,
+``run_render --scene 1`` + ``evaluate`` against scene 1's ground truth, the
+classic defaults at full width and ``instant_nerf_tpu``: kernel 3 twice a
+scene a step, kernels 4 and 5 once, kernel 1 or 4 per render chunk of each
+scene's validation; per-scene PSNR, each scene's loss falling);
+train_multi_step (one 2-scene classic step equal to two single-scene steps
+bit for bit, params, Adam's moments and losses; kernels 1, 3, 4 and 5 on
+each scene's batch and its views of the stacked parameters against their
+plain versions); train_bench_multi (2- and 4-scene classic steps and
+2-scene bricked steps against S single-scene steps, in alternating turns);
+lpips (the port's LPIPS on the card against the CPU on random weights, and
+``evaluate`` printing it); profile (``run_train --profile-steps 2``: the
+Chrome trace names kernel 3's CUDA functions). kernel_train holds
 kernel 3 also on occupancy-pruned planes, and train_bench and
 train_bench_ngp time the pruned steps beside the dense ones.
 """
@@ -2024,6 +2038,458 @@ def phase_bench_ngp(smi: str):
     return layouts
 
 
+# ---------------------------------------------------------------------------
+# Multi-scene training (kernels 1, 3, 4 and 5 once a scene), LPIPS, profiler
+
+MULTI_OVERRIDES = ["data.dataset_type=gaussian_blobs", "data.img_size=400", "data.num_scenes=2",
+                   "train_params.validation.validate_every=3", "train_params.log.epoch_btw_ckpt=3"]
+
+
+def max_abs_diff(a, b) -> float:
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def train_multi_run(work: Path, name: str, config_args, counted) -> dict:
+    """A 2-scene ``run_train`` with ``config_args`` into ``work/<name>_run``
+    (gaussian_blobs scenes 0 and 1 at 400x400, 8 views each): 24 steps (one
+    validation of each scene's 800x800 val view 0, one checkpoint), a resume
+    for 8 more, then ``run_render --scene 1`` of two 800x800 test views and
+    ``evaluate`` against scene 1's own test ground truth; the ``counted``
+    wrappers' launches over each CLI call. Each scene's loss must fall (its
+    last 8 steps' mean below its first 8's), each scene's params move in the
+    resume, and the two scenes' params differ."""
+    from torch_nerf_tpu_torch import checkpoints, config, session, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
+
+    run, out, gt = work / f"{name}_run", work / f"{name}_render", work / f"{name}_gt"
+    logs, results, launches = [], [], []
+    t0 = time.perf_counter()
+    for max_steps in (24, 32):
+        r, log, c, _ = run_cli(run_train.main, ["--log-dir", str(run), "--max-steps", str(max_steps)]
+                               + config_args + MULTI_OVERRIDES, counted)
+        results.append(r)
+        logs.append(log)
+        launches.append(c)
+    train_s = time.perf_counter() - t0
+    _, render_log, render_launches, _ = run_cli(run_render.main, [
+        "--log-dir", str(run), "--scene", "1", "--render-test-views", "--num-views", "2", "--out-dir", str(out)],
+        counted)
+    cfg = config.load_config(run / "config.yaml")
+    data = session.build_multiscene_dataset(cfg, 1, "test", device=torch.device("cuda"))
+    gt.mkdir(parents=True)
+    for i in range(2):
+        save_png(gt / f"{i:04d}.png", data.images[i])
+    scores = evaluate.main([str(out), str(gt)])
+    losses = results[0]["losses"] + results[1]["losses"]
+    scene_losses = [a + b for a, b in zip(results[0]["scene_losses"], results[1]["scene_losses"])]
+    first8 = [sum(v[:8]) / 8 for v in scene_losses]
+    last8 = [sum(v[-8:]) / 8 for v in scene_losses]
+    val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
+    ckpt = {step: train.parameter_list(checkpoints.load_checkpoint(run / "ckpt" / f"ckpt_{step:06d}.pt")["params"])
+            for step in (24, 32)}
+    moved = [max_abs_diff([p[s] for p in ckpt[32]], [p[s] for p in ckpt[24]]) for s in range(2)]
+    scenes_apart = max_abs_diff([p[0] for p in ckpt[32]], [p[1] for p in ckpt[32]])
+    shapes = [list(load_png(p).shape) for p in sorted(out.iterdir())]
+    resumed = "Resumed from step 24." in logs[1]
+    ok = (len(losses) == 32 and all(len(v) == 32 and all(math.isfinite(x) for x in v) for v in scene_losses)
+          and all(b < a for a, b in zip(first8, last8)) and resumed and len(val) == 1
+          and "psnr_scene0=" in val[0] and "psnr_scene1=" in val[0] and all(m > 0.0 for m in moved)
+          and scenes_apart > 0.0 and "Loaded scene 1 of a 2-scene checkpoint at step 32." in render_log
+          and shapes == [[800, 800, 3]] * 2 and all(math.isfinite(v) for v in scores.values()))
+    return dict(ok=ok, launches=launches, render_launches=render_launches, render_dir=out, gt_dir=gt,
+                report=dict(seconds=train_s, steps=[r["step"] for r in results], mean_loss=losses,
+                            scene_loss_first8=first8, scene_loss_last8=last8, validation=val, resumed=resumed,
+                            params_moved_in_resume=moved, scenes_params_max_abs_apart=scenes_apart,
+                            png_shapes=shapes, psnr_vs_scene1_gt=scores["psnr"], ssim_vs_scene1_gt=scores["ssim"]))
+
+
+def phase_train_multi(work: Path):
+    """``run_train data.num_scenes=2`` through :func:`train_multi_run`, the
+    default classic config at full width (kernel 3 twice a scene a step,
+    kernel 1 twice a 4096-ray chunk of each validation and render) and the
+    bricked ``instant_nerf_tpu`` preset (kernels 4 and 5 once a scene a
+    step, kernel 4 once a chunk)."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+
+    chunks = -(-800 * 800 // 4096)
+    runs = {
+        # [kernel 3, kernel 1] per call; 2 scenes, 24 + 8 steps, a validation of both at step 24
+        "classic": (["--config", "default"], [ftm.fused_train_pass, fn.fused_nerf_apply],
+                    [[2 * 2 * 24, 2 * 2 * chunks], [2 * 2 * 8, 0]], [0, 2 * 2 * chunks]),
+        # [kernel 4, kernel 5] per call
+        "bricked": (["--config", "instant_nerf_tpu"], hash_ops("bricked")[:2],
+                    [[2 * 24 + 2 * chunks, 2 * 24], [2 * 8, 2 * 8]], [2 * chunks, 0]),
+    }
+    report, done, ok = {}, {}, True
+    for name, (args, counted, want, want_render) in runs.items():
+        r = train_multi_run(work, f"multi_{name}", args, counted)
+        good = r["ok"] and r["launches"] == want and r["render_launches"] == want_render
+        report[name] = dict(launches={"train": r["launches"], "render": r["render_launches"]},
+                            expected={"train": want, "render": want_render}, **r["report"], ok=good)
+        ok = ok and good
+        done[name] = r
+    emit("train_multi", runs=report, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_multi phase failed")
+    c, b = done["classic"], done["bricked"]
+    return {"fused_train_pass": sum(x[0] for x in c["launches"]) + c["render_launches"][0],
+            "fused_nerf_fwd": sum(x[1] for x in c["launches"]) + c["render_launches"][1],
+            "hash_brick_fwd": sum(x[0] for x in b["launches"]) + b["render_launches"][0],
+            "hash_brick_bwd": sum(x[1] for x in b["launches"]) + b["render_launches"][1],
+            "render_dir": c["render_dir"], "gt_dir": c["gt_dir"]}
+
+
+def multi_pools(num_scenes: int, dev):
+    """``num_scenes`` gaussian_blobs scenes (``GaussianBlobScene.random(s)``),
+    8 views at 400x400 each, stacked on the card: ``(images (S, 8, H*W, 3),
+    poses (S, 8, 4, 4), camera)``."""
+    import numpy as np  # noqa: PLC0415
+
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+
+    imgs, poses = [], []
+    for s in range(num_scenes):
+        i, p, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev,
+                                                 scene=synthetic.GaussianBlobScene.random(s))
+        imgs.append(i)
+        poses.append(p)
+    return torch.as_tensor(np.stack(imgs), device=dev), torch.as_tensor(np.stack(poses), device=dev), camera
+
+
+def clone_tree(tree):
+    """Detached copies of a parameter tree's leaves."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def single_state(params, optim):
+    """A single-scene train state on copies of ``params``."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+
+    params = clone_tree(params)
+    for leaf in train.parameter_list(params):
+        leaf.requires_grad_(True)
+    opt = train.make_optimizer(params, optim)
+    return train.TrainState(step=0, params=params, optimizer=opt, scheduler=train.lr_schedule(opt, optim))
+
+
+def kernel3_verdict(params, o, d, t, gt):
+    """Kernel 3 on ``params`` (a scene's views) against its plain version,
+    as kernel_train holds it: grads by relative L2, rgb and weights by
+    :func:`composite_errors`, each within 2x the plain bf16 version's error
+    + 1e-3; one launch. ``(verdict, the plain f32 weights)``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    cfg = fn.FusedNeRFConfig(**FULL)
+    cfg32 = fn.FusedNeRFConfig(**FULL, compute_dtype=torch.float32)
+    n = o.shape[0]
+    delta = sampling.t_deltas(t)
+    c32, w32, g32 = train_reference(bf16_rounded(params), o, d, t, delta, gt, cfg32, n)
+    cbf, wbf, gbf = train_reference(params, o, d, t, delta, gt, cfg, n)
+    before = ftm.fused_train_pass.launches
+    c, w, g = ftm.fused_train_pass(params, o, d, t, delta, gt, cfg, n)
+    torch.cuda.synchronize()
+    verdict = judge(rel_l2(named(g), named(g32)), rel_l2(named(gbf), named(g32)))
+    comp = composite_errors(c, w, c32, w32, cbf, wbf, delta >= 1e7)
+    max_abs = max([comp["max_abs_err"]] + [(g[a][k] - g32[a][k]).abs().max().item() for a in g for k in g[a]])
+    ok = verdict["ok"] and comp["ok"] and ftm.fused_train_pass.launches == before + 1
+    return dict(points=t.numel(), grads=verdict, composite=comp, max_abs_err=max_abs, ok=ok), w32
+
+
+def multi_step_classic(images, poses, camera) -> dict:
+    """One 2-scene classic step at full width against two single-scene
+    steps, then kernels 3 and 1 on its inputs (:func:`phase_train_multi_step`)."""
+    from torch_nerf_tpu_torch import multiscene, renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    dev = images.device
+    field = make_nerf_field(compute_dtype=torch.bfloat16)
+    settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
+    optim = train.OptimConfig()
+    state = multiscene.create_multiscene_state(multiscene.scene_generators(0, 2, dev), field, settings, optim, 2, dev)
+    # the stacked params before the step: the values its kernels read
+    stacked_before = clone_tree(state.params)
+    singles = [single_state(multiscene.scene_params(state, s), optim) for s in range(2)]
+    step = multiscene.make_multiscene_train_step(field, settings, optim, camera, 2, 4096)
+    single_step = train.make_image_train_step(field, settings, optim, camera, 4096)
+    draws = step.draw(multiscene.scene_generators(1, 2, dev), 8)
+    launch_count.reset(ftm.fused_train_pass)
+    state, metrics = step(state, images, poses, draws=draws)
+    torch.cuda.synchronize()
+    multi_launches = ftm.fused_train_pass.launches
+    diffs = {"params": 0.0, "exp_avg": 0.0, "exp_avg_sq": 0.0, "coarse_loss": 0.0, "fine_loss": 0.0}
+    stacked = train.parameter_list(state.params)
+    for s in range(2):
+        singles[s], m = single_step(singles[s], images[s], poses[s], draws=draws[s])
+        ref = train.parameter_list(singles[s].params)
+        diffs["params"] = max(diffs["params"], max_abs_diff([p[s] for p in stacked], ref))
+        for key in ("exp_avg", "exp_avg_sq"):
+            diffs[key] = max(diffs[key], max_abs_diff([state.optimizer.state[p][key][s] for p in stacked],
+                                                      [singles[s].optimizer.state[p][key] for p in ref]))
+        for key in ("coarse_loss", "fine_loss"):
+            diffs[key] = max(diffs[key], abs(metrics[key][s].item() - m[key].item()))
+    bit_equal = all(v == 0.0 for v in diffs.values())
+
+    # the kernels on the multi-scene path's inputs: each scene's batch of the
+    # step and its views of the stacked params
+    kernels, errs = {}, {"fused_train_pass": 0.0, "fused_nerf_fwd": 0.0}
+    for s in range(2):
+        views = multiscene.slice_scene(stacked_before, s)
+        o, d, gt = (x.contiguous() for x in single_step.ray_batch(images[s], poses[s], draws[s]))
+        uni = draws[s].rays
+        t_c = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far).contiguous()
+        coarse, w32 = kernel3_verdict(views["coarse"], o, d, t_c, gt)
+        fine, _ = kernel3_verdict(views["fine"], o, d, fine_depths(w32, uni, settings), gt)
+        k1 = compare_with_plain(views["coarse"], *ray_points(o, d, t_c))
+        kernels[f"scene{s}"] = {"kernel3_coarse": coarse, "kernel3_fine": fine, "kernel1_coarse_points": k1}
+        errs["fused_train_pass"] = max(errs["fused_train_pass"], coarse["max_abs_err"], fine["max_abs_err"])
+        errs["fused_nerf_fwd"] = max(errs["fused_nerf_fwd"], max(k1["max_abs_err"].values()))
+    finite = all(torch.isfinite(v).all().item() for v in metrics.values())
+    ok = bit_equal and multi_launches == 4 and finite and all(v["ok"] for k in kernels.values() for v in k.values())
+    return dict(report=dict(max_abs_vs_single_scene_steps=diffs, bit_equal=bit_equal,
+                            kernel3_launches=multi_launches, expected_kernel3_launches=4,
+                            losses={k: v.tolist() for k, v in metrics.items()}, kernels=kernels, ok=ok),
+                ok=ok, errs=errs)
+
+
+def multi_step_bricked(images, poses, camera) -> dict:
+    """One 2-scene bricked step (kernels 4 and 5 once a scene), then kernels
+    4-5 on each scene's 2^20 batch points and its view of a stacked
+    U(-1, 1) table (:func:`phase_train_multi_step`)."""
+    from torch_nerf_tpu_torch import multiscene, renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    dev = images.device
+    field = ngp_field("bricked")
+    settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
+    optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
+    state = multiscene.create_multiscene_state(multiscene.scene_generators(0, 2, dev), field, settings, optim, 2, dev)
+    step = multiscene.make_multiscene_train_step(field, settings, optim, camera, 2, 4096)
+    single_step = train.make_image_train_step(field, settings, optim, camera, 4096)
+    draws = step.draw(multiscene.scene_generators(1, 2, dev), 8)
+    fwd, bwd, fwd_ref, bwd_ref = hash_ops("bricked")
+    launch_count.reset(fwd, bwd)
+    state, metrics = step(state, images, poses, draws=draws)
+    torch.cuda.synchronize()
+    launches = [fwd.launches, bwd.launches]
+    res = ngp_resolutions(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    stacked = torch.rand((2,) + ngp_table_shape("bricked"), generator=gen, device=dev) * 2.0 - 1.0
+    kernels, errs = {}, {"hash_brick_fwd": 0.0, "hash_brick_bwd": 0.0}
+    for s in range(2):
+        o, d, _ = single_step.ray_batch(images[s], poses[s], draws[s])
+        t = sampling.stratified_t_samples_from_uniforms(draws[s].rays.coarse, settings.t_near, settings.t_far)
+        pts, _ = ray_points(o, d, t)
+        tables = stacked[s]
+        g = torch.randn((pts.shape[0], 32), generator=gen, device=dev)
+        v = hash_verdict("bricked", tables, pts, res, g, fwd_ref(tables, pts, res),
+                         bwd_ref(g, pts, res, *table_args(tables)))
+        kernels[f"scene{s}"] = dict(points=pts.shape[0], table_offset_bytes=tables.data_ptr() - stacked.data_ptr(),
+                                    err=v["err"], limit=v["limit"], ok=v["ok"])
+        errs["hash_brick_fwd"] = max(errs["hash_brick_fwd"], v["err"]["fwd_max_abs"])
+        errs["hash_brick_bwd"] = max(errs["hash_brick_bwd"], v["err"]["grad_max_abs"])
+    finite = all(torch.isfinite(v).all().item() for v in metrics.values())
+    ok = launches == [2, 2] and finite and all(k["ok"] for k in kernels.values())
+    return dict(report=dict(launches_fwd_bwd=launches, expected=[2, 2],
+                            losses={k: v.tolist() for k, v in metrics.items()}, kernels=kernels, ok=ok),
+                ok=ok, errs=errs)
+
+
+def phase_train_multi_step():
+    """One 2-scene step on the card at full width with explicit draws
+    (``step.draw``), the default classic config, against two single-scene
+    ``make_image_train_step`` calls on copies of each scene's params with
+    the same draws: params, Adam's moments and the losses must be equal,
+    max-abs 0.0 (kernel 3 is bit-identical from launch to launch, Adam
+    elementwise). Then, on each scene's own batch of that step and its
+    params as the multi-scene step hands them (views of the stacked leaves),
+    kernel 3 coarse and fine and kernel 1 on the coarse points against their
+    plain versions; then one 2-scene bricked step (kernels 4 and 5 once a
+    scene), and kernels 4-5 on each scene's 2^20 batch points and its view
+    of a stacked U(-1, 1) table against their plain versions."""
+    dev = torch.device("cuda")
+    images, poses, camera = multi_pools(2, dev)
+    classic = multi_step_classic(images, poses, camera)
+    bricked = multi_step_bricked(images, poses, camera)
+    ok = classic["ok"] and bricked["ok"]
+    emit("train_multi_step", classic=classic["report"], bricked=bricked["report"],
+         rule="classic: params, Adam's moments and losses of the 2-scene step equal to the single-scene steps' "
+              "(max-abs 0.0); kernels 3 and 1 as kernel_train and kernel hold them, kernels 4-5 as kernel_hash",
+         ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_multi_step phase failed")
+    return {**classic["errs"], **bricked["errs"]}
+
+
+def phase_train_bench_multi(smi: str, rounds: int = 5, steps: int = 10):
+    """S-scene steps at ``bench.py``'s train point (8 views of 400x400 a
+    scene, 4096 rays a scene) against S single-scene steps: classic S = 2
+    and S = 4, bricked S = 2 (``bench.py --model=instant_nerf``'s point).
+    After 3 warm-up steps each, ``rounds`` turns of ``steps`` synchronized
+    steps of every variant, the order reversed every other turn; the median
+    of the turns, their spread, and the ratio of the S-scene step to S
+    single-scene steps (each turn's, and of the medians). Kernel 3's, or
+    kernels 4-5's, launches counted over one turn of each variant."""
+    import statistics  # noqa: PLC0415
+
+    from torch_nerf_tpu_torch import multiscene, renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    images, poses, camera = multi_pools(4, dev)
+    models = {
+        "classic": (make_nerf_field(compute_dtype=torch.bfloat16),
+                    renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128), train.OptimConfig(),
+                    (1, 2, 4), [ftm.fused_train_pass], lambda s: [2 * s]),
+        "bricked": (ngp_field("bricked"), renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0),
+                    train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15),
+                    (1, 2), list(hash_ops("bricked")[:2]), lambda s: [s, s]),
+    }
+    variants = {}
+    for model, (field, settings, optim, counts, counted, per_step) in models.items():
+        for s in counts:
+            gens = multiscene.scene_generators(1, s, dev)
+            state = multiscene.create_multiscene_state(multiscene.scene_generators(0, s, dev), field, settings,
+                                                       optim, s, dev)
+            if s == 1:
+                state = single_state(multiscene.scene_params(state, 0), optim)
+                step = train.make_image_train_step(field, settings, optim, camera, 4096)
+                run = (lambda step=step, state=state, gen=gens[0]: step(state, images[0], poses[0], gen)[1])
+            else:
+                step = multiscene.make_multiscene_train_step(field, settings, optim, camera, s, 4096)
+                run = (lambda step=step, state=state, gens=gens, s=s: step(state, images[:s], poses[:s], gens)[1])
+            variants[f"{model}/S{s}"] = dict(run=run, scenes=s, counted=counted, want=per_step(s), ms=[], loss=[])
+    for v in variants.values():
+        for _ in range(3):
+            v["run"]()
+    torch.cuda.synchronize()
+    names = list(variants)
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            v = variants[name]
+            launch_count.reset(*v["counted"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                metrics = v["run"]()
+            torch.cuda.synchronize()
+            v["ms"].append((time.perf_counter() - t0) / steps * 1e3)
+            v["loss"].append(float(metrics["loss"]))
+            v["launches"] = [w.launches for w in v["counted"]]
+    clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+    report, ok = {}, True
+    for name, v in variants.items():
+        model, s = name.split("/")[0], v["scenes"]
+        single = variants[f"{model}/S1"]
+        entry = dict(scenes=s, ms_per_step=v["ms"], median_ms=statistics.median(v["ms"]), min_ms=min(v["ms"]),
+                     max_ms=max(v["ms"]), rays_per_sec=4096 * s / statistics.median(v["ms"]) * 1e3,
+                     launches_per_turn=v["launches"], expected_launches_per_turn=[steps * n for n in v["want"]],
+                     losses=v["loss"])
+        if s > 1:
+            entry.update(ratio_to_s_single_steps=entry["median_ms"] / (s * statistics.median(single["ms"])),
+                         ratio_by_turn=[a / (s * b) for a, b in zip(v["ms"], single["ms"])])
+        good = entry["launches_per_turn"] == entry["expected_launches_per_turn"] and all(
+            math.isfinite(x) for x in v["loss"])
+        report[name] = dict(entry, ok=good)
+        ok = ok and good
+    emit("train_bench_multi", card=smi, sm_clock_temp_power=clocks, rounds=rounds, steps_per_turn=steps,
+         variants=report, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_bench_multi phase failed")
+    return report
+
+
+def phase_lpips(work: Path, render_dir: Path, gt_dir: Path):
+    """LPIPS on the card against the CPU: random AlexNet and lin weights
+    (drawn as ``tests/test_lpips.py`` draws them) saved to a ``.npz`` in
+    ``work``, two 400x400 images, within 1e-5; then ``evaluate`` on the card
+    with ``$LPIPS_WEIGHTS`` naming that file must print an ``LPIPS:`` value
+    (train_multi's scene-1 render against its ground truth)."""
+    import os  # noqa: PLC0415
+
+    import numpy as np  # noqa: PLC0415
+
+    from torch_nerf_tpu_torch import lpips  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import evaluate  # noqa: PLC0415
+
+    rng = np.random.default_rng(0)
+    convs, in_ch = [], 3
+    for out_ch, k, _, _ in lpips.CONVS:
+        convs.append((rng.normal(0, 0.1, (out_ch, in_ch, k, k)).astype(np.float32),
+                      rng.normal(0, 0.05, (out_ch,)).astype(np.float32)))
+        in_ch = out_ch
+    lins = [np.abs(rng.normal(0, 0.2, (c,)).astype(np.float32)) for c in (64, 192, 384, 256, 256)]
+    weights = lpips.LPIPSWeights(convs, lins)
+    path = work / "lpips_random_weights.npz"
+    lpips.export_weights_npz(weights, path)
+    a = rng.uniform(0, 1, (400, 400, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    on_cpu = lpips.lpips_alex(a, b, weights, device=torch.device("cpu"))
+    on_card = lpips.lpips_alex(a, b, weights, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        lpips.lpips_alex(a, b, weights, device=torch.device("cuda"))
+    card_ms = (time.perf_counter() - t0) / 5 * 1e3
+    saved = os.environ.get("LPIPS_WEIGHTS")
+    os.environ["LPIPS_WEIGHTS"] = str(path)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            scores = evaluate.main([str(render_dir), str(gt_dir)])
+    finally:
+        if saved is None:
+            del os.environ["LPIPS_WEIGHTS"]
+        else:
+            os.environ["LPIPS_WEIGHTS"] = saved
+    printed = [ln for ln in buf.getvalue().splitlines() if ln.startswith("LPIPS:")]
+    err = abs(on_card - on_cpu)
+    ok = (err <= 1e-5 and on_cpu > 0.0 and "lpips" in scores and math.isfinite(scores["lpips"])
+          and printed == [f"LPIPS: {scores['lpips']:.4f}"])
+    emit("lpips", image_shape=[400, 400, 3], cpu=on_cpu, card=on_card, abs_err=err, tolerance=1e-5,
+         card_ms_per_pair=card_ms, evaluate_line=printed, evaluate_scores=scores, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: lpips phase failed")
+
+
+# kernel 3's CUDA functions (nerf_mlp_train.cuh, fused_train.cu)
+KERNEL3_FUNCTIONS = ("mlp_forward_stash", "composite", "mlp_backward_chain", "dw_gemm", "dw_reduce")
+
+
+def phase_profile(work: Path):
+    """``run_train --profile-steps 2 --max-steps 13`` of the default classic
+    config at full width on 4 views of 200x200 (no validation, no
+    visualisation): the Chrome trace of steps 10 and 11 must exist and name
+    kernel 3's CUDA functions among its device kernels."""
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
+
+    run = work / "profile_run"
+    result, log, launches, _ = run_cli(run_train.main, [
+        "--config", "default", "--log-dir", str(run), "--max-steps", "13", "--profile-steps", "2",
+        "data.dataset_type=gaussian_blobs", "data.img_size=200", "data.num_views=4",
+        "train_params.validation.validate_every=0", "train_params.log.epoch_btw_vis=100",
+        "train_params.log.epoch_btw_ckpt=100"], [ftm.fused_train_pass])
+    trace = run / "profile" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"] if trace.exists() else []
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {f: sum(1 for k in kernels if f in k) for f in KERNEL3_FUNCTIONS}
+    ok = (result["step"] == 13 and launches == [26] and f"profiler trace written to {run / 'profile'}" in log
+          and all(found.values()))
+    emit("profile", trace=str(trace.relative_to(work)), trace_bytes=trace.stat().st_size if trace.exists() else 0,
+         device_kernel_events=len(kernels), kernel3_events=found, kernel3_launches=launches, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: profile phase failed")
+
+
 SECTOR = 32  # bytes: the least that the card's memory moves to or from L2
 
 
@@ -2095,13 +2561,16 @@ def kernel_lines(done: dict) -> list:
     points; the fold kernels: their launches over ``train_packed``'s CLI
     calls, their errors from kernel_fold, their times on the ``packed``
     layout's tables); ``launches_by_path`` adds each kernel's launches over
-    ``train_llff``'s and ``train_occ``'s CLI calls."""
+    ``train_llff``'s, ``train_occ``'s and ``train_multi``'s CLI calls, and
+    kernels 1, 3, 4 and 5's errors include train_multi_step's."""
     lines = _kernel_entries(done)
     for entry in lines:
-        # the launches of the LLFF + NDC and occupancy paths, each counted
-        # over its own CLI calls
-        entry["launches_by_path"] = {path: done[path][entry["name"]] for path in ("train_llff", "train_occ")
+        # the launches of the LLFF + NDC, occupancy and multi-scene paths,
+        # each counted over its own CLI calls
+        entry["launches_by_path"] = {path: done[path][entry["name"]]
+                                     for path in ("train_llff", "train_occ", "train_multi")
                                      if entry["name"] in done[path]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], done["train_multi_step"].get(entry["name"], 0.0))
     return lines
 
 
@@ -2183,9 +2652,14 @@ def main() -> int:
         "train_packed": phase_train_packed(work),
         "train_llff": phase_train_llff(work),
         "train_occ": phase_train_occ(work),
+        "train_multi": phase_train_multi(work),
+        "train_multi_step": phase_train_multi_step(),
         "train_bench_ngp": phase_train_bench_ngp(smi),
         "bench_ngp": phase_bench_ngp(smi),
+        "train_bench_multi": phase_train_bench_multi(smi),
     }
+    phase_lpips(work, done["train_multi"]["render_dir"], done["train_multi"]["gt_dir"])
+    phase_profile(work)
     print(smi)
     print(json.dumps({"kernels": kernel_lines(done)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,9 @@ holds ``{"step", "params"}`` in the public parameter layout and, when saved
 from a trainer, the ``"optimizer"`` (Adam's moments and step counts) and
 ``"scheduler"`` state dicts, so a resumed run continues the moments and the
 learning rate exactly. A checkpoint with params only (as rendering needs)
-still loads.
+still loads. A multi-scene run's checkpoint holds its stacked ``(S, ...)``
+params and optimizer state, and ``"num_scenes"``; a checkpoint without that
+key is a single scene's.
 
 An occupancy-pruned run keeps its grid beside the checkpoint, in the sidecar
 ``ckpt_<step:06d>.occ.npy``: the flat ``(R^3,)`` float32 grid as ``np.save``
@@ -37,9 +39,11 @@ def save_checkpoint(
     optimizer: Optional[torch.optim.Optimizer] = None,
     scheduler: Optional[Any] = None,
     occ_grid: Optional[torch.Tensor] = None,
+    num_scenes: Optional[int] = None,
 ) -> Path:
     """Write ``<log_dir>/ckpt/ckpt_<step:06d>.pt`` (atomically), tensors on
-    the CPU, and ``occ_grid``'s sidecar where given."""
+    the CPU, and ``occ_grid``'s sidecar where given; ``num_scenes`` marks a
+    multi-scene run's stacked state."""
     path = ckpt_dir(log_dir) / f"ckpt_{int(step):06d}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.tmp")
@@ -48,6 +52,8 @@ def save_checkpoint(
         state["optimizer"] = _to_device(optimizer.state_dict(), torch.device("cpu"))
     if scheduler is not None:
         state["scheduler"] = scheduler.state_dict()
+    if num_scenes is not None:
+        state["num_scenes"] = int(num_scenes)
     torch.save(state, tmp)
     tmp.replace(path)
     if occ_grid is not None:
@@ -85,10 +91,11 @@ def latest_checkpoint(log_dir: str | Path) -> Optional[Path]:
 def load_checkpoint(path: str | Path, device: Optional[torch.device] = None) -> Dict[str, Any]:
     """``{"step", "params"}`` with the params moved to ``device``, plus
     ``"optimizer"`` and ``"scheduler"`` state dicts where saved (on the CPU;
-    ``load_state_dict`` moves them to the parameters' device)."""
+    ``load_state_dict`` moves them to the parameters' device) and
+    ``"num_scenes"`` where it is a multi-scene run's."""
     state = torch.load(Path(path), map_location="cpu", weights_only=True)
     out = {"step": int(state["step"]), "params": _to_device(state["params"], device)}
-    for key in ("optimizer", "scheduler"):
+    for key in ("optimizer", "scheduler", "num_scenes"):
         if key in state:
             out[key] = state[key]
     return out

@@ -1,11 +1,12 @@
-"""Image-quality metrics: PSNR and SSIM in torch, and directory comparison.
+"""Image-quality metrics: PSNR, SSIM and LPIPS in torch, and directory
+comparison.
 
 Counterpart of ``torch_nerf_tpu/metrics.py:29-185``: PSNR with data range
 1.0; SSIM with an 11x11 Gaussian window (sigma 1.5), K1 0.01, K2 0.03, the
 window shrunk (odd) for tiny images; directories compared file by file with
-white-background compositing of RGBA. Both metrics compute in float64 on
-the given device. LPIPS needs pretrained weights the repository does not
-hold; it comes with a later slice, and is reported as unavailable here.
+white-background compositing of RGBA. Both compute in float64 on the given
+device. LPIPS (``lpips.py``, float32) runs only where calibrated weights are
+found (:func:`lpips_available`); otherwise it is reported as unavailable.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch_nerf_tpu_torch import lpips as lpips_mod
 from torch_nerf_tpu_torch.logging_utils import load_png
 
 
@@ -72,6 +74,23 @@ def ssim(
     return float(torch.mean((num / den).mean(dim=(1, 2))))
 
 
+def lpips_available() -> bool:
+    """Whether calibrated LPIPS-alex weights are found (the search of
+    ``lpips.load_weights``: ``$LPIPS_WEIGHTS``, then the torch-hub cache)."""
+    return lpips_mod.load_weights() is not None
+
+
+def lpips(
+    pred, target, weights: Optional[lpips_mod.LPIPSWeights] = None, device: Optional[torch.device] = None
+) -> Optional[float]:
+    """LPIPS(alex) between ``(H, W, 3)`` images in [0, 1] with ``weights``
+    (searched for when not given), or None when there are none."""
+    weights = weights or lpips_mod.load_weights()
+    if weights is None:
+        return None
+    return lpips_mod.lpips_alex(pred, target, weights, device=device)
+
+
 def _to_rgb(pixels) -> torch.Tensor:
     arr = torch.from_numpy(pixels).to(torch.float32) / 255.0
     if arr.shape[-1] == 4:
@@ -102,11 +121,13 @@ def _load_image_pair(file1: Path, file2: Path) -> Tuple[torch.Tensor, torch.Tens
 def compare_directories(
     pred_dir: str | Path, target_dir: str | Path, device: Optional[torch.device] = None
 ) -> Dict[str, float]:
-    """PSNR/SSIM averaged over images paired by file name."""
+    """PSNR/SSIM averaged over images paired by file name, and ``lpips``
+    where calibrated weights are found."""
     pred_dir, target_dir = Path(pred_dir), Path(target_dir)
     if not pred_dir.exists() or not target_dir.exists():
         raise FileNotFoundError(f"{pred_dir} or {target_dir} does not exist")
-    psnrs, ssims = [], []
+    weights = lpips_mod.load_weights()
+    psnrs, ssims, lpipss = [], [], []
     for file1 in sorted(pred_dir.iterdir()):
         file2 = target_dir / file1.name
         if not file2.exists():
@@ -114,6 +135,11 @@ def compare_directories(
         a, b = _load_image_pair(file1, file2)
         psnrs.append(psnr(a, b, device=device))
         ssims.append(ssim(a, b, device=device))
+        if weights is not None:
+            lpipss.append(lpips_mod.lpips_alex(a, b, weights, device=device))
     if not psnrs:
         raise FileNotFoundError(f"no images in {pred_dir}")
-    return {"psnr": sum(psnrs) / len(psnrs), "ssim": sum(ssims) / len(ssims)}
+    out = {"psnr": sum(psnrs) / len(psnrs), "ssim": sum(ssims) / len(ssims)}
+    if lpipss:
+        out["lpips"] = sum(lpipss) / len(lpipss)
+    return out

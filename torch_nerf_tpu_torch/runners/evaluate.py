@@ -1,7 +1,9 @@
 """Evaluation CLI: metrics between two image directories.
 
 Counterpart of ``torch_nerf_tpu/runners/evaluate.py`` plus ``--device``
-(default: the CUDA card).
+(default: the CUDA card): PSNR and SSIM always, LPIPS where calibrated
+weights are found (``torch_nerf_tpu_torch/lpips.py``: ``$LPIPS_WEIGHTS``,
+then the torch-hub cache).
 
     python -m torch_nerf_tpu_torch.runners.evaluate PRED_DIR GT_DIR [--device cpu]
 """
@@ -24,7 +26,14 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
 
     out = metrics.compare_directories(Path(args.dir1), Path(args.dir2), device=device)
-    print("LPIPS: unavailable — no pretrained weights in this port yet")
+    if "lpips" in out:
+        print(f"LPIPS: {out['lpips']:.4f}")
+    else:
+        print(
+            "LPIPS: unavailable — no calibrated weights found (set "
+            "$LPIPS_WEIGHTS or place alexnet/lin checkpoints in "
+            "~/.cache/torch/hub/checkpoints/; see torch_nerf_tpu_torch/lpips.py)"
+        )
     print(f"PSNR: {out['psnr']:.4f}")
     print(f"SSIM: {out['ssim']:.4f}")
     print("Done.")

@@ -9,8 +9,11 @@ into numbered PNGs.
     python -m torch_nerf_tpu_torch.runners.run_render --log-dir RUN \
         --render-test-views --num-views 2 [--device cpu] [key=value ...]
 
-Multi-scene runs (``--scene``) and data-parallel rendering come with later
-slices and raise here.
+A multi-scene run's checkpoint holds every scene: ``--scene N`` (default
+0) renders scene N's parameters on scene N's test split
+(``session.build_multiscene_dataset``). A scene out of range raises, as
+``--scene`` other than 0 on a single-scene run does. Data-parallel
+rendering comes with the parallelism slice and raises here.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from torch_nerf_tpu_torch import checkpoints, config as cfg_mod, session
+from torch_nerf_tpu_torch import checkpoints, config as cfg_mod, multiscene, session
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.logging_utils import save_png
 from torch_nerf_tpu_torch.renderer import render_image
@@ -40,7 +43,7 @@ def parse_args(argv=None):
         "--scene",
         type=int,
         default=0,
-        help="for multi-scene runs (data.num_scenes > 1): which scene to render",
+        help="for multi-scene runs (data.num_scenes > 1): which scene's parameters and test split to render",
     )
     parser.add_argument(
         "--device", default=None, help="cuda (default, the card) or cpu"
@@ -59,22 +62,33 @@ def main(argv=None) -> None:
     cfg_mod.apply_overrides(cfg, args.overrides)
     device = resolve_device(args.device or cfg.device.platform)
 
-    if cfg.data.num_scenes > 1 or args.scene != 0:
-        raise NotImplementedError("multi-scene rendering comes with the port's multi-scene slice")
     if cfg.parallel.data_axis_size not in (-1, 1):
         raise NotImplementedError("data-parallel rendering comes with the port's parallel slice")
+    num_scenes = cfg.data.num_scenes
+    if not 0 <= args.scene < num_scenes:
+        raise ValueError(f"--scene {args.scene} out of range for a {num_scenes}-scene run.")
 
     # like the reference render CLI, the TEST split at full resolution;
     # --render-test-views only switches which poses are rendered
-    dataset = session.build_dataset(cfg, split="test", device=device)
+    if num_scenes > 1:
+        dataset = session.build_multiscene_dataset(cfg, args.scene, split="test", device=device)
+    else:
+        dataset = session.build_dataset(cfg, split="test", device=device)
     settings = session.build_render_settings(cfg, dataset)
     field = session.build_field(cfg)
 
     state = checkpoints.restore_latest(log_dir, device=device)
     if state is None:
         raise FileNotFoundError(f"No checkpoint found under {log_dir}/ckpt.")
-    print(f"Loaded checkpoint at step {state['step']}.")
     params = state["params"]
+    if num_scenes > 1:
+        if state.get("num_scenes") != num_scenes:
+            raise ValueError(f"the checkpoint holds {state.get('num_scenes', 1)} scenes, "
+                             f"not data.num_scenes={num_scenes}")
+        params = multiscene.slice_scene(params, args.scene)
+        print(f"Loaded scene {args.scene} of a {num_scenes}-scene checkpoint at step {state['step']}.")
+    else:
+        print(f"Loaded checkpoint at step {state['step']}.")
 
     poses = dataset.poses if args.render_test_views else dataset.render_poses
     if args.num_views is not None:

@@ -3,8 +3,8 @@ config, and the FLOP count of a train step.
 
 Counterpart of ``torch_nerf_tpu/session.py`` for the classic NeRF and the
 Instant-NGP field (every table layout, and the packed layouts' smoothness
-loss), the Blender, LLFF and procedural datasets, and occupancy pruning;
-multi-scene datasets come with a later slice.
+loss), the Blender, LLFF and procedural datasets, occupancy pruning, and
+the scenes of a multi-scene run (:func:`build_multiscene_dataset`).
 """
 
 from __future__ import annotations
@@ -69,6 +69,59 @@ def build_dataset(
         return dataclasses.replace(full, images=full.images[keep], poses=full.poses[keep],
                                    image_names=[full.image_names[i] for i in keep])
     raise ValueError(f"Unsupported dataset_type '{data.dataset_type}'.")
+
+
+def multiscene_scene_names(cfg: cfg_mod.ExperimentConfig) -> list:
+    """The per-scene names of a multi-scene run: ``data.scene_name`` as a
+    comma-separated list (``scene_name=lego,ship`` with ``num_scenes=2``)."""
+    names = [s.strip() for s in cfg.data.scene_name.split(",") if s.strip()]
+    if len(names) != cfg.data.num_scenes:
+        raise ValueError(
+            f"data.num_scenes={cfg.data.num_scenes} needs that many "
+            f"comma-separated names in data.scene_name; got {names}."
+        )
+    return names
+
+
+def build_multiscene_dataset(
+    cfg: cfg_mod.ExperimentConfig, scene_idx: int, split: str = "train", device: Optional[torch.device] = None
+) -> PosedImages:
+    """Scene ``scene_idx`` of a multi-scene run (the train CLI's pools,
+    ``run_render --scene``). ``gaussian_blobs`` scene s is
+    ``GaussianBlobScene.random(seed * 1000 + s)``, its ground truth rendered
+    on ``device``, so render and evaluate rebuild scene s's exactly;
+    ``nerf_synthetic`` scenes come from the comma-separated
+    ``data.scene_name``. Val and test splits at full resolution, as in
+    :func:`build_dataset`."""
+    data = cfg.data
+    if data.dataset_type == "gaussian_blobs":
+        size = data.img_size
+        if split != "train" and data.half_res:
+            size *= 2
+        scene = synthetic.GaussianBlobScene.random(cfg.seed * 1000 + scene_idx)
+        images, poses, camera, _ = synthetic.make_dataset(
+            num_views=data.num_views, img_size=size, scene=scene, split=split, device=device
+        )
+        v = images.shape[0]
+        return PosedImages(
+            images=images.reshape(v, size, size, 3),
+            poses=poses,
+            camera=camera,
+            render_poses=synthetic.orbit_poses(40),
+            image_names=[f"blob{scene_idx}_{split}_{i:03d}" for i in range(v)],
+        )
+    if data.dataset_type == "nerf_synthetic":
+        return load_blender(
+            data.data_root,
+            multiscene_scene_names(cfg)[scene_idx],
+            split=split,
+            half_res=data.half_res if split == "train" else False,
+            white_bg=data.white_bg,
+        )
+    raise ValueError(
+        "Multi-scene training supports dataset_type gaussian_blobs or "
+        f"nerf_synthetic; got '{data.dataset_type}'."
+    )
 
 
 def build_render_settings(

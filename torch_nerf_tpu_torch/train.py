@@ -314,6 +314,51 @@ def _apply_grads(state: TrainState, grads: list) -> None:
     state.step += 1
 
 
+def _generic_grads(loss_fn, params, aux_loss_fn, aux_draws):
+    """Autograd of ``loss_fn(params)`` (plus the aux loss where given) with
+    respect to ``params``' leaves: ``(metrics, grads)``."""
+    loss, metrics = loss_fn(params)
+    if aux_loss_fn is not None:
+        if aux_draws is None:
+            raise ValueError("a step with an aux loss needs its aux_draws")
+        aux = aux_loss_fn(params, aux_draws)
+        metrics["aux_loss"] = aux
+        loss = loss + aux
+        metrics["loss"] = loss
+    grads = list(torch.autograd.grad(loss, parameter_list(params)))
+    return {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_ray_grad_fn(
+    field: Field,
+    settings: RenderSettings,
+    force_generic: bool = False,
+    aux_loss_fn: Optional[Callable] = None,
+) -> Callable[..., Tuple]:
+    """The loss and gradients of one ray batch, without the optimizer step:
+    ``grads(params, ray_origin, ray_dir, rgb_gt, rand, aux_draws=None) ->
+    (metrics, grads)``, ``grads`` in :func:`parameter_list` order. Through
+    the fused train pass when the field has a ``fused_cfg`` and neither
+    ``force_generic`` nor an aux loss is given, else by autograd of
+    :func:`ray_loss_fn` (plus the aux loss), for which ``params``' leaves
+    must require grad. The single-scene step and the multi-scene step
+    (``multiscene.py``) both take their gradients from it."""
+    use_fused = field.fused_cfg is not None and not force_generic
+    if use_fused and aux_loss_fn is not None:
+        raise ValueError("aux_loss_fn requires the generic autodiff path.")
+
+    def grad_fn(params, ray_origin, ray_dir, rgb_gt, rand: RayUniforms, aux_draws=None):
+        if use_fused:
+            metrics, grads = fused_loss_and_grad(field, params, ray_origin, ray_dir, rgb_gt, rand, settings)
+            return metrics, parameter_list(grads)
+        return _generic_grads(
+            lambda p: ray_loss_fn(field, p, ray_origin, ray_dir, rgb_gt, rand, settings),
+            params, aux_loss_fn, aux_draws,
+        )
+
+    return grad_fn
+
+
 def make_ray_train_step(
     field: Field,
     settings: RenderSettings,
@@ -339,21 +384,8 @@ def make_ray_train_step(
     passes from ``rand`` (``rand.coarse`` the stratified candidates' jitter,
     the other three the fine pass's, as in the dense step); fused when the
     field has a ``fused_cfg`` and no aux loss is given."""
+    grad_fn = make_ray_grad_fn(field, settings, force_generic, aux_loss_fn)
     use_fused = field.fused_cfg is not None and not force_generic
-    if use_fused and aux_loss_fn is not None:
-        raise ValueError("aux_loss_fn requires the generic autodiff path.")
-
-    def generic_grads(loss_fn, state, aux_draws):
-        loss, metrics = loss_fn(state.params)
-        if aux_loss_fn is not None:
-            if aux_draws is None:
-                raise ValueError("a step with an aux loss needs its aux_draws")
-            aux = aux_loss_fn(state.params, aux_draws)
-            metrics["aux_loss"] = aux
-            loss = loss + aux
-            metrics["loss"] = loss
-        grads = list(torch.autograd.grad(loss, parameter_list(state.params)))
-        return {k: v.detach() for k, v in metrics.items()}, grads
 
     if occupancy_cfg is not None:
         if occupancy_cfg.keep_samples > settings.num_samples_coarse:
@@ -374,21 +406,15 @@ def make_ray_train_step(
                 metrics, grads = fused_pruned_loss_and_grad(field, state.params, *args)
                 grads = parameter_list(grads)
             else:
-                metrics, grads = generic_grads(lambda params: pruned_loss(field, params, *args), state, aux_draws)
+                metrics, grads = _generic_grads(lambda params: pruned_loss(field, params, *args), state.params,
+                                                aux_loss_fn, aux_draws)
             _apply_grads(state, grads)
             return state, grid, metrics
 
         return occ_step_fn
 
     def step_fn(state: TrainState, ray_origin, ray_dir, rgb_gt, rand: RayUniforms, aux_draws=None):
-        if use_fused:
-            metrics, grads = fused_loss_and_grad(field, state.params, ray_origin, ray_dir, rgb_gt, rand, settings)
-            grads = parameter_list(grads)
-        else:
-            metrics, grads = generic_grads(
-                lambda params: ray_loss_fn(field, params, ray_origin, ray_dir, rgb_gt, rand, settings),
-                state, aux_draws,
-            )
+        metrics, grads = grad_fn(state.params, ray_origin, ray_dir, rgb_gt, rand, aux_draws)
         _apply_grads(state, grads)
         return state, metrics
 
@@ -451,7 +477,8 @@ def make_image_train_step(
     pixels (center-cropped when ``precrop``), makes their rays and applies
     the ray train step. ``draws`` (:class:`ImageDraws`) replaces the draws
     from ``generator``; ``step.draw(generator, num_images, step)`` makes
-    them. With ``occupancy_cfg`` the grid threads through: ``step(state,
+    them, and ``step.ray_batch(images, poses, draws)`` gives their
+    ``(ray_origin, ray_dir, rgb_gt)``. With ``occupancy_cfg`` the grid threads through: ``step(state,
     grid, images, poses, generator, draws=None) -> (state, grid,
     metrics)``."""
     ray_step = make_ray_train_step(field, settings, optim_cfg, force_generic, aux_loss_fn, occupancy_cfg)
@@ -508,5 +535,6 @@ def make_image_train_step(
             return ray_step(state, *ray_batch(images, poses, draws), draws.rays, draws.aux)
 
     step_fn.draw = draw
+    step_fn.ray_batch = ray_batch
     step_fn.num_pixels = num_pixels
     return step_fn
