@@ -86,11 +86,33 @@ lpips (the port's LPIPS on the card against the CPU on random weights, and
 Chrome trace names kernel 3's CUDA functions). kernel_train holds
 kernel 3 also on occupancy-pruned planes, and train_bench and
 train_bench_ngp time the pruned steps beside the dense ones.
+
+Then the parallel paths (``torch_nerf_tpu_torch/parallel/``), on ranks
+that share the card and talk over gloo (NCCL refuses two ranks on one
+card), spawned with a ``file://`` rendezvous: dp_step (2 ranks: the fused
+DP step, kernel 3 on each rank's 2048 rays; the generic DP step, kernels
+1-2; the bricked NGP image step with occupancy, kernels 4-5 and a sweep
+split over the ranks; kernels 1-5 on each rank's shard against their plain
+versions, the DP gradients against the halves' in one process and against
+the plain version on the whole batch, and one NCCL rank's fused step bit
+for bit); tp_step (TP over 2 ranks and DP x TP 2 x 2 at width 256 in f32
+on 256 rays against the replicated step, and one TP gradient at 4096 rays
+timed);
+dp_render (an 800x800 frame over 2 ranks against ``render_image``, max-abs
+0.0; the sample-axis composite); train_bench_dp (the 2-rank DP step, the
+gloo all_reduce of the classic and bricked gradients, NCCL's on one
+rank: ranks sharing one card, not a scaling number); train_dp (torchrun:
+``run_train --distributed`` 24 + 8 steps, the checkpoint resumed by one
+process, ``run_render --distributed`` against the single-process PNGs,
+``evaluate``, then 2 scenes over the 2 ranks 24 + 8; launches per rank);
+dryrun (``runners/dryrun_multichip.py`` on 4 ranks). A rank's failure
+fails the phase.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -382,6 +404,38 @@ def ray_points(o, d, t):
     return pts, dirs
 
 
+def bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref32, scale, runs=None) -> dict:
+    """One kernel-2 launch against the plain f32 version's grads ``ref32``
+    (by name, dpts and ddirs too): each within 2x the plain bf16 version's
+    relative L2 error ``scale`` + 1e-3; one launch. With ``runs``, the
+    kernel's grads are appended to it."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    before = fn.fused_nerf_bwd.launches
+    grads, dp, dd = fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, fn.FusedNeRFConfig(**FULL))
+    torch.cuda.synchronize()
+    got = named(grads, dpts=dp, ddirs=dd)
+    if runs is not None:
+        runs.append(got)
+    verdict = judge(rel_l2(got, ref32), scale)
+    verdict["ok"] = verdict["ok"] and fn.fused_nerf_bwd.launches == before + 1
+    verdict["max_abs_err"] = max((got[k] - ref32[k]).abs().max().item() for k in ref32)
+    return verdict
+
+
+def kernel2_verdict(params, pts, dirs, gen) -> dict:
+    """Kernel 2 on these points with seeded random cotangents against its
+    plain version, as kernel_bwd holds it (:func:`bwd_verdict`)."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    g_sigma = torch.randn((pts.shape[0],), generator=gen, device=pts.device)
+    g_rgb = torch.randn((pts.shape[0], 3), generator=gen, device=pts.device)
+    ref32 = bwd_reference(bf16_rounded(params), pts, dirs, g_sigma, g_rgb,
+                          fn.FusedNeRFConfig(**FULL, compute_dtype=torch.float32))
+    scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, fn.FusedNeRFConfig(**FULL)), ref32)
+    return dict(points=pts.shape[0], **bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref32, scale))
+
+
 def phase_kernel_bwd(batch):
     """Kernel 2 (the field's backward) against its plain version at full
     width, with seeded random cotangents: on 2^16 + 37 random points and at
@@ -416,16 +470,7 @@ def phase_kernel_bwd(batch):
             scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref32)
 
             def check(runs=None):
-                before = fn.fused_nerf_bwd.launches
-                grads, dp, dd = fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, cfg)
-                torch.cuda.synchronize()
-                got = named(grads, dpts=dp, ddirs=dd)
-                if runs is not None:
-                    runs.append(got)
-                verdict = judge(rel_l2(got, ref32), scale)
-                verdict["ok"] = verdict["ok"] and fn.fused_nerf_bwd.launches == before + 1
-                verdict["max_abs_err"] = max((got[k] - ref32[k]).abs().max().item() for k in ref32)
-                return verdict
+                return bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref32, scale, runs)
 
             runs = []
             key = f"{case}/{wname}"
@@ -2490,6 +2535,872 @@ def phase_profile(work: Path):
         raise SystemExit("chip_smoke: profile phase failed")
 
 
+# ---------------------------------------------------------------------------
+# Multi-rank parallelism (parallel/): ranks that share cuda:0 over gloo, and
+# one NCCL rank. NCCL refuses two ranks on one card, so these phases show
+# the sharded paths' numerics and launches; their times are not scaling.
+
+PAR_TIMEOUT = 300.0  # seconds a launch of ranks may take
+DP_RAYS = 4096
+TP_RAYS = 256  # TP's activations cross gloo through the host at every layer pair
+CLASSIC_SETTINGS = dict(num_samples_coarse=64, num_samples_fine=128)
+
+
+def par_flags() -> None:
+    """The main process's matmul settings, in a spawned rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its kernels-line name."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
+
+    return {"fused_nerf_fwd": fn.fused_nerf_apply, "fused_nerf_bwd": fn.fused_nerf_bwd,
+            "fused_train_pass": ftm.fused_train_pass, "hash_brick_fwd": hg.hash_brick_fwd,
+            "hash_brick_bwd": hg.hash_brick_bwd, "hash_corner_fwd": hg.hash_corner_fwd,
+            "hash_corner_bwd": hg.hash_corner_bwd, "hash_fold_fwd": hg.hash_fold_fwd,
+            "hash_fold_bwd": hg.hash_fold_bwd}
+
+
+def reset_counts() -> None:
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    launch_count.reset(*kernel_wrappers().values())
+    fn.reset_launches()
+
+
+def read_counts() -> dict:
+    """The launches since :func:`reset_counts`, of the kernels that ran."""
+    torch.cuda.synchronize()
+    return {name: w.launches for name, w in kernel_wrappers().items() if w.launches}
+
+
+def classic_settings():
+    from torch_nerf_tpu_torch import renderer  # noqa: PLC0415
+
+    return renderer.RenderSettings(**CLASSIC_SETTINGS)
+
+
+def classic_inputs(dev, rays=DP_RAYS):
+    """The classic step's batch at bench.py's train point: ``rays`` random
+    pixels of a 400x400 training view, random colours and the step's draws,
+    all from one seeded generator, so that every rank draws the same."""
+    from torch_nerf_tpu_torch import cameras, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pose = torch.as_tensor(synthetic.split_poses(8, "train")[0], device=dev)
+    pix = torch.randperm(400 * 400, generator=gen, device=dev)[:rays]
+    o, d = cameras.rays_for_pixels(pix, cameras.CameraParams(480.0, 480.0, 400, 400), pose)
+    gt = torch.rand((rays, 3), generator=gen, device=dev)
+    return o.contiguous(), d.contiguous(), gt, train.draw_train_randomness(gen, rays, classic_settings())
+
+
+def classic_state(field, dev):
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+
+    return train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, classic_settings(),
+                                    train.OptimConfig(), dev)
+
+
+def halves(inputs):
+    """The two halves of a batch's rows, as the two ranks of a DP step
+    take them."""
+    from torch_nerf_tpu_torch.parallel.steps import take_rows  # noqa: PLC0415
+
+    n = inputs[0].shape[0] // 2
+    return [tuple(take_rows(x, lo, n) for x in inputs) for lo in (0, n)]
+
+
+def ray_grads(field, params, inputs, mesh=None, force_generic=False):
+    """The classic step's metrics and gradients (``parameter_list`` order,
+    on the host): the whole batch's, or this rank's rows' averaged over the
+    data group of ``mesh``."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.parallel.steps import DataParallel  # noqa: PLC0415
+
+    grad_fn = train.make_ray_grad_fn(field, classic_settings(), force_generic)
+    if mesh is not None:
+        inputs = DataParallel(mesh).rows(*inputs)
+    metrics, grads = grad_fn(params, *inputs)
+    if mesh is not None:
+        metrics, grads = DataParallel(mesh).mean(metrics, grads)
+    return {k: float(v) for k, v in metrics.items()}, [g.detach().float().cpu() for g in grads]
+
+
+def read_shapes() -> dict:
+    """The shapes each kernel that ran was given since :func:`reset_counts`
+    (``launch_count``'s keys: a point count, or kernel 3's ``(N, S)``)."""
+    return {name: sorted(w.shapes) for name, w in kernel_wrappers().items() if w.launches}
+
+
+def classic_dp(mesh, force_generic: bool, dev) -> dict:
+    """One classic step at full width, single-process (``mesh`` None) or
+    sharded over ``mesh``: its gradients, then the step itself with every
+    kernel's launches (and their shapes) counted over it, and the params
+    after Adam."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.parallel import mesh as pmesh, steps as psteps  # noqa: PLC0415
+
+    field = make_nerf_field(compute_dtype=torch.bfloat16)
+    optim = train.OptimConfig()
+    state = classic_state(field, dev)
+    if mesh is not None:
+        state = pmesh.place_state(mesh, state, optim)
+    inputs = classic_inputs(dev)
+    metrics, grads = ray_grads(field, state.params, inputs, mesh, force_generic)
+    if mesh is None:
+        step = train.make_ray_train_step(field, classic_settings(), optim, force_generic)
+    else:
+        step = psteps.make_sharded_train_step(field, classic_settings(), optim, mesh, force_generic)
+    reset_counts()
+    state, step_metrics = step(state, *inputs)
+    launches = read_counts()
+    return dict(metrics=metrics, step_loss=float(step_metrics["loss"]), grads=grads, launches=launches,
+                shapes=read_shapes(), params=[p.detach().cpu() for p in train.parameter_list(state.params)])
+
+
+def classic_grads(dev, kind: str, force_generic: bool = False, split: bool = False):
+    """The classic step's ``(loss, gradients)`` from the seed-0 state on
+    :func:`classic_inputs`: on the kernels (``kind`` "kernel": the fused
+    train pass, or with ``force_generic`` kernels 1-2 by autograd) or of
+    the plain version in f32 or bf16 (``kind`` "f32", "bf16"); the whole
+    batch's, or with ``split`` a list of each half's, the rows that the two
+    ranks of a DP step take."""
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+
+    if kind == "kernel":
+        field = make_nerf_field(compute_dtype=torch.bfloat16)
+    else:
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[kind]
+        field = make_nerf_field(**FULL, compute_dtype=dtype, use_kernel=False)
+    params = classic_state(field, dev).params
+    inputs = classic_inputs(dev)
+    if split:
+        return [classic_grads_on(field, params, half, force_generic) for half in halves(inputs)]
+    return classic_grads_on(field, params, inputs, force_generic)
+
+
+def classic_grads_on(field, params, inputs, force_generic: bool) -> tuple:
+    metrics, grads = ray_grads(field, params, inputs, force_generic=force_generic)
+    return metrics["loss"], grads
+
+
+def classic_half_kernels(dev) -> tuple:
+    """Kernels 1-3 on each half of the classic DP batch (the rows that a
+    rank of the 2-rank DP step gives them) with the step's seed-0 params,
+    against their plain versions: kernel 3 coarse (2048 x 64) and fine
+    (2048 x 192, its depths drawn from the plain f32 coarse weights) as
+    kernel_train holds it (:func:`kernel3_verdict`); kernel 1 on the half's
+    coarse and fine points as the kernel phase holds it
+    (:func:`kernel_errors`); kernel 2 on the same points with seeded random
+    cotangents as kernel_bwd holds it (:func:`kernel2_verdict`). ``(the
+    verdicts, the shapes checked by kernel, the largest max-abs error by
+    kernel)``."""
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    settings = classic_settings()
+    params = clone_tree(classic_state(make_nerf_field(compute_dtype=torch.bfloat16), dev).params)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    verdicts, shapes = {}, {"fused_train_pass": set(), "fused_nerf_fwd": set(), "fused_nerf_bwd": set()}
+    errs = dict.fromkeys(shapes, 0.0)
+    for h, (o, d, gt, uni) in enumerate(halves(classic_inputs(dev))):
+        t_c = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far).contiguous()
+        coarse, w32 = kernel3_verdict(params["coarse"], o, d, t_c, gt)
+        t_f = fine_depths(w32, uni, settings)
+        fine, _ = kernel3_verdict(params["fine"], o, d, t_f, gt)
+        v = {"kernel3_coarse": coarse, "kernel3_fine": fine}
+        errs["fused_train_pass"] = max(errs["fused_train_pass"], coarse["max_abs_err"], fine["max_abs_err"])
+        for net, t in (("coarse", t_c), ("fine", t_f)):
+            pts, dirs = ray_points(o, d, t)
+            v[f"kernel1_{net}"] = k1 = kernel_errors(params[net], pts, dirs)
+            v[f"kernel2_{net}"] = k2 = kernel2_verdict(params[net], pts, dirs, gen)
+            shapes["fused_train_pass"].add(tuple(t.shape))
+            shapes["fused_nerf_fwd"].add(pts.shape[0])
+            shapes["fused_nerf_bwd"].add(pts.shape[0])
+            errs["fused_nerf_fwd"] = max(errs["fused_nerf_fwd"], *k1["max_abs_err"].values())
+            errs["fused_nerf_bwd"] = max(errs["fused_nerf_bwd"], k2["max_abs_err"])
+        verdicts[f"half{h}"] = v
+    return verdicts, shapes, errs
+
+
+def bricked_setup(mesh, dev) -> dict:
+    """The bricked Instant-NGP image step at ``bench.py --model=instant_nerf
+    --occupancy``'s point (4096 rays x 256 candidates, 128 kept, the 64^3
+    grid), single-process (``mesh`` None) or sharded over ``mesh``, at its
+    first step, which sweeps the grid: the field, the state (its table
+    U(-1, 1)), the step's draws, the swept grid and the config whose
+    threshold is that grid's median, the step and its ray batch."""
+    from torch_nerf_tpu_torch import occupancy, renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.parallel import mesh as pmesh, steps as psteps  # noqa: PLC0415
+
+    images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
+    images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
+    field = ngp_field("bricked")
+    settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
+    optim = train.OptimConfig(num_iter=300_000, init_lr=1e-2, end_lr=1e-3, eps=1e-15)
+    occ = occupancy.OccupancyConfig(keep_samples=128, warmup_steps=0)
+    state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
+    with torch.no_grad():
+        # U(-1, 1) tables, as kernel_hash's: the U(-1e-4, 1e-4) init gives
+        # every cell about the same density, which no threshold splits
+        state.params["coarse"]["tables"].mul_(1e4)
+    density = occupancy.make_density_fn(field)
+
+    def make_step(occ):
+        if mesh is None:
+            return train.make_image_train_step(field, settings, optim, camera, DP_RAYS, occupancy_cfg=occ)
+        return psteps.make_sharded_image_train_step(field, settings, optim, camera, mesh, DP_RAYS,
+                                                    occupancy_cfg=occ)
+
+    if mesh is not None:
+        state = pmesh.place_state(mesh, state, optim)
+        density = psteps.DataParallel(mesh).density_fn(density)
+    draws = make_step(occ).draw(torch.Generator(device=dev).manual_seed(1), 8, 0)
+    grid0 = occupancy.init_grid(occ, dev)
+    grid = occupancy.update_grid(grid0, density, state.params, draws.occ_jitter, occ)
+    # the threshold at the swept grid's median: the pruned pass keeps the
+    # samples of half the cells, by the grid and not by the quota alone
+    occ = dataclasses.replace(occ, threshold=grid.median().item())
+    step = make_step(occ)
+    o, d, gt = step.ray_batch(images, poses, draws)
+    return dict(field=field, settings=settings, occ=occ, state=state, grid0=grid0, grid=grid, draws=draws,
+                step=step, images=images, poses=poses, rays=(o, d, gt, draws.rays))
+
+
+def bricked_grads(ctx: dict, field, rays) -> tuple:
+    """The pruned loss's metrics and gradients through ``field`` (the
+    kernels' or the plain one) on ``rays``, with the params and the swept
+    grid of :func:`bricked_setup`'s ``ctx``."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+
+    params = ctx["state"].params
+    loss, metrics = train.pruned_ray_loss_fn(field, params, ctx["grid"], ctx["occ"], *rays, ctx["settings"], 0)
+    grads = list(torch.autograd.grad(loss, train.parameter_list(params)))
+    return {k: v.detach() for k, v in metrics.items()}, [g.detach() for g in grads]
+
+
+def bricked_dp(mesh, dev) -> dict:
+    """The bricked step's sweep alone, the pruned loss's gradients on its
+    grid (this rank's rows', averaged over the data group of ``mesh``),
+    then the step itself with every kernel's launches (and their shapes)
+    counted, single-process or sharded over ``mesh``."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.parallel import steps as psteps  # noqa: PLC0415
+
+    ctx = bricked_setup(mesh, dev)
+    rays = ctx["rays"]
+    if mesh is not None:
+        rays = psteps.DataParallel(mesh).rows(*rays)
+    metrics, grads = bricked_grads(ctx, ctx["field"], rays)
+    if mesh is not None:
+        metrics, grads = psteps.DataParallel(mesh).mean(metrics, grads)
+    reset_counts()
+    state, step_grid, step_metrics = ctx["step"](ctx["state"], ctx["grid0"], ctx["images"], ctx["poses"],
+                                                 draws=ctx["draws"])
+    launches = read_counts()
+    return dict(metrics={k: float(v) for k, v in metrics.items()}, step_loss=float(step_metrics["loss"]),
+                grads=[g.float().cpu() for g in grads], launches=launches, shapes=read_shapes(),
+                grid=ctx["grid"].cpu(), threshold=ctx["occ"].threshold, step_grid=step_grid.cpu(),
+                params=[p.detach().cpu() for p in train.parameter_list(state.params)])
+
+
+def bricked_single(dev) -> dict:
+    """The single-process side of the bricked DP step, on its grid: the
+    kernel path's ``(loss, gradients)`` of each half, and the plain
+    version's (the hash encodes' plain versions, the field's own bf16 MLPs)
+    of the whole batch and of each half; then kernels 4-5 on what a rank
+    gives them, against their plain versions as kernel_hash holds them
+    (:func:`hash_verdict`), with the step's table and seeded random
+    cotangents: each rank's half of the sweep's cells (131,072 of 64^3)
+    and each half's pruned points (2048 x 128)."""
+    from torch_nerf_tpu_torch import occupancy  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    ctx = bricked_setup(None, dev)
+    plain = ngp_field("bricked", use_kernel=False)
+
+    def host(result):
+        metrics, grads = result
+        return float(metrics["loss"]), [g.float().cpu() for g in grads]
+
+    parts = halves(ctx["rays"])
+    out = dict(kernel_halves=[host(bricked_grads(ctx, ctx["field"], h)) for h in parts],
+               plain_whole=host(bricked_grads(ctx, plain, ctx["rays"])),
+               plain_halves=[host(bricked_grads(ctx, plain, h)) for h in parts])
+    _, _, fwd_ref, bwd_ref = hash_ops("bricked")
+    tables = ctx["state"].params["coarse"]["tables"].detach()
+    res = ngp_resolutions(dev)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    cells = occupancy.sweep_points(ctx["draws"].occ_jitter, ctx["occ"])
+    share = cells.shape[0] // 2
+    points = {}
+    for h, (o, d, _, uni) in enumerate(parts):
+        t = sampling.stratified_t_samples_from_uniforms(uni.coarse, ctx["settings"].t_near, ctx["settings"].t_far)
+        t_sel, _ = occupancy.prune_t_samples(ctx["grid"], ctx["occ"], o, d, t, 0, keep=ctx["occ"].keep_samples)
+        points[f"half{h}/sweep_cells"] = cells[h * share:(h + 1) * share].contiguous()
+        points[f"half{h}/pruned"] = ray_points(o, d, t_sel)[0]
+    verdicts, errs = {}, {"hash_brick_fwd": 0.0, "hash_brick_bwd": 0.0}
+    for case, pts in points.items():
+        g = torch.randn((pts.shape[0], 32), generator=gen, device=dev)
+        v = hash_verdict("bricked", tables, pts, res, g, fwd_ref(tables, pts, res),
+                         bwd_ref(g, pts, res, *table_args(tables)))
+        verdicts[case] = dict(points=pts.shape[0], err=v["err"], limit=v["limit"], ok=v["ok"])
+        errs["hash_brick_fwd"] = max(errs["hash_brick_fwd"], v["err"]["fwd_max_abs"])
+        errs["hash_brick_bwd"] = max(errs["hash_brick_bwd"], v["err"]["grad_max_abs"])
+    shapes = {"hash_brick_fwd": {p.shape[0] for p in points.values()},
+              "hash_brick_bwd": {p.shape[0] for p in points.values()}}
+    return dict(out, kernels=verdicts, shapes=shapes, errs=errs)
+
+
+def to_host(tree):
+    """A parameter tree's leaves copied to the host, requiring grad."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().requires_grad_(True)
+
+
+def tp_grads(mesh, dev, dtype=torch.float32, host: bool = False, rays: int = TP_RAYS) -> dict:
+    """The generic step's loss and whole gradients at width 256 on
+    ``rays`` rays: through the TP field on ``mesh`` (its slices' grads
+    averaged over the data group and gathered over the model group), or,
+    with ``mesh`` None, through the replicated plain field, on the card or
+    (``host``) on the same inputs copied to the host CPU."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.parallel import collectives, mesh as pmesh, steps as psteps  # noqa: PLC0415
+    from torch_nerf_tpu_torch.renderer import RayUniforms  # noqa: PLC0415
+
+    inputs = classic_inputs(dev, rays)
+    if mesh is None:
+        field = make_nerf_field(**FULL, compute_dtype=dtype, use_kernel=False)
+        params = classic_state(field, dev).params
+        if host:
+            o, d, gt, rand = inputs
+            inputs = (o.cpu(), d.cpu(), gt.cpu(), RayUniforms(*(u.cpu() for u in rand)))
+            params = to_host(params)
+        metrics, grads = ray_grads(field, params, inputs)
+        return dict(loss=metrics["loss"], grads=grads)
+    field = make_nerf_field(**FULL, compute_dtype=dtype)
+    whole = classic_state(field, dev)
+    dims = train.parameter_list(pmesh.nerf_param_spec(whole.params, mesh.model_size))
+    state = pmesh.place_state(mesh, whole, train.OptimConfig())
+    shapes = [list(p.shape) for p in train.parameter_list(state.params)]
+    metrics, grads = ray_grads(psteps.step_field(field, mesh), state.params, inputs, mesh, force_generic=True)
+    grads = [g if dim is None else collectives.all_gather(g, mesh.model_group, dim) for g, dim in zip(grads, dims)]
+    return dict(loss=metrics["loss"], grads=grads, shapes=shapes,
+                whole_shapes=[list(p.shape) for p in train.parameter_list(whole.params)], dims=dims)
+
+
+def frame_inputs(dev):
+    """An 800x800 frame's field, He-scaled seeded params, camera and pose."""
+    from torch_nerf_tpu_torch import cameras  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+
+    field = make_nerf_field(compute_dtype=torch.bfloat16)
+    params = {"coarse": he_scaled(_seeded_params(3, dev)), "fine": he_scaled(_seeded_params(4, dev))}
+    pose = torch.as_tensor(synthetic.split_poses(8, "test")[0], device=dev)
+    return field, params, cameras.CameraParams(960.0, 960.0, 800, 800), pose
+
+
+def render_frame(mesh, dev) -> dict:
+    """The 800x800 frame by ``render_image`` (``mesh`` None) or sharded over
+    ``mesh``, kernel 1's launches counted over it."""
+    from torch_nerf_tpu_torch.parallel.steps import make_sharded_render  # noqa: PLC0415
+    from torch_nerf_tpu_torch.renderer import render_image  # noqa: PLC0415
+
+    field, params, camera, pose = frame_inputs(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    if mesh is None:
+        frame = render_image(field, params["coarse"], params["fine"], camera, pose, 0, classic_settings(), 4096)
+    else:
+        frame = make_sharded_render(field, classic_settings(), mesh, camera, 4096)(params["coarse"],
+                                                                                 params["fine"], pose, 0)
+    launches = read_counts()
+    return dict(frame=frame.cpu(), launches=launches, seconds=time.perf_counter() - t0)
+
+
+def composite_inputs(dev):
+    """(sigma, radiance, delta) of 4096 rays x 192 samples, sorted depths in
+    [2, 6] with the 1e8 tail."""
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    sigma = 3.0 * torch.rand((4096, 192), generator=gen, device=dev)
+    radiance = torch.rand((4096, 192, 3), generator=gen, device=dev)
+    t = torch.sort(2.0 + 4.0 * torch.rand((4096, 192), generator=gen, device=dev), dim=-1).values
+    return sigma, radiance, sampling.t_deltas(t)
+
+
+def time_ms(fn, iters: int = 10) -> float:
+    """Host ms of ``fn`` after two warm-up calls, each call synchronised."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def grad_buffers(dev) -> dict:
+    """Flat f32 buffers of the classic model's and the bricked model's
+    gradients (every leaf of both networks, or of the one NGP network)."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    classic = 2 * sum(p.numel() for p in train.parameter_list(make_nerf_field().init(gen, dev)))
+    bricked = sum(p.numel() for p in train.parameter_list(ngp_field("bricked").init(gen, dev)))
+    return {"classic": torch.ones(classic, device=dev), "bricked": torch.ones(bricked, device=dev)}
+
+
+def dp_bench(mesh, dev) -> dict:
+    """The 2-rank DP fused image step at bench.py's train point (3 warm-up
+    steps, 10 timed, host clock), and the data group's all_reduce of the
+    classic and the bricked gradients."""
+    from torch_nerf_tpu_torch import train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.parallel import collectives, mesh as pmesh, steps as psteps  # noqa: PLC0415
+
+    images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
+    images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
+    field = make_nerf_field(compute_dtype=torch.bfloat16)
+    optim = train.OptimConfig()
+    state = pmesh.place_state(mesh, classic_state(field, dev), optim)
+    step = psteps.make_sharded_image_train_step(field, classic_settings(), optim, camera, mesh, DP_RAYS)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(3):
+        state, _ = step(state, images, poses, gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    timed, t0 = 10, time.perf_counter()
+    for _ in range(timed):
+        state, metrics = step(state, images, poses, gen)
+    float(metrics["loss"])
+    elapsed = time.perf_counter() - t0
+    launches = read_counts()
+    buffers = grad_buffers(dev)
+    allreduce = {k: time_ms(lambda b=b: collectives.all_reduce(b, mesh.data_group)) for k, b in buffers.items()}
+    return dict(ms_per_step=elapsed / timed * 1e3, timed_steps=timed, launches=launches,
+                allreduce_ms=allreduce, allreduce_bytes={k: 4 * b.numel() for k, b in buffers.items()})
+
+
+def par_rank(rank, world, init_method):
+    """The 2-rank checks, both ranks on cuda:0 over gloo: the DP steps
+    (fused, generic, bricked with occupancy), TP over 2, the sharded frame,
+    the sample-axis composite, then the DP bench."""
+    from torch_nerf_tpu_torch.parallel import mesh as pmesh, sample_axis  # noqa: PLC0415
+
+    par_flags()
+    mesh = pmesh.init_mesh(rank, world, init_method, backend="gloo", device="cuda", timeout=PAR_TIMEOUT)
+    dev = mesh.device
+    out = {"device": str(dev), "backend": mesh.backend,
+           "fused": classic_dp(mesh, False, dev), "generic": classic_dp(mesh, True, dev),
+           "bricked": bricked_dp(mesh, dev)}
+    tp_mesh = pmesh.make_mesh(dev, model_size=2, timeout=PAR_TIMEOUT)
+    out["tp"] = tp_grads(tp_mesh, dev)
+    # what the TP check would cost at the DP steps' batch: one TP gradient
+    # at 4096 rays, timed, compared with nothing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp_grads(tp_mesh, dev, rays=DP_RAYS)
+    out["tp_full_batch_seconds"] = time.perf_counter() - t0
+    out["render"] = render_frame(mesh, dev)
+    rgb, weights = sample_axis.make_sample_sharded_composite(mesh.data_group)(*composite_inputs(dev))
+    out["sample"] = (rgb.cpu(), weights.cpu())
+    out["bench"] = dp_bench(mesh, dev)
+    return out
+
+
+def nccl_rank(rank, world, init_method):
+    """One NCCL rank: the fused DP step, and NCCL's all_reduce of the
+    classic and bricked gradients (called directly: the DP mean skips a
+    group of one)."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from torch_nerf_tpu_torch.parallel import mesh as pmesh  # noqa: PLC0415
+
+    par_flags()
+    mesh = pmesh.init_mesh(rank, world, init_method, backend="nccl", device="cuda", timeout=PAR_TIMEOUT)
+    fused = classic_dp(mesh, False, mesh.device)
+    buffers = grad_buffers(mesh.device)
+    allreduce = {k: time_ms(lambda b=b: dist.all_reduce(b, group=mesh.data_group)) for k, b in buffers.items()}
+    return dict(backend=mesh.backend, fused=fused, allreduce_ms=allreduce)
+
+
+def dptp_rank(rank, world, init_method):
+    """DP x TP 2 x 2 on four ranks that share cuda:0 over gloo."""
+    from torch_nerf_tpu_torch.parallel import mesh as pmesh  # noqa: PLC0415
+
+    par_flags()
+    mesh = pmesh.init_mesh(rank, world, init_method, data_size=2, model_size=2, backend="gloo", device="cuda",
+                           timeout=PAR_TIMEOUT)
+    return tp_grads(mesh, mesh.device)
+
+
+def list_rel_l2(got, ref) -> list:
+    return [(a.float() - b.float()).norm().item() / max(b.float().norm().item(), 1e-30) for a, b in zip(got, ref)]
+
+
+def halves_mean(parts) -> list:
+    """The mean of two halves' gradients, as the DP mean forms it."""
+    return [(a + b) / 2 for a, b in zip(parts[0][1], parts[1][1])]
+
+
+def params_equal_on_ranks(ranks: list, key: str) -> bool:
+    return all(torch.equal(a, b) for r in ranks[1:] for a, b in zip(ranks[0][key]["params"], r[key]["params"]))
+
+
+def shapes_checked(launched: dict, checked: dict) -> bool:
+    """Whether every shape that a path gave a kernel was checked against
+    the kernel's plain version."""
+    def key(shape):
+        return tuple(shape) if isinstance(shape, (list, tuple)) else shape
+
+    return all({key(s) for s in shapes} <= checked.get(name, set()) for name, shapes in launched.items())
+
+
+def classic_verdict(got: dict, kernel_halves: list, f32: tuple, bf16: tuple, ranks: list, key: str) -> dict:
+    """A classic DP step (rank 0's ``got``) against the single process. Its
+    averaged gradients equal, bit for bit, the mean of the kernel path's
+    gradients of the two halves in one process (kernels 2-3 are
+    deterministic: the sharding, the draws and the all_reduce add nothing).
+    Its loss and each of its 44 gradient leaves, against the plain f32
+    version's on the whole batch, by relative error: each within 2x the
+    plain bf16 version's own + 1e-3, kernel_train's rule (:func:`judge`).
+    The same params on every rank after the step."""
+    vs_halves = max_abs_diff(got["grads"], halves_mean(kernel_halves))
+    err = {f"grad_{i}": e for i, e in enumerate(list_rel_l2(got["grads"], f32[1]))}
+    scale = {f"grad_{i}": e for i, e in enumerate(list_rel_l2(bf16[1], f32[1]))}
+    err["loss"] = abs(got["metrics"]["loss"] - f32[0]) / abs(f32[0])
+    scale["loss"] = abs(bf16[0] - f32[0]) / abs(f32[0])
+    vs_plain = judge(err, scale)
+    same = params_equal_on_ranks(ranks, key)
+    return dict(grad_max_abs_vs_halves_mean=vs_halves, vs_plain_f32_whole_batch=vs_plain,
+                loss_rel_err_vs_plain_f32=err["loss"], params_equal_on_ranks=same,
+                ok=vs_halves == 0.0 and vs_plain["ok"] and same)
+
+
+def bricked_verdict(got: dict, single: dict, ranks: list) -> dict:
+    """The bricked DP step (rank 0's ``got``) against the single process.
+    Its averaged gradients against the mean of the kernel path's gradients
+    of the two halves in one process: each leaf within relative L2 1e-5
+    (kernel 5 adds by f32 atomics; kernel_hash's limit). Its loss and
+    gradients against the plain version's on the whole batch: the largest
+    leaf's relative L2 within 2x the plain version's own split-versus-whole
+    difference (the mean of its two halves' gradients against its whole
+    batch's: the bf16 MLPs' weight gradients round otherwise) + 1e-6; the
+    loss within 2x that difference's + 1e-5. The same params on every
+    rank."""
+    whole_loss, whole = single["plain_whole"]
+    plain_mean = halves_mean(single["plain_halves"])
+    split = max(list_rel_l2(plain_mean, whole))
+    split_loss = abs(sum(p[0] for p in single["plain_halves"]) / 2 - whole_loss) / abs(whole_loss)
+    vs_halves = max(list_rel_l2(got["grads"], halves_mean(single["kernel_halves"])))
+    grad_err = max(list_rel_l2(got["grads"], whole))
+    loss_err = abs(got["metrics"]["loss"] - whole_loss) / abs(whole_loss)
+    limits = {"vs_halves": 1e-5, "grad": 2.0 * split + 1e-6, "loss": 2.0 * split_loss + 1e-5}
+    same = params_equal_on_ranks(ranks, "bricked")
+    return dict(grad_max_rel_l2_vs_halves_mean=vs_halves, grad_max_rel_l2_vs_plain_whole_batch=grad_err,
+                loss_rel_err_vs_plain_whole_batch=loss_err,
+                plain_split_vs_whole={"grad_max_rel_l2": split, "loss_rel": split_loss}, limits=limits,
+                params_equal_on_ranks=same,
+                ok=(vs_halves <= limits["vs_halves"] and grad_err <= limits["grad"] and loss_err <= limits["loss"]
+                    and same))
+
+
+def phase_parallel(smi: str, work: Path) -> dict:
+    """dp_step, tp_step, dp_render and train_bench_dp: the single-process
+    references here, then one launch of 2 gloo ranks on cuda:0
+    (:func:`par_rank`), one NCCL rank (:func:`nccl_rank`) and 4 gloo ranks
+    (:func:`dptp_rank`)."""
+    from torch_nerf_tpu_torch.ops import integration  # noqa: PLC0415
+    from torch_nerf_tpu_torch.parallel import launch  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    classic = {"f32": classic_grads(dev, "f32"), "bf16": classic_grads(dev, "bf16"),
+               "fused": classic_grads(dev, "kernel", split=True),
+               "generic": classic_grads(dev, "kernel", force_generic=True, split=True)}
+    classic_kernels, classic_shapes, classic_errs = classic_half_kernels(dev)
+    bricked = bricked_single(dev)
+    single = {"fused": classic_dp(None, False, dev), "generic": classic_dp(None, True, dev),
+              "bricked": bricked_dp(None, dev)}
+    tp_ref = tp_grads(None, dev)
+    tp_host = tp_grads(None, dev, host=True)
+    frame = render_frame(None, dev)
+    comp_ref = [x.cpu() for x in integration.composite(*composite_inputs(dev))]
+    torch.cuda.empty_cache()
+    spawn_dir = work / "ranks"
+    t0 = time.perf_counter()
+    ranks = launch.spawn(par_rank, 2, spawn_dir, timeout=PAR_TIMEOUT)
+    nccl = launch.spawn(nccl_rank, 1, spawn_dir, timeout=PAR_TIMEOUT)[0]
+    dptp = launch.spawn(dptp_rank, 4, spawn_dir, timeout=PAR_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+
+    # dp_step
+    cases = {key: classic_verdict(ranks[0][key], classic[key], classic["f32"], classic["bf16"], ranks, key)
+             for key in ("fused", "generic")}
+    cases["bricked"] = bricked_verdict(ranks[0]["bricked"], bricked, ranks)
+    checked = {**{k: classic_shapes[k] for k in ("fused_train_pass", "fused_nerf_fwd", "fused_nerf_bwd")},
+               **bricked["shapes"]}
+    for key, case in cases.items():
+        case.update(launches_per_rank=[r[key]["launches"] for r in ranks],
+                    shapes_per_rank=[r[key]["shapes"] for r in ranks],
+                    single_process_launches=single[key]["launches"],
+                    every_shape_checked=all(shapes_checked(r[key]["shapes"], checked) for r in ranks))
+    kernels_ok = (all(v["ok"] for h in classic_kernels.values() for v in h.values())
+                  and all(v["ok"] for v in bricked["kernels"].values()))
+    grid = single["bricked"]["grid"]
+    grids = {"sweep_vs_single": max((r["bricked"]["grid"] - grid).abs().max().item() for r in ranks),
+             "step_vs_sweep": max((r["bricked"]["step_grid"] - r["bricked"]["grid"]).abs().max().item()
+                                  for r in ranks),
+             "threshold": single["bricked"]["threshold"],
+             "occupied_share": (grid > single["bricked"]["threshold"]).float().mean().item()}
+    want = {"fused": {"fused_train_pass": 2}, "generic": {"fused_nerf_fwd": 2, "fused_nerf_bwd": 2},
+            "bricked": {"hash_brick_fwd": 2, "hash_brick_bwd": 1}}
+    launches_ok = all(r[k]["launches"] == want[k] and single[k]["launches"] == want[k] for r in ranks for k in want)
+    nccl_equal = (nccl["fused"]["step_loss"] == single["fused"]["step_loss"]
+                  and all(torch.equal(a, b) for a, b in zip(nccl["fused"]["params"], single["fused"]["params"])))
+    ok = (all(c["ok"] and c["every_shape_checked"] for c in cases.values()) and kernels_ok
+          and grids["sweep_vs_single"] == 0.0 and grids["step_vs_sweep"] == 0.0
+          and 0.0 < grids["occupied_share"] < 1.0
+          and launches_ok and nccl_equal and nccl["fused"]["launches"] == want["fused"]
+          and all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks) and nccl["backend"] == "nccl")
+    failed = [] if ok else ["dp_step"]
+    emit("dp_step", ranks=2, backend="gloo, both ranks on cuda:0", cases=cases,
+         kernels_on_rank_shards={"classic": classic_kernels, "bricked": bricked["kernels"], "ok": kernels_ok},
+         shapes_checked={k: sorted(v) for k, v in checked.items()}, grid=grids,
+         expected_launches_per_rank=want, nccl_one_rank={"bit_equal_to_single_process": nccl_equal,
+                                                          "launches": nccl["fused"]["launches"]},
+         rule="kernels 1-5 on each rank's shard (the halves of the batch, the rank's sweep cells) as kernel, "
+              "kernel_bwd, kernel_train and kernel_hash hold them, at every shape the ranks launched; classic: "
+              "the DP gradients bit-equal to the mean of the halves' in one process, loss and each gradient "
+              "leaf against the plain f32 whole batch within 2x the plain bf16 version's error + 1e-3; bricked: "
+              "against the halves' mean within relative L2 1e-5, against the plain whole batch within 2x the "
+              "plain version's split-versus-whole difference + 1e-6 (loss + 1e-5)",
+         spawn_seconds=spawn_s, ok=ok)
+
+    # tp_step: f32 sums in another order flip relus near 0 and move a
+    # leaf whose sum cancels, so the scale is the replicated step's own
+    # card-against-host difference (two f32 orders of the same step)
+    host_err = list_rel_l2(tp_host["grads"], tp_ref["grads"])
+    limit = 2.0 * max(host_err) + 1e-6
+    tp = {}
+    for name, results in (("tp_2", ranks[0]["tp"]), ("dp2_x_tp2", dptp[0])):
+        errs = list_rel_l2(results["grads"], tp_ref["grads"])
+        loss_err = abs(results["loss"] - tp_ref["loss"]) / abs(tp_ref["loss"])
+        shapes_ok = all(s == [w // 2 if i == d else w for i, w in enumerate(full)] if d is not None else s == full
+                        for s, full, d in zip(results["shapes"], results["whole_shapes"], results["dims"]))
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        tp[name] = dict(grad_max_rel_l2=errs[worst], worst_leaf=worst, grad_limit=limit, loss_rel_err=loss_err,
+                        sliced_shapes_ok=shapes_ok, sharded_leaves=sum(d is not None for d in results["dims"]),
+                        ok=errs[worst] <= limit and loss_err <= 1e-5 and shapes_ok)
+    ok = all(v["ok"] for v in tp.values())
+    if not ok:
+        failed.append("tp_step")
+    emit("tp_step", rays=TP_RAYS, width=FULL["feat_dim"], dtype="float32", reference="the replicated plain step",
+         rule="grads' relative L2 (each leaf's, the largest) <= 2x the replicated step's own card-against-host "
+              "difference + 1e-6, loss within 1e-5 relative",
+         replicated_card_vs_host={"grad_max_rel_l2": max(host_err),
+                                  "worst_leaf": max(range(len(host_err)), key=host_err.__getitem__),
+                                  "loss_rel": abs(tp_host["loss"] - tp_ref["loss"]) / abs(tp_ref["loss"])},
+         cases=tp, tp_2_seconds_at_4096_rays=[r["tp_full_batch_seconds"] for r in ranks], ok=ok)
+
+    # dp_render
+    frame_err = max((r["render"]["frame"] - frame["frame"]).abs().max().item() for r in ranks)
+    rgb, weights = ranks[0]["sample"]
+    comp = {"rgb_max_abs": (rgb - comp_ref[0]).abs().max().item(),
+            "weights_max_abs": (weights - comp_ref[1]).abs().max().item()}
+    comp_ok = (torch.allclose(rgb, comp_ref[0], rtol=1e-5, atol=1e-6)
+               and torch.allclose(weights, comp_ref[1], rtol=1e-5, atol=1e-6))
+    want_k1 = {"fused_nerf_fwd": 2 * -(-800 * 800 // 4096)}
+    ok = (frame_err == 0.0 and comp_ok and frame["launches"] == want_k1
+          and all(r["render"]["launches"] == want_k1 for r in ranks))
+    if not ok:
+        failed.append("dp_render")
+    emit("dp_render", frame=[800, 800], max_abs_vs_render_image=frame_err,
+         launches_per_rank=[r["render"]["launches"] for r in ranks], single_process_launches=frame["launches"],
+         seconds_per_rank=[r["render"]["seconds"] for r in ranks], single_process_seconds=frame["seconds"],
+         sample_axis_composite=dict(rays=4096, samples=192, ranks=2, **comp, rule="rtol 1e-5, atol 1e-6",
+                                    ok=comp_ok), ok=ok)
+
+    bench = ranks[0]["bench"]
+    ok = bench["launches"] == {"fused_train_pass": 2 * bench["timed_steps"]}
+    emit("train_bench_dp", card=smi, note="2 ranks sharing one card over host-staged gloo: not a scaling number",
+         dp_fused_ms_per_step=bench["ms_per_step"], timed_steps=bench["timed_steps"], launches=bench["launches"],
+         gloo_allreduce_ms=bench["allreduce_ms"], nccl_one_rank_allreduce_ms=nccl["allreduce_ms"],
+         allreduce_bytes=bench["allreduce_bytes"], ok=ok)
+    if not ok:
+        failed.append("train_bench_dp")
+    if failed:
+        raise SystemExit(f"chip_smoke: {', '.join(failed)} phase failed")
+    dp_launches = {name: sum(c["launches_per_rank"][0].get(name, 0) for c in cases.values())
+                   for name in kernel_wrappers()}
+    return {"dp_step": {name: n for name, n in dp_launches.items() if n},
+            "dp_step_errs": {**classic_errs, **bricked["errs"]},
+            "dp_render": ranks[0]["render"]["launches"]}
+
+
+def run_torchrun(argv, nproc: int, timeout: float = PAR_TIMEOUT) -> str:
+    """``torchrun --standalone --nproc_per_node=nproc argv`` from the
+    checkout's root, its whole process group killed at ``timeout``; raises
+    unless it exits 0. Returns its stdout."""
+    import os  # noqa: PLC0415
+    import signal  # noqa: PLC0415
+    import subprocess  # noqa: PLC0415
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}"] + argv
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"chip_smoke: torchrun {argv[:3]} outlasted {timeout} s")
+    if proc.returncode != 0:
+        emit("torchrun", argv=argv, rc=proc.returncode, stdout=out[-3000:], stderr=err[-6000:], ok=False)
+        raise SystemExit(f"chip_smoke: torchrun {argv[:3]} exited {proc.returncode}")
+    return out
+
+
+def cli_rank(module: str, prefix: str, argv) -> int:
+    """One rank of a torchrun launch of ``runners.<module>.main(argv)``,
+    every kernel's launches counted over it and written to
+    ``<prefix>.rank<RANK>.json``."""
+    import importlib  # noqa: PLC0415
+    import os  # noqa: PLC0415
+
+    main_fn = importlib.import_module(f"torch_nerf_tpu_torch.runners.{module}").main
+    reset_counts()
+    main_fn(argv)
+    Path(f"{prefix}.rank{os.environ['RANK']}.json").write_text(json.dumps(read_counts()))
+    return 0
+
+
+def torchrun_cli(work: Path, name: str, module: str, argv, nproc: int = 2):
+    """``runners.<module>`` on ``nproc`` gloo ranks through
+    :func:`cli_rank`: ``(stdout, [each rank's launches])``."""
+    prefix = work / f"{name}.launches"
+    out = run_torchrun([str(Path(__file__).resolve()), "--cli-rank", module, str(prefix), *argv], nproc)
+    return out, [json.loads(Path(f"{prefix}.rank{r}.json").read_text()) for r in range(nproc)]
+
+
+def phase_train_dp(work: Path) -> dict:
+    """The CLIs on 2 gloo ranks that share cuda:0 (torchrun): ``run_train
+    --distributed`` of the default classic config at full width (24 steps
+    with a validation and a visualisation rendered sharded, a resume for
+    8), the DP checkpoint resumed by a single-process ``run_train`` for 8
+    more (the reshard), ``run_render --distributed`` of two 800x800 test
+    views equal to the single-process ``run_render``'s, ``evaluate``; then
+    2 scenes over the 2 ranks, 24 steps and a resume for 8. Launches per
+    rank: kernel 3 twice a step, kernel 1 twice a 4096-ray chunk."""
+    from torch_nerf_tpu_torch import config, session  # noqa: PLC0415
+    from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
+
+    overrides = ["data.dataset_type=gaussian_blobs", "data.img_size=400",
+                 "train_params.validation.validate_every=3", "train_params.validation.num_batch=1",
+                 "train_params.log.epoch_btw_ckpt=3", "train_params.log.epoch_btw_vis=3"]
+    dist = ["--distributed", "--dist-backend", "gloo"]
+    run, out_dp, out_one, gt = (work / n for n in ("dp_run", "dp_render", "dp_render_one", "dp_gt"))
+    t0 = time.perf_counter()
+    logs, launches = [], []
+    for max_steps in (24, 32):
+        log, counts = torchrun_cli(work, f"dp_train{max_steps}", "run_train",
+                                   dist + ["--config", "default", "--log-dir", str(run), "--max-steps",
+                                           str(max_steps)] + overrides)
+        logs.append(log)
+        launches.append(counts)
+    resumed, resumed_log, resumed_k3, _ = run_cli(run_train.main, ["--log-dir", str(run), "--max-steps", "40"],
+                                                  [ftm.fused_train_pass])
+    render_log, render_launches = torchrun_cli(work, "dp_render", "run_render",
+                                               dist + ["--log-dir", str(run), "--render-test-views",
+                                                       "--num-views", "2", "--out-dir", str(out_dp)])
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_render.main(["--log-dir", str(run), "--render-test-views", "--num-views", "2", "--out-dir",
+                         str(out_one)])
+    single_render = read_counts()
+    cfg = config.load_config(run / "config.yaml")
+    data = session.build_dataset(cfg, "test", device=torch.device("cuda"))
+    gt.mkdir(parents=True)
+    for i in range(2):
+        save_png(gt / f"{i:04d}.png", data.images[i])
+    scores = evaluate.main([str(out_dp), str(gt)])
+    png_diff = max(float(abs(load_png(out_dp / f"{i:04d}.png") - load_png(out_one / f"{i:04d}.png")).max())
+                   for i in range(2))
+    classic_s = time.perf_counter() - t0
+
+    multi = work / "dp_multi_run"
+    multi_logs, multi_launches = [], []
+    for max_steps in (24, 32):
+        log, counts = torchrun_cli(work, f"dp_multi{max_steps}", "run_train",
+                                   dist + ["--config", "default", "--log-dir", str(multi), "--max-steps",
+                                           str(max_steps)] + MULTI_OVERRIDES)
+        multi_logs.append(log)
+        multi_launches.append(counts)
+    chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
+    want = {"train": [{"fused_train_pass": 48, "fused_nerf_fwd": 2 * (chunks_800 + chunks_400)},
+                      {"fused_train_pass": 16}],
+            "render": {"fused_nerf_fwd": 2 * 2 * chunks_800},
+            # one scene a rank; each rank validates its scene's 800x800 view at step 24
+            "multi": [{"fused_train_pass": 48, "fused_nerf_fwd": 2 * chunks_800}, {"fused_train_pass": 16}]}
+    val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
+    multi_val = [ln for log in multi_logs for ln in log.splitlines() if ln.startswith("validation @")]
+    ckpts = sorted(p.name for p in (run / "ckpt").glob("ckpt_*.pt"))
+    ok = (all(c == want["train"][i] for i, counts in enumerate(launches) for c in counts)
+          and "Data-parallel training over 2 ranks (gloo)." in logs[0] and "Resumed from step 24." in logs[1]
+          and len(val) == 1 and "Resumed from step 32." in resumed_log and resumed["step"] == 40
+          and resumed_k3 == [16] and all(c == want["render"] for c in render_launches)
+          and single_render == want["render"] and png_diff == 0.0
+          and all(math.isfinite(v) for v in scores.values())
+          and ckpts == ["ckpt_000024.pt", "ckpt_000032.pt", "ckpt_000040.pt"]
+          and all(c == want["multi"][i] for i, counts in enumerate(multi_launches) for c in counts)
+          and "Training 2 scenes over 2 ranks (gloo)." in multi_logs[0] and "Resumed from step 24." in multi_logs[1]
+          and len(multi_val) == 1 and "psnr_scene1=" in multi_val[0])
+    emit("train_dp", ranks=2, backend="gloo, both ranks on cuda:0", classic_seconds=classic_s,
+         launches_per_rank={"train": launches, "render": render_launches, "multi": multi_launches},
+         expected_per_rank=want, single_process_resume={"step": resumed["step"], "kernel3": resumed_k3},
+         single_process_render=single_render, png_max_abs_dp_vs_one=png_diff, validation=val,
+         multi_validation=multi_val, checkpoints=ckpts, psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"],
+         ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_dp phase failed")
+    total = {}
+    for counts in [c[0] for c in launches + multi_launches] + [render_launches[0]]:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_dryrun() -> None:
+    """``runners/dryrun_multichip.py`` on 4 gloo ranks that share cuda:0:
+    DP x TP 2 x 2, the fused DP step, bricked NGP with occupancy, scenes
+    over the ranks with the plain and the fused field."""
+    t0 = time.perf_counter()
+    out = run_torchrun(["-m", "torch_nerf_tpu_torch.runners.dryrun_multichip", "--dist-backend", "gloo"], 4)
+    line = [ln for ln in out.splitlines() if ln.startswith("dryrun_multichip OK")]
+    checks = ("dp+tp", "fused_dp", "ngp_bricked_occ", "multiscene", "multiscene_fused")
+    ok = len(line) == 1 and "mesh={'data': 2, 'model': 2}" in line[0] and all(f"{c}:loss=" in line[0]
+                                                                               for c in checks)
+    emit("dryrun", ranks=4, line=line, seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: dryrun phase failed")
+
+
 SECTOR = 32  # bytes: the least that the card's memory moves to or from L2
 
 
@@ -2562,15 +3473,20 @@ def kernel_lines(done: dict) -> list:
     calls, their errors from kernel_fold, their times on the ``packed``
     layout's tables); ``launches_by_path`` adds each kernel's launches over
     ``train_llff``'s, ``train_occ``'s and ``train_multi``'s CLI calls, and
-    kernels 1, 3, 4 and 5's errors include train_multi_step's."""
+    on the parallel paths, one rank's (of two that share the card):
+    dp_step's three sharded steps, dp_render's frame and train_dp's CLI
+    calls; kernels 1, 3, 4 and 5's errors include train_multi_step's, and
+    kernels 1-5's dp_step's (on each rank's shard)."""
     lines = _kernel_entries(done)
     for entry in lines:
-        # the launches of the LLFF + NDC, occupancy and multi-scene paths,
-        # each counted over its own CLI calls
+        # the launches of the LLFF + NDC, occupancy, multi-scene and
+        # parallel paths, each counted over its own calls
         entry["launches_by_path"] = {path: done[path][entry["name"]]
-                                     for path in ("train_llff", "train_occ", "train_multi")
+                                     for path in ("train_llff", "train_occ", "train_multi", "dp_step",
+                                                  "dp_render", "train_dp")
                                      if entry["name"] in done[path]}
-        entry["max_abs_err"] = max(entry["max_abs_err"], done["train_multi_step"].get(entry["name"], 0.0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], done["train_multi_step"].get(entry["name"], 0.0),
+                                   done["dp_step_errs"].get(entry["name"], 0.0))
     return lines
 
 
@@ -2658,6 +3574,9 @@ def main() -> int:
         "bench_ngp": phase_bench_ngp(smi),
         "train_bench_multi": phase_train_bench_multi(smi),
     }
+    done.update(phase_parallel(smi, work))
+    done["train_dp"] = phase_train_dp(work)
+    phase_dryrun()
     phase_lpips(work, done["train_multi"]["render_dir"], done["train_multi"]["gt_dir"])
     phase_profile(work)
     print(smi)
@@ -2669,4 +3588,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:  # one rank of train_dp's torchrun launches
+        sys.exit(cli_rank(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

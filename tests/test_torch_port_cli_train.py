@@ -139,11 +139,17 @@ def test_train_cli_round_trip_on_cpu(trained_run, tmp_path, capsys):
     assert fused_nerf.fused_nerf_apply.launches == 0 and fused_nerf.fused_nerf_bwd.launches == 0
 
 
-def test_train_cli_raises_for_later_slices_and_without_a_card(tmp_path):
+def test_train_cli_raises_for_later_slices_and_without_a_card(tmp_path, monkeypatch):
+    # the parallel slice: --distributed needs torchrun's ranks, and a data
+    # axis other than 1 needs --distributed
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     base = ["--log-dir", str(tmp_path / "r"), "--device", "cpu"] + TINY_OVERRIDES
-    for extra, match in ((["--distributed"], "parallelism"), (["parallel.data_axis_size=4"], "parallelism")):
-        with pytest.raises(NotImplementedError, match=match):
+    for extra, error, match in ((["--distributed"], RuntimeError, "needs torchrun's environment"),
+                                (["parallel.data_axis_size=4"], ValueError, "data_axis_size=4 on 1 rank")):
+        with pytest.raises(error, match=match):
             run_train.main(base + extra)
+    assert not (tmp_path / "r").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run_train.main(["--log-dir", str(tmp_path / "card")] + TINY_OVERRIDES)

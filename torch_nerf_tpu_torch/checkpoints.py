@@ -36,20 +36,24 @@ def save_checkpoint(
     log_dir: str | Path,
     step: int,
     params: Dict[str, Any],
-    optimizer: Optional[torch.optim.Optimizer] = None,
+    optimizer: Optional[torch.optim.Optimizer | dict] = None,
     scheduler: Optional[Any] = None,
     occ_grid: Optional[torch.Tensor] = None,
     num_scenes: Optional[int] = None,
 ) -> Path:
     """Write ``<log_dir>/ckpt/ckpt_<step:06d>.pt`` (atomically), tensors on
     the CPU, and ``occ_grid``'s sidecar where given; ``num_scenes`` marks a
-    multi-scene run's stacked state."""
+    multi-scene run's stacked state. ``optimizer`` is the optimizer or its
+    state dict (a sharded run's, gathered whole: ``parallel.mesh.
+    gather_state``). One process writes: the temporary names are not a
+    process's own."""
     path = ckpt_dir(log_dir) / f"ckpt_{int(step):06d}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.tmp")
     state = {"step": int(step), "params": _to_device(params, torch.device("cpu"))}
     if optimizer is not None:
-        state["optimizer"] = _to_device(optimizer.state_dict(), torch.device("cpu"))
+        opt_state = optimizer if isinstance(optimizer, dict) else optimizer.state_dict()
+        state["optimizer"] = _to_device(opt_state, torch.device("cpu"))
     if scheduler is not None:
         state["scheduler"] = scheduler.state_dict()
     if num_scenes is not None:

@@ -26,14 +26,35 @@ card the scenes train one after another within a step.
 
 ``--profile-steps N`` traces steps ``start + 10`` to ``start + 10 + N``
 with ``torch.profiler`` into ``<log_dir>/profile/trace.json`` (a Chrome
-trace). Data-parallel training (``--distributed``,
-``parallel.data_axis_size``) comes with the parallelism slice and raises
-here.
+trace).
+
+``--distributed`` runs one process per rank under torchrun (the
+counterpart of the JAX CLI's ``jax.distributed.initialize()``):
+
+    python -m torch.distributed.run --standalone --nproc_per_node=2 \\
+        -m torch_nerf_tpu_torch.runners.run_train --distributed \\
+        [--dist-backend nccl|gloo] [--device cpu] ...
+
+A single-scene run trains data-parallel over the ranks
+(``parallel.data_axis_size`` -1 or the world size;
+``parallel.steps.make_sharded_image_train_step``); a multi-scene run trains
+its scenes over the ranks (``make_multiscene_shard_step``), ``S %
+ranks`` scenes left over raising. Rank r uses ``cuda:LOCAL_RANK %
+device_count``; the backend defaults to ``nccl`` on the card and ``gloo``
+on the CPU, and NCCL refuses ranks that share a card (``gloo`` takes them).
+Validation and visualisation frames are rendered sharded over the ranks;
+only rank 0 prints, logs, writes images and checkpoints (the whole state,
+the file a single-process run writes and resumes). The model axis is not
+trained by this CLI, as by the JAX one: ``parallel.model_axis_size`` other
+than 1 raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import sys
 import time
 from pathlib import Path
 
@@ -44,6 +65,7 @@ from torch_nerf_tpu_torch import checkpoints, config as cfg_mod, lpips, metrics 
 from torch_nerf_tpu_torch import multiscene, occupancy, session, train
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.logging_utils import MetricsLogger, StepTimer, save_png
+from torch_nerf_tpu_torch.parallel import collectives, mesh as pmesh, steps as psteps
 from torch_nerf_tpu_torch.renderer import render_image
 
 
@@ -54,17 +76,31 @@ def parse_args(argv=None):
     parser.add_argument("--max-steps", type=int, default=None, help="cap total steps (debug)")
     parser.add_argument("--profile-steps", type=int, default=0,
                         help="trace this many steps after the first 10 with torch.profiler into <log-dir>/profile")
-    parser.add_argument("--distributed", action="store_true", help="not in this slice")
+    parser.add_argument("--distributed", action="store_true",
+                        help="one process per rank under torchrun: data-parallel rays, or scenes over ranks")
+    parser.add_argument("--dist-backend", choices=pmesh.BACKENDS, default=None,
+                        help="the process group's backend (default: nccl on the card, gloo on the CPU)")
     parser.add_argument("--device", default=None, help="cuda (default, the card) or cpu")
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     return parser.parse_args(argv)
 
 
-def _check_supported(cfg, args) -> None:
-    if args.distributed:
-        raise NotImplementedError("--distributed comes with the port's parallelism slice")
-    if cfg.parallel.data_axis_size not in (-1, 1):
-        raise NotImplementedError("data-parallel training comes with the port's parallelism slice")
+def start_mesh(args, cfg):
+    """The mesh of a ``--distributed`` run from torchrun's environment,
+    else None."""
+    if not args.distributed:
+        return None
+    return pmesh.init_mesh_from_env(backend=args.dist_backend, device=args.device or cfg.device.platform)
+
+
+class _NullLogger:
+    """The metrics logger of a rank that does not write."""
+
+    def log_scalars(self, step, scalars) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def main(argv=None) -> dict:
@@ -84,17 +120,27 @@ def main(argv=None) -> dict:
         cfg_mod.apply_overrides(cfg, args.overrides)
     else:
         cfg = cfg_mod.resolve(args.config, args.overrides)
-    _check_supported(cfg, args)
-    device = resolve_device(args.device or cfg.device.platform)
+    # every rank has read the stored config once the group has formed,
+    # before rank 0 writes it
+    mesh = start_mesh(args, cfg)
+    pmesh.check_parallel(cfg, mesh)
+    device = mesh.device if mesh is not None else resolve_device(args.device or cfg.device.platform)
     # a config the card's training kernels cannot take fails here, before
     # the run directory is written and any data loads
     session.check_trainable(cfg, device)
     cfg.log_dir = str(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    cfg_mod.save_config(cfg, stored_cfg)
-    if cfg.data.num_scenes > 1:
-        return _run_multiscene(cfg, args, log_dir, device)
+    main_rank = mesh is None or mesh.rank == 0
+    if main_rank:
+        log_dir.mkdir(parents=True, exist_ok=True)
+        cfg_mod.save_config(cfg, stored_cfg)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(sys.stdout if main_rank else quiet):
+        run = _run_multiscene if cfg.data.num_scenes > 1 else _run_single
+        result = run(cfg, args, log_dir, device, mesh)
+    pmesh.destroy_mesh()
+    return result
 
+
+def _run_single(cfg, args, log_dir: Path, device, mesh) -> dict:
     dataset = session.build_dataset(cfg, split=cfg.data.data_type, device=device)
     settings = session.build_render_settings(cfg, dataset)
     field = session.build_field(cfg)
@@ -109,6 +155,9 @@ def main(argv=None) -> dict:
     restored = checkpoints.load_checkpoint(ckpt_path, device) if ckpt_path else None
     if restored is not None:
         _restore(state, restored)
+    if mesh is not None:
+        state = pmesh.place_state(mesh, state, optim_cfg)
+        print(f"Data-parallel training over {mesh.world_size} ranks ({mesh.backend}).")
 
     grid = None
     if occ_cfg is not None:
@@ -136,14 +185,19 @@ def main(argv=None) -> dict:
     if args.max_steps is not None:
         total_steps = min(total_steps, args.max_steps)
 
-    steps = {
-        precrop: train.make_image_train_step(
-            field, settings, optim_cfg, camera, cfg.renderer.num_pixels, precrop=precrop,
-            aux_loss_fn=aux_loss_fn, occupancy_cfg=occ_cfg,
-        )
-        for precrop in (True, False)
-    }
-    logger = MetricsLogger(log_dir)
+    if mesh is None:
+        steps = {precrop: train.make_image_train_step(field, settings, optim_cfg, camera, cfg.renderer.num_pixels,
+                                                      precrop=precrop, aux_loss_fn=aux_loss_fn,
+                                                      occupancy_cfg=occ_cfg)
+                 for precrop in (True, False)}
+    else:
+        steps = {precrop: psteps.make_sharded_image_train_step(field, settings, optim_cfg, camera, mesh,
+                                                               cfg.renderer.num_pixels, precrop=precrop,
+                                                               aux_loss_fn=aux_loss_fn, occupancy_cfg=occ_cfg)
+                 for precrop in (True, False)}
+    render = _frame_renderer(field, settings, cfg, mesh)
+    main_rank = mesh is None or mesh.rank == 0
+    logger = MetricsLogger(log_dir) if main_rank else _NullLogger()
     timer = StepTimer(
         rays_per_step=cfg.renderer.num_pixels,
         flops_per_step=session.estimate_flops_per_step(cfg),
@@ -161,7 +215,7 @@ def main(argv=None) -> dict:
         except (FileNotFoundError, ValueError) as exc:
             print(f"validation disabled: no val split ({exc})")
 
-    profiler = StepProfiler(log_dir, state.step, args.profile_steps, device)
+    profiler = StepProfiler(log_dir, state.step, args.profile_steps if main_rank else 0, device)
     losses, metrics = [], {}
     for step_idx in range(state.step, total_steps):
         epoch = step_idx // steps_per_epoch
@@ -178,14 +232,14 @@ def main(argv=None) -> dict:
         if (step_idx + 1) % steps_per_epoch == 0:
             epoch_done = (step_idx + 1) // steps_per_epoch
             if epoch_done % log_cfg.epoch_btw_ckpt == 0:
-                _save(log_dir, state, grid)
+                _save(log_dir, state, grid, mesh=mesh)
             if val_dataset is not None and epoch_done % val_cfg.validate_every == 0:
-                _validate(cfg, field, state, val_dataset, settings, logger, step_idx + 1, device)
+                _validate(cfg, render, state, val_dataset, logger, step_idx + 1, device, main_rank)
             if epoch_done % log_cfg.epoch_btw_vis == 0:
-                _visualize(cfg, field, state, camera, dataset, settings, log_dir, epoch_done, device)
+                _visualize(render, state, camera, dataset, log_dir, epoch_done, device, main_rank)
 
     profiler.close()
-    _save(log_dir, state, grid)
+    _save(log_dir, state, grid, mesh=mesh)
     logger.close()
     print(f"Training complete at step {state.step}. Logs in {log_dir}.")
     return {"step": state.step, "losses": [float(v) for v in losses], "log_dir": str(log_dir),
@@ -258,29 +312,53 @@ def _restore(state: train.TrainState, restored: dict) -> None:
     print(f"Resumed from step {state.step}.")
 
 
-def _save(log_dir, state: train.TrainState, grid, num_scenes=None) -> None:
-    checkpoints.save_checkpoint(log_dir, state.step, state.params, state.optimizer, state.scheduler, occ_grid=grid,
+def _save(log_dir, state: train.TrainState, grid, num_scenes=None, mesh=None) -> None:
+    """Checkpoint the state; a sharded state gathered whole first, written
+    by rank 0 (scenes over ranks: along the scene axis of every leaf)."""
+    params, optimizer = state.params, state.optimizer
+    if mesh is not None:
+        spec = pmesh.scene_spec(params) if num_scenes is not None else None
+        params, optimizer = pmesh.gather_state(mesh, state, spec, "data" if num_scenes is not None else "model")
+        if mesh.rank != 0:
+            return
+    checkpoints.save_checkpoint(log_dir, state.step, params, optimizer, state.scheduler, occ_grid=grid,
                                 num_scenes=num_scenes)
 
 
-def _validate(cfg, field, state, dataset, settings, logger, step, device) -> None:
+def _frame_renderer(field, settings, cfg, mesh):
+    """``render(params, camera, pose, seed) -> (H, W, 3)``: ``render_image``,
+    or under ``--distributed`` the frame sharded over the ranks (every rank
+    calls it)."""
+    chunk = cfg.renderer.num_pixels
+    if mesh is None:
+        return lambda params, camera, pose, seed: render_image(field, params["coarse"], params.get("fine"), camera,
+                                                               pose, seed, settings, chunk_size=chunk)
+
+    def render(params, camera, pose, seed):
+        frame = psteps.make_sharded_render(field, settings, mesh, camera, chunk)
+        return frame(params["coarse"], params.get("fine"), pose, seed)
+
+    return render
+
+
+def _validate(cfg, render, state, dataset, logger, step, device, main_rank=True) -> None:
     """Full-image validation on the val split at full resolution:
     PSNR/SSIM, and LPIPS where calibrated weights are found."""
     num_batch = min(cfg.train_params.validation.num_batch, dataset.num_views)
     lpips_weights = lpips.load_weights()
     psnrs, ssims, lpipss = [], [], []
     for view in range(num_batch):
-        img = render_image(
-            field, state.params["coarse"], state.params.get("fine"), dataset.camera,
-            torch.as_tensor(dataset.poses[view], device=device), view, settings,
-            chunk_size=cfg.renderer.num_pixels,
-        )
+        img = render(state.params, dataset.camera, torch.as_tensor(dataset.poses[view], device=device), view)
+        if not main_rank:
+            continue
         pred = np.clip(img.cpu().numpy(), 0.0, 1.0)
         gt = dataset.images[view]
         psnrs.append(metrics_mod.psnr(pred, gt, device=device))
         ssims.append(metrics_mod.ssim(pred, gt, device=device))
         if lpips_weights is not None:
             lpipss.append(lpips.lpips_alex(pred, gt, lpips_weights, device=device))
+    if not main_rank:
+        return
     scalars = {"val/psnr": float(np.mean(psnrs)), "val/ssim": float(np.mean(ssims))}
     if lpipss:
         scalars["val/lpips"] = float(np.mean(lpipss))
@@ -288,22 +366,21 @@ def _validate(cfg, field, state, dataset, settings, logger, step, device) -> Non
     print(f"validation @ step {step}: " + " ".join(f"{k.split('/')[-1]}={v:.4f}" for k, v in scalars.items()))
 
 
-def _visualize(cfg, field, state, camera, dataset, settings, log_dir, epoch, device) -> None:
+def _visualize(render, state, camera, dataset, log_dir, epoch, device, main_rank=True) -> None:
     """Render one novel view into ``vis/epoch_N/pred_imgs/``."""
-    vis_dir = Path(log_dir) / "vis" / f"epoch_{epoch}" / "pred_imgs"
-    vis_dir.mkdir(parents=True, exist_ok=True)
-    img = render_image(
-        field, state.params["coarse"], state.params.get("fine"), camera,
-        torch.as_tensor(dataset.render_poses[0], device=device), 0, settings,
-        chunk_size=cfg.renderer.num_pixels,
-    )
-    save_png(vis_dir / "view_000.png", img.cpu().numpy())
+    img = render(state.params, camera, torch.as_tensor(dataset.render_poses[0], device=device), 0)
+    if main_rank:
+        vis_dir = Path(log_dir) / "vis" / f"epoch_{epoch}" / "pred_imgs"
+        vis_dir.mkdir(parents=True, exist_ok=True)
+        save_png(vis_dir / "view_000.png", img.cpu().numpy())
 
 
-def _multiscene_split(cfg, split: str, device):
-    """Every scene's ``split`` stacked: ``(images (S, V, H*W, 3), poses (S,
-    V, 4, 4))`` on ``device``, and the camera the scenes share."""
-    sets = [session.build_multiscene_dataset(cfg, s, split, device=device) for s in range(cfg.data.num_scenes)]
+def _multiscene_split(cfg, split: str, device, scenes=None):
+    """The ``split`` of every scene in ``scenes`` (default: all) stacked:
+    ``(images (S, V, H*W, 3), poses (S, V, 4, 4))`` on ``device``, and the
+    camera the scenes share."""
+    scenes = range(cfg.data.num_scenes) if scenes is None else scenes
+    sets = [session.build_multiscene_dataset(cfg, s, split, device=device) for s in scenes]
     camera = sets[0].camera
     for d in sets[1:]:
         if d.camera != camera:
@@ -321,22 +398,25 @@ def _multiscene_split(cfg, split: str, device):
     return images, poses, camera
 
 
-def _run_multiscene(cfg, args, log_dir: Path, device) -> dict:
+def _run_multiscene(cfg, args, log_dir: Path, device, mesh=None) -> dict:
     """``data.num_scenes`` scenes in one run (``multiscene.py``), after the
     JAX CLI's ``_run_multiscene``: both splits stacked, epochs of the views
     a scene holds with the center crop for the first 10, ``train/loss_scene{s}``
     every 100 steps, the stacked state checkpointed at the single-scene
     cadence, per-scene validation. Scene s's parameters are drawn from
     ``scene_seed(seed, s)`` and its batches from ``scene_seed(seed + 1, s)``.
-    As in the JAX package, no aux loss and no occupancy grid is threaded."""
+    As in the JAX package, no aux loss and no occupancy grid is threaded.
+    Under ``--distributed`` each rank loads and trains its share of the
+    scenes (``parallel.steps.local_scenes``) and validates them."""
     num_scenes = cfg.data.num_scenes
     unused = [key for key, on in (("objective.encode_smoothness_weight", cfg.objective.encode_smoothness_weight > 0),
                                   ("occupancy.enabled", cfg.occupancy.enabled)) if on]
     if unused:
         print(f"{' and '.join(unused)}: not used by a multi-scene run")
-    images, poses, camera = _multiscene_split(cfg, "train", device)
+    scenes = range(num_scenes) if mesh is None else psteps.local_scenes(mesh, num_scenes)
+    images, poses, camera = _multiscene_split(cfg, "train", device, scenes)
     val_cfg = cfg.train_params.validation
-    val = _multiscene_split(cfg, "val", device) if val_cfg.validate_every > 0 else None
+    val = _multiscene_split(cfg, "val", device, scenes) if val_cfg.validate_every > 0 else None
 
     settings = session.build_render_settings(cfg)
     field = session.build_field(cfg)
@@ -349,22 +429,27 @@ def _run_multiscene(cfg, args, log_dir: Path, device) -> dict:
             raise ValueError(f"the checkpoint in {log_dir} holds {restored.get('num_scenes', 1)} scenes, "
                              f"not data.num_scenes={num_scenes}")
         _restore(state, restored)
-
-    steps = {
-        precrop: multiscene.make_multiscene_train_step(field, settings, optim_cfg, camera, num_scenes,
-                                                       cfg.renderer.num_pixels, precrop=precrop)
-        for precrop in (True, False)
-    }
-    logger = MetricsLogger(log_dir)
+    generators = multiscene.scene_generators(cfg.seed + 1, num_scenes, device)[scenes.start:scenes.stop]
+    if mesh is None:
+        steps = {precrop: multiscene.make_multiscene_train_step(field, settings, optim_cfg, camera, num_scenes,
+                                                                cfg.renderer.num_pixels, precrop=precrop)
+                 for precrop in (True, False)}
+    else:
+        state = pmesh.place_state(mesh, state, optim_cfg, pmesh.scene_spec(state.params), "data")
+        steps = {precrop: psteps.make_multiscene_shard_step(field, settings, optim_cfg, camera, num_scenes, mesh,
+                                                            cfg.renderer.num_pixels, precrop=precrop)
+                 for precrop in (True, False)}
+        print(f"Training {num_scenes} scenes over {mesh.world_size} ranks ({mesh.backend}).")
+    main_rank = mesh is None or mesh.rank == 0
+    logger = MetricsLogger(log_dir) if main_rank else _NullLogger()
     timer = StepTimer(rays_per_step=cfg.renderer.num_pixels * num_scenes, device=device)
-    generators = multiscene.scene_generators(cfg.seed + 1, num_scenes, device)
     log_cfg = cfg.train_params.log
     steps_per_epoch = max(1, images.shape[1])  # views per scene
     total_steps = max(1, optim_cfg.num_iter // steps_per_epoch) * steps_per_epoch
     if args.max_steps is not None:
         total_steps = min(total_steps, args.max_steps)
 
-    profiler = StepProfiler(log_dir, state.step, args.profile_steps, device)
+    profiler = StepProfiler(log_dir, state.step, args.profile_steps if main_rank else 0, device)
     losses, scene_losses, metrics = [], [], {}
     for step_idx in range(state.step, total_steps):
         epoch = step_idx // steps_per_epoch
@@ -380,12 +465,12 @@ def _run_multiscene(cfg, args, log_dir: Path, device) -> dict:
         if (step_idx + 1) % steps_per_epoch == 0:
             epoch_done = (step_idx + 1) // steps_per_epoch
             if epoch_done % log_cfg.epoch_btw_ckpt == 0:
-                _save(log_dir, state, None, num_scenes)
+                _save(log_dir, state, None, num_scenes, mesh)
             if val is not None and epoch_done % val_cfg.validate_every == 0:
-                _validate_multiscene(cfg, field, state, *val, settings, logger, step_idx + 1, device)
+                _validate_multiscene(cfg, field, state, *val, settings, logger, step_idx + 1, device, scenes, mesh)
 
     profiler.close()
-    _save(log_dir, state, None, num_scenes)
+    _save(log_dir, state, None, num_scenes, mesh)
     logger.close()
     print(f"Training complete at step {state.step}. Logs in {log_dir}.")
     per_scene = torch.stack(scene_losses).T.tolist() if scene_losses else [[] for _ in range(num_scenes)]
@@ -393,18 +478,23 @@ def _run_multiscene(cfg, args, log_dir: Path, device) -> dict:
             "log_dir": str(log_dir), "metrics": {k: v.tolist() for k, v in metrics.items()}}
 
 
-def _validate_multiscene(cfg, field, state, val_images, val_poses, camera, settings, logger, step, device) -> None:
-    """Each scene's val view 0 at full resolution, rendered with seed s:
+def _validate_multiscene(cfg, field, state, val_images, val_poses, camera, settings, logger, step, device,
+                         scenes, mesh=None) -> None:
+    """Each scene's val view 0 at full resolution, rendered with seed s
+    (under ``--distributed`` by the rank that trains it):
     ``val/psnr_scene{s}`` and their mean ``val/psnr``."""
-    scalars, psnrs = {}, []
-    for s in range(val_images.shape[0]):
-        params = multiscene.scene_params(state, s)
-        img = render_image(field, params["coarse"], params.get("fine"), camera, val_poses[s, 0], s, settings,
+    psnrs = []
+    for i, s in enumerate(scenes):
+        params = multiscene.scene_params(state, i)
+        img = render_image(field, params["coarse"], params.get("fine"), camera, val_poses[i, 0], s, settings,
                            chunk_size=cfg.renderer.num_pixels)
         pred = np.clip(img.cpu().numpy(), 0.0, 1.0)
-        gt = val_images[s, 0].reshape(pred.shape)
+        gt = val_images[i, 0].reshape(pred.shape)
         psnrs.append(metrics_mod.psnr(pred, gt, device=device))
-        scalars[f"val/psnr_scene{s}"] = psnrs[-1]
+    if mesh is not None:
+        psnrs = collectives.all_gather(torch.tensor(psnrs, dtype=torch.float64, device=device),
+                                       mesh.data_group).tolist()
+    scalars = {f"val/psnr_scene{s}": v for s, v in enumerate(psnrs)}
     scalars["val/psnr"] = float(np.mean(psnrs))
     logger.log_scalars(step, scalars)
     print(f"validation @ step {step}: " + " ".join(f"{k.split('/')[-1]}={v:.3f}" for k, v in scalars.items()))

@@ -366,6 +366,7 @@ def make_ray_train_step(
     force_generic: bool = False,
     aux_loss_fn: Optional[Callable] = None,
     occupancy_cfg: Optional[occupancy.OccupancyConfig] = None,
+    data_parallel: Optional[Any] = None,
 ) -> Callable[..., Tuple]:
     """Train step over a ray batch: ``step(state, ray_origin (N, 3),
     ray_dir (N, 3), rgb_gt (N, 3), rand, aux_draws=None) -> (state,
@@ -383,9 +384,17 @@ def make_ray_train_step(
     ``occ_jitter`` (the coarse network's density), then renders the pruned
     passes from ``rand`` (``rand.coarse`` the stratified candidates' jitter,
     the other three the fine pass's, as in the dense step); fused when the
-    field has a ``fused_cfg`` and no aux loss is given."""
+    field has a ``fused_cfg`` and no aux loss is given.
+
+    ``data_parallel`` (``parallel.steps.DataParallel``) shards the step
+    over ranks: every rank is handed the whole batch and its draws, takes
+    its rows of them (``.rows``), and averages its metrics and gradients
+    with the other ranks' (``.mean``) before the same optimizer step; a
+    sweep evaluates each rank's share of the cells
+    (``.density_fn``)."""
     grad_fn = make_ray_grad_fn(field, settings, force_generic, aux_loss_fn)
     use_fused = field.fused_cfg is not None and not force_generic
+    dp = data_parallel
 
     if occupancy_cfg is not None:
         if occupancy_cfg.keep_samples > settings.num_samples_coarse:
@@ -395,12 +404,16 @@ def make_ray_train_step(
                 "keep_samples_fine must be <= num_samples_coarse + num_samples_fine (the merged fine candidate count)."
             )
         density_fn = occupancy.make_density_fn(field)
+        if dp is not None:
+            density_fn = dp.density_fn(density_fn)
         pruned_loss = pruned_hierarchical_loss_fn if settings.hierarchical else pruned_ray_loss_fn
 
         def occ_step_fn(state: TrainState, grid, ray_origin, ray_dir, rgb_gt, rand: RayUniforms, aux_draws=None,
                         occ_jitter=None):
             grid = occupancy.maybe_update_grid(grid, density_fn, state.params, occ_jitter, state.step,
                                                occupancy_cfg)
+            if dp is not None:
+                ray_origin, ray_dir, rgb_gt, rand = dp.rows(ray_origin, ray_dir, rgb_gt, rand)
             args = (grid, occupancy_cfg, ray_origin, ray_dir, rgb_gt, rand, settings, state.step)
             if use_fused:
                 metrics, grads = fused_pruned_loss_and_grad(field, state.params, *args)
@@ -408,13 +421,19 @@ def make_ray_train_step(
             else:
                 metrics, grads = _generic_grads(lambda params: pruned_loss(field, params, *args), state.params,
                                                 aux_loss_fn, aux_draws)
+            if dp is not None:
+                metrics, grads = dp.mean(metrics, grads)
             _apply_grads(state, grads)
             return state, grid, metrics
 
         return occ_step_fn
 
     def step_fn(state: TrainState, ray_origin, ray_dir, rgb_gt, rand: RayUniforms, aux_draws=None):
+        if dp is not None:
+            ray_origin, ray_dir, rgb_gt, rand = dp.rows(ray_origin, ray_dir, rgb_gt, rand)
         metrics, grads = grad_fn(state.params, ray_origin, ray_dir, rgb_gt, rand, aux_draws)
+        if dp is not None:
+            metrics, grads = dp.mean(metrics, grads)
         _apply_grads(state, grads)
         return state, metrics
 
@@ -470,6 +489,7 @@ def make_image_train_step(
     force_generic: bool = False,
     aux_loss_fn: Optional[Callable] = None,
     occupancy_cfg: Optional[occupancy.OccupancyConfig] = None,
+    data_parallel: Optional[Any] = None,
 ):
     """Full train step from the on-device image and pose pool:
     ``step(state, images (B, H*W, 3), poses (B, 4, 4), generator, draws=None)
@@ -480,8 +500,10 @@ def make_image_train_step(
     them, and ``step.ray_batch(images, poses, draws)`` gives their
     ``(ray_origin, ray_dir, rgb_gt)``. With ``occupancy_cfg`` the grid threads through: ``step(state,
     grid, images, poses, generator, draws=None) -> (state, grid,
-    metrics)``."""
-    ray_step = make_ray_train_step(field, settings, optim_cfg, force_generic, aux_loss_fn, occupancy_cfg)
+    metrics)``. With ``data_parallel`` every rank draws and gathers the
+    whole batch, and the ray step shards it (:func:`make_ray_train_step`)."""
+    ray_step = make_ray_train_step(field, settings, optim_cfg, force_generic, aux_loss_fn, occupancy_cfg,
+                                   data_parallel)
     num_total = camera.img_height * camera.img_width
     crop = precrop_pixel_indices(camera.img_height, camera.img_width) if precrop else None
     if crop is not None:
