@@ -15,24 +15,41 @@ the ``kernels`` line, the card's name and power limit, and last
 
 Phases: device, build (one nvcc per source, all at once, sm_90a); kernel
 (the field's forward at full width, ragged tail, PyTorch-default and
-He-scaled weights, on its wgmma route at widths 256, 128 and 64 and its
-mma.sync route at width 96, three trunk faults planted in the forward
-images that the comparison must reject); kernel_bwd (the field's backward on 2^16 + 37 points and at the
+He-scaled weights, on its wgmma route at widths 256, 128 and 64, its
+mma.sync route at widths 96, 48 (padded to 64), 1024 (32-point tiles) and
+path B's 512 with a 75-wide encoding, and its f32 route at path A's 256,
+three trunk faults planted in the wgmma route's forward images and in
+each general route's forward matrices, and the f32 route's matrices
+rounded to TF32 and to bf16, that the comparison must reject; the f32
+route's limits have a floor of 1e-5, bf16's 1e-3);
+kernel_bwd (the field's backward on 2^16 + 37 points and at the
 train path's 4096 x 64 and 4096 x 192, every grad against the plain
 version, three planted faults in the training kernels' weight images, a
-second launch bit-identical); kernel_train (the fused train pass at
+second launch bit-identical; then kernel_bwd_general: the backward on
+each general route (f32 against the plain f64 version, mma_sync against
+the plain f32) on the 786,432 fine points, a second launch bit-identical,
+three faults and the f32 route's two roundings planted in its
+matrices); kernel_train (the fused train pass at
 4096 x 64, 4096 x 192 and a ragged batch, rgb, weights and grads, planted
 faults in the weight images and in the composite, a second launch
-bit-identical);
+bit-identical; then kernel_train_general: the pass on each general route
+at 4096 x 64 and 4096 x 192, the same rules one precision up for f32);
 serve (``run_render`` + ``evaluate`` on 128x128 test views, kernel launches
 counted, the kernel's render held against the plain version's); train
 (``run_train`` for 24 steps with a validation, a checkpoint and a
 visualisation, a resume for 8 more, then ``run_render`` + ``evaluate``;
 2 fused-pass launches per step, 2 forward launches per render chunk);
-train_bench (train steps at ``bench.py``'s
+train_f32 and train_wide (paths A and B of the general route through the
+same CLI sequence as train: the default preset with
+``device.compute_dtype=float32``, and ``network.feat_dim=512
+signal_encoder.coord_encode_level=12``; every launch counted by route from
+0: kernel 3 twice a step and kernel 1 twice a chunk on the path's route,
+none on the others); train_bench (train steps at ``bench.py``'s
 operating point, fused and through autograd, each kernel timed beside its
-bound and its plain version); bench (800x800 frames at ``bench.py
---render``'s operating point); kernel_hash (kernels 4-7, the bricked and
+bound and its plain version); train_bench_general (paths A and B at the
+same point, fused and ``force_generic``, kernel 1 held against its plain
+version at the path's coarse and fine render chunks, kernels 1-3 timed
+alone); bench (800x800 frames at ``bench.py --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
 per-corner hash encodes forward and backward, at full width on the 2^20
 points of a train batch plus 37 negative, integral and large ones, three
 planted faults that must be rejected, then kernels 4-7 on the points of
@@ -137,6 +154,22 @@ FULL = dict(coord_encode_level=10, dir_encode_level=4, feat_dim=256)
 NGP = dict(num_level=16, log_max_entry_per_level=19, table_feat_dim=2, min_res=16, max_res=512)
 NGP_LAYOUTS = ("bricked", "hash")
 PACKED_LAYOUTS = ("packed", "packed_dual")
+# the general route's two configs, each run through the CLIs: path A, the
+# default preset in f32 (route f32); path B, width 512 with a 75-wide
+# position encoding (level 12) in bf16 (route mma_sync)
+GENERAL = {"f32": dict(feat_dim=256, coord_encode_level=10, dtype=torch.float32),
+           "mma_sync": dict(feat_dim=512, coord_encode_level=12, dtype=torch.bfloat16)}
+GENERAL_OVERRIDES = {"f32": ["device.compute_dtype=float32"],
+                     "mma_sync": ["network.feat_dim=512", "signal_encoder.coord_encode_level=12"]}
+GENERAL_PHASES = {"f32": "train_f32", "mma_sync": "train_wide"}
+# the floor of every limit that holds a kernel of one compute type against
+# the plain version one precision up (2x the plain version's own error +
+# the floor): 1e-3 for bf16; for f32 1e-5, 1/50 of TF32's unit roundoff
+# (2^-11), so that the f32 route's weights rounded to TF32 or to bf16
+# (:data:`PRECISION_CONTROLS`) fail where a right f32 chain passes
+FLOOR = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+# mantissa bits of the precision controls planted in the f32 route
+PRECISION_CONTROLS = {"tf32_rounded": 10, "bf16_rounded": 7}
 
 
 def emit(phase: str, **fields) -> None:
@@ -192,39 +225,57 @@ def he_scaled(params):
     return {n: {"w": v["w"] * math.sqrt(6.0), "b": v["b"]} for n, v in params.items()}
 
 
-def width_cfg(feat: int = FULL["feat_dim"], dtype=torch.bfloat16):
+def width_cfg(feat: int = FULL["feat_dim"], dtype=torch.bfloat16, level: int = FULL["coord_encode_level"]):
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    return fn.FusedNeRFConfig(**dict(FULL, feat_dim=feat), compute_dtype=dtype)
+    return fn.FusedNeRFConfig(**dict(FULL, feat_dim=feat, coord_encode_level=level), compute_dtype=dtype)
 
 
-def kernel_errors(params, pts, dirs, feat: int = FULL["feat_dim"]) -> dict:
-    """One kernel launch against the plain version in f32 on the same
-    bf16-rounded weights; the plain bf16 version's own error is the scale.
-    ``ok`` when the kernel's max-abs error is within 2x that + 1e-3."""
+def reference_of(params, tensors, cfg):
+    """The higher-precision plain version that a kernel of ``cfg`` is held
+    against, one precision up from ``cfg``'s own plain version: for bf16,
+    f32 on the bf16-rounded weights; for f32, f64 (weights and inputs cast).
+    -> ``(params, tensors, cfg)`` of that version."""
+    if cfg.compute_dtype == torch.bfloat16:
+        return bf16_rounded(params), tensors, dataclasses.replace(cfg, compute_dtype=torch.float32)
+    double = {n: {k: t.double() for k, t in v.items()} for n, v in params.items()}
+    return double, [t.double() for t in tensors], dataclasses.replace(cfg, compute_dtype=torch.float64)
+
+
+def kernel_errors(params, pts, dirs, feat: int = FULL["feat_dim"], dtype=torch.bfloat16,
+                  level: int = FULL["coord_encode_level"]) -> dict:
+    """One kernel launch against the plain version one precision up
+    (:func:`reference_of`: f32 on the same bf16-rounded weights for bf16,
+    f64 for f32); the plain version's own error in the config's type is
+    the scale. ``ok`` when the kernel's max-abs error is within 2x that +
+    the type's :data:`FLOOR`."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    cfg, cfg32 = width_cfg(feat), width_cfg(feat, torch.float32)
+    cfg = width_cfg(feat, dtype, level)
     public = params.public if isinstance(params, fn.KernelWeights) else params
-    params_r = {n: {k: t.to(torch.bfloat16).float() for k, t in v.items()} for n, v in public.items()}
+    ref_params, (rp, rd), ref_cfg = reference_of(public, [pts, dirs], cfg)
     before = fn.fused_nerf_apply.launches
     sigma, rgb = fn.fused_nerf_apply(params, pts, dirs, cfg)
     torch.cuda.synchronize()
     launched = fn.fused_nerf_apply.launches - before
-    s32, c32 = fn.fused_nerf_apply_reference(params_r, pts, dirs, cfg32)
+    s32, c32 = fn.fused_nerf_apply_reference(ref_params, rp, rd, ref_cfg)
     sbf, cbf = fn.fused_nerf_apply_reference(public, pts, dirs, cfg)
     err = {"sigma": (sigma - s32).abs().max().item(), "rgb": (rgb - c32).abs().max().item()}
     scale = {"sigma": (sbf - s32).abs().max().item(), "rgb": (cbf - c32).abs().max().item()}
-    ok = launched == 1 and all(math.isfinite(err[k]) and err[k] <= 2.0 * scale[k] + 1e-3 for k in err)
-    return dict(points=pts.shape[0], feat_dim=feat, route=fn.forward_route(cfg), max_abs_err=err,
-                plain_bf16_err=scale, tolerance="err <= 2 * plain_bf16_err + 1e-3",
-                sigma_f32_max=s32.max().item(), sigma_positive_share=(s32 > 0).float().mean().item(),
-                rgb_f32_std=c32.std().item(), launches=launched, ok=ok)
+    floor = FLOOR[dtype]
+    ok = launched == 1 and all(math.isfinite(err[k]) and err[k] <= 2.0 * scale[k] + floor for k in err)
+    plain = "plain_bf16_err" if dtype == torch.bfloat16 else "plain_f32_err"
+    return {"points": pts.shape[0], "feat_dim": feat, "coord_encode_level": level, "route": fn.forward_route(cfg),
+            "reference": str(ref_cfg.compute_dtype), "max_abs_err": err, plain: scale,
+            "tolerance": f"err <= 2 * {plain} + {floor}", "sigma_ref_max": s32.max().item(),
+            "sigma_positive_share": (s32 > 0).float().mean().item(), "rgb_ref_std": c32.std().item(),
+            "launches": launched, "ok": ok}
 
 
-def compare_with_plain(params, pts, dirs, feat: int = FULL["feat_dim"]) -> dict:
+def compare_with_plain(params, pts, dirs, feat: int = FULL["feat_dim"], dtype=torch.bfloat16,
+                       level: int = FULL["coord_encode_level"]) -> dict:
     """:func:`kernel_errors`, raising unless ``ok``."""
-    result = kernel_errors(params, pts, dirs, feat)
+    result = kernel_errors(params, pts, dirs, feat, dtype, level)
     if not result["ok"]:
         emit("kernel", **result)
         raise SystemExit("chip_smoke: kernel disagrees with its plain version")
@@ -259,19 +310,80 @@ def planted_faults(w, params) -> dict:
     }
 
 
-# (width, route) of every kernel-1 check: the wgmma route at the training
-# widths, the mma.sync route at a width outside them
-KERNEL1_WIDTHS = ((256, "wgmma"), (128, "wgmma"), (64, "wgmma"), (96, "mma_sync"))
+# (width, route, coord_encode_level) of every kernel-1 check: the wgmma
+# route at the training widths; the mma.sync route at widths outside them,
+# a padded one (48 -> 64), the widest (1024: 32-point tiles) and path B's
+# config (512, a 75-wide encoding); the f32 route at path A's config
+KERNEL1_WIDTHS = ((256, "wgmma", 10), (128, "wgmma", 10), (64, "wgmma", 10), (96, "mma_sync", 10),
+                  (256, "f32", 10), (512, "mma_sync", 12), (48, "mma_sync", 10), (1024, "mma_sync", 10))
+
+
+def route_dtype(route: str):
+    return torch.float32 if route == "f32" else torch.bfloat16
+
+
+def level_params(feat: int, level: int, seed: int, dev):
+    from torch_nerf_tpu_torch.models.nerf import init_nerf_params  # noqa: PLC0415
+
+    cfg = width_cfg(feat, level=level)
+    return init_nerf_params(torch.Generator(device=dev).manual_seed(seed), cfg.pos_enc_dim, cfg.dir_enc_dim,
+                            feat, device=dev)
+
+
+# faults planted in the general route's matrices, the way a wrong pointer,
+# k-tile order or layout would break them: a layer zeroed, a layer's
+# k16-tiles rolled by one tile, a layer in the other type's layout
+# (row-major in place of bf16 fragment order; the transpose in place of the
+# f32 row-major matrix)
+def general_fault(images, mats, index, kind, dtype):
+    bf16 = dtype == torch.bfloat16
+    if kind == "zeroed":
+        images[index] = torch.zeros_like(images[index])
+    elif kind == "k_tiles_rolled":
+        n = mats[index].shape[1]
+        images[index] = torch.roll(images[index], n // 8 * 32 if bf16 else 16, dims=0)
+    else:
+        m = mats[index]
+        images[index] = m.reshape(-1, 4).contiguous() if bf16 else m.t().contiguous()
+
+
+def rounded_to(x, bits: int):
+    """f32 ``x`` rounded to nearest at ``bits`` mantissa bits (ties away
+    from zero): 10 is TF32's, 7 bf16's."""
+    drop = 23 - bits
+    i = x.contiguous().view(torch.int32)
+    return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
+
+
+def general_forward_faults(w, params, cfg) -> dict:
+    """Copies of the general route's forward weights ``w`` with fc_1
+    zeroed, fc_6's k-tiles rolled, fc_3 in the other layout; on the f32
+    route also every matrix rounded as :data:`PRECISION_CONTROLS` says."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    mats = [fwd for fwd, _, _ in fn.general_matrices(params, cfg)]
+    out = {}
+    for name, index, kind in (("fc_1_zeroed", 1, "zeroed"), ("fc_6_k_tiles_rolled", 6, "k_tiles_rolled"),
+                              ("fc_3_other_layout", 3, "other_layout")):
+        images = list(w.weights)
+        general_fault(images, mats, index, kind, cfg.compute_dtype)
+        out[name] = dataclasses.replace(w, weights=tuple(images))
+    if cfg.compute_dtype == torch.float32:
+        for name, bits in PRECISION_CONTROLS.items():
+            out[name] = dataclasses.replace(w, weights=tuple(rounded_to(x, bits) for x in w.weights))
+    return out
 
 
 def phase_kernel():
     """Kernel 1 vs its plain version on 2^17 + 37 points (a ragged tail),
     with seeded port-init weights and their He-scaled copy, at every
-    width of :data:`KERNEL1_WIDTHS` (each on its route, the launch counted
-    on it); then, at full width, three trunk faults planted in the forward
-    images, which the check must reject with the He-scaled weights. The
-    main path's chunk shapes are compared in the bench phase."""
-    from torch_nerf_tpu_torch.models.nerf import init_nerf_params  # noqa: PLC0415
+    config of :data:`KERNEL1_WIDTHS` (each on its route, the launch counted
+    on it); then three trunk faults planted in the forward images of the
+    wgmma route at full width, and three in the forward matrices of each
+    general route at paths A's and B's configs, and on the f32 route its
+    matrices rounded to TF32 and to bf16 (:data:`PRECISION_CONTROLS`),
+    which the check must reject with the He-scaled weights. The main
+    path's chunk shapes are compared in the bench phases."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     dev = torch.device("cuda")
@@ -280,25 +392,35 @@ def phase_kernel():
     pts = torch.rand((m, 3), generator=gen, device=dev) * 8.0 - 4.0
     dirs = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1)
     results, routes_ok = {}, True
-    for feat, route in KERNEL1_WIDTHS:
-        base = init_nerf_params(torch.Generator(device=dev).manual_seed(0), 63, 27, feat, device=dev)
+    for feat, route, level in KERNEL1_WIDTHS:
+        base = level_params(feat, level, 0, dev)
         for wname, params in (("port_init", base), ("he", he_scaled(base))):
             before = dict(fn.fused_nerf_apply.route_launches)
-            results[f"{feat}/{wname}"] = compare_with_plain(params, pts, dirs, feat)
+            key = f"{feat}/{route}/L{level}/{wname}"
+            results[key] = compare_with_plain(params, pts, dirs, feat, route_dtype(route), level)
             counted = {k: fn.fused_nerf_apply.route_launches[k] - before[k] for k in before}
-            routes_ok = routes_ok and results[f"{feat}/{wname}"]["route"] == route and counted[route] == 1
+            routes_ok = routes_ok and results[key]["route"] == route and counted[route] == 1
     base = _seeded_params(0, dev)
     faults = {}
     for wname, params in (("port_init", base), ("he", he_scaled(base))):
         for fault, bad in planted_faults(fn.prepare(params, width_cfg()), params).items():
             r = kernel_errors(bad, pts, dirs)
             faults[f"{wname}/{fault}"] = {"rejected": not r["ok"], "max_abs_err": r["max_abs_err"]}
+    for route, g in GENERAL.items():
+        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
+        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+        for wname, params in (("port_init", base), ("he", he_scaled(base))):
+            for fault, bad in general_forward_faults(fn.prepare(params, cfg), params, cfg).items():
+                r = kernel_errors(bad, pts, dirs, g["feat_dim"], g["dtype"], g["coord_encode_level"])
+                faults[f"{wname}/{route}/{fault}"] = {"rejected": not r["ok"], "max_abs_err": r["max_abs_err"]}
     ok = routes_ok and all(v["rejected"] for k, v in faults.items() if k.startswith("he/"))
     emit("kernel", weights=results, routes_ok=routes_ok, planted_faults=faults,
-         rule="each width on its route; every planted fault rejected with the he weights", ok=ok)
+         rule="each config on its route; every planted fault rejected with the he weights", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel phase failed (a route, or a planted fault passed the comparison)")
-    return max(e for r in results.values() for e in r["max_abs_err"].values())
+    # the routes and widths of the earlier slices, as this phase returned them
+    return max(e for k, r in results.items() if k.split("/")[1] == "wgmma" or k.startswith("96/")
+               for e in r["max_abs_err"].values())
 
 
 def rel_l2(got: dict, ref: dict) -> dict:
@@ -321,10 +443,11 @@ def bf16_rounded(params):
     return {n: {k: t.to(torch.bfloat16).float() for k, t in v.items()} for n, v in params.items()}
 
 
-def judge(err: dict, scale: dict) -> dict:
+def judge(err: dict, scale: dict, floor: float = FLOOR[torch.bfloat16]) -> dict:
     """``ok`` when every relative L2 error is at most 2x the plain bf16
-    version's own + 1e-3; the worst entry by its share of that limit."""
-    limit = {k: 2.0 * scale[k] + 1e-3 for k in err}
+    version's own (the plain version's in the config's type) + ``floor``;
+    the worst entry by its share of that limit."""
+    limit = {k: 2.0 * scale[k] + floor for k in err}
     worst = max(err, key=lambda k: err[k] / limit[k])
     ok = all(math.isfinite(err[k]) and err[k] <= limit[k] for k in err)
     return dict(ok=ok, worst=worst, worst_err=err[worst], worst_limit=limit[worst],
@@ -404,22 +527,24 @@ def ray_points(o, d, t):
     return pts, dirs
 
 
-def bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref32, scale, runs=None) -> dict:
-    """One kernel-2 launch against the plain f32 version's grads ``ref32``
-    (by name, dpts and ddirs too): each within 2x the plain bf16 version's
-    relative L2 error ``scale`` + 1e-3; one launch. With ``runs``, the
-    kernel's grads are appended to it."""
+def bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref32, scale, runs=None, cfg=None) -> dict:
+    """One kernel-2 launch of ``cfg`` (default: the full-width bf16 config)
+    against the plain version one precision up, ``ref32`` (by name, dpts
+    and ddirs too): each within 2x the plain version's own relative L2
+    error ``scale`` + the type's :data:`FLOOR`; one launch. With ``runs``, the kernel's grads
+    are appended to it."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
+    cfg = cfg or fn.FusedNeRFConfig(**FULL)
     before = fn.fused_nerf_bwd.launches
-    grads, dp, dd = fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, fn.FusedNeRFConfig(**FULL))
+    grads, dp, dd = fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, cfg)
     torch.cuda.synchronize()
     got = named(grads, dpts=dp, ddirs=dd)
     if runs is not None:
         runs.append(got)
-    verdict = judge(rel_l2(got, ref32), scale)
+    verdict = judge(rel_l2(got, ref32), scale, FLOOR[cfg.compute_dtype])
     verdict["ok"] = verdict["ok"] and fn.fused_nerf_bwd.launches == before + 1
-    verdict["max_abs_err"] = max((got[k] - ref32[k]).abs().max().item() for k in ref32)
+    verdict["max_abs_err"] = max((got[k].double() - ref32[k].double()).abs().max().item() for k in ref32)
     return verdict
 
 
@@ -487,6 +612,7 @@ def phase_kernel_bwd(batch):
                     v = check()
                 faults[f"{wname}/{fname}"] = {"rejected": not v["ok"], "worst": v["worst"],
                                              "worst_err": v["worst_err"], "worst_limit": v["worst_limit"]}
+    general = general_bwd_checks(batch)
     ok = all(r["ok"] for r in results.values()) and all(
         v["rejected"] for k, v in faults.items() if k.startswith("he/"))
     emit("kernel_bwd", cases=results, planted_faults=faults,
@@ -494,7 +620,126 @@ def phase_kernel_bwd(batch):
          rule="every planted fault rejected with the he weights", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel_bwd failed")
-    return max_abs
+    return {"max_abs_err": max_abs, "general": general}
+
+
+@contextlib.contextmanager
+def planted_general(index, kind, which):
+    """Route the general route's layout through :func:`general_fault` of
+    layer ``index`` in its forward (``which`` 0) or chain (2) matrices."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    real = fn.general_layout
+
+    def broken(params, cfg):
+        out = list(real(params, cfg))
+        images = list(out[which])
+        general_fault(images, [m[which] for m in fn.general_matrices(params, cfg)], index, kind, cfg.compute_dtype)
+        out[which] = images
+        return tuple(out)
+
+    fn.general_layout = broken
+    try:
+        yield
+    finally:
+        fn.general_layout = real
+
+
+# the training kernels' faults on the general route: (layer, kind, matrices)
+GENERAL_TRAIN_FAULTS = {
+    "chain_fc_6_zeroed": (6, "zeroed", 2),
+    "fwd_fc_2_k_tiles_rolled": (2, "k_tiles_rolled", 0),
+    "chain_fc_3_other_layout": (3, "other_layout", 2),
+}
+
+
+@contextlib.contextmanager
+def planted_rounding(bits: int):
+    """Route the f32 route's layout through :func:`rounded_to`: every
+    forward and chain matrix at ``bits`` mantissa bits, as a chain of
+    TF32 or bf16 products would read its weights."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    real = fn.general_layout
+
+    def rounded(params, cfg):
+        fwd, biases, chain = real(params, cfg)
+        return [rounded_to(x, bits) for x in fwd], biases, [rounded_to(x, bits) for x in chain]
+
+    fn.general_layout = rounded
+    try:
+        yield
+    finally:
+        fn.general_layout = real
+
+
+def general_train_faults(route: str) -> dict:
+    """name -> a context that plants it in ``route``'s training kernels:
+    :data:`GENERAL_TRAIN_FAULTS`, and on the f32 route the
+    :data:`PRECISION_CONTROLS`."""
+    out = {name: (lambda spec=spec: planted_general(*spec)) for name, spec in GENERAL_TRAIN_FAULTS.items()}
+    if route == "f32":
+        out.update({name: (lambda b=bits: planted_rounding(b)) for name, bits in PRECISION_CONTROLS.items()})
+    return out
+
+
+def general_bwd_checks(batch) -> dict:
+    """Kernel 2 on each general route (:data:`GENERAL`: path A's f32 config,
+    path B's width 512 with a 75-wide encoding in bf16) at the main path's
+    fine shape, 4096 x 192 = 786,432 points of a train batch, with seeded
+    random cotangents, PyTorch-default weights and their He-scaled copy:
+    every grad, dpts and ddirs by :func:`bwd_verdict` against the plain
+    version one precision up (:func:`reference_of`), the plain version's
+    own error the scale; a second launch bit-identical. Then the planted
+    faults of :func:`general_train_faults` on 2^16 + 37 random points, each
+    of which must fail that check with the He-scaled weights. -> ``{route:
+    max-abs error}``; raises on a failure."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    m = 2**16 + 37
+    rand = (torch.rand((m, 3), generator=gen, device=dev) * 8.0 - 4.0,
+            torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1))
+    fine = ray_points(batch["o"], batch["d"], batch["t_f"])
+    results, faults, worst = {}, {}, {}
+    for route, g in GENERAL.items():
+        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
+        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+        worst[route] = 0.0
+        for case, (pts, dirs) in (("fine", fine), ("random", rand)):
+            g_sigma = torch.randn((pts.shape[0],), generator=gen, device=dev)
+            g_rgb = torch.randn((pts.shape[0], 3), generator=gen, device=dev)
+            for wname, params in (("port_init", base), ("he", he_scaled(base))):
+                rparams, rt, rcfg = reference_of(params, [pts, dirs, g_sigma, g_rgb], cfg)
+                ref = bwd_reference(rparams, *rt, rcfg)
+                scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref)
+
+                def check(runs=None):
+                    return bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref, scale, runs, cfg)
+
+                key = f"{route}/{case}/{wname}"
+                if case == "fine":
+                    runs = []
+                    results[key] = dict(points=pts.shape[0], **check(runs))
+                    check(runs)
+                    same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+                    results[key].update(relaunch_bit_identical=same, ok=results[key]["ok"] and same)
+                    worst[route] = max(worst[route], results[key]["max_abs_err"])
+                    continue
+                for fname, plant in general_train_faults(route).items():
+                    with plant():
+                        v = check()
+                    faults[f"{wname}/{route}/{fname}"] = {"rejected": not v["ok"], "worst": v["worst"],
+                                                         "worst_err": v["worst_err"],
+                                                         "worst_limit": v["worst_limit"]}
+    ok = all(r["ok"] for r in results.values()) and all(
+        v["rejected"] for k, v in faults.items() if k.startswith("he/"))
+    emit("kernel_bwd_general", cases=results, planted_faults=faults, routes={r: str(g) for r, g in GENERAL.items()},
+         tolerance="rel L2 <= 2 * the plain version's rel L2 + FLOOR (bf16 1e-3, f32 1e-5), each of 22 grads, dpts, "
+                   "ddirs; the reference one precision up (bf16: f32 on bf16-rounded weights; f32: f64)",
+         rule="a second launch bit-identical; every planted fault rejected with the he weights", ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: kernel_bwd_general failed")
+    return worst
 
 
 def train_reference(params, o, d, t, delta, gt, cfg, num_real):
@@ -549,9 +794,10 @@ def fine_depths(w_coarse, uni, settings):
     ).contiguous()
 
 
-def composite_errors(c, w, c32, w32, cbf, wbf, tail) -> dict:
+def composite_errors(c, w, c32, w32, cbf, wbf, tail, floor: float = FLOOR[torch.bfloat16]) -> dict:
     """rgb (N, 3) and weights (N, S) of a pass against the plain f32
-    version's, each measure within 2x the plain bf16 version's own + 1e-3:
+    version's, each measure within 2x the plain bf16 version's own +
+    ``floor`` (for f32: against f64, the plain f32 version's the scale):
     the relative L2 error of each; the max-abs error of the weights but at
     the ray's tail, the intervals of ``tail`` (N, S) (delta 1e8: the last
     one of a dense plane, the last kept sample's of a pruned ray that took
@@ -572,7 +818,7 @@ def composite_errors(c, w, c32, w32, cbf, wbf, tail) -> dict:
                 "rgb_max_abs_unflipped": (c_[keep] - c32[keep]).abs().max().item() if keep.any() else 0.0}
 
     err, scale = measures(c, w), measures(cbf, wbf)
-    limit = {k: 2.0 * scale[k] + 1e-3 for k in err}
+    limit = {k: 2.0 * scale[k] + floor for k in err}
     ok = all(math.isfinite(err[k]) and err[k] <= limit[k] for k in err)
     return dict(ok=ok, err=err, limit=limit, flipped_rays=int(flip.sum()),
                 plain_flipped_rays=int(moved(wbf).sum()),
@@ -703,7 +949,80 @@ def phase_kernel_train(batch):
          ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel_train failed")
-    return max_abs
+    return {"max_abs_err": max_abs, "general": general_train_checks(batch)}
+
+
+def general_train_checks(batch) -> dict:
+    """Kernel 3 on each general route (:data:`GENERAL`) at the main path's
+    shapes, 4096 x 64 and 4096 x 192 (the batch's sorted depths), with
+    PyTorch-default weights and their He-scaled copy: rgb and weights as
+    :func:`composite_errors` measures them and the 22 grads by relative L2,
+    each against the plain version one precision up (:func:`reference_of`)
+    within 2x the plain version's own error + the type's :data:`FLOOR`; a second launch
+    bit-identical. Then, at the coarse shape, the planted faults of
+    :func:`general_train_faults`, each of which must fail the check with
+    the He-scaled weights. -> ``{route: max-abs error}``; raises on a
+    failure."""
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    o, d, gt = batch["o"], batch["d"], batch["gt"]
+    results, faults, worst = {}, {}, {}
+    for route, g in GENERAL.items():
+        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
+        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+        worst[route] = 0.0
+        for case, t in (("coarse", batch["t_c"]), ("fine", batch["t_f"])):
+            delta = sampling.t_deltas(t)
+            tail = delta >= 1e7
+            args = (o, d, t, delta, gt)
+            for wname, params in (("port_init", base), ("he", he_scaled(base))):
+                rparams, rargs, rcfg = reference_of(params, list(args), cfg)
+                cr, wr, gr = train_reference(rparams, *rargs, rcfg, 4096)
+                cp, wp, gp = train_reference(params, *args, cfg, 4096)
+                ref = named(gr)
+                scale = rel_l2(named(gp), ref)
+
+                def check(runs=None):
+                    before = ftm.fused_train_pass.launches
+                    c, w, g_ = ftm.fused_train_pass(params, *args, cfg, 4096)
+                    torch.cuda.synchronize()
+                    if runs is not None:
+                        runs.append(named(g_, rgb=c, weights=w))
+                    verdict = judge(rel_l2(named(g_), ref), scale, FLOOR[g["dtype"]])
+                    comp = composite_errors(c, w, cr.float(), wr.float(), cp, wp, tail, FLOOR[g["dtype"]])
+                    verdict.update(grads_ok=verdict["ok"], composite=comp)
+                    verdict["ok"] = verdict["ok"] and comp["ok"] and ftm.fused_train_pass.launches == before + 1
+                    verdict["max_abs_err"] = max([comp["max_abs_err"]] + [
+                        (g_[n_][k].double() - gr[n_][k].double()).abs().max().item() for n_ in g_ for k in g_[n_]])
+                    return verdict
+
+                runs = []
+                key = f"{route}/{case}/{wname}"
+                results[key] = check(runs)
+                check(runs)
+                same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+                results[key].update(relaunch_bit_identical=same, ok=results[key]["ok"] and same)
+                worst[route] = max(worst[route], results[key]["max_abs_err"])
+                if case != "coarse":
+                    continue
+                for fname, plant in general_train_faults(route).items():
+                    with plant():
+                        v = check()
+                    faults[f"{wname}/{route}/{fname}"] = {"rejected": not v["ok"], "worst": v["worst"],
+                                                         "worst_err": v["worst_err"],
+                                                         "worst_limit": v["worst_limit"]}
+    ok = all(r["ok"] for r in results.values()) and all(
+        v["rejected"] for k, v in faults.items() if k.startswith("he/"))
+    emit("kernel_train_general", cases=results, planted_faults=faults,
+         routes={r: str(g) for r, g in GENERAL.items()},
+         tolerance="rgb, weights as composite_errors, grads rel L2: each <= 2 * the plain version's + FLOOR (bf16 "
+                   "1e-3, f32 1e-5), the reference one precision up (bf16: f32 on bf16-rounded weights; f32: f64)",
+         rule="a second launch bit-identical; every planted fault rejected with the he weights", ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: kernel_train_general failed")
+    return worst
 
 
 def _field_and_params(dev, use_kernel=True, dtype=torch.bfloat16):
@@ -931,6 +1250,39 @@ def phase_train(work: Path):
     return {"fused_train_pass": sum(launches), "fused_nerf_fwd": sum(c["wgmma"] + c["mma_sync"] for c in k1)}
 
 
+def train_resume_render_routes(work: Path, route: str) -> dict:
+    """Path A (``route`` f32) or B (mma_sync) through the CLIs: ``run_train
+    --config default`` with :data:`GENERAL_OVERRIDES` on gaussian_blobs at
+    400x400 (8 views), 24 steps with a validation (an 800x800 val view, 157
+    chunks), a checkpoint and a visualisation (a 400x400 view, 40 chunks),
+    a resume for 8 more, then ``run_render`` + ``evaluate`` of two 800x800
+    test views (:func:`train_resume_render`). Each call's launches counted
+    by route from 0: kernel 3 twice a step and kernel 1 twice a 4096-ray
+    chunk, all on ``route``, none on the others; kernel 2 not at all."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+
+    counted = [ftm.fused_train_pass, fn.fused_nerf_apply, fn.fused_nerf_bwd]
+    done = train_resume_render(work, GENERAL_PHASES[route], ["--config", "default"] + GENERAL_OVERRIDES[route]
+                               + NGP_TRAIN_OVERRIDES, counted)
+    chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
+
+    def on_route(k3, k1):
+        return [{r: (k3 if r == route else 0) for r in fn.ROUTES}, {r: (k1 if r == route else 0) for r in fn.ROUTES},
+                dict.fromkeys(fn.ROUTES, 0)]
+
+    want = [on_route(48, 2 * (chunks_800 + chunks_400)), on_route(16, 0), on_route(0, 2 * 2 * chunks_800)]
+    got = done["route_launches"]
+    ok = done["ok"] and got == want
+    name = GENERAL_PHASES[route]
+    emit(name, route=route, config=GENERAL_OVERRIDES[route], seconds=done["seconds"],
+         route_launches_kernel3_kernel1_kernel2={"train": got[0], "resume": got[1], "render": got[2]},
+         expected={"train": want[0], "resume": want[1], "render": want[2]}, **done["report"], ok=ok)
+    if not ok:
+        raise SystemExit(f"chip_smoke: {name} phase failed")
+    return {"fused_train_pass": sum(c[0][route] for c in got), "fused_nerf_fwd": sum(c[1][route] for c in got)}
+
+
 def bench_step(step, state, grid, images, poses, gen):
     """One image train step, threading the occupancy grid where there is one."""
     if grid is None:
@@ -1047,6 +1399,126 @@ def phase_train_bench(smi: str):
     if not ok:
         raise SystemExit("chip_smoke: train_bench phase failed")
     return dict(kernels=kernels, generic_bwd_launches=paths["generic"]["launches"]["fused_nerf_bwd"])
+
+
+def phase_train_bench_general(smi: str) -> dict:
+    """Paths A and B at bench.py's train point (8 views at 400x400, 4096
+    rays, 64 + 128 samples): 2 warm-up and 10 timed steps, fused and
+    force_generic, the launches of each path counted by route over its
+    timed steps; then kernel 1 held against its plain version
+    (:func:`compare_with_plain`) at the path's render chunks, 4096 rays x 64
+    coarse and x 192 fine depths of a step's batch, with the path's trained
+    weights and seeded port-init weights and their He-scaled copy; then
+    kernel 3 alone per coarse and fine pass, kernel 2 at the fine shape and
+    kernel 1 on the fine chunk (786,432 points), by CUDA events, beside
+    their bounds (the card's peak for the route's type: bf16 tensor cores
+    for mma_sync, :data:`F32_PEAK` for f32) and the plain versions'
+    times."""
+    from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners.train_ab import step_batch  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
+    images = torch.as_tensor(images, device=dev)
+    poses = torch.as_tensor(poses, device=dev)
+    settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
+    optim = train.OptimConfig()
+    bf16_peak, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    timed = 10
+    out, ok = {}, True
+    for route, g in GENERAL.items():
+        field = make_nerf_field(coord_encode_level=g["coord_encode_level"], feat_dim=g["feat_dim"],
+                                compute_dtype=g["dtype"])
+        cfg = field.fused_cfg
+        peak = F32_PEAK if route == "f32" else bf16_peak
+        paths, states = {}, {}
+        for path, generic in (("fused", False), ("generic", True)):
+            state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
+            step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            for _ in range(2):
+                state, _, _ = bench_step(step, state, None, images, poses, gen)
+            torch.cuda.synchronize()
+            fn.reset_launches()
+            ftm.reset_launches()
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                state, _, metrics = bench_step(step, state, None, images, poses, gen)
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            losses = [float(v) for v in losses]
+            paths[path] = dict(ms_per_step=elapsed / timed * 1e3, rays_per_sec=4096 * timed / elapsed,
+                               route_launches={"fused_train_pass": dict(ftm.fused_train_pass.route_launches),
+                                               "fused_nerf_fwd": dict(fn.fused_nerf_apply.route_launches),
+                                               "fused_nerf_bwd": dict(fn.fused_nerf_bwd.route_launches)},
+                               loss_first=losses[0], loss_last=losses[-1],
+                               finite=all(math.isfinite(v) for v in losses))
+            states[path] = (state, step, gen)
+        clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+
+        state, step, gen = states["fused"]
+        pc, pf = state.params["coarse"], state.params["fine"]
+        o, d, gt, uni = step_batch(step, images, poses, camera, gen)
+        t_c = sampling.stratified_t_samples_from_uniforms(uni.coarse, settings.t_near, settings.t_far)
+        with torch.no_grad():
+            _, w_c, _ = ftm.fused_train_pass(pc, o, d, t_c, sampling.t_deltas(t_c), gt, cfg, 4096)
+            t_f = fine_depths(w_c, uni, settings)
+        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+        chunk_checks = {}
+        for shape, t in (("coarse", t_c), ("fine", t_f)):
+            pts, dirs = ray_points(o, d, t)
+            for wname, params in (("trained", pc if shape == "coarse" else pf), ("port_init", base),
+                                  ("he", he_scaled(base))):
+                chunk_checks[f"{shape}/{wname}"] = compare_with_plain(
+                    fn.prepare(params, cfg), pts, dirs, g["feat_dim"], g["dtype"], g["coord_encode_level"])
+        param_bytes = 4 * sum(t.numel() for v in pc.values() for t in v.values())
+        kernels = {}
+        with torch.no_grad():
+            for name, params, t in (("coarse", pc, t_c), ("fine", pf, t_f)):
+                delta = sampling.t_deltas(t)
+                m = t.numel()
+                ms = cuda_ms(lambda: ftm.fused_train_pass(params, o, d, t, delta, gt, cfg, 4096), 5)
+                plain = cuda_ms(lambda: train_reference(params, o, d, t, delta, gt, cfg, 4096), 1)
+                kernels[f"fused_train_pass/{name}"] = bound_entry(
+                    ms, plain, 3 * fn.flops_per_point(cfg) * m, 12 * m + 48 * 4096 + 2 * param_bytes, peak, peak_bw, m)
+            pts, dirs = ray_points(o, d, t_f)
+            m = pts.shape[0]
+            gk = torch.Generator(device=dev).manual_seed(4)
+            g_sigma = torch.randn((m,), generator=gk, device=dev)
+            g_rgb = torch.randn((m, 3), generator=gk, device=dev)
+            ms = cuda_ms(lambda: fn.fused_nerf_bwd(pf, pts, dirs, g_sigma, g_rgb, cfg), 3)
+            plain = cuda_ms(lambda: bwd_reference(pf, pts, dirs, g_sigma, g_rgb, cfg), 1)
+            kernels["fused_nerf_bwd/fine"] = bound_entry(ms, plain, 3 * fn.flops_per_point(cfg) * m,
+                                                         64 * m + 2 * param_bytes, peak, peak_bw, m)
+            prepared = fn.prepare(pf, cfg)
+            ms = cuda_ms(lambda: fn.fused_nerf_apply(prepared, pts, dirs, cfg), 5)
+            plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(pf, pts, dirs, cfg), 2)
+            kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, fn.flops_per_point(cfg) * m,
+                                                         40 * m + param_bytes, peak, peak_bw, m)
+        zero = dict.fromkeys(fn.ROUTES, 0)
+        want = {"fused": {"fused_train_pass": dict(zero, **{route: 2 * timed}), "fused_nerf_fwd": zero,
+                          "fused_nerf_bwd": zero},
+                "generic": {"fused_train_pass": zero, "fused_nerf_fwd": dict(zero, **{route: 2 * timed}),
+                            "fused_nerf_bwd": dict(zero, **{route: 2 * timed})}}
+        route_ok = all(p["finite"] for p in paths.values()) and all(
+            paths[p]["route_launches"] == want[p] for p in paths)
+        ok = ok and route_ok
+        out[route] = dict(config=GENERAL_OVERRIDES[route], sm_clock_temp_power=clocks, timed_steps=timed,
+                          paths=paths, expected_route_launches=want, kernels=kernels, peak_flops=peak, ok=route_ok,
+                          fwd_chunk_checks=chunk_checks,
+                          fwd_max_abs_err=max(e for r in chunk_checks.values() for e in r["max_abs_err"].values()),
+                          generic_bwd_launches=paths["generic"]["route_launches"]["fused_nerf_bwd"][route])
+    emit("train_bench_general", card=smi, routes=out, peak_bytes_per_s=peak_bw, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_bench_general phase failed")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1342,9 +1814,16 @@ def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
     run, out, gt = work / f"{name}_run", work / f"{name}_render", work / f"{name}_gt"
     logs, results, launches, launch_shapes = [], [], [], []
     t0 = time.perf_counter()
+    routes = []
+
+    def by_route():
+        # read right after run_cli, which set every count to 0 before the call
+        return [dict(getattr(w, "route_launches", {})) for w in counted]
+
     for max_steps in (24, 32):
         r, log, c, sh = run_cli(run_train.main, ["--log-dir", str(run), "--max-steps", str(max_steps)] + train_args,
                                 counted)
+        routes.append(by_route())
         results.append(r)
         logs.append(log)
         launches.append(c)
@@ -1352,6 +1831,7 @@ def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
     train_s = time.perf_counter() - t0
     _, _, render_launches, render_shapes = run_cli(run_render.main, [
         "--log-dir", str(run), "--render-test-views", "--num-views", "2", "--out-dir", str(out)], counted)
+    routes.append(by_route())
     cfg = config.load_config(run / "config.yaml")
     data = session.build_dataset(cfg, "test", device=torch.device("cuda"))
     gt.mkdir(parents=True)
@@ -1368,6 +1848,7 @@ def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
           and (run / "ckpt" / "ckpt_000032.pt").exists() and shapes == [[800, 800, 3]] * 2
           and all(math.isfinite(v) for v in scores.values()))
     return dict(ok=ok, seconds=train_s, results=results, launches=launches, render_launches=render_launches,
+                route_launches=routes,
                 shapes=launch_shapes, render_shapes=render_shapes, run=run,
                 report=dict(steps=[r["step"] for r in results], losses=losses, mean_loss_first8=first8,
                             mean_loss_last8=last8, validation=val, resumed=resumed, png_shapes=shapes,
@@ -3490,6 +3971,38 @@ def kernel_lines(done: dict) -> list:
     return lines
 
 
+def general_entries(done: dict) -> list:
+    """The general route's entries of the ``kernels`` line: kernels 1-3 on
+    each route of :data:`GENERAL`, with their launches over the route's CLI
+    phase (kernel 2: over train_bench_general's force_generic steps), their
+    largest max-abs error against the plain version one precision up at
+    the main path's shapes (kernel 1: train_bench_general's chunk checks),
+    and their times and bounds at the fine shape from
+    train_bench_general."""
+    out = []
+    sources = {"fused_nerf_fwd": ("fused_nerf_fwd.cu", "fused_nerf.py:397"),
+               "fused_nerf_bwd": ("fused_nerf_bwd.cu", "fused_nerf.py:487"),
+               "fused_train_pass": ("fused_train.cu", "fused_train.py:196")}
+    for route in GENERAL:
+        bench = done["train_bench_general"][route]
+        path = done[GENERAL_PHASES[route]]
+        launches = {"fused_nerf_fwd": path["fused_nerf_fwd"], "fused_train_pass": path["fused_train_pass"],
+                    "fused_nerf_bwd": bench["generic_bwd_launches"]}
+        errors = {"fused_nerf_fwd": bench["fwd_max_abs_err"],
+                  "fused_nerf_bwd": done["kernel_bwd"]["general"][route],
+                  "fused_train_pass": done["kernel_train"]["general"][route]}
+        for name, (src, replaces) in sources.items():
+            k = bench["kernels"][f"{name}/fine"]
+            out.append({"name": f"{name}/{route}", "route": "cuda",
+                        "source": f"torch_nerf_tpu_torch/ops/csrc/{src} + nerf_mlp_general.cuh",
+                        "replaces": f"torch_nerf_tpu/ops/pallas/{replaces}", "launches": launches[name],
+                        "launches_path": GENERAL_PHASES[route] if name != "fused_nerf_bwd" else "train_bench_general",
+                        "config": GENERAL_OVERRIDES[route], "max_abs_err": errors[name], "ms": k["ms"],
+                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                        "library_ms": None})
+    return out
+
+
 def _kernel_entries(done: dict) -> list:
     shapes = done["bench"]
     fine = shapes["fine"]
@@ -3507,13 +4020,13 @@ def _kernel_entries(done: dict) -> list:
         {"name": "fused_nerf_bwd", "route": "cuda",
          "source": "torch_nerf_tpu_torch/ops/csrc/fused_nerf_bwd.cu",
          "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:487",
-         "launches": done["train_bench"]["generic_bwd_launches"], "max_abs_err": done["kernel_bwd"],
+         "launches": done["train_bench"]["generic_bwd_launches"], "max_abs_err": done["kernel_bwd"]["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "fused_train_pass", "route": "cuda",
          "source": "torch_nerf_tpu_torch/ops/csrc/fused_train.cu",
          "replaces": "torch_nerf_tpu/ops/pallas/fused_train.py:196", "launches": done["train"]["fused_train_pass"],
-         "max_abs_err": done["kernel_train"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "max_abs_err": done["kernel_train"]["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None},
     ] + [
         {"name": name, "route": "cuda", "source": "torch_nerf_tpu_torch/ops/csrc/hash_grid.cu",
@@ -3562,7 +4075,10 @@ def main() -> int:
         "kernel_fold": phase_kernel_fold(),
         "serve": phase_serve(work),
         "train": phase_train(work),
+        "train_f32": train_resume_render_routes(work, "f32"),
+        "train_wide": train_resume_render_routes(work, "mma_sync"),
         "train_bench": phase_train_bench(smi),
+        "train_bench_general": phase_train_bench_general(smi),
         "bench": phase_bench(smi),
         "train_ngp": phase_train_ngp(work),
         "train_packed": phase_train_packed(work),
@@ -3580,7 +4096,7 @@ def main() -> int:
     phase_lpips(work, done["train_multi"]["render_dir"], done["train_multi"]["gt_dir"])
     phase_profile(work)
     print(smi)
-    print(json.dumps({"kernels": kernel_lines(done)}))
+    print(json.dumps({"kernels": kernel_lines(done) + general_entries(done)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -5,9 +5,12 @@ The plain version ``fused_nerf_apply_reference`` is held against JAX's
 CPU (Pallas interpret mode, float32, tile 64), with the weights carried
 across by ``params_from_jax``: rtol 1e-4 / atol 1e-5, since XLA and torch
 sum the products in different orders. The kernel itself runs only on a
-Hopper card; its host-side weight layout is checked here by replaying the
-kernel's data flow from the laid-out fragments.
+Hopper card; its host-side weight layout (the general route's, in
+fragment order) is checked here by replaying the kernel's data flow from the
+laid-out fragments.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -124,22 +127,24 @@ def _unfragment(frags, k, n):
 
 
 def test_kernel_weight_layout_replays_the_plain_version():
-    """Run the kernel's data flow (padded segments, fc_8 column 0 as sigma,
-    its columns 1: as the features) in f32 from the laid-out weights, with
+    """Run the general route's data flow (padded segments, fc_8's sigma at
+    column F after its features) in f32 from the laid-out fragments, with
     the kernel's bf16 roundings: it must equal the plain bf16 version up to
     the final sigmoid, which the kernel keeps in f32."""
     params = nerf.params_from_jax(_jax_params(5))
     cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=L_POS, dir_encode_level=L_DIR, feat_dim=FEAT)
-    layout = fused_nerf.kernel_layout(params, cfg)
-    mats = []
-    for w, b in layout:
+    mats = fused_nerf.general_matrices(params, cfg)
+    fwd, biases, _ = fused_nerf.general_layout(params, cfg)
+    laid = []
+    for (w, b, _), frags, bias in zip(mats, fwd, biases):
         assert w.shape[0] % 16 == 0 and w.shape[1] % 8 == 0 and b.shape == (w.shape[1],)
-        mats.append((_unfragment(fused_nerf.fragment_order(w), *w.shape).float(), b.float()))
-    assert [tuple(w.shape) for w, _ in layout][:1] == [(32, FEAT)]
-    assert tuple(layout[5][0].shape) == (32 + FEAT, FEAT)
-    assert tuple(layout[8][0].shape) == (FEAT, FEAT + 8)
-    assert tuple(layout[9][0].shape) == (FEAT + 16, FEAT // 2)
-    assert tuple(layout[10][0].shape) == (FEAT // 2, 8)
+        assert torch.equal(bias, b)
+        laid.append((_unfragment(frags, *w.shape).float(), b.float()))
+    assert [tuple(w.shape) for w, _, _ in mats][:1] == [(32, FEAT)]
+    assert tuple(mats[5][0].shape) == (32 + FEAT, FEAT)
+    assert tuple(mats[8][0].shape) == (FEAT, FEAT + 8)
+    assert tuple(mats[9][0].shape) == (FEAT + 16, FEAT // 2)
+    assert tuple(mats[10][0].shape) == (FEAT // 2, 8)
 
     pts, dirs = (torch.from_numpy(a) for a in _data(70, seed=6))
 
@@ -147,7 +152,7 @@ def test_kernel_weight_layout_replays_the_plain_version():
         return x.to(torch.bfloat16).float()
 
     def lin(x, i):
-        return bf(bf(x @ mats[i][0]) + mats[i][1])
+        return bf(bf(x @ laid[i][0]) + laid[i][1])
 
     pe = torch.nn.functional.pad(bf(encoders.positional_encoding(pts, L_POS)), (0, 32 - PE_DIM))
     de = torch.nn.functional.pad(bf(encoders.positional_encoding(dirs, L_DIR)), (0, 16 - DE_DIM))
@@ -158,8 +163,8 @@ def test_kernel_weight_layout_replays_the_plain_version():
     for i in (6, 7):
         h = torch.relu(lin(h, i))
     z8 = lin(h, 8)
-    sigma = torch.relu(z8[:, 0])
-    h9 = torch.relu(lin(torch.cat([z8[:, 1 : FEAT + 1], de], dim=1), 9))
+    sigma = torch.relu(z8[:, FEAT])
+    h9 = torch.relu(lin(torch.cat([z8[:, :FEAT], de], dim=1), 9))
     z_out = lin(h9, 10)[:, :3]
 
     ref_sigma, ref_rgb = fused_nerf.fused_nerf_apply_reference(params, pts, dirs, cfg)
@@ -200,8 +205,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     pts = torch.zeros(4, 3)
     params = nerf.params_from_jax(_jax_params(9))
     w = fused_nerf.prepare(params, CFG32)
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_nerf._check_inputs(pts, pts, w, CFG32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fused_nerf._check_inputs(pts, pts, w, dataclasses.replace(CFG32, compute_dtype=torch.float16))
+    # weights laid out for the bf16 wgmma route do not run an f32 config
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        fused_nerf._check_inputs(pts, pts, dataclasses.replace(w, route="wgmma"), CFG32)
     bf_cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=L_POS, dir_encode_level=L_DIR, feat_dim=FEAT)
     with pytest.raises(ValueError, match="CUDA"):
         fused_nerf._check_inputs(pts, pts, w, bf_cfg)

@@ -1,9 +1,10 @@
 """The field's forward kernel (kernel 1) on its two routes, and the check
 that refuses, before any data loads, a config the card cannot train.
 
-Kernel 1 takes widths 64, 128 and 256 on ``wgmma``, reading the training
-kernels' forward images, and any other width ``F % 32 == 0`` on
-``mma.sync``, reading fragment order (``fused_nerf.forward_route``). The
+Kernel 1 takes bf16 widths 64, 128 and 256 on ``wgmma``, reading the
+training kernels' forward images, any other bf16 config up to width 1024
+on ``mma.sync`` and f32 on ``f32``, the general route, reading its
+matrices (``fused_nerf.forward_route``). The
 kernel runs only on a Hopper card; here the Python side of its contract
 is held on the CPU: the forward images of ``kernel_weights`` turn back into
 the padded W^T of ``training_matrices``, and a plain walk over the images,
@@ -17,6 +18,8 @@ in another order); bf16 atol 2e-2 against JAX (each layer rounds to bf16,
 one tie may break one ulp apart: the bound of the existing parity tests)
 and atol 1e-2 against the port's plain bf16 version.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -62,11 +65,10 @@ def test_wgmma_weights_are_the_forward_images(feat):
         assert w.weights[i].dtype == torch.bfloat16 and w.weights[i].dim() == 1, name
         assert torch.equal(_unpanel(w.weights[i], *fwd.shape), fwd), name
         assert torch.equal(w.biases[i], bias), name
-    # the mma.sync route keeps fragment order
+    # the mma.sync route reads the general route's matrices in fragment order
     frags = fused_nerf.kernel_weights(params, cfg, "mma_sync")
-    layout = fused_nerf.kernel_layout(params, cfg)
     assert frags.route == "mma_sync"
-    for got, (mat, _) in zip(frags.weights, layout):
+    for got, (mat, _, _) in zip(frags.weights, fused_nerf.general_matrices(params, cfg)):
         assert torch.equal(got, fused_nerf.fragment_order(mat))
     with pytest.raises(ValueError, match="route"):
         fused_nerf.kernel_weights(params, cfg, "tensor_cores")
@@ -159,15 +161,17 @@ def test_forward_route_by_width(feat, route):
 
 
 def test_forward_route_raises_and_keeps_every_width():
-    with pytest.raises(ValueError, match="feat_dim % 32"):
-        fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=48))
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32))
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=1024))
+    # a width off the 32s is padded onto mma_sync, f32 takes its own route,
+    # 1024 fits 32-point tiles; past the limits the route raises
+    assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=48)) == "mma_sync"
+    assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32)) == "f32"
+    wide = fused_nerf.FusedNeRFConfig(feat_dim=1024)
+    assert fused_nerf.forward_route(wide) == "mma_sync" and fused_nerf.tile_rows(wide) == (32, 32, 32)
+    with pytest.raises(ValueError, match="feat_dim up to 1024"):
+        fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=1056))
     # encodings wider than 64 leave the wgmma route but are still served
     assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(coord_encode_level=11)) == "mma_sync"
-    assert fused_nerf.mma_smem_bytes(fused_nerf.FusedNeRFConfig()) == 64 * (72 + 40 + 2 * 264) * 2
+    assert fused_nerf.tile_rows(dataclasses.replace(wide, compute_dtype=torch.float32)) == (16, 16, 16)
 
 
 def test_route_launch_counts_start_at_zero_and_reset():
@@ -175,11 +179,11 @@ def test_route_launch_counts_start_at_zero_and_reset():
     fused_nerf.fused_nerf_apply.launches += 2
     fused_nerf.reset_launches()
     assert fused_nerf.fused_nerf_apply.launches == 0
-    assert fused_nerf.fused_nerf_apply.route_launches == {"wgmma": 0, "mma_sync": 0}
+    assert fused_nerf.fused_nerf_apply.route_launches == {"wgmma": 0, "mma_sync": 0, "f32": 0}
 
 
-@pytest.mark.parametrize("override,key", [("network.feat_dim=96", "network.feat_dim"),
-                                          ("signal_encoder.coord_encode_level=11",
+@pytest.mark.parametrize("override,key", [("network.feat_dim=2048", "network.feat_dim"),
+                                          ("signal_encoder.coord_encode_level=21",
                                            "signal_encoder.coord_encode_level")])
 def test_run_train_refuses_an_untrainable_config_before_any_data(override, key, tmp_path, monkeypatch):
     def no_data(*args, **kwargs):
@@ -197,7 +201,7 @@ def test_run_train_refuses_an_untrainable_config_before_any_data(override, key, 
     assert not (tmp_path / "run").exists()
 
 
-@pytest.mark.parametrize("override", ["network.feat_dim=96", "signal_encoder.coord_encode_level=11"])
+@pytest.mark.parametrize("override", ["network.feat_dim=2048", "signal_encoder.coord_encode_level=21"])
 def test_check_trainable_passes_on_the_plain_path_and_on_the_cpu(override):
     cfg = config.resolve("default", [override])
     with pytest.raises(ValueError, match="parallel.use_pallas=false"):

@@ -11,6 +11,7 @@ run with ``--device cpu`` from a checkpoint of carried-over JAX weights, and
 their PNGs must match JAX's render of the same weights within 1/255.
 """
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -216,8 +217,8 @@ def test_build_field_selects_kernel_or_plain():
 
 def test_build_field_float32_config_takes_kernel_route(monkeypatch):
     """An f32 config with ``use_pallas`` unset still goes through the fused
-    wrapper: its plain version on a CPU tensor, and on the card the kernel,
-    which refuses f32 rather than running the plain version silently."""
+    wrapper: its plain version on a CPU tensor, and on the card the kernel's
+    f32 route, never the plain version silently."""
     cfg = config.resolve("default", ["network.feat_dim=64", "device.compute_dtype=float32"])
     field = session.build_field(cfg)
     calls = []
@@ -239,8 +240,11 @@ def test_build_field_float32_config_takes_kernel_route(monkeypatch):
     torch.testing.assert_close(sigma, ref_sigma.reshape(5, 7), rtol=0, atol=0)
     torch.testing.assert_close(rgb, ref_rgb.reshape(5, 7, 3), rtol=0, atol=0)
     assert real.launches == 0
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_nerf._check_inputs(pts.reshape(-1, 3), dirs.reshape(-1, 3), fused_nerf.prepare(params, calls[0]), calls[0])
+    # on the card the kernel takes f32 on its own route; it refuses CPU tensors
+    assert fused_nerf.forward_route(calls[0]) == "f32"
+    laid_out = dataclasses.replace(fused_nerf.prepare(params, calls[0]), route="f32")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_nerf._check_inputs(pts.reshape(-1, 3), dirs.reshape(-1, 3), laid_out, calls[0])
 
 
 def test_entry_points_raise_without_cuda(tmp_path):

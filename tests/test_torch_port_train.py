@@ -12,6 +12,8 @@ step's loss rtol 1e-4 and its params after Adam rtol 5e-3 / atol 1e-6
 (``test_fused_train.py:94-98``); Adam + schedule on fixed grads rtol 1e-6.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,7 +189,9 @@ def test_wrappers_take_the_plain_version_on_cpu_and_check_cuda_inputs():
     before = fused_train.fused_train_pass.launches
     fused_train.fused_train_pass(params, o, d, t, t, gt, CFG32, 4)
     assert fused_train.fused_train_pass.launches == before == 0
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fused_train._launch(params, o, d, t, t, gt, dataclasses.replace(CFG32, compute_dtype=torch.float16), 4)
+    with pytest.raises(ValueError, match="CUDA"):  # f32 takes the f32 route
         fused_train._launch(params, o, d, t, t, gt, CFG32, 4)
     bf = fused_nerf.FusedNeRFConfig(coord_encode_level=L_POS, dir_encode_level=L_DIR, feat_dim=FEAT)
     with pytest.raises(ValueError, match="CUDA"):

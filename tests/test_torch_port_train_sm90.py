@@ -159,11 +159,16 @@ def test_a_plain_walk_over_the_images_reproduces_each_layer(feat):
 
 
 def test_training_route_takes_its_widths_and_raises_on_others():
+    # the wgmma templates keep their widths; every other config up to the
+    # general route's limits takes mma_sync (bf16) or f32
     for feat in WIDTHS:
-        fused_nerf.check_train_config(_cfg(feat))
-    with pytest.raises(ValueError, match="feat_dim"):
-        fused_nerf.check_train_config(_cfg(96))
-    with pytest.raises(ValueError, match="64 wide"):
-        fused_nerf.check_train_config(fused_nerf.FusedNeRFConfig(coord_encode_level=11))
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_nerf.check_train_config(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32))
+        assert fused_nerf.train_route(_cfg(feat)) == "wgmma"
+    assert fused_nerf.train_route(_cfg(96)) == "mma_sync"
+    assert fused_nerf.train_route(fused_nerf.FusedNeRFConfig(coord_encode_level=11)) == "mma_sync"
+    assert fused_nerf.train_route(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32)) == "f32"
+    with pytest.raises(ValueError, match="feat_dim up to 1024"):
+        fused_nerf.train_route(_cfg(1056))
+    with pytest.raises(ValueError, match="128 wide"):
+        fused_nerf.train_route(fused_nerf.FusedNeRFConfig(coord_encode_level=21))
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fused_nerf.train_route(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float16))

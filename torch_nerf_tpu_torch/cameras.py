@@ -32,6 +32,16 @@ class CameraParams(NamedTuple):
         return self.img_height / 2.0
 
 
+def generate_screen_coords(img_height: int, img_width: int, device=None) -> torch.Tensor:
+    """Screen (x, y) ``(H * W, 2)`` float32 of every pixel, row-major: pixel
+    ``p`` has ``x = p % W``, ``y = (H - 1) - p // W`` (the table that
+    :func:`screen_coords_from_indices` computes for any subset)."""
+    ys = torch.arange(img_height, dtype=torch.float32, device=device)
+    xs = torch.arange(img_width, dtype=torch.float32, device=device)
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([grid_x, (img_height - 1) - grid_y], dim=-1).reshape(img_height * img_width, 2)
+
+
 def screen_coords_from_indices(
     pixel_indices: torch.Tensor, img_height: int, img_width: int
 ) -> torch.Tensor:

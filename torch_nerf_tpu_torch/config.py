@@ -194,9 +194,10 @@ class ParallelConfig:
 
     data_axis_size: int = -1  # -1: all devices
     model_axis_size: int = 1
-    # fused encode+MLP kernel; None or true = the kernel on a CUDA tensor
-    # (it computes in bfloat16 and raises for another compute_dtype) and its
-    # plain version on a CPU tensor; false = the plain PyTorch version
+    # fused encode+MLP kernels; None or true = the kernels on a CUDA tensor
+    # (bfloat16 or float32, feat_dim up to 1024, encodings up to 128 wide;
+    # they raise past that) and their plain versions on a CPU tensor;
+    # false = the plain PyTorch version
     use_pallas: Optional[bool] = None
 
 

@@ -6,13 +6,14 @@ kernel layout of the weights, built once per image when serving) and
 ``apply(params or handle, pts, dirs) -> (sigma, rgb)``; the public
 parameter tree is differentiable through ``apply``. ``fused_cfg`` is set
 when the field's loss can run through the fused train pass
-(``ops/fused_train.py``), as the JAX field's is.
+(``ops/fused_train.py``), as the JAX field's is. :func:`make_scene_field`
+bundles several primitives into one field that queries the active one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -89,3 +90,23 @@ def make_nerf_field(
         return nerf_model.nerf_apply(params, pos_enc, dir_enc, compute_dtype=compute_dtype)
 
     return Field(init=init, apply=apply, name="nerf")
+
+
+def make_scene_field(primitives: Dict[str, Field], active: str) -> Field:
+    """Several primitives -> one field (``torch_nerf_tpu/fields.py:103``):
+    ``init`` draws every primitive's params, in sorted name order from the
+    one generator, into a dict keyed by name (a checkpoint of the scene
+    carries them all); ``apply`` and ``prepare`` take the ``active`` one's."""
+    if active not in primitives:
+        raise KeyError(f"active primitive '{active}' not among {sorted(primitives)}")
+
+    def init(generator: torch.Generator, device: Optional[torch.device] = None):
+        return {name: field.init(generator, device) for name, field in sorted(primitives.items())}
+
+    def prepare(params):
+        return {**params, active: primitives[active].prepare(params[active])}
+
+    def apply(params, pts: torch.Tensor, dirs: torch.Tensor):
+        return primitives[active].apply(params[active], pts, dirs)
+
+    return Field(init=init, apply=apply, name=f"scene[{active}]", prepare=prepare)

@@ -1,8 +1,9 @@
 """Observability and image IO: metrics logging, step timing, PNG files.
 
 Counterpart of ``torch_nerf_tpu/logging_utils.py``. ``MetricsLogger``
-writes ``<log_dir>/metrics.jsonl`` only (the card's host has no
-tensorboard); ``StepTimer`` gives steps/s, rays/s and MFU over windows whose
+writes ``<log_dir>/metrics.jsonl`` and, where ``torch.utils.tensorboard``
+imports, TensorBoard scalars and images (the card's host has no
+tensorboard: the JSONL alone there); ``StepTimer`` gives steps/s, rays/s and MFU over windows whose
 boundaries synchronise with the card. PNG files are written and read with
 the standard library (``zlib`` + ``struct``) for hosts without PIL: the
 reader takes 8-bit greyscale, RGB and RGBA images, non-interlaced, with any
@@ -25,21 +26,44 @@ import torch
 class MetricsLogger:
     """Appends one JSON object per call to ``<log_dir>/metrics.jsonl``:
     ``{"step", "wall_s", <scalars>}``, ``wall_s`` counted from the logger's
-    creation."""
+    creation; and, with ``use_tensorboard`` where ``torch.utils.tensorboard``
+    imports, the same scalars and :meth:`log_image`'s images to
+    ``<log_dir>/tensorboard/`` under the reference's tags (``train/loss``,
+    ``val/psnr``, ``val/pred_vs_gt``). Where it does not import (the card's
+    host has no tensorboard) the writer is None and the JSONL goes on."""
 
-    def __init__(self, log_dir: str | Path):
+    def __init__(self, log_dir: str | Path, use_tensorboard: bool = True):
         self.log_dir = Path(log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.log_dir / "metrics.jsonl", "a", buffering=1)
         self._t0 = time.perf_counter()
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter  # noqa: PLC0415
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self._tb = SummaryWriter(log_dir=str(self.log_dir / "tensorboard"))
 
     def log_scalars(self, step: int, scalars: Dict[str, float]) -> None:
         record = {"step": int(step), "wall_s": round(time.perf_counter() - self._t0, 3)}
         record.update({k: float(v) for k, v in scalars.items()})
         self._jsonl.write(json.dumps(record) + "\n")
+        if self._tb is not None:
+            for key, value in scalars.items():
+                self._tb.add_scalar(key, float(value), int(step))
+
+    def log_image(self, step: int, tag: str, image: np.ndarray) -> None:
+        """``image`` (H, W, 3) float in [0, 1], to TensorBoard where there
+        is a writer."""
+        if self._tb is not None:
+            self._tb.add_image(tag, np.transpose(image, (2, 0, 1)), int(step))
 
     def close(self) -> None:
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def device_peak_flops(device: Optional[torch.device] = None) -> Optional[float]:

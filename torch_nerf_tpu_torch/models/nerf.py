@@ -3,7 +3,8 @@
 Counterpart of ``torch_nerf_tpu/models/nerf.py``. Parameters keep the JAX
 package's public layout, ``{name: {"w": (in, out), "b": (out,)}}`` with
 ``x @ w + b``, so weights carry across unchanged (``params_from_jax`` /
-``params_to_jax``). Init is PyTorch's ``nn.Linear`` default,
+``params_to_jax``); a reference PyTorch ``NeRF.state_dict()`` converts by
+``params_from_torch_state_dict``. Init is PyTorch's ``nn.Linear`` default,
 ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weight and bias, drawn from an
 explicit ``torch.Generator``.
 """
@@ -121,3 +122,16 @@ def params_to_jax(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: params_to_jax(v) for k, v in tree.items()}
     return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def params_from_torch_state_dict(state_dict, device: Optional[torch.device] = None) -> Params:
+    """A reference PyTorch ``NeRF.state_dict()`` (``{"<layer>.weight": (out,
+    in), "<layer>.bias": (out,)}``, tensors or numpy arrays) -> the public
+    tree, each weight transposed to (in, out), float32
+    (``torch_nerf_tpu/models/nerf.py:128``)."""
+    params: Params = {}
+    for name in LAYER_NAMES:
+        w = torch.as_tensor(np.asarray(state_dict[f"{name}.weight"]), dtype=torch.float32)
+        b = torch.as_tensor(np.asarray(state_dict[f"{name}.bias"]), dtype=torch.float32)
+        params[name] = {"w": w.t().contiguous().to(device), "b": b.to(device)}
+    return params

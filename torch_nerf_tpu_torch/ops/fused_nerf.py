@@ -4,35 +4,41 @@ backward as hand-written Hopper kernels.
 Forward (``csrc/fused_nerf_fwd.cu``) replaces the Pallas TPU kernel
 ``torch_nerf_tpu/ops/pallas/fused_nerf.py::_fwd_kernel`` (via
 ``_fused_forward`` and its ``pl.pallas_call``). Its bound on an H100 SXM is
-the tensor cores: 1,186,816 FLOP per point at width 256, 0.94 ms for a
-786,432-point fine chunk at 989 TFLOP/s bf16, against 40 bytes of input and
-output per point. The kernel keeps every hidden activation in shared memory
-and runs the products on the tensor cores, bf16 with f32 accumulation, on
-one of two routes that :func:`forward_route` picks from the config: widths
-64, 128 and 256 with encodings up to 64 wide take ``wgmma``, the training
-kernels' forward without its stash (``csrc/nerf_mlp_train.cuh``), reading
-the forward images of :func:`forward_layout`; any other width ``F % 32 ==
-0`` takes ``mma.sync`` on 64-point tiles, reading weights in fragment order
-(:func:`fragment_order`). The source's header note gives the design.
+the card's arithmetic: 1,186,816 FLOP per point at width 256, 0.94 ms for a
+786,432-point fine chunk at 989 TFLOP/s bf16 (17.7 ms in f32 at 67 TFLOP/s),
+against 40 bytes of input and output per point. The kernel keeps every
+hidden activation in shared memory, on one of three routes that
+:func:`forward_route` picks from the config: bf16 at widths 64, 128 and 256
+with encodings up to 64 wide take ``wgmma``, the training kernels' forward
+without its stash (``csrc/nerf_mlp_train.cuh``), reading the forward images
+of :func:`forward_layout`; any other bf16 config up to width 1024 and
+encodings 128 wide takes ``mma_sync`` and a config in f32 takes ``f32``,
+the general route (``csrc/nerf_mlp_general.cuh``: ``mma.sync`` or FFMA on
+tiles of 32 points, 16 where 32 do not fit in shared memory, the bf16
+forward alone on 64 where two blocks fit an SM: :func:`tile_rows`),
+reading :func:`general_matrices` (bf16 in fragment order, f32 row-major).
+A width that is not a multiple of 32 is zero-padded to the next one
+(:func:`pad_params`): the padded units are ``relu(0) = 0`` and add nothing
+to any later layer.
 
-Backward (``csrc/fused_nerf_bwd.cu`` with ``csrc/nerf_mlp_train.cuh``)
-replaces ``_bwd_kernel`` (via ``_fused_bwd``): the recomputed forward, the
-VJP to the 22 parameter grads summed over every point, and to the points and
-view directions, on ``wgmma`` with the weights streamed into shared memory
-by bulk asynchronous copies. :func:`fused_nerf_bwd_reference` is its plain
-version, written out step by step as ``_backward_tile`` is: the relu masks,
-every ``dh`` rounded to bf16 before its mask and its next product, dW and db
-summed in f32, the skip split of ``dh`` into ``h4`` and ``pe``, the
-view-direction split at fc_9.
+Backward (``csrc/fused_nerf_bwd.cu``) replaces ``_bwd_kernel`` (via
+``_fused_bwd``): the recomputed forward, the VJP to the 22 parameter grads
+summed over every point, and to the points and view directions, on the
+route :func:`train_route` picks: ``wgmma`` with the weights streamed into
+shared memory by bulk asynchronous copies (``nerf_mlp_train.cuh``), or the
+general route's stash, chain and dW GEMM. :func:`fused_nerf_bwd_reference`
+is its plain version, written out step by step as ``_backward_tile`` is:
+the relu masks, every ``dh`` rounded to the compute type before its mask
+and its next product, dW and db summed in f32, the skip split of ``dh``
+into ``h4`` and ``pe``, the view-direction split at fc_9.
 
 The TPU workarounds of the Pallas kernels are not carried over: the encode
 is plain ``sincosf``, and the public parameter layout reaches the kernels
 with only zero padding and a reordering, done here: on the ``wgmma`` route
-and for the training kernels (:func:`training_layout`) each weight, and for
-the backward its transpose, as images of ``wgmma``'s 128-byte swizzled
-shared-memory layout (:func:`panel_image`); on the ``mma.sync`` route each
-weight in tensor-core fragment order (pe 63->64, de 27->32, fc_8 257->264
-columns, fc_out 3->8).
+each weight, and for the backward its transpose, as images of ``wgmma``'s
+128-byte swizzled shared-memory layout (:func:`training_layout`,
+:func:`panel_image`); on the general route each weight and its transpose
+with every concatenated input segment padded to 16 (:func:`general_layout`).
 
 :func:`fused_nerf_apply` takes the public parameter tree through a
 ``torch.autograd.Function``: on CUDA tensors its forward launches the
@@ -41,10 +47,10 @@ backward launches the backward kernel; on CPU tensors both directions run
 the plain versions. A :func:`prepare`-d :class:`KernelWeights` (serving:
 built once per image, in its route's layout only) takes the forward kernel
 alone. ``fused_nerf_apply.launches`` and ``fused_nerf_bwd.launches`` count
-kernel launches, their ``.shapes`` by point count (:mod:`launch_count`);
-``fused_nerf_apply.route_launches`` counts the forward's by route (their
-sum is ``fused_nerf_apply.launches``). A build or launch
-failure raises: no route gives way to another or to the plain version.
+kernel launches, their ``.shapes`` by point count (:mod:`launch_count`),
+their ``.route_launches`` by route (each sums to ``.launches``). A build or
+launch failure raises: no route gives way to another or to the plain
+version.
 """
 
 from __future__ import annotations
@@ -62,11 +68,18 @@ from torch_nerf_tpu_torch.ops import build, launch_count
 KERNEL = "fused_nerf_fwd"
 KERNEL_BWD = "fused_nerf_bwd"
 # max dynamic shared memory of one block on Hopper
-_SMEM_LIMIT = 232_448
+_SMEM_LIMIT = 232_448  # a block's shared memory
+_SMEM_PER_SM = 233_472  # an SM's, 1 KB of it reserved a block
 
-# the widths the training kernels, and the forward's wgmma route, are built for
+# the widths of the wgmma route's templates (bf16, encodings up to 64 wide)
 TRAIN_WIDTHS = (64, 128, 256)
-ROUTES = ("wgmma", "mma_sync")
+WGMMA_MAX_ENC = 64
+# the general route's limits: any width up to MAX_FEAT (padded to a multiple
+# of 32), encodings up to MAX_ENC columns
+MAX_FEAT = 1024
+MAX_ENC = 128
+ROUTES = ("wgmma", "mma_sync", "f32")
+DTYPES = (torch.bfloat16, torch.float32)
 # what a forward library's fused_nerf_fwd reads (fused_nerf_fwd_layout(); a
 # library without that symbol reads fragment order)
 LAYOUT_FRAGMENTS, LAYOUT_IMAGES = 0, 1
@@ -118,8 +131,10 @@ def forward_activations(
     """Every activation of the forward in ``cfg.compute_dtype``, with the
     roundings of ``nerf_apply`` (its sigma and rgb, bit for bit): ``pe``,
     ``de``, each relu layer's output by layer name, ``z8`` (fc_8 before its
-    sigma relu), ``sigma`` and ``rgb`` in f32."""
+    sigma relu), ``sigma`` and ``rgb`` in f32 (in f64 for a float64
+    ``compute_dtype``, a reference one precision above the f32 route)."""
     dt = cfg.compute_dtype
+    out = _sum_dtype(dt)
     acts = {
         "pe": encoders.positional_encoding(pts, cfg.coord_encode_level, cfg.include_input).to(dt),
         "de": encoders.positional_encoding(dirs, cfg.dir_encode_level, cfg.include_input).to(dt),
@@ -136,9 +151,15 @@ def forward_activations(
         h = acts[name] = torch.relu(linear(name, h))
     z8 = acts["z8"] = linear("fc_8", h)
     acts["fc_9"] = torch.relu(linear("fc_9", torch.cat([z8[:, 1:], acts["de"]], dim=-1)))
-    acts["rgb"] = torch.sigmoid(linear("fc_out", acts["fc_9"]).float())
-    acts["sigma"] = torch.relu(z8[:, 0]).float()
+    acts["rgb"] = torch.sigmoid(linear("fc_out", acts["fc_9"]).to(out))
+    acts["sigma"] = torch.relu(z8[:, 0]).to(out)
     return acts
+
+
+def _sum_dtype(dt: torch.dtype) -> torch.dtype:
+    """The type the plain versions sum grads and keep outputs in: f32, or
+    f64 for a float64 compute type."""
+    return torch.promote_types(dt, torch.float32)
 
 
 def encode_vjp(x: torch.Tensor, g: torch.Tensor, levels: int, include_input: bool) -> torch.Tensor:
@@ -163,9 +184,11 @@ def backward_from_activations(
     input_grads: bool = True,
 ):
     """``_backward_tile`` in explicit steps -> ``(grads, dpe, dde)``: grads
-    ``{name: {"w", "b"}}`` in the public layout, in f32; ``dpe``/``dde`` the
-    f32 cotangents of the encodings, or None without ``input_grads``."""
+    ``{name: {"w", "b"}}`` in the public layout, in f32 (f64 for a float64
+    compute type); ``dpe``/``dde`` the cotangents of the encodings in that
+    type, or None without ``input_grads``."""
     dt, f, p = cfg.compute_dtype, cfg.feat_dim, cfg.pos_enc_dim
+    acc = _sum_dtype(dt)
     zero = torch.zeros((), dtype=dt, device=g_rgb.device)
     grads: Dict[str, Dict[str, torch.Tensor]] = {}
 
@@ -174,7 +197,7 @@ def backward_from_activations(
 
     def put(name, a, dz):
         # f32 sums of the rounded operands
-        grads[name] = {"w": a.float().t() @ dz.float(), "b": dz.float().sum(dim=0)}
+        grads[name] = {"w": a.to(acc).t() @ dz.to(acc), "b": dz.to(acc).sum(dim=0)}
 
     def relu_grad(act, dh):
         return torch.where(act > 0, dh, zero)
@@ -185,9 +208,9 @@ def backward_from_activations(
     dz = relu_grad(acts["fc_9"], dz @ wt("fc_out"))  # dh rounded to dt by the product
     put("fc_9", torch.cat([acts["z8"][:, 1:], acts["de"]], dim=-1), dz)
     dcat9 = dz @ wt("fc_9")
-    dde = dcat9[:, f:].float() if input_grads else None
+    dde = dcat9[:, f:].to(acc) if input_grads else None
     # fc_8: a relu on the sigma column only
-    dsig = torch.where(acts["z8"][:, 0].float() > 0, g_sigma, 0.0).to(dt)
+    dsig = torch.where(acts["z8"][:, 0].to(acc) > 0, g_sigma, 0.0).to(dt)
     dz = torch.cat([dsig[:, None], dcat9[:, :f]], dim=-1)
     put("fc_8", acts["fc_7"], dz)
     dh = dz @ wt("fc_8")
@@ -210,9 +233,9 @@ def backward_from_activations(
             break
         dh = dz @ wt(name)
         if name == "fc_5":  # the skip split: [pe, h4]
-            dpe, dh = dh[:, :p].float(), dh[:, p:]
+            dpe, dh = dh[:, :p].to(acc), dh[:, p:]
     if input_grads:
-        dpe = dpe + dh.float()
+        dpe = dpe + dh.to(acc)
     grads = {name: grads[name] for name in LAYER_NAMES}
     return grads, (dpe if input_grads else None), dde
 
@@ -277,8 +300,9 @@ def _tree(tensors: Sequence[torch.Tensor]) -> Params:
 class KernelWeights:
     """One network's parameters: the public tree plus, for parameters on the
     card, the forward's route and its weight layout per layer (``wgmma``:
-    forward panel images and biases in their row order; ``mma_sync``: bf16
-    fragments and padded biases). On the CPU only ``public`` is set."""
+    forward panel images and biases in their row order; ``mma_sync`` and
+    ``f32``: :func:`general_layout`'s forward matrices and biases). On the
+    CPU only ``public`` is set."""
 
     public: Params
     route: Optional[str]
@@ -286,48 +310,200 @@ class KernelWeights:
     biases: Optional[Tuple[torch.Tensor, ...]]
 
 
-def kernel_layout(params: Params, cfg: FusedNeRFConfig):
-    """Per-layer (padded weight (K, N), padded bias (N,)) in bf16, the K axis
-    padded per concatenated segment, N to a multiple of 8."""
-    f, p, d = cfg.feat_dim, cfg.pos_enc_dim, cfg.dir_enc_dim
-    pp, dp = _round16(p), _round16(d)
-    rows = {
-        "fc_in": [(p, pp)],
-        "fc_5": [(p, pp), (f, f)],
-        "fc_9": [(f, f), (d, dp)],
-    }
-    out = []
-    for name in LAYER_NAMES:
-        w = params[name]["w"].detach().to(torch.bfloat16)
-        b = params[name]["b"].detach().to(torch.bfloat16)
-        w = _pad_rows(w, rows.get(name, [(w.shape[0], w.shape[0])]))
-        n_pad = -(-w.shape[1] // 8) * 8
-        w = torch.nn.functional.pad(w, (0, n_pad - w.shape[1]))
-        b = torch.nn.functional.pad(b, (0, n_pad - b.shape[0]))
-        out.append((w, b))
-    return out
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
 
 
-def mma_smem_bytes(cfg: FusedNeRFConfig) -> int:
-    """Shared memory of a block of the ``mma.sync`` route: pe, de and two
-    activation buffers of 64 rows, each row padded by 8 bf16
-    (``nerf_mlp.cuh``'s ``forward_smem_bytes``)."""
-    pe_pad, de_pad = _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
-    return 64 * ((pe_pad + 8) + (de_pad + 8) + 2 * (cfg.feat_dim + 8)) * 2
+def check_config(cfg: FusedNeRFConfig) -> None:
+    """Raise unless some route takes ``cfg``: compute dtype bfloat16 or
+    float32, 0 < feat_dim <= :data:`MAX_FEAT`, both encodings at most
+    :data:`MAX_ENC` columns."""
+    if cfg.compute_dtype not in DTYPES:
+        raise ValueError(f"the fused kernels compute in bfloat16 or float32, not {cfg.compute_dtype}")
+    if not 0 < cfg.feat_dim <= MAX_FEAT:
+        raise ValueError(f"the fused kernels take feat_dim up to {MAX_FEAT}, got {cfg.feat_dim}; "
+                         "set parallel.use_pallas=false for the plain path")
+    if max(cfg.pos_enc_dim, cfg.dir_enc_dim) > MAX_ENC:
+        raise ValueError(f"the fused kernels take encodings up to {MAX_ENC} wide, got {cfg.pos_enc_dim}, "
+                         f"{cfg.dir_enc_dim}; set parallel.use_pallas=false for the plain path")
 
 
 def forward_route(cfg: FusedNeRFConfig) -> str:
-    """The forward kernel's route for ``cfg``: ``"wgmma"`` for feat_dim 64,
-    128 or 256 with both encodings at most 64 wide, else ``"mma_sync"`` for
-    any feat_dim % 32 == 0 whose block fits in shared memory; raise for
-    anything else (and for a compute dtype other than bfloat16)."""
+    """The route of ``cfg`` (the forward's and, by :func:`train_route`, the
+    training kernels'): ``"f32"`` for float32; ``"wgmma"`` for bfloat16 at
+    feat_dim 64, 128 or 256 with both encodings at most 64 wide; else
+    ``"mma_sync"``. Raises past the limits of :func:`check_config`."""
     check_config(cfg)
-    if cfg.feat_dim in TRAIN_WIDTHS and max(cfg.pos_enc_dim, cfg.dir_enc_dim) <= 64:
+    if cfg.compute_dtype == torch.float32:
+        return "f32"
+    if cfg.feat_dim in TRAIN_WIDTHS and max(cfg.pos_enc_dim, cfg.dir_enc_dim) <= WGMMA_MAX_ENC:
         return "wgmma"
-    smem = mma_smem_bytes(cfg)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
     return "mma_sync"
+
+
+# the training kernels' (2 and 3) route for a config: the forward's
+train_route = forward_route
+
+
+# ---------------------------------------------------------------------------
+# the general route's layout: zero padding to a width % 32 == 0, every
+# concatenated input segment padded to 16, fc_8's sigma after its features
+
+
+def padded_config(cfg: FusedNeRFConfig) -> FusedNeRFConfig:
+    """``cfg`` at the general route's width: feat_dim rounded up to 32."""
+    return dataclasses.replace(cfg, feat_dim=_round32(cfg.feat_dim))
+
+
+def pad_params(params: Params, cfg: FusedNeRFConfig) -> Params:
+    """The public tree at ``cfg.feat_dim`` -> the same network at
+    :func:`padded_config`'s width F: zero weight columns and zero biases for
+    the new units (``relu(0) = 0``: they add nothing to any later layer),
+    zero weight rows where they are inputs, fc_5's rows kept as ``[pe, h4]``
+    and fc_9's as ``[features, de]``; fc_9 gets F // 2 units. The identity
+    at a width % 32 == 0."""
+    f, fp, p = cfg.feat_dim, _round32(cfg.feat_dim), cfg.pos_enc_dim
+    if f == fp:
+        return params
+
+    def pad(t, rows, cols):
+        return torch.nn.functional.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+    out = {}
+    for name in LAYER_NAMES:
+        w, b = params[name]["w"], params[name]["b"]
+        if name == "fc_in":
+            w, n = pad(w, p, fp), fp
+        elif name == "fc_5":
+            w, n = torch.cat([pad(w[:p], p, fp), pad(w[p:], fp, fp)]), fp
+        elif name == "fc_8":
+            w, n = pad(w, fp, fp + 1), fp + 1
+        elif name == "fc_9":
+            w, n = torch.cat([pad(w[:f], fp, fp // 2), pad(w[f:], w.shape[0] - f, fp // 2)]), fp // 2
+        elif name == "fc_out":
+            w, n = pad(w, fp // 2, 3), 3
+        else:
+            w, n = pad(w, fp, fp), fp
+        out[name] = {"w": w, "b": torch.nn.functional.pad(b, (0, n - b.shape[0]))}
+    return out
+
+
+def unpad_grads(grads: Params, cfg: FusedNeRFConfig) -> Params:
+    """Grads of :func:`pad_params`'s network -> those of the public tree at
+    ``cfg.feat_dim``: the padded rows and columns sliced away."""
+    f, fp, p = cfg.feat_dim, _round32(cfg.feat_dim), cfg.pos_enc_dim
+    if f == fp:
+        return grads
+    out = {}
+    for name in LAYER_NAMES:
+        w, b = grads[name]["w"], grads[name]["b"]
+        if name == "fc_in":
+            w, n = w[:, :f], f
+        elif name == "fc_5":
+            w, n = torch.cat([w[:p], w[p:p + f]])[:, :f], f
+        elif name == "fc_8":
+            w, n = w[:f, :f + 1], f + 1
+        elif name == "fc_9":
+            w, n = torch.cat([w[:f], w[fp:]])[:, :f // 2], f // 2
+        elif name == "fc_out":
+            w, n = w[:f // 2], 3
+        else:
+            w, n = w[:f, :f], f
+        out[name] = {"w": w.contiguous(), "b": b[:n].contiguous()}
+    return out
+
+
+def general_matrices(params: Params, cfg: FusedNeRFConfig):
+    """Per layer ``(forward, bias, chain)`` of the general route in
+    ``cfg.compute_dtype``, from the public tree at ``cfg.feat_dim`` padded
+    by :func:`pad_params` to F: ``forward`` the (K, N) matrix the layer's
+    input multiplies (rows: its inputs, each concatenated segment padded to
+    16, ``[pe, h4]`` for fc_5, ``[features, de]`` for fc_9; columns: its
+    outputs, fc_8's features then sigma at column F, padded to 8), ``bias``
+    in that column order, ``chain`` the forward's transpose with its rows
+    padded to 16 (the backward's ``dh = dz W^T``)."""
+    dt = cfg.compute_dtype
+    pcfg = padded_config(cfg)
+    fp, p, d = pcfg.feat_dim, cfg.pos_enc_dim, cfg.dir_enc_dim
+    pp, dp = _round16(p), _round16(d)
+    padded = pad_params(params, cfg)
+    rows = {"fc_in": [(p, pp)], "fc_5": [(p, pp), (fp, fp)], "fc_9": [(fp, fp), (d, dp)]}
+    out = []
+    for name in LAYER_NAMES:
+        w = padded[name]["w"].detach().to(dt)
+        b = padded[name]["b"].detach().to(dt)
+        if name == "fc_8":  # outputs [sigma, features] -> [features, sigma]
+            w = torch.cat([w[:, 1:], w[:, :1]], dim=1)
+            b = torch.cat([b[1:], b[:1]])
+        w = _pad_rows(w, rows.get(name, [(w.shape[0], w.shape[0])]))
+        n = -(-w.shape[1] // 8) * 8
+        fwd = torch.nn.functional.pad(w, (0, n - w.shape[1])).contiguous()
+        bias = torch.nn.functional.pad(b, (0, n - b.shape[0])).contiguous()
+        chain = _pad(fwd.t(), _round16(n), fwd.shape[0]).contiguous()
+        out.append((fwd, bias, chain))
+    return out
+
+
+def general_layout(params: Params, cfg: FusedNeRFConfig):
+    """``(forward, biases, chain)`` lists the general route's kernels read:
+    :func:`general_matrices` of the parameters as they are at this call, the
+    matrices in fragment order for bf16 (:func:`fragment_order`), row-major
+    for f32."""
+    mats = general_matrices(params, cfg)
+    if cfg.compute_dtype == torch.bfloat16:
+        return ([fragment_order(w) for w, _, _ in mats], [b for _, b, _ in mats],
+                [fragment_order(c) for _, _, c in mats])
+    return [w for w, _, _ in mats], [b for _, b, _ in mats], [c for _, _, c in mats]
+
+
+def general_grad_shapes(cfg: FusedNeRFConfig):
+    """Per layer the ``(rows, columns)`` of the grads the general route's
+    kernels write: the forward matrix's rows by the width of the layer's dz
+    (fc_8: F + 16, its features then sigma; fc_out: 16)."""
+    fp, pp, dp = padded_config(cfg).feat_dim, _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
+    shapes = {"fc_in": (pp, fp), "fc_5": (pp + fp, fp), "fc_8": (fp, fp + 16), "fc_9": (fp + dp, fp // 2),
+              "fc_out": (fp // 2, 16)}
+    return [shapes.get(name, (fp, fp)) for name in LAYER_NAMES]
+
+
+def grads_from_general(grads_w: Sequence[torch.Tensor], grads_b: Sequence[torch.Tensor],
+                       cfg: FusedNeRFConfig) -> Params:
+    """The general route's grads (:func:`general_grad_shapes`) -> the public
+    layout at ``cfg.feat_dim``: each padded input segment and fc_8's
+    sigma-last order undone, then :func:`unpad_grads`."""
+    fp, p, pp, d = padded_config(cfg).feat_dim, cfg.pos_enc_dim, _round16(cfg.pos_enc_dim), cfg.dir_enc_dim
+    out = {}
+    for name, w, b in zip(LAYER_NAMES, grads_w, grads_b):
+        if name == "fc_in":
+            w = w[:p]
+        elif name == "fc_5":
+            w = torch.cat([w[:p], w[pp:]])
+        elif name == "fc_8":
+            w = torch.cat([w[:, fp:fp + 1], w[:, :fp]], dim=1)
+            b = torch.cat([b[fp:fp + 1], b[:fp]])
+        elif name == "fc_9":
+            w = torch.cat([w[:fp], w[fp:fp + d]])
+        elif name == "fc_out":
+            w, b = w[:, :3], b[:3]
+        out[name] = {"w": w.contiguous(), "b": b.contiguous()}
+    return unpad_grads(out, cfg)
+
+
+def tile_rows(cfg: FusedNeRFConfig) -> Tuple[int, int, int]:
+    """Points per block of the general route's kernels (``nerf_mlp_general.
+    cuh``'s ``forward_rows``, ``chain_rows``): kernel 1's forward, the
+    forward with its stash (kernels 2-3) and the chain. 32, or 16 where the
+    buffers of 32 do not fit in shared memory; kernel 1 in bf16 takes 64
+    where two blocks of 64 fit an SM."""
+    size = 2 if cfg.compute_dtype == torch.bfloat16 else 4
+    pad = 8 if size == 2 else 4
+    ring = 0 if size == 2 else 2 * 16 * 256 * 4  # the f32 product's weight ring
+    fp, pp, dp = padded_config(cfg).feat_dim, _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
+    fwd = ((pp + pad) + (dp + pad) + 2 * (fp + pad)) * size
+    chain = 2 * (fp + 16 + pad) * size
+    stash, back = (32 if 32 * row + ring <= _SMEM_LIMIT else 16 for row in (fwd, chain))
+    alone = 64 if size == 2 and 2 * (64 * fwd + 1024) <= _SMEM_PER_SM else stash
+    return alone, stash, back
 
 
 def forward_layout(params: Params, cfg: FusedNeRFConfig):
@@ -353,19 +529,15 @@ def prepare(params, cfg: FusedNeRFConfig) -> KernelWeights:
 def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWeights:
     """The forward's weight layout of ``route`` on the parameters' device:
     ``wgmma``, the forward images and biases of :func:`forward_layout`;
-    ``mma_sync``, the fragments and padded biases of :func:`kernel_layout`."""
+    ``mma_sync`` and ``f32``, the forward matrices and biases of
+    :func:`general_layout`."""
     if route == "wgmma":
         images, biases = forward_layout(params, cfg)
         return KernelWeights(public=params, route=route, weights=tuple(images), biases=tuple(biases))
-    if route != "mma_sync":
+    if route not in ROUTES:
         raise ValueError(f"unknown forward route {route!r}; routes are {ROUTES}")
-    layout = kernel_layout(params, cfg)
-    return KernelWeights(
-        public=params,
-        route=route,
-        weights=tuple(fragment_order(w) for w, _ in layout),
-        biases=tuple(b.contiguous() for _, b in layout),
-    )
+    fwd, biases, _ = general_layout(params, cfg)
+    return KernelWeights(public=params, route=route, weights=tuple(fwd), biases=tuple(biases))
 
 
 # ---------------------------------------------------------------------------
@@ -374,23 +546,19 @@ def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWe
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from
-    ``csrc/fused_nerf_fwd.cu``, or from an earlier version of it (which has
-    no ``fused_nerf_fwd_layout`` and one entry, ``fused_nerf_fwd``, reading
-    fragment order)."""
-    entries = ["fused_nerf_fwd"]
+    ``csrc/fused_nerf_fwd.cu``, or from an earlier version of it (which may
+    have no ``fused_nerf_fwd_general``, or no ``fused_nerf_fwd_layout`` and
+    one entry, ``fused_nerf_fwd``, reading fragment order)."""
+    args = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 9)
+    lib.fused_nerf_fwd.argtypes = args + [ctypes.c_void_p]
+    lib.fused_nerf_fwd.restype = ctypes.c_int
     if hasattr(lib, "fused_nerf_fwd_layout"):
         lib.fused_nerf_fwd_layout.argtypes = []
         lib.fused_nerf_fwd_layout.restype = ctypes.c_int
-        entries.append("fused_nerf_fwd_mma")
-    for name in entries:
-        getattr(lib, name).argtypes = (
-            [ctypes.c_void_p] * 2
-            + [ctypes.POINTER(ctypes.c_void_p)] * 2
-            + [ctypes.c_void_p] * 2
-            + [ctypes.c_int] * 9
-            + [ctypes.c_void_p]
-        )
-        getattr(lib, name).restype = ctypes.c_int
+    if hasattr(lib, "fused_nerf_fwd_general"):
+        lib.fused_nerf_fwd_general.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
+        lib.fused_nerf_fwd_general.restype = ctypes.c_int
     lib.fused_nerf_fwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_nerf_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -404,28 +572,32 @@ def library_layout(lib: ctypes.CDLL) -> int:
 
 def _entry(lib: ctypes.CDLL, route: str):
     """The C function of ``lib`` that runs ``route``: in this source,
-    ``fused_nerf_fwd`` (wgmma) and ``fused_nerf_fwd_mma``; in an earlier
-    one, ``fused_nerf_fwd`` runs ``mma_sync`` and nothing runs ``wgmma``."""
-    if library_layout(lib) == LAYOUT_IMAGES:
-        return lib.fused_nerf_fwd if route == "wgmma" else lib.fused_nerf_fwd_mma
+    ``fused_nerf_fwd`` (wgmma) and ``fused_nerf_fwd_general`` (mma_sync,
+    f32); a library that lacks the route's entry raises."""
     if route == "wgmma":
-        raise ValueError("this library's fused_nerf_fwd reads fragment order: lay its weights out "
-                         "with kernel_weights(..., 'mma_sync')")
-    return lib.fused_nerf_fwd
+        if library_layout(lib) != LAYOUT_IMAGES:
+            raise ValueError("this library's fused_nerf_fwd reads fragment order, not the wgmma route's images")
+        return lib.fused_nerf_fwd
+    if not hasattr(lib, "fused_nerf_fwd_general"):
+        raise ValueError(f"this library has no general route (fused_nerf_fwd_general) for {route!r}")
+    return lib.fused_nerf_fwd_general
 
 
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_nerf_bwd.cu``."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    lib.fused_nerf_bwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ptrs] * 3 + [ctypes.c_void_p] + [ptrs] * 2
-        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    )
+    args = ([ctypes.c_void_p] * 4 + [ptrs] * 3 + [ctypes.c_void_p] + [ptrs] * 2
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7)
+    lib.fused_nerf_bwd.argtypes = args + [ctypes.c_void_p]
     lib.fused_nerf_bwd.restype = ctypes.c_int
     lib.fused_nerf_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 2
     lib.fused_nerf_bwd_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_nerf_bwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_nerf_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_nerf_bwd_general.argtypes = args + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fused_nerf_bwd_general.restype = ctypes.c_int
+    lib.fused_nerf_bwd_general_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_nerf_bwd_general_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_nerf_bwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_nerf_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -444,24 +616,6 @@ def pointers(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def check_config(cfg: FusedNeRFConfig) -> None:
-    if cfg.compute_dtype != torch.bfloat16:
-        raise ValueError(f"the fused kernel computes in bfloat16, not {cfg.compute_dtype}")
-    if cfg.feat_dim % 32 != 0:
-        raise ValueError(f"the fused kernel needs feat_dim % 32 == 0, got {cfg.feat_dim}")
-
-
-def check_train_config(cfg: FusedNeRFConfig) -> None:
-    """Raise unless the training kernels take ``cfg``: bf16, feat_dim 64,
-    128 or 256, encodings at most 64 wide."""
-    check_config(cfg)
-    if cfg.feat_dim not in TRAIN_WIDTHS:
-        raise ValueError(f"the training kernels take feat_dim in {TRAIN_WIDTHS}, got {cfg.feat_dim}")
-    if max(cfg.pos_enc_dim, cfg.dir_enc_dim) > 64:
-        raise ValueError(f"the training kernels take encodings up to 64 wide, got {cfg.pos_enc_dim}, "
-                         f"{cfg.dir_enc_dim}")
-
-
 def check_tensor(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
     """Raise unless ``t`` is a contiguous f32 CUDA tensor of ``shape``."""
     if t.device.type != "cuda":
@@ -476,6 +630,9 @@ def check_tensor(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
 
 def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor, w: KernelWeights, cfg: FusedNeRFConfig):
     check_config(cfg)
+    if (w.route == "f32") != (cfg.compute_dtype == torch.float32) or (
+            w.route == "wgmma" and forward_route(cfg) != "wgmma"):
+        raise ValueError(f"route {w.route!r} does not take this config (its route is {forward_route(cfg)!r})")
     if pts.dim() != 2 or pts.shape[1] != 3:
         raise ValueError(f"pts must be (M, 3), got {tuple(pts.shape)}")
     check_tensor("pts", pts, tuple(pts.shape))
@@ -486,25 +643,30 @@ def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor, w: KernelWeights, cfg: 
         raise ValueError("the network's parameters must be on the same CUDA device as pts")
 
 
+def kernel_dims(cfg: FusedNeRFConfig) -> list:
+    """The C interface's config arguments: feat (padded to 32 for the
+    general route), the levels, include_input, the encodings' widths and
+    their widths padded to 16."""
+    feat = padded_config(cfg).feat_dim
+    return [feat, cfg.coord_encode_level, cfg.dir_encode_level, int(cfg.include_input), cfg.pos_enc_dim,
+            cfg.dir_enc_dim, _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)]
+
+
 def _launch(w: KernelWeights, pts: torch.Tensor, dirs: torch.Tensor, cfg: FusedNeRFConfig):
     """Launch the forward kernel of ``w``'s route on the current stream."""
     _check_inputs(pts, dirs, w, cfg)
     lib = _library()
     entry = _entry(lib, w.route)
-    pe_pad, de_pad = _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
     m = pts.shape[0]
     sigma = torch.empty((m,), dtype=torch.float32, device=pts.device)
     rgb = torch.empty((m, 3), dtype=torch.float32, device=pts.device)
     if m == 0:
         return sigma, rgb
+    extra = [] if w.route == "wgmma" else [int(w.route == "f32")]
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        err = entry(
-            pts.data_ptr(), dirs.data_ptr(), pointers(w.weights), pointers(w.biases),
-            sigma.data_ptr(), rgb.data_ptr(), m, cfg.feat_dim,
-            cfg.coord_encode_level, cfg.dir_encode_level, int(cfg.include_input),
-            cfg.pos_enc_dim, cfg.dir_enc_dim, pe_pad, de_pad, stream,
-        )
+        err = entry(pts.data_ptr(), dirs.data_ptr(), pointers(w.weights), pointers(w.biases),
+                    sigma.data_ptr(), rgb.data_ptr(), m, *kernel_dims(cfg), *extra, stream)
     if err != 0:
         msg = lib.fused_nerf_fwd_error_string(err).decode()
         raise RuntimeError(f"fused_nerf_fwd ({w.route}) launch failed: {msg} (cudaError {err})")
@@ -609,8 +771,9 @@ def empty_grads(params: Params) -> Params:
 
 
 def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig):
-    """Launch the backward kernel on the current stream."""
-    check_train_config(cfg)
+    """Launch the backward kernel of :func:`train_route` on the current
+    stream."""
+    route = train_route(cfg)
     m = pts.shape[0]
     for name, t, shape in (("pts", pts, (m, 3)), ("dirs", dirs, (m, 3)),
                            ("g_sigma", g_sigma, (m,)), ("g_rgb", g_rgb, (m, 3))):
@@ -618,14 +781,31 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
     if params["fc_in"]["w"].device != pts.device:
         raise ValueError("the network's parameters must be on the same CUDA device as pts")
     lib = _bwd_library()
+    dpts = torch.empty_like(pts)
+    ddirs = torch.empty_like(dirs)
+    if m == 0:
+        return {n: {k: torch.zeros_like(t, dtype=torch.float32) for k, t in p.items()}
+                for n, p in params.items()}, dpts, ddirs
+    if route == "wgmma":
+        grads, err = _launch_bwd_wgmma(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
+    else:
+        grads, err = _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
+    if err != 0:
+        msg = lib.fused_nerf_bwd_error_string(err).decode()
+        raise RuntimeError(f"fused_nerf_bwd ({route}) launch failed: {msg} (cudaError {err})")
+    launch_count.count(fused_nerf_bwd, m)
+    fused_nerf_bwd.route_launches[route] += 1
+    if route != "wgmma":
+        grads = grads_from_general(*grads, cfg)
+    return grads, dpts, ddirs
+
+
+def _launch_bwd_wgmma(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs):
+    m = pts.shape[0]
     smem = lib.fused_nerf_bwd_smem_bytes(cfg.feat_dim)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
     grads = empty_grads(params)
-    dpts = torch.empty_like(pts)
-    ddirs = torch.empty_like(dirs)
-    if m == 0:
-        return {n: {k: t.zero_() for k, t in p.items()} for n, p in grads.items()}, dpts, ddirs
     fwd, biases, chain = training_layout(params, cfg)
     workspace = torch.empty(lib.fused_nerf_bwd_workspace_bytes(m, cfg.feat_dim), dtype=torch.uint8,
                             device=pts.device)
@@ -636,14 +816,35 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
             pts.data_ptr(), dirs.data_ptr(), g_sigma.data_ptr(), g_rgb.data_ptr(),
             pointers(fwd), pointers(biases), pointers(chain), workspace.data_ptr(),
             pointers(flat[0::2]), pointers(flat[1::2]), dpts.data_ptr(), ddirs.data_ptr(),
-            m, cfg.feat_dim, cfg.coord_encode_level, cfg.dir_encode_level,
-            int(cfg.include_input), cfg.pos_enc_dim, cfg.dir_enc_dim, stream,
+            m, *kernel_dims(cfg)[:6], stream,
         )
-    if err != 0:
-        msg = lib.fused_nerf_bwd_error_string(err).decode()
-        raise RuntimeError(f"fused_nerf_bwd launch failed: {msg} (cudaError {err})")
-    launch_count.count(fused_nerf_bwd, m)
-    return grads, dpts, ddirs
+    return grads, err
+
+
+def empty_general_grads(cfg: FusedNeRFConfig, device):
+    """f32 ``(weights, biases)`` lists of :func:`general_grad_shapes`, for
+    the general route's kernels to fill."""
+    shapes = general_grad_shapes(cfg)
+    return ([torch.empty(s, dtype=torch.float32, device=device) for s in shapes],
+            [torch.empty((s[1],), dtype=torch.float32, device=device) for s in shapes])
+
+
+def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs):
+    m = pts.shape[0]
+    dims = kernel_dims(cfg)
+    f32 = int(cfg.compute_dtype == torch.float32)
+    fwd, biases, chain = general_layout(params, cfg)
+    gw, gb = empty_general_grads(cfg, pts.device)
+    workspace = torch.empty(lib.fused_nerf_bwd_general_workspace_bytes(m, dims[0], dims[6], dims[7], f32),
+                            dtype=torch.uint8, device=pts.device)
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        err = lib.fused_nerf_bwd_general(
+            pts.data_ptr(), dirs.data_ptr(), g_sigma.data_ptr(), g_rgb.data_ptr(),
+            pointers(fwd), pointers(biases), pointers(chain), workspace.data_ptr(),
+            pointers(gw), pointers(gb), dpts.data_ptr(), ddirs.data_ptr(), m, *dims, f32, stream,
+        )
+    return (gw, gb), err
 
 
 def fused_nerf_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig):
@@ -697,9 +898,10 @@ def fused_nerf_apply(
 
 def reset_launches() -> None:
     """Set the forward's and the backward's launch counts, total, by shape
-    and (the forward's) by route, to 0."""
+    and by route, to 0."""
     launch_count.reset(fused_nerf_apply, fused_nerf_bwd)
-    fused_nerf_apply.route_launches = dict.fromkeys(ROUTES, 0)
 
 
+fused_nerf_apply.route_launches = dict.fromkeys(ROUTES, 0)
+fused_nerf_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 reset_launches()

@@ -13,13 +13,19 @@ kernel stashes the activations and the ``dz``s of the pass in device memory
 and computes dW = A^T dZ in a split-K GEMM of its own, every product on
 ``wgmma`` from shared-memory tiles filled by bulk asynchronous copies (the
 header's note gives the design). The composite and its VJP run in f32 (one warp per
-ray), not as the TPU's bf16 masked-matmul scans.
+ray), not as the TPU's bf16 masked-matmul scans. That is the ``wgmma``
+route of ``fused_nerf.train_route``; every other config (bf16 at any width
+up to 1024 and encodings up to 128 wide, or f32) takes the general route
+(``csrc/nerf_mlp_general.cuh``: the same stash, chain and dW GEMM cut on
+``mma.sync`` or FFMA, around the same composite), its bound the same 3 x
+``flops_per_point`` at the card's rate for the compute type.
 
 :func:`fused_train_pass` launches the kernels for CUDA tensors (or raises)
 and runs :func:`fused_train_pass_reference`, its plain version written out
 in the same steps, for CPU tensors. ``fused_train_pass.launches`` counts
 kernel launches (one per pass), ``fused_train_pass.shapes`` them by their
-``(N, S)`` (:mod:`launch_count`).
+``(N, S)`` (:mod:`launch_count`), ``fused_train_pass.route_launches`` by
+route.
 """
 
 from __future__ import annotations
@@ -133,15 +139,18 @@ def phase_floors(cfg: fn.FusedNeRFConfig, points: int) -> dict:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_train.cu``."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    lib.fused_train_pass.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ptrs] * 3 + [ctypes.c_void_p] * 3
-        + [ptrs] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
+    args = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ptrs] * 3 + [ctypes.c_void_p] * 3
+            + [ptrs] * 2 + [ctypes.c_int] * 6)
+    lib.fused_train_pass.argtypes = args + [ctypes.c_void_p]
     lib.fused_train_pass.restype = ctypes.c_int
     lib.fused_train_workspace_bytes.argtypes = [ctypes.c_int] * 2
     lib.fused_train_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_train_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_train_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_train_pass_general.argtypes = args + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fused_train_pass_general.restype = ctypes.c_int
+    lib.fused_train_general_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_train_general_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_train_error_string.argtypes = [ctypes.c_int]
     lib.fused_train_error_string.restype = ctypes.c_char_p
     return lib
@@ -152,8 +161,8 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFConfig, num_real_rays: int):
-    """Launch the pass on the current stream."""
-    fn.check_train_config(cfg)
+    """Launch the pass of ``fn.train_route(cfg)`` on the current stream."""
+    route = fn.train_route(cfg)
     n, s = t.shape
     for name, x, shape in (("ray_o", ray_o, (n, 3)), ("ray_d", ray_d, (n, 3)), ("t", t, (n, s)),
                            ("delta", delta, (n, s)), ("rgb_gt", rgb_gt, (n, 3))):
@@ -165,32 +174,42 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
     if n * s >= 2**31:
         raise ValueError(f"{n} x {s} points exceed the kernel's 32-bit point index")
     lib = _library()
-    smem = lib.fused_train_smem_bytes(cfg.feat_dim)
-    if smem > fn._SMEM_LIMIT:
-        raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
-    fwd, biases, chain = fn.training_layout(params, cfg)
-    grads = fn.empty_grads(params)
-    flat = fn._flat(grads)
+    dims = fn.kernel_dims(cfg)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=t.device)
     weights = torch.empty((n, s), dtype=torch.float32, device=t.device)
-    workspace = torch.empty(
-        lib.fused_train_workspace_bytes(n * s, cfg.feat_dim),
-        dtype=torch.uint8, device=t.device,
-    )
+    if route == "wgmma":
+        smem = lib.fused_train_smem_bytes(cfg.feat_dim)
+        if smem > fn._SMEM_LIMIT:
+            raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
+        fwd, biases, chain = fn.training_layout(params, cfg)
+        grads = fn.empty_grads(params)
+        flat = fn._flat(grads)
+        gw, gb = flat[0::2], flat[1::2]
+        entry, extra = lib.fused_train_pass, []
+        nbytes = lib.fused_train_workspace_bytes(n * s, cfg.feat_dim)
+        dims = dims[:6]
+    else:
+        fwd, biases, chain = fn.general_layout(params, cfg)
+        gw, gb = fn.empty_general_grads(cfg, t.device)
+        f32 = int(cfg.compute_dtype == torch.float32)
+        entry, extra = lib.fused_train_pass_general, [f32]
+        nbytes = lib.fused_train_general_workspace_bytes(n * s, dims[0], dims[6], dims[7], f32)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=t.device)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = lib.fused_train_pass(
+        err = entry(
             ray_o.data_ptr(), ray_d.data_ptr(), t.data_ptr(), delta.data_ptr(), rgb_gt.data_ptr(),
             n, s, num_real_rays, fn.pointers(fwd), fn.pointers(biases), fn.pointers(chain),
-            workspace.data_ptr(), rgb.data_ptr(), weights.data_ptr(),
-            fn.pointers(flat[0::2]), fn.pointers(flat[1::2]),
-            cfg.feat_dim, cfg.coord_encode_level, cfg.dir_encode_level, int(cfg.include_input),
-            cfg.pos_enc_dim, cfg.dir_enc_dim, stream,
+            workspace.data_ptr(), rgb.data_ptr(), weights.data_ptr(), fn.pointers(gw), fn.pointers(gb),
+            *dims, *extra, stream,
         )
     if err != 0:
         msg = lib.fused_train_error_string(err).decode()
-        raise RuntimeError(f"fused_train_pass launch failed: {msg} (cudaError {err})")
+        raise RuntimeError(f"fused_train_pass ({route}) launch failed: {msg} (cudaError {err})")
     launch_count.count(fused_train_pass, (n, s))
+    fused_train_pass.route_launches[route] += 1
+    if route != "wgmma":
+        grads = fn.grads_from_general(gw, gb, cfg)
     return rgb, weights, grads
 
 
@@ -217,4 +236,10 @@ def fused_train_pass(
     )
 
 
-launch_count.reset(fused_train_pass)
+def reset_launches() -> None:
+    """Set the pass's launch counts, total, by shape and by route, to 0."""
+    launch_count.reset(fused_train_pass)
+
+
+fused_train_pass.route_launches = dict.fromkeys(fn.ROUTES, 0)
+reset_launches()

@@ -4,7 +4,8 @@ A wrapper ``fn`` carries ``fn.launches``, its kernel's launches, and
 ``fn.shapes``, the same launches by the shape it was given (a
 ``collections.Counter``, so ``fn.launches == sum(fn.shapes.values())``).
 :func:`count` adds one to both where the wrapper launches its kernel, and
-nowhere else; :func:`reset` sets both to 0.
+nowhere else; :func:`reset` sets both to 0, and a wrapper's
+``fn.route_launches`` (its launches by route), where it has one.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ def reset(*fns) -> None:
     for fn in fns:
         fn.launches = 0
         fn.shapes = collections.Counter()
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def count(fn, shape) -> None:

@@ -99,6 +99,9 @@ class _NullLogger:
     def log_scalars(self, step, scalars) -> None:
         pass
 
+    def log_image(self, step, tag, image) -> None:
+        pass
+
     def close(self) -> None:
         pass
 
@@ -343,7 +346,8 @@ def _frame_renderer(field, settings, cfg, mesh):
 
 def _validate(cfg, render, state, dataset, logger, step, device, main_rank=True) -> None:
     """Full-image validation on the val split at full resolution:
-    PSNR/SSIM, and LPIPS where calibrated weights are found."""
+    PSNR/SSIM, and LPIPS where calibrated weights are found; view 0's
+    prediction beside its ground truth as the ``val/pred_vs_gt`` image."""
     num_batch = min(cfg.train_params.validation.num_batch, dataset.num_views)
     lpips_weights = lpips.load_weights()
     psnrs, ssims, lpipss = [], [], []
@@ -357,6 +361,9 @@ def _validate(cfg, render, state, dataset, logger, step, device, main_rank=True)
         ssims.append(metrics_mod.ssim(pred, gt, device=device))
         if lpips_weights is not None:
             lpipss.append(lpips.lpips_alex(pred, gt, lpips_weights, device=device))
+        if view == 0:
+            # pred | gt side by side, as the reference logs to TensorBoard
+            logger.log_image(step, "val/pred_vs_gt", np.concatenate([pred, gt], axis=1))
     if not main_rank:
         return
     scalars = {"val/psnr": float(np.mean(psnrs)), "val/ssim": float(np.mean(ssims))}

@@ -14,9 +14,11 @@ whole fused and ``force_generic`` train steps (host clock). Turns alternate
 fine pass's outputs, and the two sides' largest difference is printed.
 Prints one JSON line per turn with the SM clock, temperature and power
 draw after it, then each side's median and quartiles and the card's
-``nvidia-smi`` line.
+``nvidia-smi`` line. ``--route f32`` or ``mma_sync`` times the general
+route at path A's or B's config (``train_profile.ROUTE_FIELDS``) in place
+of the preset's ``wgmma``.
 
-    python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4]
+    python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4] [--route R]
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from torch_nerf_tpu_torch.ops import fused_nerf as fn
 from torch_nerf_tpu_torch.ops import fused_train as ftm
 from torch_nerf_tpu_torch.ops import sampling
 from torch_nerf_tpu_torch.runners.timing import event_ms, nvidia_smi, quartiles
+from torch_nerf_tpu_torch.runners.train_profile import ROUTE_FIELDS
 
 REPO = Path(__file__).resolve().parents[2]
 KERNELS = ["fused_nerf_fwd", "fused_nerf_bwd", "fused_train"]
@@ -54,12 +57,12 @@ def step_batch(step, images, poses, camera, gen):
     return o.contiguous(), d.contiguous(), images[idx][pix].contiguous(), draws.rays
 
 
-def turn(steps: int, save: str = "") -> dict:
+def turn(steps: int, save: str = "", route: str = "wgmma") -> dict:
     """One side's timings, in the checkout this process imports."""
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
     images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
-    field = make_nerf_field(compute_dtype=torch.bfloat16)
+    field = make_nerf_field(**ROUTE_FIELDS[route])
     cfg = field.fused_cfg
     settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
     optim = train.OptimConfig()
@@ -128,9 +131,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--steps", type=int, default=10, help="timed train steps per path and turn")
     parser.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--save", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--route", choices=tuple(ROUTE_FIELDS), default="wgmma",
+                        help="the classic field's route: f32 (path A) or mma_sync (path B, width 512)")
     args = parser.parse_args(argv)
     if args.turn:
-        print(json.dumps(turn(args.steps, args.save)), flush=True)
+        print(json.dumps(turn(args.steps, args.save, args.route)), flush=True)
         return {}
     if not args.other:
         parser.error("--other is required")
@@ -144,7 +149,8 @@ def main(argv=None) -> dict:
     for r in range(args.rounds):
         for side in (("other", "repo") if r % 2 == 0 else ("repo", "other")):
             extra = ["--save", str(out_dir / f"{side}.pt")] if r == 0 else []
-            row = json.loads(_run(sides[side], ["--turn", "--steps", str(args.steps), *extra]).stdout.splitlines()[-1])
+            row = json.loads(_run(sides[side], ["--turn", "--steps", str(args.steps), "--route", args.route,
+                                                *extra]).stdout.splitlines()[-1])
             for k, v in row.items():
                 if k != "sm_clock_temp_power":
                     results[side].setdefault(k, []).append(v)

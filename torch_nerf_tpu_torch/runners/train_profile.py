@@ -19,8 +19,12 @@ fused classic path also each kernel of the train pass (forward, composite,
 chain, dW GEMM, reduce) beside its floors by operations (989 TFLOP/s) and
 by the bytes the design moves (3.35 TB/s), over the step's coarse and fine
 passes (``fused_train.phase_floors``); then the card's ``nvidia-smi`` line.
+``--route f32`` profiles the classic NeRF in f32 (path A) and ``--route
+mma_sync`` at width 512 with a 75-wide encoding in bf16 (path B): the
+general route, its forward, chain and dW kernels beside their floors by
+operations at the route's peak (67 TFLOP/s f32, 989 bf16).
 
-    python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--occupancy] [--steps 5]
+    python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--occupancy] [--route R] [--steps 5]
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
 from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field
-from torch_nerf_tpu_torch.ops import fused_train
+from torch_nerf_tpu_torch.ops import fused_nerf, fused_train
 from torch_nerf_tpu_torch.runners.timing import nvidia_smi
 
 
@@ -83,8 +87,13 @@ def profile_path(step, state, grid, images, poses, gen, steps: int) -> dict:
                 kernels_ms_per_step=dict(sorted(kernels.items(), key=lambda kv: -kv[1])))
 
 
-# H100 SXM data-sheet peaks: dense bf16, HBM3
+# H100 SXM data-sheet peaks: dense bf16, HBM3; f32 outside the tensor cores
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+F32_PEAK_FLOPS = 67e12
+# the classic field of each route: the preset (wgmma), path B, path A
+ROUTE_FIELDS = {"wgmma": dict(compute_dtype=torch.bfloat16),
+                "mma_sync": dict(compute_dtype=torch.bfloat16, feat_dim=512, coord_encode_level=12),
+                "f32": dict(compute_dtype=torch.float32)}
 
 
 def phases(kernels_ms: dict, cfg, passes) -> dict:
@@ -99,6 +108,16 @@ def phases(kernels_ms: dict, cfg, passes) -> dict:
     return out
 
 
+def general_phases(kernels_ms: dict, cfg, passes) -> dict:
+    """The general route's forward, chain and dW kernels' ms per step beside
+    their floors by operations over the step's passes, at the peak of the
+    route's type."""
+    peak = F32_PEAK_FLOPS if cfg.compute_dtype == torch.float32 else PEAK_FLOPS
+    flops = fused_nerf.flops_per_point(cfg) * sum(passes)
+    return {name: dict(ms=kernels_ms.get(name, 0.0), floor_ops_ms=flops / peak * 1e3)
+            for name in ("forward_kernel", "chain_kernel", "dw_kernel")}
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=5)
@@ -106,6 +125,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--layout", choices=("bricked", "hash", "packed", "packed_dual"), default=None,
                         help="with --model instant_nerf: one table layout (default: bricked and hash)")
     parser.add_argument("--occupancy", action="store_true", help="also the occupancy-pruned step")
+    parser.add_argument("--route", choices=tuple(ROUTE_FIELDS), default="wgmma",
+                        help="the classic field's route: f32 (path A) or mma_sync (path B, width 512)")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
@@ -126,7 +147,7 @@ def main(argv=None) -> dict:
     else:
         settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
         optim = train.OptimConfig()
-        field = make_nerf_field(compute_dtype=torch.bfloat16)
+        field = make_nerf_field(**ROUTE_FIELDS[args.route])
         paths = {"fused": (field, False, None, None), "generic": (field, True, None, None)}
         if args.occupancy:
             paths["fused_occupancy"] = (field, False, None,
@@ -140,9 +161,10 @@ def main(argv=None) -> dict:
         grid = occupancy.init_grid(occ, dev) if occ else None
         out[path] = profile_path(step, state, grid, images, poses, gen, args.steps)
         if path == "fused":
-            out[path]["phases"] = phases(out[path]["kernels_ms_per_step"], field.fused_cfg,
-                                         (4096 * settings.num_samples_coarse,
-                                          4096 * (settings.num_samples_coarse + settings.num_samples_fine)))
+            split = phases if fused_nerf.train_route(field.fused_cfg) == "wgmma" else general_phases
+            out[path]["phases"] = split(out[path]["kernels_ms_per_step"], field.fused_cfg,
+                                        (4096 * settings.num_samples_coarse,
+                                         4096 * (settings.num_samples_coarse + settings.num_samples_fine)))
         print(json.dumps({"path": path, **out[path]}), flush=True)
     print(json.dumps({"card": nvidia_smi("name,power.limit,clocks.sm,power.draw")}), flush=True)
     return out

@@ -144,9 +144,11 @@ def build_render_settings(
 
 def build_field(cfg: cfg_mod.ExperimentConfig) -> Field:
     """Field from the network + signal_encoder groups. ``parallel.use_pallas``
-    None or true takes the kernels, which decide by the tensors' device (the
-    fused NeRF kernel raises on the card for a compute_dtype other than
-    bfloat16); false takes the plain versions."""
+    None or true takes the kernels, which decide by the tensors' device (on
+    the card the fused NeRF kernels take bfloat16 or float32 at any
+    feat_dim up to 1024 with encodings up to 128 wide, on the route
+    ``fused_nerf.forward_route`` picks, and raise past that); false takes
+    the plain versions."""
     net = cfg.network
     enc = cfg.signal_encoder
     compute_dtype = getattr(torch, cfg.device.compute_dtype)
@@ -183,12 +185,13 @@ def check_trainable(cfg: cfg_mod.ExperimentConfig, device: torch.device) -> None
     would reach the card's fused training kernels and they cannot take it:
     a classic NeRF (``network.type`` nerf) on a CUDA device with
     ``parallel.use_pallas`` not false trains through kernels 2 and 3, which
-    take ``network.feat_dim`` in {64, 128, 256}, encodings at most 64 wide
-    (``signal_encoder.coord_encode_level`` and ``dir_encode_level`` <= 10)
-    and ``device.compute_dtype`` bfloat16 (``fused_nerf.check_train_config``).
-    The message names each offending key and that
-    ``parallel.use_pallas=false`` trains the config on the card through the
-    plain path; nothing falls back to it unasked. Needs no card."""
+    take ``network.feat_dim`` up to 1024, encodings up to 128 wide
+    (``signal_encoder.coord_encode_level`` and ``dir_encode_level`` <= 20)
+    and ``device.compute_dtype`` bfloat16 or float32
+    (``fused_nerf.train_route``: ``wgmma``, ``mma_sync`` or ``f32``). The
+    message names each offending key and that ``parallel.use_pallas=false``
+    trains the config on the card through the plain path; nothing falls
+    back to it unasked. Needs no card."""
     net, enc = cfg.network, cfg.signal_encoder
     if device.type != "cuda" or net.type != "nerf" or cfg.parallel.use_pallas is False:
         return
@@ -200,19 +203,18 @@ def check_trainable(cfg: cfg_mod.ExperimentConfig, device: torch.device) -> None
         compute_dtype=getattr(torch, cfg.device.compute_dtype),
     )
     try:
-        fused_nerf.check_train_config(fcfg)
+        fused_nerf.train_route(fcfg)
     except ValueError as err:
         bad = []
-        if net.feat_dim not in fused_nerf.TRAIN_WIDTHS:
-            bad.append(f"network.feat_dim={net.feat_dim} (the kernels take 64, 128 or 256)")
-        if fcfg.pos_enc_dim > 64:
-            bad.append(f"signal_encoder.coord_encode_level={enc.coord_encode_level} (the kernels take <= 10, "
-                       f"{fcfg.pos_enc_dim} encoded columns > 64)")
-        if fcfg.dir_enc_dim > 64:
-            bad.append(f"signal_encoder.dir_encode_level={enc.dir_encode_level} (the kernels take <= 10, "
-                       f"{fcfg.dir_enc_dim} encoded columns > 64)")
-        if fcfg.compute_dtype != torch.bfloat16:
-            bad.append(f"device.compute_dtype={cfg.device.compute_dtype} (the kernels take bfloat16)")
+        if not 0 < net.feat_dim <= fused_nerf.MAX_FEAT:
+            bad.append(f"network.feat_dim={net.feat_dim} (the kernels take up to {fused_nerf.MAX_FEAT})")
+        for key, level, width in (("coord_encode_level", enc.coord_encode_level, fcfg.pos_enc_dim),
+                                  ("dir_encode_level", enc.dir_encode_level, fcfg.dir_enc_dim)):
+            if width > fused_nerf.MAX_ENC:
+                bad.append(f"signal_encoder.{key}={level} (the kernels take <= 20, {width} encoded columns "
+                           f"> {fused_nerf.MAX_ENC})")
+        if fcfg.compute_dtype not in fused_nerf.DTYPES:
+            bad.append(f"device.compute_dtype={cfg.device.compute_dtype} (the kernels take bfloat16 or float32)")
         raise ValueError(
             "the card's fused training kernels cannot train this config: " + "; ".join(bad or [str(err)])
             + ". Set parallel.use_pallas=false to train it on the card through the plain path."
