@@ -15,25 +15,27 @@ the ``kernels`` line, the card's name and power limit, and last
 
 Phases: device, build (one nvcc per source, all at once, sm_90a); kernel
 (the field's forward at full width, ragged tail, PyTorch-default and
-He-scaled weights, on its wgmma route at widths 256, 128 and 64, its
-mma.sync route at widths 96, 48 (padded to 64), 1024 (32-point tiles) and
-path B's 512 with a 75-wide encoding, and its f32 route at path A's 256,
-three trunk faults planted in the wgmma route's forward images and in
-each general route's forward matrices, and the f32 route's matrices
-rounded to TF32 and to bf16, that the comparison must reject; the f32
-route's limits have a floor of 1e-5, bf16's 1e-3);
+He-scaled weights, on its wgmma route at widths 256, 128 and 64, the
+tensor-core general route at path B's 512 with a 75-wide encoding, 48
+(padded to 64) and 384 in bf16 (wgmma_general) and path A's 256 in f32
+(f32_wgmma), the mma.sync/FFMA general route where it stays (mma.sync at 96 and 1024,
+FFMA at 320), three trunk faults planted in the wgmma route's forward
+images and in each of paths A's and B's forward images, and path A's f32
+matrices rounded to TF32 and to bf16, that the comparison must reject; the
+f32 limits have a floor of 1e-5, bf16's 1e-3; the tensor-core route's
+Python twin of its shared-memory cut against its C++ side);
 kernel_bwd (the field's backward on 2^16 + 37 points and at the
 train path's 4096 x 64 and 4096 x 192, every grad against the plain
 version, three planted faults in the training kernels' weight images, a
-second launch bit-identical; then kernel_bwd_general: the backward on
-each general route (f32 against the plain f64 version, mma_sync against
-the plain f32) on the 786,432 fine points, a second launch bit-identical,
-three faults and the f32 route's two roundings planted in its
-matrices); kernel_train (the fused train pass at
+second launch bit-identical; then kernel_bwd_general: the backward at
+paths A and B (f32_wgmma against the plain f64 version, wgmma_general
+against the plain f32) on the 786,432 fine points, a second launch
+bit-identical, three faults and path A's two roundings planted in its
+images); kernel_train (the fused train pass at
 4096 x 64, 4096 x 192 and a ragged batch, rgb, weights and grads, planted
 faults in the weight images and in the composite, a second launch
-bit-identical; then kernel_train_general: the pass on each general route
-at 4096 x 64 and 4096 x 192, the same rules one precision up for f32);
+bit-identical; then kernel_train_general: the pass at paths A and B at
+4096 x 64 and 4096 x 192, the same rules one precision up for f32);
 serve (``run_render`` + ``evaluate`` on 128x128 test views, kernel launches
 counted, the kernel's render held against the plain version's); train
 (``run_train`` for 24 steps with a validation, a checkpoint and a
@@ -41,15 +43,17 @@ visualisation, a resume for 8 more, then ``run_render`` + ``evaluate``;
 2 fused-pass launches per step, 2 forward launches per render chunk);
 train_f32 and train_wide (paths A and B of the general route through the
 same CLI sequence as train: the default preset with
-``device.compute_dtype=float32``, and ``network.feat_dim=512
-signal_encoder.coord_encode_level=12``; every launch counted by route from
-0: kernel 3 twice a step and kernel 1 twice a chunk on the path's route,
-none on the others); train_bench (train steps at ``bench.py``'s
-operating point, fused and through autograd, each kernel timed beside its
-bound and its plain version); train_bench_general (paths A and B at the
-same point, fused and ``force_generic``, kernel 1 held against its plain
-version at the path's coarse and fine render chunks, kernels 1-3 timed
-alone); bench (800x800 frames at ``bench.py --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
+``device.compute_dtype=float32`` (f32_wgmma), and ``network.feat_dim=512
+signal_encoder.coord_encode_level=12`` (wgmma_general); every launch
+counted by route from 0: kernel 3 twice a step and kernel 1 twice a chunk
+on the path's route, none on the others, the mma.sync/FFMA routes included); train_bench
+(train steps at ``bench.py``'s operating point, fused and through
+autograd, each kernel timed beside its bound and its plain version);
+train_bench_general (paths A and B at the same point, fused and
+``force_generic``, kernel 1 held against its plain version at the path's
+coarse and fine render chunks, kernels 1-3 timed alone; then kernels 1-3 on
+a config that stays on each route of the mma.sync/FFMA engine, mma.sync at width 1024 and
+FFMA at 320, held against their plain versions and timed); bench (800x800 frames at ``bench.py --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
 per-corner hash encodes forward and backward, at full width on the 2^20
 points of a train batch plus 37 negative, integral and large ones, three
 planted faults that must be rejected, then kernels 4-7 on the points of
@@ -155,13 +159,20 @@ NGP = dict(num_level=16, log_max_entry_per_level=19, table_feat_dim=2, min_res=1
 NGP_LAYOUTS = ("bricked", "hash")
 PACKED_LAYOUTS = ("packed", "packed_dual")
 # the general route's two configs, each run through the CLIs: path A, the
-# default preset in f32 (route f32); path B, width 512 with a 75-wide
-# position encoding (level 12) in bf16 (route mma_sync)
-GENERAL = {"f32": dict(feat_dim=256, coord_encode_level=10, dtype=torch.float32),
-           "mma_sync": dict(feat_dim=512, coord_encode_level=12, dtype=torch.bfloat16)}
-GENERAL_OVERRIDES = {"f32": ["device.compute_dtype=float32"],
-                     "mma_sync": ["network.feat_dim=512", "signal_encoder.coord_encode_level=12"]}
-GENERAL_PHASES = {"f32": "train_f32", "mma_sync": "train_wide"}
+# default preset in f32 (route f32_wgmma); path B, width 512 with a 75-wide
+# position encoding (level 12) in bf16 (route wgmma_general): both on the
+# tensor-core general route (csrc/nerf_mlp_tc.cuh)
+GENERAL = {"f32_wgmma": dict(feat_dim=256, coord_encode_level=10, dtype=torch.float32),
+           "wgmma_general": dict(feat_dim=512, coord_encode_level=12, dtype=torch.bfloat16)}
+GENERAL_OVERRIDES = {"f32_wgmma": ["device.compute_dtype=float32"],
+                     "wgmma_general": ["network.feat_dim=512", "signal_encoder.coord_encode_level=12"]}
+GENERAL_PHASES = {"f32_wgmma": "train_f32", "wgmma_general": "train_wide"}
+# a config on each route of the general route that the tensor-core engine
+# does not hold (csrc/nerf_mlp_general.cuh): bf16 at width 1024 (mma_sync;
+# the engine takes up to 512) and f32 at width 320 (f32, FFMA; up to 256),
+# launched, checked and timed in train_bench_general
+MMA_FFMA_ROUTES = {"mma_sync": dict(feat_dim=1024, coord_encode_level=10, dtype=torch.bfloat16),
+               "f32": dict(feat_dim=320, coord_encode_level=10, dtype=torch.float32)}
 # the floor of every limit that holds a kernel of one compute type against
 # the plain version one precision up (2x the plain version's own error +
 # the floor): 1e-3 for bf16; for f32 1e-5, 1/50 of TF32's unit roundoff
@@ -200,7 +211,8 @@ def phase_build():
     from torch_nerf_tpu_torch.ops import build  # noqa: PLC0415
 
     t0 = time.perf_counter()
-    reports = build.build(["fused_nerf_fwd", "fused_nerf_bwd", "fused_train", "hash_grid"])
+    reports = build.build(["fused_nerf_fwd", "fused_nerf_bwd", "fused_train", "hash_grid", "fused_tc_fwd",
+                           "fused_tc_train", "fused_tc_bwd"])
     seconds = time.perf_counter() - t0
     ptxas = {
         Path(src).stem: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -311,15 +323,19 @@ def planted_faults(w, params) -> dict:
 
 
 # (width, route, coord_encode_level) of every kernel-1 check: the wgmma
-# route at the training widths; the mma.sync route at widths outside them,
-# a padded one (48 -> 64), the widest (1024: 32-point tiles) and path B's
-# config (512, a 75-wide encoding); the f32 route at path A's config
+# route at the training widths; the tensor-core general route at path B's
+# config (512, a 75-wide encoding), a padded width (48 -> 64), 384 and
+# path A's config in f32; the mma.sync route at widths it keeps (96: off
+# the 64s; 1024: 32-point tiles) and the FFMA route at 320
 KERNEL1_WIDTHS = ((256, "wgmma", 10), (128, "wgmma", 10), (64, "wgmma", 10), (96, "mma_sync", 10),
-                  (256, "f32", 10), (512, "mma_sync", 12), (48, "mma_sync", 10), (1024, "mma_sync", 10))
+                  (256, "f32_wgmma", 10), (512, "wgmma_general", 12), (48, "wgmma_general", 10),
+                  (384, "wgmma_general", 10), (1024, "mma_sync", 10), (320, "f32", 10))
 
 
 def route_dtype(route: str):
-    return torch.float32 if route == "f32" else torch.bfloat16
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    return fn.ROUTE_DTYPE[route]
 
 
 def level_params(feat: int, level: int, seed: int, dev):
@@ -355,23 +371,72 @@ def rounded_to(x, bits: int):
     return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
 
 
+# the same faults in the tensor-core general route's images (csrc/
+# nerf_mlp_tc.cuh): a layer zeroed, its K-slices rolled by one stage (one
+# image's slice: a bf16 piece in f32), a layer written without the 128-byte
+# swizzle (each image's slices row-major)
+def tc_fault(images, mats, index, kind):
+    if kind == "zeroed":
+        images[index] = torch.zeros_like(images[index])
+    elif kind == "k_tiles_rolled":
+        images[index] = torch.roll(images[index], mats[index].shape[0] * 64)
+    else:
+        from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+        m = mats[index]
+        r, c = m.shape
+        pieces = fn.bf16_pieces(m)[::-1] if m.dtype == torch.float32 else (m,)
+        images[index] = torch.stack([p.reshape(r, c // 64, 64).permute(1, 0, 2).reshape(c // 64, r * 64)
+                                     for p in pieces], dim=1).reshape(-1).contiguous()
+
+
 def general_forward_faults(w, params, cfg) -> dict:
-    """Copies of the general route's forward weights ``w`` with fc_1
-    zeroed, fc_6's k-tiles rolled, fc_3 in the other layout; on the f32
-    route also every matrix rounded as :data:`PRECISION_CONTROLS` says."""
+    """Copies of the general route's forward weights ``w`` (either engine's,
+    by ``w.route``) with fc_1 zeroed, fc_6's k-tiles rolled, fc_3 in
+    another layout; in f32 also every matrix rounded as
+    :data:`PRECISION_CONTROLS` says."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    mats = [fwd for fwd, _, _ in fn.general_matrices(params, cfg)]
+    tc = w.route in fn.TC_ROUTES
+    mats = fn.tc_matrices(params, cfg)[0] if tc else [fwd for fwd, _, _ in fn.general_matrices(params, cfg)]
     out = {}
     for name, index, kind in (("fc_1_zeroed", 1, "zeroed"), ("fc_6_k_tiles_rolled", 6, "k_tiles_rolled"),
                               ("fc_3_other_layout", 3, "other_layout")):
         images = list(w.weights)
-        general_fault(images, mats, index, kind, cfg.compute_dtype)
+        if tc:
+            tc_fault(images, mats, index, kind)
+        else:
+            general_fault(images, mats, index, kind, cfg.compute_dtype)
         out[name] = dataclasses.replace(w, weights=tuple(images))
     if cfg.compute_dtype == torch.float32:
         for name, bits in PRECISION_CONTROLS.items():
-            out[name] = dataclasses.replace(w, weights=tuple(rounded_to(x, bits) for x in w.weights))
+            images = (fn.tc_panel_image(rounded_to(m, bits)) for m in mats) if tc else (
+                rounded_to(x, bits) for x in w.weights)
+            out[name] = dataclasses.replace(w, weights=tuple(images))
     return out
+
+
+# (width, coord_encode_level, dir_encode_level, dtype) whose verdict the
+# tensor-core general route's Python twin (fused_nerf.tc_stages) and its C++
+# side (nerf_mlp_tc.cuh's takes, through fused_tc_takes) must share
+TC_TWIN_CONFIGS = [(f, lv, dl, dt) for f in (64, 96, 192, 256, 320, 512, 576) for lv, dl in ((10, 4), (12, 4), (20, 20))
+                   for dt in (torch.bfloat16, torch.float32)]
+
+
+def tc_twin_agrees() -> dict:
+    """Each config of :data:`TC_TWIN_CONFIGS` taken or refused alike by
+    ``fused_nerf.tc_stages`` and the library's ``fused_tc_takes``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    lib = fn._tc_library()
+    rows = {}
+    for feat, level, dir_level, dtype in TC_TWIN_CONFIGS:
+        cfg = fn.FusedNeRFConfig(coord_encode_level=level, dir_encode_level=dir_level, feat_dim=feat,
+                                 compute_dtype=dtype)
+        d = fn.kernel_dims(cfg)
+        c_side = bool(lib.fused_tc_takes(d[0], d[4], d[5], d[6], d[7], int(dtype == torch.float32)))
+        rows[f"{feat}/{level}/{dir_level}/{str(dtype)[6:]}"] = [fn.tc_stages(cfg) is not None, c_side]
+    return {"configs": rows, "ok": all(a == b for a, b in rows.values())}
 
 
 def phase_kernel():
@@ -413,9 +478,11 @@ def phase_kernel():
             for fault, bad in general_forward_faults(fn.prepare(params, cfg), params, cfg).items():
                 r = kernel_errors(bad, pts, dirs, g["feat_dim"], g["dtype"], g["coord_encode_level"])
                 faults[f"{wname}/{route}/{fault}"] = {"rejected": not r["ok"], "max_abs_err": r["max_abs_err"]}
-    ok = routes_ok and all(v["rejected"] for k, v in faults.items() if k.startswith("he/"))
-    emit("kernel", weights=results, routes_ok=routes_ok, planted_faults=faults,
-         rule="each config on its route; every planted fault rejected with the he weights", ok=ok)
+    twin = tc_twin_agrees()
+    ok = routes_ok and twin["ok"] and all(v["rejected"] for k, v in faults.items() if k.startswith("he/"))
+    emit("kernel", weights=results, routes_ok=routes_ok, planted_faults=faults, tc_twin=twin,
+         rule="each config on its route; every planted fault rejected with the he weights; the tensor-core "
+              "route's Python twin takes the configs its C++ side takes", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel phase failed (a route, or a planted fault passed the comparison)")
     # the routes and widths of the earlier slices, as this phase returned them
@@ -624,25 +691,31 @@ def phase_kernel_bwd(batch):
 
 
 @contextlib.contextmanager
-def planted_general(index, kind, which):
+def planted_general(index, kind, which, tc: bool = False):
     """Route the general route's layout through :func:`general_fault` of
-    layer ``index`` in its forward (``which`` 0) or chain (2) matrices."""
+    layer ``index`` in its forward (``which`` 0) or chain (2) matrices;
+    with ``tc`` the tensor-core general route's through :func:`tc_fault`."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    real = fn.general_layout
+    name = "tc_layout" if tc else "general_layout"
+    real = getattr(fn, name)
 
     def broken(params, cfg):
         out = list(real(params, cfg))
         images = list(out[which])
-        general_fault(images, [m[which] for m in fn.general_matrices(params, cfg)], index, kind, cfg.compute_dtype)
+        if tc:
+            tc_fault(images, fn.tc_matrices(params, cfg)[which // 2], index, kind)
+        else:
+            general_fault(images, [m[which] for m in fn.general_matrices(params, cfg)], index, kind,
+                          cfg.compute_dtype)
         out[which] = images
         return tuple(out)
 
-    fn.general_layout = broken
+    setattr(fn, name, broken)
     try:
         yield
     finally:
-        fn.general_layout = real
+        setattr(fn, name, real)
 
 
 # the training kernels' faults on the general route: (layer, kind, matrices)
@@ -654,37 +727,45 @@ GENERAL_TRAIN_FAULTS = {
 
 
 @contextlib.contextmanager
-def planted_rounding(bits: int):
+def planted_rounding(bits: int, tc: bool = False):
     """Route the f32 route's layout through :func:`rounded_to`: every
     forward and chain matrix at ``bits`` mantissa bits, as a chain of
-    TF32 or bf16 products would read its weights."""
+    TF32 or bf16 products would read its weights; with ``tc`` the
+    tensor-core general route's matrices, before their bf16 pieces."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    real = fn.general_layout
+    name = "tc_matrices" if tc else "general_layout"
+    real = getattr(fn, name)
 
     def rounded(params, cfg):
+        if tc:
+            fwd, chain = real(params, cfg)
+            return [rounded_to(x, bits) for x in fwd], [rounded_to(x, bits) for x in chain]
         fwd, biases, chain = real(params, cfg)
         return [rounded_to(x, bits) for x in fwd], biases, [rounded_to(x, bits) for x in chain]
 
-    fn.general_layout = rounded
+    setattr(fn, name, rounded)
     try:
         yield
     finally:
-        fn.general_layout = real
+        setattr(fn, name, real)
 
 
 def general_train_faults(route: str) -> dict:
     """name -> a context that plants it in ``route``'s training kernels:
-    :data:`GENERAL_TRAIN_FAULTS`, and on the f32 route the
+    :data:`GENERAL_TRAIN_FAULTS` in the route's own layout, and in f32 the
     :data:`PRECISION_CONTROLS`."""
-    out = {name: (lambda spec=spec: planted_general(*spec)) for name, spec in GENERAL_TRAIN_FAULTS.items()}
-    if route == "f32":
-        out.update({name: (lambda b=bits: planted_rounding(b)) for name, bits in PRECISION_CONTROLS.items()})
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    tc = route in fn.TC_ROUTES
+    out = {name: (lambda spec=spec: planted_general(*spec, tc=tc)) for name, spec in GENERAL_TRAIN_FAULTS.items()}
+    if fn.ROUTE_DTYPE[route] == torch.float32:
+        out.update({name: (lambda b=bits: planted_rounding(b, tc)) for name, bits in PRECISION_CONTROLS.items()})
     return out
 
 
 def general_bwd_checks(batch) -> dict:
-    """Kernel 2 on each general route (:data:`GENERAL`: path A's f32 config,
+    """Kernel 2 at paths A and B (:data:`GENERAL`: path A's f32 config,
     path B's width 512 with a 75-wide encoding in bf16) at the main path's
     fine shape, 4096 x 192 = 786,432 points of a train batch, with seeded
     random cotangents, PyTorch-default weights and their He-scaled copy:
@@ -953,7 +1034,7 @@ def phase_kernel_train(batch):
 
 
 def general_train_checks(batch) -> dict:
-    """Kernel 3 on each general route (:data:`GENERAL`) at the main path's
+    """Kernel 3 at paths A and B (:data:`GENERAL`) at the main path's
     shapes, 4096 x 64 and 4096 x 192 (the batch's sorted depths), with
     PyTorch-default weights and their He-scaled copy: rgb and weights as
     :func:`composite_errors` measures them and the 22 grads by relative L2,
@@ -1251,7 +1332,7 @@ def phase_train(work: Path):
 
 
 def train_resume_render_routes(work: Path, route: str) -> dict:
-    """Path A (``route`` f32) or B (mma_sync) through the CLIs: ``run_train
+    """Path A (``route`` f32_wgmma) or B (wgmma_general) through the CLIs: ``run_train
     --config default`` with :data:`GENERAL_OVERRIDES` on gaussian_blobs at
     400x400 (8 views), 24 steps with a validation (an 800x800 val view, 157
     chunks), a checkpoint and a visualisation (a 400x400 view, 40 chunks),
@@ -1411,9 +1492,9 @@ def phase_train_bench_general(smi: str) -> dict:
     weights and seeded port-init weights and their He-scaled copy; then
     kernel 3 alone per coarse and fine pass, kernel 2 at the fine shape and
     kernel 1 on the fine chunk (786,432 points), by CUDA events, beside
-    their bounds (the card's peak for the route's type: bf16 tensor cores
-    for mma_sync, :data:`F32_PEAK` for f32) and the plain versions'
-    times."""
+    their bounds (:func:`route_peak`; path A also beside the f32 FFMA
+    peak's, and kernel 3 beside its stash floor) and the plain versions'
+    times; then :func:`mma_ffma_route_checks`."""
     from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
@@ -1435,7 +1516,7 @@ def phase_train_bench_general(smi: str) -> dict:
         field = make_nerf_field(coord_encode_level=g["coord_encode_level"], feat_dim=g["feat_dim"],
                                 compute_dtype=g["dtype"])
         cfg = field.fused_cfg
-        peak = F32_PEAK if route == "f32" else bf16_peak
+        peak = route_peak(route, bf16_peak)
         paths, states = {}, {}
         for path, generic in (("fused", False), ("generic", True)):
             state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
@@ -1488,6 +1569,7 @@ def phase_train_bench_general(smi: str) -> dict:
                 plain = cuda_ms(lambda: train_reference(params, o, d, t, delta, gt, cfg, 4096), 1)
                 kernels[f"fused_train_pass/{name}"] = bound_entry(
                     ms, plain, 3 * fn.flops_per_point(cfg) * m, 12 * m + 48 * 4096 + 2 * param_bytes, peak, peak_bw, m)
+                kernels[f"fused_train_pass/{name}"]["stash_floor_ms"] = stash_floor_ms(cfg, m, peak_bw)
             pts, dirs = ray_points(o, d, t_f)
             m = pts.shape[0]
             gk = torch.Generator(device=dev).manual_seed(4)
@@ -1502,6 +1584,9 @@ def phase_train_bench_general(smi: str) -> dict:
             plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(pf, pts, dirs, cfg), 2)
             kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, fn.flops_per_point(cfg) * m,
                                                          40 * m + param_bytes, peak, peak_bw, m)
+        if route == "f32_wgmma":  # the bound at f32's FFMA peak beside the tensor cores'
+            for k in kernels.values():
+                k["ffma_bound_ms"] = k["tflops"] * 1e12 * k["ms"] / F32_PEAK
         zero = dict.fromkeys(fn.ROUTES, 0)
         want = {"fused": {"fused_train_pass": dict(zero, **{route: 2 * timed}), "fused_nerf_fwd": zero,
                           "fused_nerf_bwd": zero},
@@ -1515,10 +1600,126 @@ def phase_train_bench_general(smi: str) -> dict:
                           fwd_chunk_checks=chunk_checks,
                           fwd_max_abs_err=max(e for r in chunk_checks.values() for e in r["max_abs_err"].values()),
                           generic_bwd_launches=paths["generic"]["route_launches"]["fused_nerf_bwd"][route])
+    kept, kept_ok = mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw)
+    ok = ok and kept_ok
+    out.update(kept)
     emit("train_bench_general", card=smi, routes=out, peak_bytes_per_s=peak_bw, ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: train_bench_general phase failed")
     return out
+
+
+def route_peak(route: str, bf16_peak: float) -> float:
+    """The peak of ``route``'s products: the bf16 tensor cores' (wgmma,
+    mma_sync), an eighth of it for f32_wgmma (eight bf16 products a
+    multiply-add), :data:`F32_PEAK` for the FFMA route."""
+    return {"f32": F32_PEAK, "f32_wgmma": bf16_peak / 8}.get(route, bf16_peak)
+
+
+def stash_floor_ms(cfg, points: int, peak_bw: float) -> float:
+    """The general route's stash traffic for a train pass over ``points``,
+    each byte once (``fused_train.general_stash_bytes``), at ``peak_bw``."""
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+
+    return ftm.general_stash_bytes(cfg, points) / peak_bw * 1e3
+
+
+def mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
+    """Kernels 1-3 on each config of :data:`MMA_FFMA_ROUTES` (the routes the
+    tensor-core engine leaves to nerf_mlp_general.cuh): kernel 1 and 2 on
+    2^16 + 37 random points, kernel 3 at the coarse shape (the batch's 4096
+    x 64 depths), with port-init weights and their He-scaled copy, each
+    against the plain version one precision up at the limits of the GENERAL
+    routes, kernel 2-3 bit-identical relaunched, every launch counted on
+    the route; then each kernel timed at the fine shape (786,432 points)
+    beside its bound and the plain version's time. -> ``({route: results},
+    ok)``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    m = 2**16 + 37
+    pts = torch.rand((m, 3), generator=gen, device=dev) * 8.0 - 4.0
+    dirs = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1)
+    g_sigma = torch.randn((m,), generator=gen, device=dev)
+    g_rgb = torch.randn((m, 3), generator=gen, device=dev)
+    out, ok = {}, True
+    for route, g in MMA_FFMA_ROUTES.items():
+        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
+        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+        fn.reset_launches()
+        ftm.reset_launches()
+        checks = {}
+        for wname, params in (("port_init", base), ("he", he_scaled(base))):
+            checks[f"fwd/{wname}"] = kernel_errors(fn.prepare(params, cfg), pts, dirs, g["feat_dim"], g["dtype"],
+                                                   g["coord_encode_level"])
+            rparams, rt, rcfg = reference_of(params, [pts, dirs, g_sigma, g_rgb], cfg)
+            ref = bwd_reference(rparams, *rt, rcfg)
+            scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref)
+            runs = []
+            checks[f"bwd/{wname}"] = bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref, scale, runs, cfg)
+            bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref, scale, runs, cfg)
+            checks[f"bwd/{wname}"]["relaunch_bit_identical"] = all(torch.equal(runs[0][k], runs[1][k])
+                                                                   for k in runs[0])
+            delta = sampling.t_deltas(t_c)
+            args = (o, d, t_c, delta, gt)
+            rparams, rargs, rcfg = reference_of(params, list(args), cfg)
+            cr, wr, grr = train_reference(rparams, *rargs, rcfg, 4096)
+            cp, wp, gp = train_reference(params, *args, cfg, 4096)
+            ref3 = named(grr)
+            scale3 = rel_l2(named(gp), ref3)
+            got = [ftm.fused_train_pass(params, *args, cfg, 4096) for _ in range(2)]
+            torch.cuda.synchronize()
+            v = judge(rel_l2(named(got[0][2]), ref3), scale3, FLOOR[g["dtype"]])
+            comp = composite_errors(got[0][0], got[0][1], cr.float(), wr.float(), cp, wp, delta >= 1e7,
+                                    FLOOR[g["dtype"]])
+            same = all(torch.equal(a, b) for a, b in zip(named(got[0][2]).values(), named(got[1][2]).values()))
+            v.update(composite_ok=comp["ok"], relaunch_bit_identical=same, ok=v["ok"] and comp["ok"] and same,
+                     max_abs_err=max([comp["max_abs_err"]] + [(got[0][2][n][k].double() - grr[n][k].double()).abs()
+                                                              .max().item() for n in grr for k in grr[n]]))
+            checks[f"train/{wname}"] = v
+        launched = {"fused_nerf_fwd": dict(fn.fused_nerf_apply.route_launches),
+                    "fused_nerf_bwd": dict(fn.fused_nerf_bwd.route_launches),
+                    "fused_train_pass": dict(ftm.fused_train_pass.route_launches)}
+        want = {"fused_nerf_fwd": 2, "fused_nerf_bwd": 4, "fused_train_pass": 4}
+        launches_ok = all(launched[k][route] == n and sum(launched[k].values()) == n for k, n in want.items())
+        route_ok = launches_ok and all(c["ok"] and c.get("relaunch_bit_identical", True) for c in checks.values())
+        ok = ok and route_ok
+        peak = route_peak(route, bf16_peak)
+        params = base
+        param_bytes = 4 * sum(t.numel() for v in params.values() for t in v.values())
+        fpts, fdirs = ray_points(o, d, t_f)
+        mf = fpts.shape[0]
+        fs = torch.randn((mf,), generator=gen, device=dev)
+        fr = torch.randn((mf, 3), generator=gen, device=dev)
+        kernels = {}
+        with torch.no_grad():
+            delta = sampling.t_deltas(t_f)
+            ms = cuda_ms(lambda: ftm.fused_train_pass(params, o, d, t_f, delta, gt, cfg, 4096), 2)
+            plain = cuda_ms(lambda: train_reference(params, o, d, t_f, delta, gt, cfg, 4096), 1)
+            kernels["fused_train_pass/fine"] = bound_entry(ms, plain, 3 * fn.flops_per_point(cfg) * mf,
+                                                           12 * mf + 48 * 4096 + 2 * param_bytes, peak, peak_bw, mf)
+            ms = cuda_ms(lambda: fn.fused_nerf_bwd(params, fpts, fdirs, fs, fr, cfg), 2)
+            plain = cuda_ms(lambda: bwd_reference(params, fpts, fdirs, fs, fr, cfg), 1)
+            kernels["fused_nerf_bwd/fine"] = bound_entry(ms, plain, 3 * fn.flops_per_point(cfg) * mf,
+                                                         64 * mf + 2 * param_bytes, peak, peak_bw, mf)
+            prepared = fn.prepare(params, cfg)
+            ms = cuda_ms(lambda: fn.fused_nerf_apply(prepared, fpts, fdirs, cfg), 2)
+            plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(params, fpts, fdirs, cfg), 1)
+            kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, fn.flops_per_point(cfg) * mf,
+                                                         40 * mf + param_bytes, peak, peak_bw, mf)
+        out[route] = dict(config={k: str(v) for k, v in g.items()}, checks=checks, route_launches=launched,
+                          expected_launches=want, kernels=kernels,
+                          peak_flops=peak, ok=route_ok,
+                          max_abs_err={"fused_nerf_fwd": max(max(c["max_abs_err"].values())
+                                                             for k, c in checks.items() if k.startswith("fwd/")),
+                                       "fused_nerf_bwd": max(c["max_abs_err"] for k, c in checks.items()
+                                                             if k.startswith("bwd/")),
+                                       "fused_train_pass": max(c["max_abs_err"] for k, c in checks.items()
+                                                               if k.startswith("train/"))})
+    return out, ok
 
 
 # ---------------------------------------------------------------------------
@@ -3973,33 +4174,45 @@ def kernel_lines(done: dict) -> list:
 
 def general_entries(done: dict) -> list:
     """The general route's entries of the ``kernels`` line: kernels 1-3 on
-    each route of :data:`GENERAL`, with their launches over the route's CLI
-    phase (kernel 2: over train_bench_general's force_generic steps), their
-    largest max-abs error against the plain version one precision up at
-    the main path's shapes (kernel 1: train_bench_general's chunk checks),
-    and their times and bounds at the fine shape from
-    train_bench_general."""
+    each route of :data:`GENERAL` (the tensor-core engine), with their
+    launches over the route's CLI phase (kernel 2: over train_bench_general's
+    force_generic steps), their largest max-abs error against the plain
+    version one precision up at the main path's shapes (kernel 1:
+    train_bench_general's chunk checks), and their times and bounds at the
+    fine shape from train_bench_general; then kernels 1-3 on each route of
+    :data:`MMA_FFMA_ROUTES`, launched over train_bench_general's checks."""
     out = []
-    sources = {"fused_nerf_fwd": ("fused_nerf_fwd.cu", "fused_nerf.py:397"),
-               "fused_nerf_bwd": ("fused_nerf_bwd.cu", "fused_nerf.py:487"),
-               "fused_train_pass": ("fused_train.cu", "fused_train.py:196")}
-    for route in GENERAL:
+    sources = {"fused_nerf_fwd": ("fused_nerf_fwd.cu", "fused_tc_fwd.cu", "fused_nerf.py:397"),
+               "fused_nerf_bwd": ("fused_nerf_bwd.cu", "fused_tc_bwd.cu", "fused_nerf.py:487"),
+               "fused_train_pass": ("fused_train.cu", "fused_tc_train.cu", "fused_train.py:196")}
+    for route in list(GENERAL) + list(MMA_FFMA_ROUTES):
         bench = done["train_bench_general"][route]
-        path = done[GENERAL_PHASES[route]]
-        launches = {"fused_nerf_fwd": path["fused_nerf_fwd"], "fused_train_pass": path["fused_train_pass"],
-                    "fused_nerf_bwd": bench["generic_bwd_launches"]}
-        errors = {"fused_nerf_fwd": bench["fwd_max_abs_err"],
-                  "fused_nerf_bwd": done["kernel_bwd"]["general"][route],
-                  "fused_train_pass": done["kernel_train"]["general"][route]}
-        for name, (src, replaces) in sources.items():
+        if route in GENERAL:
+            path = done[GENERAL_PHASES[route]]
+            launches = {"fused_nerf_fwd": path["fused_nerf_fwd"], "fused_train_pass": path["fused_train_pass"],
+                        "fused_nerf_bwd": bench["generic_bwd_launches"]}
+            errors = {"fused_nerf_fwd": bench["fwd_max_abs_err"],
+                      "fused_nerf_bwd": done["kernel_bwd"]["general"][route],
+                      "fused_train_pass": done["kernel_train"]["general"][route]}
+            where = {name: GENERAL_PHASES[route] if name != "fused_nerf_bwd" else "train_bench_general"
+                     for name in sources}
+            config = GENERAL_OVERRIDES[route]
+        else:
+            launches = {name: bench["route_launches"][name][route] for name in sources}
+            errors = bench["max_abs_err"]
+            where = dict.fromkeys(sources, "train_bench_general")
+            config = {k: str(v) for k, v in MMA_FFMA_ROUTES[route].items()}
+        for name, (src, tc_src, replaces) in sources.items():
             k = bench["kernels"][f"{name}/fine"]
-            out.append({"name": f"{name}/{route}", "route": "cuda",
-                        "source": f"torch_nerf_tpu_torch/ops/csrc/{src} + nerf_mlp_general.cuh",
+            source = (f"torch_nerf_tpu_torch/ops/csrc/{tc_src} + nerf_mlp_tc.cuh" if route in GENERAL else
+                      f"torch_nerf_tpu_torch/ops/csrc/{src} + nerf_mlp_general.cuh")
+            out.append({"name": f"{name}/{route}", "route": "cuda", "source": source,
                         "replaces": f"torch_nerf_tpu/ops/pallas/{replaces}", "launches": launches[name],
-                        "launches_path": GENERAL_PHASES[route] if name != "fused_nerf_bwd" else "train_bench_general",
-                        "config": GENERAL_OVERRIDES[route], "max_abs_err": errors[name], "ms": k["ms"],
-                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-                        "library_ms": None})
+                        "launches_path": where[name], "config": config, "max_abs_err": errors[name],
+                        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"], "library_ms": None,
+                        **({"ffma_bound_ms": k["ffma_bound_ms"]} if "ffma_bound_ms" in k else {}),
+                        **({"stash_floor_ms": k["stash_floor_ms"]} if "stash_floor_ms" in k else {})})
     return out
 
 
@@ -4075,8 +4288,8 @@ def main() -> int:
         "kernel_fold": phase_kernel_fold(),
         "serve": phase_serve(work),
         "train": phase_train(work),
-        "train_f32": train_resume_render_routes(work, "f32"),
-        "train_wide": train_resume_render_routes(work, "mma_sync"),
+        "train_f32": train_resume_render_routes(work, "f32_wgmma"),
+        "train_wide": train_resume_render_routes(work, "wgmma_general"),
         "train_bench": phase_train_bench(smi),
         "train_bench_general": phase_train_bench_general(smi),
         "bench": phase_bench(smi),

@@ -44,7 +44,7 @@ def test_path_a_round_trip_on_cpu(tmp_path, capsys):
     fused_train.reset_launches()
     cfg = config.resolve("default", PATH_A)
     fcfg = session.build_field(cfg).fused_cfg
-    assert fused_nerf.train_route(fcfg) == "f32" and fused_nerf.padded_config(fcfg).feat_dim == 64
+    assert fused_nerf.train_route(fcfg) == "f32_wgmma" and fused_nerf.padded_config(fcfg).feat_dim == 64
     session.check_trainable(cfg, torch.device("cuda"))
 
     log_dir = tmp_path / "run"

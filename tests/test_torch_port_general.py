@@ -97,10 +97,18 @@ def test_a_width_of_32s_is_not_padded():
 
 @pytest.mark.parametrize("feat,level,dtype,route", [
     (256, 10, torch.bfloat16, "wgmma"), (64, 10, torch.bfloat16, "wgmma"),
-    (256, 11, torch.bfloat16, "mma_sync"), (96, 10, torch.bfloat16, "mma_sync"),
-    (48, 10, torch.bfloat16, "mma_sync"), (512, 12, torch.bfloat16, "mma_sync"),
-    (1024, 20, torch.bfloat16, "mma_sync"), (256, 10, torch.float32, "f32"),
-    (64, 10, torch.float32, "f32"), (1000, 20, torch.float32, "f32"),
+    (256, 11, torch.bfloat16, "wgmma_general"), (96, 10, torch.bfloat16, "mma_sync"),
+    (48, 10, torch.bfloat16, "wgmma_general"), (512, 12, torch.bfloat16, "wgmma_general"),
+    (1024, 20, torch.bfloat16, "mma_sync"), (256, 10, torch.float32, "f32_wgmma"),
+    (64, 10, torch.float32, "f32_wgmma"), (1000, 20, torch.float32, "f32"),
+    # the tensor-core general route: padded widths % 64 == 0, bf16 to 512
+    # and f32 to 256, where a ring of two stages fits beside the tiles
+    (192, 10, torch.bfloat16, "wgmma_general"), (320, 10, torch.bfloat16, "wgmma_general"),
+    (384, 12, torch.bfloat16, "wgmma_general"), (500, 10, torch.bfloat16, "wgmma_general"),
+    (512, 20, torch.bfloat16, "wgmma_general"), (160, 10, torch.bfloat16, "mma_sync"),
+    (576, 10, torch.bfloat16, "mma_sync"), (128, 12, torch.float32, "f32_wgmma"),
+    (192, 20, torch.float32, "f32_wgmma"), (256, 20, torch.float32, "f32_wgmma"),
+    (320, 10, torch.float32, "f32"), (96, 10, torch.float32, "f32"),
 ])
 def test_forward_and_train_routes_by_config(feat, level, dtype, route):
     cfg = _cfg(feat, level, dtype)
@@ -137,11 +145,13 @@ def test_tiles_shrink_where_32_points_do_not_fit(feat, dtype, rows):
 def test_route_launch_counts_reset_for_every_route():
     for fn_ in (fused_nerf.fused_nerf_apply, fused_nerf.fused_nerf_bwd, fused_train.fused_train_pass):
         fn_.route_launches["f32"] += 3
-        fn_.launches += 3
+        fn_.route_launches["f32_wgmma"] += 3
+        fn_.launches += 6
     fused_nerf.reset_launches()
     fused_train.reset_launches()
     for fn_ in (fused_nerf.fused_nerf_apply, fused_nerf.fused_nerf_bwd, fused_train.fused_train_pass):
-        assert fn_.launches == 0 and fn_.route_launches == {"wgmma": 0, "mma_sync": 0, "f32": 0}
+        assert fn_.launches == 0 and fn_.route_launches == {"wgmma": 0, "wgmma_general": 0, "f32_wgmma": 0,
+                                                            "mma_sync": 0, "f32": 0}
 
 
 @pytest.mark.parametrize("override", ["device.compute_dtype=float32", "network.feat_dim=48",

@@ -241,8 +241,8 @@ def test_build_field_float32_config_takes_kernel_route(monkeypatch):
     torch.testing.assert_close(rgb, ref_rgb.reshape(5, 7, 3), rtol=0, atol=0)
     assert real.launches == 0
     # on the card the kernel takes f32 on its own route; it refuses CPU tensors
-    assert fused_nerf.forward_route(calls[0]) == "f32"
-    laid_out = dataclasses.replace(fused_nerf.prepare(params, calls[0]), route="f32")
+    assert fused_nerf.forward_route(calls[0]) == "f32_wgmma"
+    laid_out = dataclasses.replace(fused_nerf.prepare(params, calls[0]), route="f32_wgmma")
     with pytest.raises(ValueError, match="CUDA"):
         fused_nerf._check_inputs(pts.reshape(-1, 3), dirs.reshape(-1, 3), laid_out, calls[0])
 

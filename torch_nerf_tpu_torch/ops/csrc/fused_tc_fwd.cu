@@ -1,0 +1,52 @@
+// Kernel 1 (the fused field's forward) on the tensor-core general route:
+// nerf_mlp_tc.cuh's forward without its stash, for the configs
+// torch_nerf_tpu_torch/ops/fused_nerf.py::forward_route gives wgmma_general
+// (bf16, padded widths 64..512 off the wgmma presets) or f32_wgmma (f32,
+// padded widths 64..256). Replaces, on those configs, the Pallas TPU kernel
+// torch_nerf_tpu/ops/pallas/fused_nerf.py::_fwd_kernel (reached through
+// _fused_forward's pl.pallas_call). Bound on an H100 SXM: flops_per_point a
+// point at 989 TFLOP/s dense bf16, or at 989 / 8 TFLOP/s for f32_wgmma (eight
+// bf16 products a multiply), against 40 bytes of input and output a point;
+// the header note gives the design. Weights: fused_nerf.py::tc_layout's
+// forward images; biases: general_matrices'.
+
+#include "nerf_mlp_tc.cuh"
+
+extern "C" {
+
+const char* fused_tc_fwd_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
+
+// 1 if the tensor-core general route takes the config (the padded width %
+// 64 == 0, bf16 up to 512 or f32 up to 256, every kernel's ring at least
+// two stages deep beside its tiles), else 0: fused_nerf.py::tc_stages'
+// counterpart
+int fused_tc_takes(int feat, int pe_dim, int de_dim, int pe_pad, int de_pad, int f32) {
+  namespace g = nerf_general;
+  const g::Dims d = g::make_dims(feat, 0, 0, 0, pe_dim, de_dim, pe_pad, de_pad);
+  return f32 ? nerf_tc::takes<float>(d) : nerf_tc::takes<nerf_tc::bf16>(d);
+}
+
+// Launches the forward on `stream`; returns the cudaError_t of the launch (0
+// on success). The arguments are fused_nerf_fwd_general's; weights are the
+// route's forward images.
+int fused_tc_fwd(const float* pts, const float* dirs, const void* const* weights, const void* const* biases,
+                 float* sigma, float* rgb, int m, int feat, int pos_levels, int dir_levels, int include_input,
+                 int pe_dim, int de_dim, int pe_pad, int de_pad, int f32, void* stream) {
+  namespace g = nerf_general;
+  const g::Dims d = g::make_dims(feat, pos_levels, dir_levels, include_input, pe_dim, de_dim, pe_pad, de_pad);
+  const g::Net net = g::make_net(weights, biases, nullptr, d);
+  const nerf_train::PointInput in = {pts, dirs};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    g::Stash<float> st = {};
+    st.sigma = sigma;
+    st.rgb = rgb;
+    return static_cast<int>(nerf_tc::run_forward<float, false>(in, net, weights, st, nullptr, m, s));
+  }
+  g::Stash<nerf_tc::bf16> st = {};
+  st.sigma = sigma;
+  st.rgb = rgb;
+  return static_cast<int>(nerf_tc::run_forward<nerf_tc::bf16, false>(in, net, weights, st, nullptr, m, s));
+}
+
+}  // extern "C"

@@ -67,6 +67,10 @@ from torch_nerf_tpu_torch.ops import build, launch_count
 
 KERNEL = "fused_nerf_fwd"
 KERNEL_BWD = "fused_nerf_bwd"
+# the tensor-core general route's kernels 1 and 2, sources of their own so
+# that nvcc builds them beside the others
+KERNEL_TC = "fused_tc_fwd"
+KERNEL_TC_BWD = "fused_tc_bwd"
 # max dynamic shared memory of one block on Hopper
 _SMEM_LIMIT = 232_448  # a block's shared memory
 _SMEM_PER_SM = 233_472  # an SM's, 1 KB of it reserved a block
@@ -78,7 +82,14 @@ WGMMA_MAX_ENC = 64
 # of 32), encodings up to MAX_ENC columns
 MAX_FEAT = 1024
 MAX_ENC = 128
-ROUTES = ("wgmma", "mma_sync", "f32")
+ROUTES = ("wgmma", "wgmma_general", "f32_wgmma", "mma_sync", "f32")
+# the tensor-core general route (csrc/nerf_mlp_tc.cuh): bf16 on wgmma, f32 on
+# wgmma's bf16 product over three bf16 pieces of each operand; at padded
+# widths % 64 == 0 up to these
+TC_ROUTES = ("wgmma_general", "f32_wgmma")
+TC_MAX_FEAT = {torch.bfloat16: 512, torch.float32: 256}
+ROUTE_DTYPE = {"wgmma": torch.bfloat16, "wgmma_general": torch.bfloat16, "mma_sync": torch.bfloat16,
+               "f32_wgmma": torch.float32, "f32": torch.float32}
 DTYPES = (torch.bfloat16, torch.float32)
 # what a forward library's fused_nerf_fwd reads (fused_nerf_fwd_layout(); a
 # library without that symbol reads fragment order)
@@ -330,15 +341,20 @@ def check_config(cfg: FusedNeRFConfig) -> None:
 
 def forward_route(cfg: FusedNeRFConfig) -> str:
     """The route of ``cfg`` (the forward's and, by :func:`train_route`, the
-    training kernels'): ``"f32"`` for float32; ``"wgmma"`` for bfloat16 at
-    feat_dim 64, 128 or 256 with both encodings at most 64 wide; else
-    ``"mma_sync"``. Raises past the limits of :func:`check_config`."""
+    training kernels'), chosen before any launch: ``"wgmma"`` for bfloat16
+    at feat_dim 64, 128 or 256 with both encodings at most 64 wide; else
+    the tensor-core general route where it takes the config
+    (:func:`tc_stages`), ``"wgmma_general"`` for bfloat16 and
+    ``"f32_wgmma"`` for float32; else the mma.sync/FFMA general route, ``"mma_sync"``
+    or ``"f32"``.
+    Raises past the limits of :func:`check_config`."""
     check_config(cfg)
-    if cfg.compute_dtype == torch.float32:
-        return "f32"
-    if cfg.feat_dim in TRAIN_WIDTHS and max(cfg.pos_enc_dim, cfg.dir_enc_dim) <= WGMMA_MAX_ENC:
+    f32 = cfg.compute_dtype == torch.float32
+    if not f32 and cfg.feat_dim in TRAIN_WIDTHS and max(cfg.pos_enc_dim, cfg.dir_enc_dim) <= WGMMA_MAX_ENC:
         return "wgmma"
-    return "mma_sync"
+    if tc_stages(cfg) is not None:
+        return "f32_wgmma" if f32 else "wgmma_general"
+    return "f32" if f32 else "mma_sync"
 
 
 # the training kernels' (2 and 3) route for a config: the forward's
@@ -429,18 +445,28 @@ def general_matrices(params: Params, cfg: FusedNeRFConfig):
     padded = pad_params(params, cfg)
     rows = {"fc_in": [(p, pp)], "fc_5": [(p, pp), (fp, fp)], "fc_9": [(fp, fp), (d, dp)]}
     out = []
-    for name in LAYER_NAMES:
+    for name, bias in zip(LAYER_NAMES, general_biases(params, cfg)):
         w = padded[name]["w"].detach().to(dt)
-        b = padded[name]["b"].detach().to(dt)
         if name == "fc_8":  # outputs [sigma, features] -> [features, sigma]
             w = torch.cat([w[:, 1:], w[:, :1]], dim=1)
-            b = torch.cat([b[1:], b[:1]])
         w = _pad_rows(w, rows.get(name, [(w.shape[0], w.shape[0])]))
-        n = -(-w.shape[1] // 8) * 8
-        fwd = torch.nn.functional.pad(w, (0, n - w.shape[1])).contiguous()
-        bias = torch.nn.functional.pad(b, (0, n - b.shape[0])).contiguous()
-        chain = _pad(fwd.t(), _round16(n), fwd.shape[0]).contiguous()
+        fwd = torch.nn.functional.pad(w, (0, bias.shape[0] - w.shape[1])).contiguous()
+        chain = _pad(fwd.t(), _round16(bias.shape[0]), fwd.shape[0]).contiguous()
         out.append((fwd, bias, chain))
+    return out
+
+
+def general_biases(params: Params, cfg: FusedNeRFConfig) -> List[torch.Tensor]:
+    """The biases of :func:`general_matrices` alone: each layer's padded
+    bias in ``cfg.compute_dtype``, fc_8's sigma after its features, padded
+    to a multiple of 8."""
+    padded = pad_params(params, cfg)
+    out = []
+    for name in LAYER_NAMES:
+        b = padded[name]["b"].detach().to(cfg.compute_dtype)
+        if name == "fc_8":
+            b = torch.cat([b[1:], b[:1]])
+        out.append(torch.nn.functional.pad(b, (0, -(-b.shape[0] // 8) * 8 - b.shape[0])).contiguous())
     return out
 
 
@@ -506,6 +532,119 @@ def tile_rows(cfg: FusedNeRFConfig) -> Tuple[int, int, int]:
     return alone, stash, back
 
 
+# the tensor-core general route's shared-memory cut (csrc/nerf_mlp_tc.cuh):
+# 64-point tiles of 128-byte panels, a ring of 2-4 weight stages beside them,
+# each stage one image's 64-column K-slice (f32: three, one a bf16 piece)
+_TC_ROWS = 64
+_TC_PANEL = _TC_ROWS * 128
+_TC_MAX_STAGES = 4
+_TC_SLACK = 1024 + 2 * _TC_MAX_STAGES * 8
+_TC_EXTRA = 128  # the input-grad products' rows (encodings padded to 128)
+
+
+def panel_cols(dtype: torch.dtype) -> int:
+    """Columns of a 128-byte tile panel: 64 in bf16, 32 in f32."""
+    return 128 // torch.empty((), dtype=dtype).element_size()
+
+
+def tc_stages(cfg: FusedNeRFConfig) -> Optional[Tuple[int, int, int]]:
+    """Depth of the weight ring of the tensor-core general route's kernels
+    (``nerf_mlp_tc.cuh``'s ``forward_plan``, ``chain_plan`` and ``takes``):
+    ``(forward, chain, chain with input grads)``, each as many stages as
+    fit in a block's shared memory beside the kernel's tiles, at most 4; or
+    None where the route does not take ``cfg``: a padded width off the 64s,
+    above :data:`TC_MAX_FEAT`, or a ring of fewer than two stages. The
+    forward's tiles are the activations and both encodings, its largest
+    stage fc_8's F + 8 image rows; the chain's the dz tile and one panel,
+    its largest stage F rows, 128 for the input-grad products; 128 bytes a
+    row of either."""
+    if cfg.compute_dtype not in TC_MAX_FEAT:
+        return None
+    f = padded_config(cfg).feat_dim
+    if f % 64 or f > TC_MAX_FEAT[cfg.compute_dtype] or max(cfg.pos_enc_dim, cfg.dir_enc_dim) > MAX_ENC:
+        return None
+    pc = panel_cols(cfg.compute_dtype)
+    p, pe, de = f // pc, -(-cfg.pos_enc_dim // pc), -(-cfg.dir_enc_dim // pc)
+
+    def stages(tiles, rows):
+        return min(_TC_MAX_STAGES, (_SMEM_LIMIT - _TC_SLACK - tiles) // (rows * 128))
+
+    out = (stages((p + pe + de) * _TC_PANEL, f + 8), stages((p + 1) * _TC_PANEL, f),
+           stages((p + 1) * _TC_PANEL, max(f, _TC_EXTRA)))
+    return out if min(out) >= 2 else None
+
+
+def tc_matrices(params: Params, cfg: FusedNeRFConfig):
+    """``(forward, chain)`` matrices of the tensor-core general route in
+    ``cfg.compute_dtype``, before the panel images, from the public tree
+    padded by :func:`pad_params` to F. ``forward``: per layer B = W^T, rows
+    its outputs (fc_8's features, sigma at row F, padded to F + 8; fc_9 F/2;
+    fc_out padded to 8), columns its inputs, each segment padded to a
+    64-column slice: fc_5's ``[h4, pe]`` (the encoding last, so that its
+    partial slice is the product's last), fc_9's ``[features, de]``.
+    ``chain``: 13 matrices B = W, rows the layer's inputs, columns its
+    outputs padded to 64: fc_out (F/2, 64); fc_9's feature rows; fc_8 with
+    sigma at column F; fc_5's h4 rows; the others W; index 0 fc_in's pe
+    rows, 11 fc_5's pe rows and 12 fc_9's de rows, each padded to 128 rows
+    (the input-grad products)."""
+    dt = cfg.compute_dtype
+    fp, p, d = padded_config(cfg).feat_dim, cfg.pos_enc_dim, cfg.dir_enc_dim
+    pp, dp, hp = _round64(p), _round64(d), _round64(fp // 2)
+    w = {name: t["w"].detach().to(dt) for name, t in pad_params(params, cfg).items()}
+    w8 = torch.cat([w["fc_8"][:, 1:], w["fc_8"][:, :1]], dim=1)  # [features, sigma]
+    fwd = {
+        "fc_in": _pad(w["fc_in"], pp, fp).t(),
+        "fc_5": torch.cat([w["fc_5"][p:], _pad(w["fc_5"][:p], pp, fp)]).t(),
+        "fc_8": _pad(w8.t(), fp + 8, fp),
+        "fc_9": torch.cat([w["fc_9"][:fp], _pad(w["fc_9"][fp:], dp, fp // 2)]).t(),
+        "fc_out": _pad(w["fc_out"].t(), 8, hp),
+    }
+    forward = [fwd[name] if name in fwd else w[name].t() for name in LAYER_NAMES]
+    chain = {
+        "fc_in": _pad(w["fc_in"], _TC_EXTRA, fp),
+        "fc_5": w["fc_5"][p:],
+        "fc_8": _pad(w8, fp, fp + 64),
+        "fc_9": _pad(w["fc_9"][:fp], fp, hp),
+        "fc_out": _pad(w["fc_out"], fp // 2, 64),
+    }
+    chains = [chain[name] if name in chain else w[name] for name in LAYER_NAMES]
+    chains += [_pad(w["fc_5"][:p], _TC_EXTRA, fp), _pad(w["fc_9"][fp:], _TC_EXTRA, hp)]
+    return [t.contiguous() for t in forward], [t.contiguous() for t in chains]
+
+
+def bf16_pieces(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 pieces of f32 ``x`` (``nerf_mlp_tc.cuh``'s
+    ``split3``): ``x0 = bf16(x)``, ``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0
+    - x1)``, each remainder exact in f32, so that ``x0 + x1 + x2 == x`` for
+    a normal ``x`` (24 significand bits in three of 8)."""
+    x0 = x.to(torch.bfloat16)
+    r = x - x0.float()
+    x1 = r.to(torch.bfloat16)
+    return x0, x1, (r - x1.float()).to(torch.bfloat16)
+
+
+def tc_panel_image(mat: torch.Tensor) -> torch.Tensor:
+    """``(R, C)`` with ``C % 64 == 0`` -> the flat image the tensor-core
+    route's weight ring copies as it is: bf16, :func:`panel_image`; f32,
+    each 64-column K-slice as the panel images of its three
+    :func:`bf16_pieces`, the smallest first (``x2, x1, x0``: the kernel
+    adds a slice's small products before its leading one)."""
+    if mat.dtype == torch.bfloat16:
+        return panel_image(mat)
+    rows, cols = mat.shape
+    parts = [panel_image(piece).reshape(cols // 64, rows * 64) for piece in reversed(bf16_pieces(mat))]
+    return torch.stack(parts, dim=1).reshape(-1)
+
+
+def tc_layout(params: Params, cfg: FusedNeRFConfig):
+    """``(forward images, biases, chain images)`` the tensor-core general
+    route's kernels read, of the parameters as they are at this call: the
+    :func:`tc_panel_image` of each of :func:`tc_matrices`, the biases of
+    :func:`general_matrices` (the forward's column order)."""
+    forward, chain = tc_matrices(params, cfg)
+    return [tc_panel_image(m) for m in forward], general_biases(params, cfg), [tc_panel_image(m) for m in chain]
+
+
 def forward_layout(params: Params, cfg: FusedNeRFConfig):
     """``(forward images, biases)`` of the ``wgmma`` route: the
     :func:`panel_image` of each layer's forward matrix of
@@ -529,11 +668,16 @@ def prepare(params, cfg: FusedNeRFConfig) -> KernelWeights:
 def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWeights:
     """The forward's weight layout of ``route`` on the parameters' device:
     ``wgmma``, the forward images and biases of :func:`forward_layout`;
-    ``mma_sync`` and ``f32``, the forward matrices and biases of
-    :func:`general_layout`."""
+    ``wgmma_general`` and ``f32_wgmma``, the forward images and biases of
+    :func:`tc_layout`; ``mma_sync`` and ``f32``, the forward matrices and
+    biases of :func:`general_layout`."""
     if route == "wgmma":
         images, biases = forward_layout(params, cfg)
         return KernelWeights(public=params, route=route, weights=tuple(images), biases=tuple(biases))
+    if route in TC_ROUTES:
+        forward, _ = tc_matrices(params, cfg)
+        images = tuple(tc_panel_image(m) for m in forward)
+        return KernelWeights(public=params, route=route, weights=images, biases=tuple(general_biases(params, cfg)))
     if route not in ROUTES:
         raise ValueError(f"unknown forward route {route!r}; routes are {ROUTES}")
     fwd, biases, _ = general_layout(params, cfg)
@@ -603,8 +747,46 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/fused_tc_fwd.cu``: ``fused_tc_fwd``
+    takes ``fused_nerf_fwd_general``'s arguments; ``fused_tc_takes``, the
+    C++ side of :func:`tc_stages`'s verdict."""
+    args = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 10)
+    lib.fused_tc_fwd.argtypes = args + [ctypes.c_void_p]
+    lib.fused_tc_fwd.restype = ctypes.c_int
+    lib.fused_tc_takes.argtypes = [ctypes.c_int] * 6
+    lib.fused_tc_takes.restype = ctypes.c_int
+    lib.fused_tc_fwd_error_string.argtypes = [ctypes.c_int]
+    lib.fused_tc_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bind_tc_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/fused_tc_bwd.cu`` (the arguments
+    of ``fused_nerf_bwd_general``)."""
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    args = ([ctypes.c_void_p] * 4 + [ptrs] * 3 + [ctypes.c_void_p] + [ptrs] * 2
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10)
+    lib.fused_nerf_bwd_tc.argtypes = args + [ctypes.c_void_p]
+    lib.fused_nerf_bwd_tc.restype = ctypes.c_int
+    lib.fused_nerf_bwd_tc_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_nerf_bwd_tc_workspace_bytes.restype = ctypes.c_size_t
+    lib.fused_tc_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.fused_tc_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     return bind(build.load(KERNEL))
+
+
+def _tc_library() -> ctypes.CDLL:
+    return bind_tc(build.load(KERNEL_TC))
+
+
+def _tc_bwd_library() -> ctypes.CDLL:
+    return bind_tc_bwd(build.load(KERNEL_TC_BWD))
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -630,8 +812,9 @@ def check_tensor(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
 
 def _check_inputs(pts: torch.Tensor, dirs: torch.Tensor, w: KernelWeights, cfg: FusedNeRFConfig):
     check_config(cfg)
-    if (w.route == "f32") != (cfg.compute_dtype == torch.float32) or (
-            w.route == "wgmma" and forward_route(cfg) != "wgmma"):
+    dtype = ROUTE_DTYPE.get(w.route)
+    if ((dtype is not None and dtype != cfg.compute_dtype) or (w.route == "wgmma" and forward_route(cfg) != "wgmma")
+            or (w.route in TC_ROUTES and tc_stages(cfg) is None)):
         raise ValueError(f"route {w.route!r} does not take this config (its route is {forward_route(cfg)!r})")
     if pts.dim() != 2 or pts.shape[1] != 3:
         raise ValueError(f"pts must be (M, 3), got {tuple(pts.shape)}")
@@ -655,20 +838,24 @@ def kernel_dims(cfg: FusedNeRFConfig) -> list:
 def _launch(w: KernelWeights, pts: torch.Tensor, dirs: torch.Tensor, cfg: FusedNeRFConfig):
     """Launch the forward kernel of ``w``'s route on the current stream."""
     _check_inputs(pts, dirs, w, cfg)
-    lib = _library()
-    entry = _entry(lib, w.route)
+    if w.route in TC_ROUTES:
+        lib = _tc_library()
+        entry, error_string = lib.fused_tc_fwd, lib.fused_tc_fwd_error_string
+    else:
+        lib = _library()
+        entry, error_string = _entry(lib, w.route), lib.fused_nerf_fwd_error_string
     m = pts.shape[0]
     sigma = torch.empty((m,), dtype=torch.float32, device=pts.device)
     rgb = torch.empty((m, 3), dtype=torch.float32, device=pts.device)
     if m == 0:
         return sigma, rgb
-    extra = [] if w.route == "wgmma" else [int(w.route == "f32")]
+    extra = [] if w.route == "wgmma" else [int(ROUTE_DTYPE[w.route] == torch.float32)]
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         err = entry(pts.data_ptr(), dirs.data_ptr(), pointers(w.weights), pointers(w.biases),
                     sigma.data_ptr(), rgb.data_ptr(), m, *kernel_dims(cfg), *extra, stream)
     if err != 0:
-        msg = lib.fused_nerf_fwd_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"fused_nerf_fwd ({w.route}) launch failed: {msg} (cudaError {err})")
     launch_count.count(fused_nerf_apply, m)
     fused_nerf_apply.route_launches[w.route] += 1
@@ -780,18 +967,22 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
         check_tensor(name, t, shape)
     if params["fc_in"]["w"].device != pts.device:
         raise ValueError("the network's parameters must be on the same CUDA device as pts")
-    lib = _bwd_library()
     dpts = torch.empty_like(pts)
     ddirs = torch.empty_like(dirs)
     if m == 0:
         return {n: {k: torch.zeros_like(t, dtype=torch.float32) for k, t in p.items()}
                 for n, p in params.items()}, dpts, ddirs
-    if route == "wgmma":
-        grads, err = _launch_bwd_wgmma(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
+    if route in TC_ROUTES:
+        lib = _tc_bwd_library()
+        error_string = lib.fused_tc_bwd_error_string
+        grads, err = _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc=True)
     else:
-        grads, err = _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
+        lib = _bwd_library()
+        error_string = lib.fused_nerf_bwd_error_string
+        launch = _launch_bwd_wgmma if route == "wgmma" else _launch_bwd_general
+        grads, err = launch(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
     if err != 0:
-        msg = lib.fused_nerf_bwd_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"fused_nerf_bwd ({route}) launch failed: {msg} (cudaError {err})")
     launch_count.count(fused_nerf_bwd, m)
     fused_nerf_bwd.route_launches[route] += 1
@@ -829,17 +1020,21 @@ def empty_general_grads(cfg: FusedNeRFConfig, device):
             [torch.empty((s[1],), dtype=torch.float32, device=device) for s in shapes])
 
 
-def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs):
+def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc: bool = False):
+    """The mma.sync/FFMA general route, or with ``tc`` the tensor-core one:
+    the same grads, workspace rule and arguments, each its own layout."""
     m = pts.shape[0]
     dims = kernel_dims(cfg)
     f32 = int(cfg.compute_dtype == torch.float32)
-    fwd, biases, chain = general_layout(params, cfg)
+    fwd, biases, chain = (tc_layout if tc else general_layout)(params, cfg)
     gw, gb = empty_general_grads(cfg, pts.device)
-    workspace = torch.empty(lib.fused_nerf_bwd_general_workspace_bytes(m, dims[0], dims[6], dims[7], f32),
-                            dtype=torch.uint8, device=pts.device)
+    nbytes = (lib.fused_nerf_bwd_tc_workspace_bytes if tc else lib.fused_nerf_bwd_general_workspace_bytes)(
+        m, dims[0], dims[6], dims[7], f32)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=pts.device)
+    entry = lib.fused_nerf_bwd_tc if tc else lib.fused_nerf_bwd_general
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        err = lib.fused_nerf_bwd_general(
+        err = entry(
             pts.data_ptr(), dirs.data_ptr(), g_sigma.data_ptr(), g_rgb.data_ptr(),
             pointers(fwd), pointers(biases), pointers(chain), workspace.data_ptr(),
             pointers(gw), pointers(gb), dpts.data_ptr(), ddirs.data_ptr(), m, *dims, f32, stream,

@@ -40,6 +40,8 @@ from torch_nerf_tpu_torch.ops import build, launch_count
 from torch_nerf_tpu_torch.ops import fused_nerf as fn
 
 KERNEL = "fused_train"
+# the pass on the tensor-core general route (fn.TC_ROUTES)
+KERNEL_TC = "fused_tc_train"
 
 
 def composite_and_vjp(
@@ -136,6 +138,23 @@ def phase_floors(cfg: fn.FusedNeRFConfig, points: int) -> dict:
     }
 
 
+def general_stash_bytes(cfg: fn.FusedNeRFConfig, points: int) -> int:
+    """Device-memory bytes a general-route train pass moves through its
+    stashes over ``points``, each byte once (``nerf_mlp_general.cuh``'s
+    row-major stashes in the compute type): the forward writes every
+    activation, the chain every dz, the dW GEMM reads both; on the
+    tensor-core route (``nerf_mlp_tc.cuh``) the forward also writes the
+    relu sign bits (nine 16-byte words a thread of a 64-point tile, 576
+    bytes a point) and the chain reads them."""
+    f = fn.padded_config(cfg).feat_dim
+    size = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    pp, dp = -(-cfg.pos_enc_dim // 16) * 16, -(-cfg.dir_enc_dim // 16) * 16
+    acts = pp + dp + 9 * f + f // 2
+    dzs = 8 * f + (f + 16) + f // 2 + 16
+    bits = 2 * 576 if fn.train_route(cfg) in fn.TC_ROUTES else 0
+    return points * (2 * (acts + dzs) * size + bits)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_train.cu``."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
@@ -156,8 +175,27 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/fused_tc_train.cu`` (the arguments
+    of ``fused_train_pass_general``)."""
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    args = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ptrs] * 3 + [ctypes.c_void_p] * 3
+            + [ptrs] * 2 + [ctypes.c_int] * 9)
+    lib.fused_train_pass_tc.argtypes = args + [ctypes.c_void_p]
+    lib.fused_train_pass_tc.restype = ctypes.c_int
+    lib.fused_train_tc_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_train_tc_workspace_bytes.restype = ctypes.c_size_t
+    lib.fused_tc_train_error_string.argtypes = [ctypes.c_int]
+    lib.fused_tc_train_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     return bind(build.load(KERNEL))
+
+
+def _tc_library() -> ctypes.CDLL:
+    return bind_tc(build.load(KERNEL_TC))
 
 
 def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFConfig, num_real_rays: int):
@@ -173,7 +211,8 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
         raise ValueError(f"num_real_rays must be in 1..{n}, got {num_real_rays}")
     if n * s >= 2**31:
         raise ValueError(f"{n} x {s} points exceed the kernel's 32-bit point index")
-    lib = _library()
+    lib = _tc_library() if route in fn.TC_ROUTES else _library()
+    error_string = lib.fused_tc_train_error_string if route in fn.TC_ROUTES else lib.fused_train_error_string
     dims = fn.kernel_dims(cfg)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=t.device)
     weights = torch.empty((n, s), dtype=torch.float32, device=t.device)
@@ -189,11 +228,14 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
         nbytes = lib.fused_train_workspace_bytes(n * s, cfg.feat_dim)
         dims = dims[:6]
     else:
-        fwd, biases, chain = fn.general_layout(params, cfg)
+        tc = route in fn.TC_ROUTES
+        fwd, biases, chain = (fn.tc_layout if tc else fn.general_layout)(params, cfg)
         gw, gb = fn.empty_general_grads(cfg, t.device)
         f32 = int(cfg.compute_dtype == torch.float32)
-        entry, extra = lib.fused_train_pass_general, [f32]
-        nbytes = lib.fused_train_general_workspace_bytes(n * s, dims[0], dims[6], dims[7], f32)
+        entry = lib.fused_train_pass_tc if tc else lib.fused_train_pass_general
+        extra = [f32]
+        nbytes = (lib.fused_train_tc_workspace_bytes if tc else lib.fused_train_general_workspace_bytes)(
+            n * s, dims[0], dims[6], dims[7], f32)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=t.device)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
@@ -204,7 +246,7 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
             *dims, *extra, stream,
         )
     if err != 0:
-        msg = lib.fused_train_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"fused_train_pass ({route}) launch failed: {msg} (cudaError {err})")
     launch_count.count(fused_train_pass, (n, s))
     fused_train_pass.route_launches[route] += 1

@@ -8,16 +8,18 @@ Where the other version reads a layout this package no longer builds (the
 of its own, with that side's checkout root first on ``sys.path``: each
 builds its own kernels from its own sources and launches its own
 ``fused_nerf_apply`` on its own ``prepare``d weights. At each config
-(bf16, ``FEAT:LEVEL``: feat_dim and coord_encode_level) it takes one
-launch at the coarse and at the fine render chunk (4096 rays of an 800x800
-view x 64 and x 192 sorted depths, 262,144 and 786,432 points) by CUDA
-events, after its max-abs error against the plain version (f32 on the
-bf16-rounded weights) and the route it took. Turns go other, repo, repo,
-other, ... Prints one JSON line a turn with the SM clock, temperature and
-power after it, then each side's median and quartiles and the card's
-``nvidia-smi`` line.
+(``FEAT:LEVEL``: feat_dim and coord_encode_level in bf16, ``FEAT:LEVEL:f32``
+in f32; ``--route R`` adds the config of ``R``'s path,
+``train_profile.ROUTE_FIELDS``) it takes one launch at the coarse and at
+the fine render chunk (4096 rays of an 800x800 view x 64 and x 192 sorted
+depths, 262,144 and 786,432 points) by CUDA events, after its max-abs
+error against the plain version one precision up (f32 on the bf16-rounded
+weights; f64) and the route it took: each side's ``prepare`` picks its own
+route for the config. Turns go other, repo, repo, other, ... Prints one
+JSON line a turn with the SM clock, temperature and power after it, then
+each side's median and quartiles and the card's ``nvidia-smi`` line.
 
-    python -m torch_nerf_tpu_torch.runners.forward_ab --other-root DIR [--config 96:10] [--rounds 2]
+    python -m torch_nerf_tpu_torch.runners.forward_ab --other-root DIR [--config 96:10] [--route R] [--rounds 2]
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import sys
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
+# FEAT:LEVEL[:f32] of each route's path (train_profile.ROUTE_FIELDS)
+ROUTE_SPECS = {"wgmma": "256:10", "wgmma_general": "512:12", "f32_wgmma": "256:10:f32", "mma_sync": "1024:10",
+               "f32": "320:10:f32"}
 # a turn's process: this file loaded by path (importing it as part of the
 # package would import this checkout's package), then :func:`turn`
 _TURN = ("import importlib.util, sys; "
@@ -64,17 +69,21 @@ def turn(root: str, configs: str) -> None:
         chunks[name] = (pts, d[:, None, :].expand(-1, samples, -1).reshape(-1, 3).contiguous())
     out = {}
     for spec in configs.split(","):
-        feat, level = (int(x) for x in spec.split(":"))
-        cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=level, feat_dim=feat)
+        feat, level, *dtype = spec.split(":")
+        feat, level = int(feat), int(level)
+        single = dtype == ["f32"]
+        cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=level, feat_dim=feat,
+                                         compute_dtype=torch.float32 if single else torch.bfloat16)
         params = init_nerf_params(torch.Generator(device=dev).manual_seed(0), cfg.pos_enc_dim, cfg.dir_enc_dim,
                                   feat, device=dev)
-        rounded = {n: {k: v.to(torch.bfloat16).float() for k, v in p.items()} for n, p in params.items()}
-        f32 = fused_nerf.FusedNeRFConfig(coord_encode_level=level, feat_dim=feat, compute_dtype=torch.float32)
+        up = torch.float64 if single else torch.float32
+        rounded = {n: {k: v.to(cfg.compute_dtype).to(up) for k, v in p.items()} for n, p in params.items()}
+        ref_cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=level, feat_dim=feat, compute_dtype=up)
         w = fused_nerf.prepare(params, cfg)
         row = {"route": w.route}
         for name, (pts, dirs) in chunks.items():
             got = fused_nerf.fused_nerf_apply(w, pts, dirs, cfg)
-            ref = fused_nerf.fused_nerf_apply_reference(rounded, pts, dirs, f32)
+            ref = fused_nerf.fused_nerf_apply_reference(rounded, pts.to(up), dirs.to(up), ref_cfg)
             row[f"{name}_max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(got, ref))
             row[f"{name}_ms"] = event_ms(lambda: fused_nerf.fused_nerf_apply(w, pts, dirs, cfg), 20)
         out[spec] = row
@@ -86,10 +95,14 @@ def main(argv=None) -> dict:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other-root", required=True, help="the other checkout's root (e.g. from git archive)")
-    parser.add_argument("--config", action="append", help="FEAT:LEVEL, bf16 (default: 96:10 and 512:12)")
+    parser.add_argument("--config", action="append", help="FEAT:LEVEL (bf16) or FEAT:LEVEL:f32 (default: 96:10 "
+                                                          "and 512:12)")
+    parser.add_argument("--route", action="append", choices=tuple(ROUTE_SPECS),
+                        help="the config of the route's path (train_profile.ROUTE_FIELDS)")
     parser.add_argument("--rounds", type=int, default=2)
     args = parser.parse_args(argv)
-    configs = ",".join(args.config or ["96:10", "512:12"])
+    specs = (args.config or []) + [ROUTE_SPECS[r] for r in args.route or []]
+    configs = ",".join(specs or ["96:10", "512:12"])
     roots = {"other": str(Path(args.other_root).resolve()), "repo": str(REPO_ROOT)}
     results = {side: {} for side in roots}
     for r in range(args.rounds):

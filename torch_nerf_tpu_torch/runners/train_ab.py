@@ -14,11 +14,16 @@ whole fused and ``force_generic`` train steps (host clock). Turns alternate
 fine pass's outputs, and the two sides' largest difference is printed.
 Prints one JSON line per turn with the SM clock, temperature and power
 draw after it, then each side's median and quartiles and the card's
-``nvidia-smi`` line. ``--route f32`` or ``mma_sync`` times the general
-route at path A's or B's config (``train_profile.ROUTE_FIELDS``) in place
-of the preset's ``wgmma``.
+``nvidia-smi`` line. ``--route f32_wgmma`` or ``wgmma_general`` times the
+tensor-core general route at path A's or B's config, ``mma_sync`` or
+``f32`` a config that stays on the mma.sync/FFMA general route
+(``train_profile.ROUTE_FIELDS``), in place of the preset's ``wgmma``; the
+other side runs the same config under the route name its checkout knows
+(``--other-route``, by default the name a checkout without the
+tensor-core route gives paths A and B: ``train_profile.MMA_FFMA_NAME``),
+so that each side's route takes it.
 
-    python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4] [--route R]
+    python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4] [--route R [--other-route R]]
 """
 
 from __future__ import annotations
@@ -41,10 +46,11 @@ from torch_nerf_tpu_torch.ops import fused_nerf as fn
 from torch_nerf_tpu_torch.ops import fused_train as ftm
 from torch_nerf_tpu_torch.ops import sampling
 from torch_nerf_tpu_torch.runners.timing import event_ms, nvidia_smi, quartiles
-from torch_nerf_tpu_torch.runners.train_profile import ROUTE_FIELDS
+from torch_nerf_tpu_torch.runners import train_profile
 
 REPO = Path(__file__).resolve().parents[2]
-KERNELS = ["fused_nerf_fwd", "fused_nerf_bwd", "fused_train"]
+# the training and forward kernels' sources (a side builds those it has)
+KERNELS = ["fused_nerf_fwd", "fused_nerf_bwd", "fused_train", "fused_tc_fwd", "fused_tc_bwd", "fused_tc_train"]
 
 
 def step_batch(step, images, poses, camera, gen):
@@ -62,7 +68,7 @@ def turn(steps: int, save: str = "", route: str = "wgmma") -> dict:
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
     images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
-    field = make_nerf_field(**ROUTE_FIELDS[route])
+    field = make_nerf_field(**train_profile.ROUTE_FIELDS[route])
     cfg = field.fused_cfg
     settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
     optim = train.OptimConfig()
@@ -114,7 +120,8 @@ def _run(side: Path, args) -> subprocess.CompletedProcess:
 
 def _build(side: Path) -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=str(side))
-    code = f"from torch_nerf_tpu_torch.ops import build; build.build({KERNELS!r})"
+    names = [k for k in KERNELS if (side / "torch_nerf_tpu_torch" / "ops" / "csrc" / f"{k}.cu").exists()]
+    code = f"from torch_nerf_tpu_torch.ops import build; build.build({names!r})"
     return subprocess.Popen([sys.executable, "-c", code], cwd=side, env=env)
 
 
@@ -131,14 +138,19 @@ def main(argv=None) -> dict:
     parser.add_argument("--steps", type=int, default=10, help="timed train steps per path and turn")
     parser.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--save", default="", help=argparse.SUPPRESS)
-    parser.add_argument("--route", choices=tuple(ROUTE_FIELDS), default="wgmma",
-                        help="the classic field's route: f32 (path A) or mma_sync (path B, width 512)")
+    parser.add_argument("--route", choices=tuple(train_profile.ROUTE_FIELDS), default="wgmma",
+                        help="the classic field's route: f32_wgmma (path A), wgmma_general (path B, width 512), "
+                             "mma_sync (width 1024) or f32 (width 320)")
+    parser.add_argument("--other-route", default=None,
+                        help="the same config's route name in the other checkout (default: "
+                             "train_profile.MMA_FFMA_NAME's)")
     args = parser.parse_args(argv)
     if args.turn:
         print(json.dumps(turn(args.steps, args.save, args.route)), flush=True)
         return {}
     if not args.other:
         parser.error("--other is required")
+    routes = {"repo": args.route, "other": args.other_route or train_profile.MMA_FFMA_NAME.get(args.route, args.route)}
     sides = {"other": Path(args.other).resolve(), "repo": REPO}
     builds = [_build(side) for side in sides.values()]
     if any(p.wait() != 0 for p in builds):
@@ -149,7 +161,7 @@ def main(argv=None) -> dict:
     for r in range(args.rounds):
         for side in (("other", "repo") if r % 2 == 0 else ("repo", "other")):
             extra = ["--save", str(out_dir / f"{side}.pt")] if r == 0 else []
-            row = json.loads(_run(sides[side], ["--turn", "--steps", str(args.steps), "--route", args.route,
+            row = json.loads(_run(sides[side], ["--turn", "--steps", str(args.steps), "--route", routes[side],
                                                 *extra]).stdout.splitlines()[-1])
             for k, v in row.items():
                 if k != "sm_clock_temp_power":

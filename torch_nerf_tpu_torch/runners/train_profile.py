@@ -19,10 +19,14 @@ fused classic path also each kernel of the train pass (forward, composite,
 chain, dW GEMM, reduce) beside its floors by operations (989 TFLOP/s) and
 by the bytes the design moves (3.35 TB/s), over the step's coarse and fine
 passes (``fused_train.phase_floors``); then the card's ``nvidia-smi`` line.
-``--route f32`` profiles the classic NeRF in f32 (path A) and ``--route
-mma_sync`` at width 512 with a 75-wide encoding in bf16 (path B): the
-general route, its forward, chain and dW kernels beside their floors by
-operations at the route's peak (67 TFLOP/s f32, 989 bf16).
+``--route f32_wgmma`` profiles the classic NeRF in f32 (path A) and
+``--route wgmma_general`` at width 512 with a 75-wide encoding in bf16 (path
+B), both on the tensor-core general route; ``--route mma_sync`` (bf16 at
+width 1024) and ``--route f32`` (f32 at width 320) configs that stay on
+the mma.sync/FFMA general route: each its forward, chain and dW kernels beside their
+floors by operations at the route's peak (989 TFLOP/s bf16, 989 / 8 for
+f32_wgmma's eight bf16 products, 67 for f32's FFMA) and the pass's stash
+bytes (``fused_train.general_stash_bytes``) at 3.35 TB/s.
 
     python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--occupancy] [--route R] [--steps 5]
 """
@@ -90,10 +94,17 @@ def profile_path(step, state, grid, images, poses, gen, steps: int) -> dict:
 # H100 SXM data-sheet peaks: dense bf16, HBM3; f32 outside the tensor cores
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 F32_PEAK_FLOPS = 67e12
-# the classic field of each route: the preset (wgmma), path B, path A
+# the classic field of each route: the preset (wgmma), path B, path A, and
+# a config on each route the tensor-core engine leaves to the mma.sync/FFMA one
 ROUTE_FIELDS = {"wgmma": dict(compute_dtype=torch.bfloat16),
-                "mma_sync": dict(compute_dtype=torch.bfloat16, feat_dim=512, coord_encode_level=12),
-                "f32": dict(compute_dtype=torch.float32)}
+                "wgmma_general": dict(compute_dtype=torch.bfloat16, feat_dim=512, coord_encode_level=12),
+                "f32_wgmma": dict(compute_dtype=torch.float32),
+                "mma_sync": dict(compute_dtype=torch.bfloat16, feat_dim=1024),
+                "f32": dict(compute_dtype=torch.float32, feat_dim=320)}
+# the route a checkout without the tensor-core engine gives each of paths A
+# and B (train_ab's other side, which knows only its own route names)
+MMA_FFMA_NAME = {"wgmma_general": "mma_sync", "f32_wgmma": "f32"}
+ROUTE_PEAKS = {"f32": F32_PEAK_FLOPS, "f32_wgmma": PEAK_FLOPS / 8}
 
 
 def phases(kernels_ms: dict, cfg, passes) -> dict:
@@ -111,11 +122,13 @@ def phases(kernels_ms: dict, cfg, passes) -> dict:
 def general_phases(kernels_ms: dict, cfg, passes) -> dict:
     """The general route's forward, chain and dW kernels' ms per step beside
     their floors by operations over the step's passes, at the peak of the
-    route's type."""
-    peak = F32_PEAK_FLOPS if cfg.compute_dtype == torch.float32 else PEAK_FLOPS
+    route's products, and the pass's stash floor by bytes."""
+    peak = ROUTE_PEAKS.get(fused_nerf.train_route(cfg), PEAK_FLOPS)
     flops = fused_nerf.flops_per_point(cfg) * sum(passes)
-    return {name: dict(ms=kernels_ms.get(name, 0.0), floor_ops_ms=flops / peak * 1e3)
-            for name in ("forward_kernel", "chain_kernel", "dw_kernel")}
+    out = {name: dict(ms=kernels_ms.get(name, 0.0), floor_ops_ms=flops / peak * 1e3)
+           for name in ("forward_kernel", "chain_kernel", "dw_kernel")}
+    out["stash_floor_ms"] = sum(fused_train.general_stash_bytes(cfg, m) for m in passes) / PEAK_BYTES * 1e3
+    return out
 
 
 def main(argv=None) -> dict:
@@ -126,7 +139,8 @@ def main(argv=None) -> dict:
                         help="with --model instant_nerf: one table layout (default: bricked and hash)")
     parser.add_argument("--occupancy", action="store_true", help="also the occupancy-pruned step")
     parser.add_argument("--route", choices=tuple(ROUTE_FIELDS), default="wgmma",
-                        help="the classic field's route: f32 (path A) or mma_sync (path B, width 512)")
+                        help="the classic field's route: f32_wgmma (path A), wgmma_general (path B, width "
+                             "512), or mma_sync (width 1024) and f32 (width 320), which stay on the mma.sync/FFMA engine")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
