@@ -31,7 +31,15 @@ second launch bit-identical; then kernel_bwd_general: the backward at
 paths A and B (f32_wgmma against the plain f64 version, wgmma_general
 against the plain f32) on the 786,432 fine points, a second launch
 bit-identical, three faults and path A's two roundings planted in its
-images); kernel_train (the fused train pass at
+images, and the dW GEMM's own faults (a slice skipped, a tile's db
+dropped, a panel's swizzle off by one chunk; in f32 the low and middle
+pieces dropped); then dw_gemm: the general route's dW GEMM
+(``csrc/nerf_dw_tc.cuh``) alone over kernel 2's stashes at paths A and B
+(fine points and random ones) and at the mma.sync/FFMA configs, against
+the plain version on the same stashes (f32 within 2x its error + 5e-7),
+relaunched bit-identically, each planted fault, the f32 low piece dropped
+too, failing that check at paths A and B's fine shape, and its plan's
+Python twin against the library's); kernel_train (the fused train pass at
 4096 x 64, 4096 x 192 and a ragged batch, rgb, weights and grads, planted
 faults in the weight images and in the composite, a second launch
 bit-identical; then kernel_train_general: the pass at paths A and B at
@@ -757,11 +765,23 @@ def general_train_faults(route: str) -> dict:
     :data:`PRECISION_CONTROLS`."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
+    from torch_nerf_tpu_torch.runners.general_check import planted_dw_fault  # noqa: PLC0415
+
     tc = route in fn.TC_ROUTES
     out = {name: (lambda spec=spec: planted_general(*spec, tc=tc)) for name, spec in GENERAL_TRAIN_FAULTS.items()}
     if fn.ROUTE_DTYPE[route] == torch.float32:
         out.update({name: (lambda b=bits: planted_rounding(b, tc)) for name, bits in PRECISION_CONTROLS.items()})
+    if tc:
+        out.update({f"dw_{kind}": (lambda k=kind: planted_dw_fault(k)) for kind in DW_PATH_FAULTS[fn.ROUTE_DTYPE[route]]})
     return out
+
+
+# the dW GEMM's planted faults the path checks must reject (the f32 low
+# piece alone, 2^-16 of an operand, sits under their 1e-5 floor: dw_gemm's
+# check of the dW alone at the fine shape, floor 5e-7, holds it)
+DW_PATH_FAULTS = {torch.bfloat16: ("slice_skipped", "db_dropped", "swizzle_off_by_one_chunk"),
+                  torch.float32: ("slice_skipped", "db_dropped", "swizzle_off_by_one_chunk",
+                                  "f32_low_and_mid_pieces_dropped")}
 
 
 def general_bwd_checks(batch) -> dict:
@@ -820,7 +840,84 @@ def general_bwd_checks(batch) -> dict:
          rule="a second launch bit-identical; every planted fault rejected with the he weights", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel_bwd_general failed")
+    worst["dw_gemm"] = dw_gemm_checks(fine, rand, gen)
     return worst
+
+
+# the configs whose dW plan's Python twin (fused_nerf.dw_tc_plan) and C++
+# side (fused_general_dw_plan) must agree, and the point counts
+DW_TWIN_CONFIGS = [(f, lv, dt) for f in (64, 96, 160, 256, 320, 512, 576, 1000, 1024) for lv in (10, 12)
+                   for dt in (torch.bfloat16, torch.float32)]
+DW_TWIN_POINTS = (786_432, 262_144, 2**16 + 37, 4093 * 64, 1)
+
+
+def dw_gemm_checks(fine, rand, gen) -> dict:
+    """The general route's dW GEMM alone (``csrc/nerf_dw_tc.cuh``) over
+    kernel 2's stashes (``fused_nerf.general_stash``): paths A and B
+    (:data:`GENERAL`) on the fine batch's 786,432 points with port-init
+    weights and on 2^16 + 37 random points with the He-scaled copy, the
+    configs of :data:`MMA_FFMA_ROUTES` on the random points; each layer's
+    dW and db against the plain version (``backward_from_activations``'
+    products) on the same stash, the exact f64 sums the reference, within
+    2x the plain version's relative L2 + ``general_check.DW_FLOOR`` (bf16
+    1e-3, f32 5e-7); a second launch bit-identical. Then, on paths A and
+    B's fine stashes, every planted fault of the dW GEMM
+    (``general_check.dw_fault_checks``), each of which must fail that
+    check; and the plan's Python twin against the library's at
+    :data:`DW_TWIN_CONFIGS` x :data:`DW_TWIN_POINTS`. Prints each config's
+    route, tiles, slices, windows and workspace bytes at the fine shape.
+    -> ``{route: {"max_abs_err", ...}}``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners import general_check as gc  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    out, ok = {}, True
+    configs = [(r, g, True) for r, g in GENERAL.items()] + [(r, g, False) for r, g in MMA_FFMA_ROUTES.items()]
+    for route, g, main_path in configs:
+        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
+        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+        cases = {"random/he": (he_scaled(base), rand)}
+        if main_path:
+            cases = {"fine/port_init": (base, fine), **cases}
+        checks, faults = {}, {}
+        for case, (params, (pts, dirs)) in cases.items():
+            g_sigma = torch.randn((pts.shape[0],), generator=gen, device=dev)
+            g_rgb = torch.randn((pts.shape[0], 3), generator=gen, device=dev)
+            workspace = fn.general_stash(params, pts, dirs, g_sigma, g_rgb, cfg)
+            ref = gc.dw_reference(cfg, workspace, pts.shape[0])
+            checks[case] = gc.dw_check(cfg, workspace, pts.shape[0], ref)
+            if case.startswith("fine/"):
+                faults = gc.dw_fault_checks(cfg, workspace, pts.shape[0], ref)
+            del workspace, ref
+        plan = fn.dw_tc_plan(cfg, fine[0].shape[0])
+        row = dict(route=fn.train_route(cfg), config={k: str(v) for k, v in g.items()}, checks=checks,
+                   fine_plan={"tiles": len(plan.jobs), "slices": plan.splits, "points_a_slice": plan.chunk,
+                              "slices_a_launch": plan.window, "launches": plan.windows,
+                              "smem_bytes": plan.smem_bytes, "workspace_bytes": plan.workspace_bytes},
+                   max_abs_err=max(c["max_abs_err"] for c in checks.values()))
+        if main_path:
+            row["planted_faults_fine"] = faults
+        row["ok"] = all(c["ok"] for c in checks.values()) and all(v["rejected"] for v in faults.values())
+        ok = ok and row["ok"]
+        out[route] = row
+        torch.cuda.empty_cache()
+    twin = {}
+    for feat, level, dtype in DW_TWIN_CONFIGS:
+        cfg = width_cfg(feat, dtype, level)
+        for m in DW_TWIN_POINTS:
+            p = fn.dw_tc_plan(cfg, m)
+            twin[f"{feat}/{level}/{str(dtype)[6:]}/{m}"] = (
+                (len(p.jobs), p.splits, p.chunk, p.smem_bytes, p.workspace_bytes, p.window, p.windows)
+                == fn.dw_plan_on_card(cfg, m))
+    ok = ok and all(twin.values())
+    emit("dw_gemm", configs=out, twin_agrees={"configs": len(twin), "ok": all(twin.values()),
+                                              "disagree": [k for k, v in twin.items() if not v]},
+         tolerance="each layer's dW and db rel L2 <= 2 * the plain version's (f32 sums of the stash) + "
+                   "general_check.DW_FLOOR (bf16 1e-3, f32 5e-7), the exact f64 sums the reference",
+         rule="a second launch bit-identical; every planted fault fails the check at the fine shape", ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: dw_gemm failed")
+    return out
 
 
 def train_reference(params, o, d, t, delta, gt, cfg, num_real):
@@ -1331,6 +1428,16 @@ def phase_train(work: Path):
     return {"fused_train_pass": sum(launches), "fused_nerf_fwd": sum(c["wgmma"] + c["mma_sync"] for c in k1)}
 
 
+def dw_launches_due(cfg, *shape_counts) -> int:
+    """The dW GEMM kernel's launches that general-route kernel 2 and 3
+    launches owe, from their counts by shape (``{points or (rays,
+    samples): launches}``): ``fused_nerf.dw_tc_plan``'s windows a pass."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    return sum(c * fn.dw_tc_plan(cfg, shape[0] * shape[1] if isinstance(shape, tuple) else shape).windows
+               for shapes in shape_counts for shape, c in shapes.items())
+
+
 def train_resume_render_routes(work: Path, route: str) -> dict:
     """Path A (``route`` f32_wgmma) or B (wgmma_general) through the CLIs: ``run_train
     --config default`` with :data:`GENERAL_OVERRIDES` on gaussian_blobs at
@@ -1339,29 +1446,38 @@ def train_resume_render_routes(work: Path, route: str) -> dict:
     a resume for 8 more, then ``run_render`` + ``evaluate`` of two 800x800
     test views (:func:`train_resume_render`). Each call's launches counted
     by route from 0: kernel 3 twice a step and kernel 1 twice a 4096-ray
-    chunk, all on ``route``, none on the others; kernel 2 not at all."""
+    chunk, all on ``route``, none on the others; kernel 2 not at all; the
+    dW GEMM's kernel, as its libraries counted it, as often as kernel 3's
+    launches owe (:func:`dw_launches_due`), at least once each."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
 
-    counted = [ftm.fused_train_pass, fn.fused_nerf_apply, fn.fused_nerf_bwd]
+    counted = [ftm.fused_train_pass, fn.fused_nerf_apply, fn.fused_nerf_bwd, fn.dw_gemm]
     done = train_resume_render(work, GENERAL_PHASES[route], ["--config", "default"] + GENERAL_OVERRIDES[route]
                                + NGP_TRAIN_OVERRIDES, counted)
     chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
 
-    def on_route(k3, k1):
+    def on_route(k3, k1, dw):
         return [{r: (k3 if r == route else 0) for r in fn.ROUTES}, {r: (k1 if r == route else 0) for r in fn.ROUTES},
-                dict.fromkeys(fn.ROUTES, 0)]
+                dict.fromkeys(fn.ROUTES, 0), {r: (dw if r == route else 0) for r in fn.ROUTES}]
 
-    want = [on_route(48, 2 * (chunks_800 + chunks_400)), on_route(16, 0), on_route(0, 2 * 2 * chunks_800)]
+    # the dW GEMM's launches, as its libraries counted them, against those
+    # that kernel 3's launches of each shape owe (the plan's windows a pass)
+    g = GENERAL[route]
+    cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
+    dw_due = [dw_launches_due(cfg, shapes[0], shapes[2]) for shapes in done["shapes"] + [done["render_shapes"]]]
+    want = [on_route(48, 2 * (chunks_800 + chunks_400), dw_due[0]), on_route(16, 0, dw_due[1]),
+            on_route(0, 2 * 2 * chunks_800, dw_due[2])]
     got = done["route_launches"]
     ok = done["ok"] and got == want
     name = GENERAL_PHASES[route]
     emit(name, route=route, config=GENERAL_OVERRIDES[route], seconds=done["seconds"],
-         route_launches_kernel3_kernel1_kernel2={"train": got[0], "resume": got[1], "render": got[2]},
+         route_launches_kernel3_kernel1_kernel2_dw={"train": got[0], "resume": got[1], "render": got[2]},
          expected={"train": want[0], "resume": want[1], "render": want[2]}, **done["report"], ok=ok)
     if not ok:
         raise SystemExit(f"chip_smoke: {name} phase failed")
-    return {"fused_train_pass": sum(c[0][route] for c in got), "fused_nerf_fwd": sum(c[1][route] for c in got)}
+    return {"fused_train_pass": sum(c[0][route] for c in got), "fused_nerf_fwd": sum(c[1][route] for c in got),
+            "dw_gemm": sum(c[3][route] for c in got)}
 
 
 def bench_step(step, state, grid, images, poses, gen):
@@ -1587,6 +1703,7 @@ def phase_train_bench_general(smi: str) -> dict:
         if route == "f32_wgmma":  # the bound at f32's FFMA peak beside the tensor cores'
             for k in kernels.values():
                 k["ffma_bound_ms"] = k["tflops"] * 1e12 * k["ms"] / F32_PEAK
+        kernels["dw_gemm/fine"] = dw_bench(cfg, pf, pts, dirs, g_sigma, g_rgb, peak, peak_bw)
         zero = dict.fromkeys(fn.ROUTES, 0)
         want = {"fused": {"fused_train_pass": dict(zero, **{route: 2 * timed}), "fused_nerf_fwd": zero,
                           "fused_nerf_bwd": zero},
@@ -1607,6 +1724,28 @@ def phase_train_bench_general(smi: str) -> dict:
     if not ok:
         raise SystemExit("chip_smoke: train_bench_general phase failed")
     return out
+
+
+def dw_bench(cfg, params, pts, dirs, g_sigma, g_rgb, peak: float, peak_bw: float) -> dict:
+    """The dW GEMM alone over kernel 2's stash of ``pts`` (CUDA events,
+    ``general_check.dw_times``): its ms beside its bound (the larger of its
+    operations at ``peak`` and each stash read once at ``peak_bw``), the
+    plain version's ms (``backward_from_activations``' products on the
+    stash) and the library's (one cuBLAS GEMM a stash segment, timed here
+    and nowhere on the path)."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.runners.general_check import dw_times  # noqa: PLC0415
+
+    m = pts.shape[0]
+    workspace = fn.general_stash(params, pts, dirs, g_sigma, g_rgb, cfg)
+    t = dw_times(cfg, workspace, m, iters=3)
+    del workspace
+    floors = ftm.dw_floors(cfg, m)
+    entry = bound_entry(t["ms"], t["plain_ms"], floors["flops"], floors["bytes"], peak, peak_bw, m)
+    entry.update(library_ms=t["library_ms"], library=t["library"],
+                 floor_ops_ms=floors["flops"] / peak * 1e3, floor_bytes_ms=floors["bytes"] / peak_bw * 1e3)
+    return entry
 
 
 def route_peak(route: str, bf16_peak: float) -> float:
@@ -1682,8 +1821,10 @@ def mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
             checks[f"train/{wname}"] = v
         launched = {"fused_nerf_fwd": dict(fn.fused_nerf_apply.route_launches),
                     "fused_nerf_bwd": dict(fn.fused_nerf_bwd.route_launches),
-                    "fused_train_pass": dict(ftm.fused_train_pass.route_launches)}
-        want = {"fused_nerf_fwd": 2, "fused_nerf_bwd": 4, "fused_train_pass": 4}
+                    "fused_train_pass": dict(ftm.fused_train_pass.route_launches),
+                    "dw_gemm": dict(fn.dw_gemm.route_launches)}
+        want = {"fused_nerf_fwd": 2, "fused_nerf_bwd": 4, "fused_train_pass": 4,
+                "dw_gemm": dw_launches_due(cfg, fn.fused_nerf_bwd.shapes, ftm.fused_train_pass.shapes)}
         launches_ok = all(launched[k][route] == n and sum(launched[k].values()) == n for k, n in want.items())
         route_ok = launches_ok and all(c["ok"] and c.get("relaunch_bit_identical", True) for c in checks.values())
         ok = ok and route_ok
@@ -1710,6 +1851,9 @@ def mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
             plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(params, fpts, fdirs, cfg), 1)
             kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, fn.flops_per_point(cfg) * mf,
                                                          40 * mf + param_bytes, peak, peak_bw, mf)
+        kernels["dw_gemm/fine"] = dw_bench(cfg, params, fpts, fdirs, fs, fr,
+                                           route_peak("f32_wgmma" if g["dtype"] == torch.float32 else "mma_sync",
+                                                      bf16_peak), peak_bw)
         out[route] = dict(config={k: str(v) for k, v in g.items()}, checks=checks, route_launches=launched,
                           expected_launches=want, kernels=kernels,
                           peak_flops=peak, ok=route_ok,
@@ -4180,7 +4324,11 @@ def general_entries(done: dict) -> list:
     version one precision up at the main path's shapes (kernel 1:
     train_bench_general's chunk checks), and their times and bounds at the
     fine shape from train_bench_general; then kernels 1-3 on each route of
-    :data:`MMA_FFMA_ROUTES`, launched over train_bench_general's checks."""
+    :data:`MMA_FFMA_ROUTES`, launched over train_bench_general's checks;
+    after each route's kernels, its dW GEMM (launched inside kernels 2 and
+    3: its kernel's launches over the same calls as its libraries counted
+    them, its error from dw_gemm, its time at the fine shape beside the
+    cuBLAS yardstick)."""
     out = []
     sources = {"fused_nerf_fwd": ("fused_nerf_fwd.cu", "fused_tc_fwd.cu", "fused_nerf.py:397"),
                "fused_nerf_bwd": ("fused_nerf_bwd.cu", "fused_tc_bwd.cu", "fused_nerf.py:487"),
@@ -4213,6 +4361,19 @@ def general_entries(done: dict) -> list:
                         "bound_by": k["bound_by"], "library_ms": None,
                         **({"ffma_bound_ms": k["ffma_bound_ms"]} if "ffma_bound_ms" in k else {}),
                         **({"stash_floor_ms": k["stash_floor_ms"]} if "stash_floor_ms" in k else {})})
+        # the dW GEMM, inside kernels 2 and 3: its own launches, checks and times
+        k = bench["kernels"]["dw_gemm/fine"]
+        dw = done["kernel_bwd"]["general"]["dw_gemm"][route]
+        out.append({"name": f"dw_gemm/{route}", "route": "cuda",
+                    "source": "torch_nerf_tpu_torch/ops/csrc/nerf_dw_tc.cuh",
+                    "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:414",
+                    "launches": (done[GENERAL_PHASES[route]]["dw_gemm"] if route in GENERAL
+                                 else bench["route_launches"]["dw_gemm"][route]),
+                    "launches_path": GENERAL_PHASES[route] if route in GENERAL else "train_bench_general",
+                    "config": config, "max_abs_err": dw["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                    "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                    "library": k["library"], "floor_ops_ms": k["floor_ops_ms"],
+                    "floor_bytes_ms": k["floor_bytes_ms"], "fine_plan": dw["fine_plan"]})
     return out
 
 

@@ -144,4 +144,7 @@ int fused_nerf_bwd_general(const float* pts, const float* dirs, const float* g_s
   return bwd_general<g::bf16>(pts, dirs, g_sigma, g_rgb, net, workspace, grads_w, grads_b, dpts, ddirs, m, s);
 }
 
+// the dW GEMM kernel's launches in this library so far (nerf_dw::launches)
+long long fused_nerf_bwd_dw_launches() { return nerf_dw::launches(); }
+
 }  // extern "C"

@@ -2,7 +2,7 @@
 // for the configs torch_nerf_tpu_torch/ops/fused_nerf.py::train_route gives
 // wgmma_general or f32_wgmma: nerf_mlp_tc.cuh's forward with its stash and its
 // chain with the encodings' cotangents, then nerf_mlp_general.cuh's encode
-// VJP to dpts and ddirs and its dW GEMM and fixed-order reduce. Replaces, on
+// VJP to dpts and ddirs and its dW GEMM (nerf_dw_tc.cuh). Replaces, on
 // those configs, the Pallas TPU kernel torch_nerf_tpu/ops/pallas/
 // fused_nerf.py::_bwd_kernel (reached through _fused_bwd's pl.pallas_call).
 // Bound on an H100 SXM: 3 x flops_per_point a point at 989 TFLOP/s dense
@@ -57,6 +57,28 @@ int bwd_tc(const float* pts, const float* dirs, const float* g_sigma, const floa
   return static_cast<int>(g::run_dw<T>(st, d, m, part, grads_w, grads_b, s));
 }
 
+template <class T>
+int dw_alone(void* stash, int m, const g::Dims& d, void* part, float* const* grads_w, float* const* grads_b,
+             cudaStream_t s) {
+  size_t used = 0;
+  const g::Stash<T> st = g::carve_stash<T>(static_cast<unsigned char*>(stash), m, d, &used);
+  return static_cast<int>(g::run_dw<T>(st, d, m, static_cast<float*>(part), grads_w, grads_b, s));
+}
+
+template <class T>
+void dw_plan(int m, const g::Dims& d, long long* out) {
+  static nerf_dw::Plan plan;
+  float* none[g::kLayers] = {};
+  nerf_dw::make_plan<T>(plan, g::dw_stashes<T>(g::Stash<T>{}, d), m, none, none, false);
+  out[0] = plan.jobs;
+  out[1] = plan.splits;
+  out[2] = plan.chunk;
+  out[3] = static_cast<long long>(nerf_dw::smem_bytes<T>());
+  out[4] = static_cast<long long>(g::dw_ws_bytes<T>(m, d));
+  out[5] = plan.window;
+  out[6] = plan.windows;
+}
+
 }  // namespace
 
 extern "C" {
@@ -87,5 +109,40 @@ int fused_nerf_bwd_tc(const float* pts, const float* dirs, const float* g_sigma,
   return bwd_tc<nerf_tc::bf16>(pts, dirs, g_sigma, g_rgb, net, weights, weights_t, workspace, grads_w, grads_b, dpts,
                                ddirs, m, s);
 }
+
+// The general route's dW GEMM alone (nerf_dw_tc.cuh), for its checks and
+// timings: over the stash at the start of `stash` (carve_stash's layout, as
+// every general entry's workspace begins; m rows), into the kernel-layout
+// grads; part: fused_general_dw_workspace_bytes bytes. Returns the
+// cudaError_t of the launches.
+size_t fused_general_dw_workspace_bytes(int m, int feat, int pe_pad, int de_pad, int f32) {
+  const g::Dims d = g::make_dims(feat, 0, 0, 0, 0, 0, pe_pad, de_pad);
+  return f32 ? g::dw_ws_bytes<float>(m, d) : g::dw_ws_bytes<nerf_tc::bf16>(m, d);
+}
+
+int fused_general_dw(void* stash, int m, int feat, int pe_pad, int de_pad, int f32, void* part,
+                     float* const* grads_w, float* const* grads_b, void* stream) {
+  const g::Dims d = g::make_dims(feat, 0, 0, 0, 0, 0, pe_pad, de_pad);
+  if (!g::dims_ok(d) || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? dw_alone<float>(stash, m, d, part, grads_w, grads_b, s)
+             : dw_alone<nerf_tc::bf16>(stash, m, d, part, grads_w, grads_b, s);
+}
+
+// its plan at m points: out[0..6] = tiles, slices, points a slice, shared
+// memory a CTA, workspace bytes, slices a launch, launches
+// (fused_nerf.dw_tc_plan's twin)
+void fused_general_dw_plan(int m, int feat, int pe_pad, int de_pad, int f32, long long* out) {
+  const g::Dims d = g::make_dims(feat, 0, 0, 0, 0, 0, pe_pad, de_pad);
+  if (f32) dw_plan<float>(m, d, out);
+  else dw_plan<nerf_tc::bf16>(m, d, out);
+}
+
+// a planted fault of the dW GEMM (nerf_dw::Fault) in this library's
+// launches from now on; 0 takes it out
+void fused_tc_bwd_set_dw_fault(int kind) { nerf_dw::fault() = kind; }
+
+// the dW GEMM kernel's launches in this library so far (nerf_dw::launches)
+long long fused_tc_bwd_dw_launches() { return nerf_dw::launches(); }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 // configs torch_nerf_tpu_torch/ops/fused_nerf.py::train_route gives
 // wgmma_general or f32_wgmma: nerf_mlp_tc.cuh's forward with its stash, the
 // composite of nerf_composite.cuh, nerf_mlp_tc.cuh's chain, then
-// nerf_mlp_general.cuh's dW GEMM and fixed-order reduce over the stashes.
+// nerf_mlp_general.cuh's dW GEMM over the stashes (nerf_dw_tc.cuh).
 // Replaces, on those configs, the Pallas TPU kernel torch_nerf_tpu/ops/
 // pallas/fused_train.py::_train_kernel (reached through fused_train_pass's
 // pl.pallas_call). Bound on an H100 SXM: 3 x flops_per_point a point at 989
@@ -94,5 +94,12 @@ int fused_train_pass_tc(const float* ray_o, const float* ray_d, const float* t, 
   return train_tc<nerf_tc::bf16>(in, delta, rgb_gt, n_rays, num_real, net, weights, weights_t, workspace, rgb_out,
                                  weights_out, grads_w, grads_b, s);
 }
+
+// a planted fault of the dW GEMM (nerf_dw::Fault) in this library's
+// launches from now on; 0 takes it out
+void fused_tc_train_set_dw_fault(int kind) { nerf_dw::fault() = kind; }
+
+// the dW GEMM kernel's launches in this library so far (nerf_dw::launches)
+long long fused_tc_train_dw_launches() { return nerf_dw::launches(); }
 
 }  // extern "C"

@@ -180,4 +180,7 @@ int fused_train_pass_general(const float* ray_o, const float* ray_d, const float
                                 grads_b, s);
 }
 
+// the dW GEMM kernel's launches in this library so far (nerf_dw::launches)
+long long fused_train_dw_launches() { return nerf_dw::launches(); }
+
 }  // extern "C"

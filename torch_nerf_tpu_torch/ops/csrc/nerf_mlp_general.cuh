@@ -22,22 +22,19 @@
 //                   (act > 0), each dz to the dz stash; for kernel 2 the
 //                   cotangents of the encodings to device memory, then
 //                   encode_vjp_kernel takes them to dpts and ddirs.
-//   dw_kernel       dW = A^T dZ and db = sum dZ: a 128 x 128 tile of one
-//                   layer's dW over one slice of the points a block, the
-//                   operands staged from the stashes through shared memory;
-//   dw_reduce_kernel sums the slices' partials in a fixed order, so two
-//                   launches give the same grads bit for bit. No atomics.
+//   run_dw          dW = A^T dZ and db = sum dZ over the stashes on the
+//                   tensor cores (nerf_dw_tc.cuh: TMA-loaded tiles on wgmma,
+//                   the slices' partials summed in a fixed order, so two
+//                   launches give the same grads bit for bit; no atomics).
 //
 // Products. bf16: mma.sync.m16n8k16 (bf16 in, f32 accumulate); the forward
 // and the chain read A from shared memory by ldmatrix and the weights from
 // L2 in B-fragment order (fused_nerf.py::fragment_order), eight warps a
-// block, each warp all R rows and four n8 tiles a pass; the dW GEMM reads
-// both operands from shared memory by ldmatrix.trans (points are its
-// reduction axis). f32: FFMA on f32 operands, no TF32: the forward and the
-// chain give each thread R/8 rows x 8 columns of a 256-column pass, A read
-// as float4 along K from shared memory (one address a warp), the weights
-// staged 16 rows at a time through a two-stage shared-memory ring by
-// cp.async; the dW GEMM gives each thread 8 x 8 of the 128 x 128 tile.
+// block, each warp all R rows and four n8 tiles a pass. f32: FFMA on f32
+// operands, no TF32: the forward and the chain give each thread R/8 rows x
+// 8 columns of a 256-column pass, A read as float4 along K from shared
+// memory (one address a warp), the weights staged 16 rows at a time
+// through a two-stage shared-memory ring by cp.async.
 //
 // Precision. bf16: as nerf_apply(compute_dtype=bf16): every layer output
 // bf16(bf16(acc) + b), every dh rounded to bf16 before its mask and its
@@ -47,8 +44,8 @@
 //
 // Bound on an H100 SXM: 3 x flops_per_point FLOP a point for a train pass;
 // bf16 at 989 TFLOP/s dense, f32 at 67 TFLOP/s (FFMA). The stashes move
-// (acts + dzs) x the element size a point each way; the dW GEMM reads each
-// activation once per 128 columns of dZ and each dZ once per 128 rows of A.
+// (acts + dzs) x the element size a point each way; the dW GEMM reads
+// each once from device memory (nerf_dw_tc.cuh).
 //
 // Layout contract with torch_nerf_tpu_torch/ops/fused_nerf.py::
 // general_matrices (F the padded width, P, D the encodings padded to 16):
@@ -70,6 +67,7 @@
 
 #include <algorithm>
 
+#include "nerf_dw_tc.cuh"
 #include "nerf_mlp_train.cuh"
 
 namespace nerf_general {
@@ -85,8 +83,6 @@ constexpr int kSmemLimit = 232448;   // a block's shared memory
 constexpr int kSmemPerSM = 233472;   // an SM's, 1 KB of it reserved a block
 constexpr int kMaxFeat = 1024;
 constexpr int kMaxEnc = 128;
-constexpr int kTile = 128;        // dW tile edge
-constexpr int kPart = kTile * kTile + kTile;  // one partial: dW tile, then db
 constexpr int kPointPad = 64;     // stash rows: m rounded up to this
 
 enum Layer { L_IN = 0, L_1, L_2, L_3, L_4, L_5, L_6, L_7, L_8, L_9, L_OUT };
@@ -200,12 +196,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
@@ -690,248 +680,6 @@ __global__ void encode_vjp_kernel(In in, const float* __restrict__ dpe, const fl
 }
 
 // ---------------------------------------------------------------------------
-// dW = A^T dZ, db = sum dZ
-
-struct DwSeg {
-  const void* a;  // (m_pad, width) stash
-  int width;
-  int row_off;  // first row of the segment in the layer's grad
-  int kblocks;
-};
-
-struct DwLayer {
-  DwSeg seg[2];
-  int nseg;
-  const void* z;  // (m_pad, nwidth) dz stash
-  int nwidth, nblocks;
-  float* gw;  // (rows, nwidth) f32
-  float* gb;  // (nwidth,) f32
-  int first_job, jobs;
-};
-
-struct DwPlan {
-  DwLayer l[kLayers];
-  int jobs, splits, chunk, m;
-};
-
-// job -> (layer, segment, k block, n block); the job with k block 0 of a
-// layer's n block also sums db
-struct DwJob {
-  int layer, seg, kb, nb, kbi;
-};
-
-__device__ __forceinline__ DwJob dw_job(const DwPlan& plan, int job) {
-  int l = 0;
-  while (l + 1 < kLayers && plan.l[l + 1].first_job <= job) ++l;
-  const DwLayer& L = plan.l[l];
-  const int j = job - L.first_job;
-  DwJob out;
-  out.layer = l;
-  out.kbi = j / L.nblocks;
-  out.nb = j - out.kbi * L.nblocks;
-  out.seg = out.kbi < L.seg[0].kblocks ? 0 : 1;
-  out.kb = out.kbi - (out.seg ? L.seg[0].kblocks : 0);
-  return out;
-}
-
-// rows [p0, p0 + S) x columns [col0, col0 + 128) of a (m_pad, width) stash
-// into a (S, 128 + pad) tile by cp.async; rows at or past p_end and columns
-// at or past width read as zeros
-template <class T, int S>
-__device__ __forceinline__ void stage(T* dst, int ld, const T* src, int width, int col0, int p0, int p_end) {
-  constexpr int V = Elem<T>::kVec;
-  constexpr int per_row = kTile / V;
-  for (int i = threadIdx.x; i < S * per_row; i += kThreads) {
-    const int r = i / per_row;
-    const int c = (i - r * per_row) * V;
-    const bool valid = p0 + r < p_end && col0 + c < width;
-    cp_async16(dst + r * ld + c, valid ? src + static_cast<size_t>(p0 + r) * width + col0 + c : src, valid);
-  }
-}
-
-template <class T>
-struct DwShape;
-template <>
-struct DwShape<bf16> {
-  static constexpr int kStage = 64;  // points a stage
-};
-template <>
-struct DwShape<float> {
-  static constexpr int kStage = 16;
-};
-
-// two stages of (A, dZ) tiles
-template <class T>
-__host__ __device__ inline size_t dw_smem_bytes() {
-  return static_cast<size_t>(4) * DwShape<T>::kStage * row_ld<T>(kTile) * sizeof(T);
-}
-
-// one bf16 stage's products A^T dZ into the block's 128 x 128 sums on
-// mma.sync: warp w owns rows 32 (w % 4) and columns 64 (w / 4) of the tile
-__device__ __forceinline__ void dw_tile(const bf16* As, const bf16* Zs, int ld, float (&acc)[2][8][4]) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int j = lane >> 3;
-  const int rw = 32 * (warp & 3);
-  const int cw = 64 * (warp >> 2);
-#pragma unroll
-  for (int ks = 0; ks < DwShape<bf16>::kStage / 16; ++ks) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // A = A_stash^T: matrix j is the stored block (points 8 (j >> 1), features 8 (j & 1))
-      const bf16* p = As + (16 * ks + 8 * (j >> 1) + (lane & 7)) * ld + rw + 16 * i + 8 * (j & 1);
-      ldmatrix_x4_trans(a[i], smem_addr(p));
-    }
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      // B = dZ: matrix j is the stored block (points 8 (j & 1), columns 8 (j >> 1))
-      uint32_t b[4];
-      const bf16* p = Zs + (16 * ks + 8 * (j & 1) + (lane & 7)) * ld + cw + 16 * np + 8 * (j >> 1);
-      ldmatrix_x4_trans(b, smem_addr(p));
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
-        mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// the block's 128 x 128 partial dW and its 128 db sums over points
-// [p_begin, p_end), the (A, dZ) stages double-buffered by cp.async
-template <class T>
-__global__ void __launch_bounds__(kThreads) dw_kernel(const __grid_constant__ DwPlan plan, float* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int S = DwShape<T>::kStage;
-  const int ld = row_ld<T>(kTile);
-  T* base = reinterpret_cast<T*>(smem_raw);
-  const int job = blockIdx.x;
-  const int split = blockIdx.y;
-  const DwJob jb = dw_job(plan, job);
-  const DwLayer& L = plan.l[jb.layer];
-  const DwSeg& sg = L.seg[jb.seg];
-  const T* A = static_cast<const T*>(sg.a);
-  const T* Z = static_cast<const T*>(L.z);
-  const int p_begin = split * plan.chunk;
-  const int p_end = min(plan.m, p_begin + plan.chunk);
-  const bool db = jb.kbi == 0;
-  const int tid = threadIdx.x;
-  float dbacc = 0.f;
-  auto a_stage = [&](int it) { return base + (it & 1) * 2 * S * ld; };
-  auto load = [&](int it, int p0) {
-    stage<T, S>(a_stage(it), ld, A, sg.width, kTile * jb.kb, p0, p_end);
-    stage<T, S>(a_stage(it) + S * ld, ld, Z, L.nwidth, kTile * jb.nb, p0, p_end);
-    cp_async_commit();
-  };
-  // walk the slice's stages: compute(As, Zs) on each, the next one in flight
-  auto walk = [&](auto compute) {
-    if (p_begin < p_end) load(0, p_begin);
-    int it = 0;
-    for (int p0 = p_begin; p0 < p_end; p0 += S, ++it) {
-      if (p0 + S < p_end) {
-        load(it + 1, p0 + S);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* As = a_stage(it);
-      const T* Zs = As + S * ld;
-      if (db && tid < kTile)
-        for (int r = 0; r < S; ++r) dbacc += Elem<T>::to(Zs[r * ld + tid]);
-      compute(As, Zs);
-      __syncthreads();
-    }
-  };
-  float* out = part + (static_cast<size_t>(job) * plan.splits + split) * kPart;
-
-  if constexpr (sizeof(T) == 2) {
-    // bf16 on mma.sync, warp w owns rows 32 (w % 4) and columns 64 (w / 4)
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-    walk([&](const T* As, const T* Zs) { dw_tile(As, Zs, ld, acc); });
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 32 * (warp & 3) + 16 * i + (lane >> 2) + 8 * (e >> 1);
-          const int c = 64 * (warp >> 2) + 8 * n + 2 * (lane & 3) + (e & 1);
-          out[r * kTile + c] = acc[i][n][e];
-        }
-  } else {
-    // f32: thread (ty, tx) owns rows {4 ty + i, 64 + 4 ty + i} and columns
-    // {4 tx + j, 64 + 4 tx + j}: each float4 read is contiguous across lanes
-    const int ty = tid >> 4;
-    const int tx = tid & 15;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-    walk([&](const T* As, const T* Zs) {
-#pragma unroll 4
-      for (int r = 0; r < S; ++r) {
-        const float4 a0 = *reinterpret_cast<const float4*>(As + r * ld + 4 * ty);
-        const float4 a1 = *reinterpret_cast<const float4*>(As + r * ld + 64 + 4 * ty);
-        const float4 z0 = *reinterpret_cast<const float4*>(Zs + r * ld + 4 * tx);
-        const float4 z1 = *reinterpret_cast<const float4*>(Zs + r * ld + 64 + 4 * tx);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float zv[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(av[i], zv[c], acc[i][c]);
-      }
-    });
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int r = (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
-        const int cc = (c < 4 ? 0 : 64) + 4 * tx + (c & 3);
-        out[r * kTile + cc] = acc[i][c];
-      }
-  }
-  if (tid < kTile) out[kTile * kTile + tid] = dbacc;
-}
-
-// every job's partials summed over the splits in split order into the grads
-__global__ void dw_reduce_kernel(const __grid_constant__ DwPlan plan, const float* __restrict__ part) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(plan.jobs) * kPart) return;
-  const int job = static_cast<int>(idx / kPart);
-  const int e = static_cast<int>(idx - static_cast<size_t>(job) * kPart);
-  const DwJob jb = dw_job(plan, job);
-  const DwLayer& L = plan.l[jb.layer];
-  const DwSeg& sg = L.seg[jb.seg];
-  const float* src = part + static_cast<size_t>(job) * plan.splits * kPart + e;
-  if (e >= kTile * kTile) {
-    const int c = kTile * jb.nb + (e - kTile * kTile);
-    if (jb.kbi != 0 || c >= L.nwidth) return;
-    float s = 0.f;
-    for (int sp = 0; sp < plan.splits; ++sp) s += src[static_cast<size_t>(sp) * kPart];
-    L.gb[c] = s;
-    return;
-  }
-  const int r = kTile * jb.kb + e / kTile;
-  const int c = kTile * jb.nb + e % kTile;
-  if (r >= sg.width || c >= L.nwidth) return;
-  float s = 0.f;
-  for (int sp = 0; sp < plan.splits; ++sp) s += src[static_cast<size_t>(sp) * kPart];
-  L.gw[static_cast<size_t>(sg.row_off + r) * L.nwidth + c] = s;
-}
-
-// ---------------------------------------------------------------------------
 // host side
 
 inline size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
@@ -1011,54 +759,25 @@ inline Stash<T> carve_stash(unsigned char* base, int m, const Dims& d, size_t* u
   return st;
 }
 
-// the dW GEMM's jobs (128 x 128 tiles of every layer's grad) and its split
-// of the points; grads_w / grads_b the kernel-layout f32 grads
+// the stashes as the dW GEMM (nerf_dw_tc.cuh) reads them
 template <class T>
-inline DwPlan dw_plan(const Stash<T>& st, const Dims& d, int m, float* const* grads_w, float* const* grads_b) {
-  DwPlan plan = {};
-  // each layer's A segments: (activation slot) and its dz
-  const int segs[kLayers][2] = {{A_PE, -1},        {A_H0, -1},     {A_H0 + 1, -1}, {A_H0 + 2, -1},
-                                {A_H0 + 3, -1},    {A_PE, A_H0 + 4}, {A_H0 + 5, -1}, {A_H0 + 6, -1},
-                                {A_H0 + 7, -1},    {A_FEAT, A_DE},   {A_H9, -1}};
-  int jobs = 0;
-  for (int l = 0; l < kLayers; ++l) {
-    DwLayer& L = plan.l[l];
-    L.nseg = segs[l][1] < 0 ? 1 : 2;
-    int rows = 0, kblocks = 0;
-    for (int s = 0; s < L.nseg; ++s) {
-      const int a = segs[l][s];
-      L.seg[s].a = st.act[a];
-      L.seg[s].width = d.act_width(a);
-      L.seg[s].row_off = rows;
-      L.seg[s].kblocks = cdiv(L.seg[s].width, kTile);
-      rows += L.seg[s].width;
-      kblocks += L.seg[s].kblocks;
-    }
-    L.z = st.dz[l];
-    L.nwidth = d.dz_width(l);
-    L.nblocks = cdiv(L.nwidth, kTile);
-    L.gw = grads_w[l];
-    L.gb = grads_b[l];
-    L.first_job = jobs;
-    L.jobs = kblocks * L.nblocks;
-    jobs += L.jobs;
+inline nerf_dw::Stashes dw_stashes(const Stash<T>& st, const Dims& d) {
+  nerf_dw::Stashes out;
+  for (int a = 0; a < kActs; ++a) {
+    out.act[a] = st.act[a];
+    out.act_width[a] = d.act_width(a);
   }
-  plan.jobs = jobs;
-  plan.m = m;
-  // enough blocks for a few waves over 132 SMs, slices of at least 1024 points
-  int splits = cdiv(4 * 132, jobs);
-  splits = std::max(1, std::min(splits, cdiv(m, 1024)));
-  plan.chunk = cdiv(cdiv(m, splits), kPointPad) * kPointPad;
-  plan.splits = cdiv(m, plan.chunk);
-  return plan;
+  for (int l = 0; l < kLayers; ++l) {
+    out.dz[l] = st.dz[l];
+    out.dz_width[l] = d.dz_width(l);
+  }
+  return out;
 }
 
+// the dW GEMM's partials: one per (tile, slice)
 template <class T>
 inline size_t dw_ws_bytes(int m, const Dims& d) {
-  Stash<T> st = {};
-  float* none[kLayers] = {};
-  const DwPlan plan = dw_plan<T>(st, d, m > 0 ? m : 1, none, none);
-  return align256(static_cast<size_t>(plan.jobs) * plan.splits * kPart * sizeof(float));
+  return nerf_dw::ws_bytes<T>(dw_stashes<T>(Stash<T>{}, d), m);
 }
 
 // (the kernels' In types live in nerf_train, so argument-dependent lookup
@@ -1105,21 +824,12 @@ inline cudaError_t run_chain(const Net& net, const Stash<T>& st, const float* g_
   return chain_r<T, 16, kInputGrads>(net, st, g_sigma, g_rgb, dpe, dde, m, stream);
 }
 
-// dW and db of every layer into the kernel-layout grads; part: the
-// workspace of dw_ws_bytes
+// dW and db of every layer into the kernel-layout grads on the tensor
+// cores (nerf_dw_tc.cuh); part: the workspace of dw_ws_bytes
 template <class T>
 inline cudaError_t run_dw(const Stash<T>& st, const Dims& d, int m, float* part, float* const* grads_w,
                           float* const* grads_b, cudaStream_t stream) {
-  const DwPlan plan = dw_plan<T>(st, d, m, grads_w, grads_b);
-  const size_t smem = dw_smem_bytes<T>();
-  cudaError_t err = set_smem(dw_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  dw_kernel<T><<<dim3(plan.jobs, plan.splits), kThreads, smem, stream>>>(plan, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(plan.jobs) * kPart;
-  dw_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(plan, part);
-  return cudaGetLastError();
+  return nerf_dw::run<T>(dw_stashes<T>(st, d), m, part, grads_w, grads_b, stream);
 }
 
 }  // namespace nerf_general

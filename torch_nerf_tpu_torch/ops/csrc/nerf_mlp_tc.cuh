@@ -4,12 +4,9 @@
 // take, at padded widths F % 64 == 0: bf16 up to F = 512 on wgmma (route
 // wgmma_general), f32 up to F = 256 on wgmma's bf16 product over three bf16
 // pieces of each operand (route f32_wgmma). The stashes are
-// nerf_mlp_general.cuh's, row-major: its dW GEMM (mma.sync bf16, FFMA f32),
-// the fixed-order reduce of its partials and its encode VJP are used as
-// they are. That dW GEMM reads each stash once per 128 columns of the other
-// operand, ~60 GB a fine pass at F = 512 (~2.5 TB/s at its measured 24.7 ms):
-// bound by memory, not by its products, so wgmma there would gain nothing
-// without wider tiles (PERF.md, section 6).
+// nerf_mlp_general.cuh's, row-major: its encode VJP and its dW GEMM
+// (nerf_dw_tc.cuh: wgmma on TMA-loaded stash tiles, the same three bf16
+// pieces for f32, a fixed-order reduce) are used as they are.
 //
 // Replaces, on those configs, the Pallas TPU kernels torch_nerf_tpu/ops/
 // pallas/fused_nerf.py::_fwd_kernel and _bwd_kernel and fused_train.py::
@@ -100,6 +97,11 @@ using nerf_train::sw128_desc;
 using nerf_train::wg_commit;
 using nerf_train::wg_fence;
 using nerf_train::wg_wait;
+// the ring's wait that traps instead of holding the card, the consumers'
+// barrier and the bf16 pair packing, shared with the dW GEMM
+using nerf_dw::await_phase;
+using nerf_dw::consumers_sync;
+using nerf_dw::pack_bf16;
 
 constexpr int kThreads = 384;  // two consumer warpgroups + one producer
 constexpr int kConsumers = 256;
@@ -182,25 +184,6 @@ struct Ring {
   int it;  // slices taken so far
 };
 
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// until the phase of parity `parity` has completed; a ring out of step
-// traps after ~2^35 cycles instead of holding the card
-__device__ __forceinline__ void await_phase(uint64_t* bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
 // one producer thread: every slice of the plan into the ring, in order
 __device__ __forceinline__ void produce(const Plan& plan, const Ring& ring) {
   int it = 0;
@@ -220,8 +203,6 @@ __device__ __forceinline__ void release(const Ring& ring, int it) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[it % ring.stages]);
 }
 
-// the 256 consumer threads (barrier 0 is __syncthreads', 1-2 nerf_train's)
-__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); }
 
 // generic-proxy writes to the tile made visible to wgmma, then the barrier
 __device__ __forceinline__ void publish() {
@@ -285,11 +266,6 @@ __device__ __forceinline__ void product_bf16(Ring& ring, const ASrc& src, int sl
 
 __device__ __forceinline__ void lds_f32x2(uint32_t addr, float& x, float& y) {
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(x), "=f"(y) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const bf162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // the three bf16 pieces of a pair of f32 values, packed: x = x0 + x1 + x2

@@ -612,6 +612,129 @@ def tc_matrices(params: Params, cfg: FusedNeRFConfig):
     return [t.contiguous() for t in forward], [t.contiguous() for t in chains]
 
 
+# ---------------------------------------------------------------------------
+# the general route's dW GEMM (csrc/nerf_dw_tc.cuh): 128 x N tiles of each
+# layer's dW over slices of the points, on wgmma from TMA-loaded stash tiles
+
+_DW_SLICE = 4096  # points a CTA sums
+_DW_MIN_SLICE = 1024
+_DW_SMS = 132
+_DW_WAVES = 8  # CTAs of a launch: at most _DW_WAVES x _DW_SMS
+_DW_PANEL = 64 * 128
+_DW_MAX_N = {torch.bfloat16: 256, torch.float32: 128}
+# a CTA's shared memory: the ring (bf16: 4 stages of 2 A boxes and up to 4
+# dZ boxes; f32: 2 stages of 4 f32 boxes), f32's bf16 pieces of two
+# 32-point half-stages, the barriers and up to 1023 bytes to align
+_DW_SMEM = {torch.bfloat16: 4 * 6 * _DW_PANEL + 1024 + 2 * 4 * 8,
+            torch.float32: 2 * 8 * _DW_PANEL + 3 * 4 * _DW_PANEL + 1024 + 2 * 2 * 8}
+# the stash activations, in carve_stash's order, and each layer's A segments
+STASH_ACTS = ("pe", "de", "h0", "h1", "h2", "h3", "h4", "h5", "h6", "h7", "features", "h9")
+DW_SEGMENTS = (("pe",), ("h0",), ("h1",), ("h2",), ("h3",), ("pe", "h4"), ("h5",), ("h6",), ("h7",),
+               ("features", "de"), ("h9",))
+# the dW GEMM's planted faults (nerf_dw::Fault), for chip_smoke.py's checks
+DW_FAULTS = {"slice_skipped": 1, "db_dropped": 2, "swizzle_off_by_one_chunk": 3, "f32_low_piece_dropped": 4,
+             "f32_low_and_mid_pieces_dropped": 5}
+
+
+def stash_widths(cfg: FusedNeRFConfig) -> Tuple[Dict[str, int], List[int]]:
+    """Columns of the general route's row-major stashes (``nerf_mlp_general.
+    cuh``'s ``act_width``, ``dz_width``): ``({activation: width}, [each
+    layer's dz width])``, F the padded width, the encodings padded to 16,
+    fc_8's dz F + 16 (features, sigma, zeros), fc_out's 16."""
+    f = padded_config(cfg).feat_dim
+    acts = dict.fromkeys(STASH_ACTS, f)
+    acts.update(pe=_round16(cfg.pos_enc_dim), de=_round16(cfg.dir_enc_dim), h9=f // 2)
+    return acts, [f] * 8 + [f + 16, f // 2, 16]
+
+
+@dataclasses.dataclass(frozen=True)
+class DwJob:
+    """One CTA's tile: rows ``[128 kb, 128 kb + 128)`` of A segment ``seg``
+    of ``layer`` (``row_off`` its first row in the layer's grad) by dz
+    columns ``[col0, col0 + n)``; ``kbi`` the row block over both
+    segments (0: the tile sums db)."""
+
+    layer: int
+    seg: int
+    kb: int
+    kbi: int
+    col0: int
+    n: int
+    row_off: int
+    width: int  # the segment's columns
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    jobs: Tuple[DwJob, ...]
+    splits: int  # slices
+    chunk: int  # points a slice
+    points: int
+    smem_bytes: int
+    workspace_bytes: int
+    window: int  # slices a launch
+    windows: int  # launches
+
+    def slices(self) -> List[Tuple[int, int]]:
+        """Each slice's points ``[begin, end)``, in order."""
+        return [(s * self.chunk, min(self.points, (s + 1) * self.chunk)) for s in range(self.splits)]
+
+    def order(self) -> List[Tuple[int, int]]:
+        """``(slice, job)`` of each CTA in launch order: a launch a window
+        of ``window`` slices, its grid (jobs, slices), the job fastest, so
+        every tile of a slice starts before the next slice's and walks it
+        beside them."""
+        return [(s, j) for s in range(self.splits) for j in range(len(self.jobs))]
+
+
+def _dw_n_tiles(nwidth: int, maxn: int) -> List[Tuple[int, int]]:
+    """``(col0, n)`` of the column tiles of a dz of ``nwidth`` columns:
+    ``maxn``-wide ones, then the rest in 64s as 128 and 64."""
+    w64 = -(-nwidth // 64) * 64
+    out = [(c, maxn) for c in range(0, w64 - w64 % maxn, maxn)]
+    col, rem = w64 - w64 % maxn, w64 % maxn
+    if rem >= 128:
+        out.append((col, 128))
+        col, rem = col + 128, rem - 128
+    if rem:
+        out.append((col, 64))
+    return out
+
+
+def dw_tc_plan(cfg: FusedNeRFConfig, points: int) -> DwPlan:
+    """The Python twin of ``nerf_dw::make_plan`` for ``points`` points: the
+    jobs, layer by layer, row block by row block, column tiles fastest; the
+    slices (``_DW_SLICE`` points, fewer where two waves of CTAs over 132
+    SMs would not fill the card, at least ``_DW_MIN_SLICE``, a multiple of
+    64) in windows of at most ``_DW_WAVES`` waves of CTAs, a launch each;
+    a CTA's shared memory and the partials' workspace bytes (one ``128 x
+    maxN + maxN`` f32 partial a (job, slice of a window) in each of two
+    buffers, one where there is one window)."""
+    dt = cfg.compute_dtype
+    maxn = _DW_MAX_N[dt]
+    acts, dzs = stash_widths(cfg)
+    jobs = []
+    for layer, (segs, nwidth) in enumerate(zip(DW_SEGMENTS, dzs)):
+        tiles = _dw_n_tiles(nwidth, maxn)
+        kbi, row_off = 0, 0
+        for seg, name in enumerate(segs):
+            for kb in range(-(-acts[name] // 128)):
+                jobs.extend(DwJob(layer, seg, kb, kbi, col0, n, row_off, acts[name]) for col0, n in tiles)
+                kbi += 1
+            row_off += acts[name]
+    m = max(points, 1)
+    splits = -(-m // _DW_SLICE)
+    splits = max(splits, min(-(-2 * _DW_SMS // len(jobs)), -(-m // _DW_MIN_SLICE)))
+    chunk = -(-(-(-m // splits)) // 64) * 64
+    splits = -(-m // chunk)
+    windows = -(-splits // max(1, _DW_WAVES * _DW_SMS // len(jobs)))
+    window = -(-splits // windows)
+    part = 4 * (128 * maxn + maxn)
+    buffers = min(windows, 2)
+    return DwPlan(tuple(jobs), splits, chunk, m, _DW_SMEM[dt], -(-buffers * len(jobs) * window * part // 256) * 256,
+                  window, windows)
+
+
 def bf16_pieces(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The three bf16 pieces of f32 ``x`` (``nerf_mlp_tc.cuh``'s
     ``split3``): ``x0 = bf16(x)``, ``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0
@@ -744,6 +867,8 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_nerf_bwd_general_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_nerf_bwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_nerf_bwd_error_string.restype = ctypes.c_char_p
+    lib.fused_nerf_bwd_dw_launches.argtypes = []
+    lib.fused_nerf_bwd_dw_launches.restype = ctypes.c_longlong
     return lib
 
 
@@ -764,7 +889,7 @@ def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def bind_tc_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_tc_bwd.cu`` (the arguments
-    of ``fused_nerf_bwd_general``)."""
+    of ``fused_nerf_bwd_general``; the dW GEMM alone, :func:`general_dw`)."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     args = ([ctypes.c_void_p] * 4 + [ptrs] * 3 + [ctypes.c_void_p] + [ptrs] * 2
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10)
@@ -774,6 +899,18 @@ def bind_tc_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_nerf_bwd_tc_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_tc_bwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_tc_bwd_error_string.restype = ctypes.c_char_p
+    # the dW GEMM alone, its plan and its planted faults
+    lib.fused_general_dw.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p, ptrs, ptrs,
+                                                                               ctypes.c_void_p]
+    lib.fused_general_dw.restype = ctypes.c_int
+    lib.fused_general_dw_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_general_dw_workspace_bytes.restype = ctypes.c_size_t
+    lib.fused_general_dw_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_general_dw_plan.restype = None
+    lib.fused_tc_bwd_set_dw_fault.argtypes = [ctypes.c_int]
+    lib.fused_tc_bwd_set_dw_fault.restype = None
+    lib.fused_tc_bwd_dw_launches.argtypes = []
+    lib.fused_tc_bwd_dw_launches.restype = ctypes.c_longlong
     return lib
 
 
@@ -974,11 +1111,13 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
                 for n, p in params.items()}, dpts, ddirs
     if route in TC_ROUTES:
         lib = _tc_bwd_library()
-        error_string = lib.fused_tc_bwd_error_string
+        error_string, dw_launches = lib.fused_tc_bwd_error_string, lib.fused_tc_bwd_dw_launches
+        dw_before = dw_launches()
         grads, err = _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc=True)
     else:
         lib = _bwd_library()
-        error_string = lib.fused_nerf_bwd_error_string
+        error_string, dw_launches = lib.fused_nerf_bwd_error_string, lib.fused_nerf_bwd_dw_launches
+        dw_before = dw_launches()
         launch = _launch_bwd_wgmma if route == "wgmma" else _launch_bwd_general
         grads, err = launch(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
     if err != 0:
@@ -987,8 +1126,104 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
     launch_count.count(fused_nerf_bwd, m)
     fused_nerf_bwd.route_launches[route] += 1
     if route != "wgmma":
+        count_dw(route, m, dw_launches() - dw_before)
         grads = grads_from_general(*grads, cfg)
     return grads, dpts, ddirs
+
+
+def count_dw(route: str, points: int, launches: int) -> None:
+    """``launches`` launches of the general route's dW GEMM kernel over
+    ``points`` (inside a kernel 2 or 3 launch of ``route``, or alone by
+    :func:`general_dw`), as the library counted them where it launched
+    them (its ``*_dw_launches``, read before and after the call)."""
+    for _ in range(launches):
+        launch_count.count(dw_gemm, points)
+    dw_gemm.route_launches[route] += launches
+
+
+def stash_views(workspace: torch.Tensor, points: int, cfg: FusedNeRFConfig):
+    """The general route's stashes at the start of a kernel 2 or 3
+    workspace (``nerf_mlp_general.cuh``'s ``carve_stash``: each activation,
+    then each layer's dz, ``(m_pad, width)`` row-major in the compute type,
+    256-byte aligned, m_pad ``points`` rounded up to 64), as ``({activation:
+    (points, width)}, [each layer's dz (points, width)])`` views."""
+    acts, dzs = stash_widths(cfg)
+    size = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    mp = -(-points // 64) * 64
+    off, views = 0, []
+    for width in list(acts.values()) + dzs:
+        nbytes = mp * width * size
+        views.append(workspace[off:off + nbytes].view(cfg.compute_dtype).view(mp, width)[:points])
+        off += -(-nbytes // 256) * 256
+    return dict(zip(acts, views[:len(acts)])), views[len(acts):]
+
+
+def stash_nbytes(points: int, cfg: FusedNeRFConfig) -> int:
+    """Bytes of the stashes :func:`stash_views` reads (``nerf_mlp_general.
+    cuh``'s ``stash_bytes``)."""
+    acts, dzs = stash_widths(cfg)
+    size = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    mp = -(-points // 64) * 64
+    return sum(-(-mp * w * size // 256) * 256 for w in list(acts.values()) + dzs)
+
+
+def general_stash(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig) -> torch.Tensor:
+    """Kernel 2 on the config's general route, its workspace kept: the
+    stashes of ``pts`` at its start (:func:`stash_views`), for the dW
+    GEMM's checks and timings (:func:`general_dw`). Not counted as a
+    launch of kernel 2."""
+    route = train_route(cfg)
+    if route == "wgmma":
+        raise ValueError(f"{cfg} is not on a general route")
+    tc = route in TC_ROUTES
+    lib = _tc_bwd_library() if tc else _bwd_library()
+    dims = kernel_dims(cfg)
+    nbytes = (lib.fused_nerf_bwd_tc_workspace_bytes if tc else lib.fused_nerf_bwd_general_workspace_bytes)(
+        pts.shape[0], dims[0], dims[6], dims[7], int(cfg.compute_dtype == torch.float32))
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=pts.device)
+    _, err = _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, torch.empty_like(pts),
+                                 torch.empty_like(dirs), tc=tc, workspace=workspace)
+    if err != 0:
+        msg = (lib.fused_tc_bwd_error_string if tc else lib.fused_nerf_bwd_error_string)(err).decode()
+        raise RuntimeError(f"fused_nerf_bwd ({route}, stash) launch failed: {msg}")
+    return workspace
+
+
+def general_dw(workspace: torch.Tensor, points: int, cfg: FusedNeRFConfig):
+    """The general route's dW GEMM alone (``csrc/nerf_dw_tc.cuh``) over the
+    stashes at the start of ``workspace`` (:func:`general_stash`, or any
+    bytes laid out as :func:`stash_views` says): ``(grads_w, grads_b)`` in
+    the kernel layout (:func:`general_grad_shapes`), f32. Launches on the
+    current stream or raises; no plain path (the plain version is
+    ``backward_from_activations``' products on those stashes)."""
+    if workspace.device.type != "cuda":
+        raise ValueError("the dW GEMM runs on the card only")
+    lib = _tc_bwd_library()
+    dims = kernel_dims(cfg)
+    f32 = int(cfg.compute_dtype == torch.float32)
+    part = torch.empty(lib.fused_general_dw_workspace_bytes(points, dims[0], dims[6], dims[7], f32),
+                       dtype=torch.uint8, device=workspace.device)
+    gw, gb = empty_general_grads(cfg, workspace.device)
+    before = lib.fused_tc_bwd_dw_launches()
+    with torch.cuda.device(workspace.device):
+        stream = torch.cuda.current_stream(workspace.device).cuda_stream
+        err = lib.fused_general_dw(workspace.data_ptr(), points, dims[0], dims[6], dims[7], f32, part.data_ptr(),
+                                   pointers(gw), pointers(gb), stream)
+    if err != 0:
+        raise RuntimeError(f"dW GEMM launch failed: {lib.fused_tc_bwd_error_string(err).decode()} (cudaError {err})")
+    count_dw(train_route(cfg), points, lib.fused_tc_bwd_dw_launches() - before)
+    return gw, gb
+
+
+def dw_plan_on_card(cfg: FusedNeRFConfig, points: int) -> Tuple[int, ...]:
+    """The C++ side of :func:`dw_tc_plan`: ``(tiles, slices, points a
+    slice, shared memory a CTA, workspace bytes, slices a launch,
+    launches)`` from the library."""
+    lib = _tc_bwd_library()
+    dims = kernel_dims(cfg)
+    out = (ctypes.c_longlong * 7)()
+    lib.fused_general_dw_plan(points, dims[0], dims[6], dims[7], int(cfg.compute_dtype == torch.float32), out)
+    return tuple(out)
 
 
 def _launch_bwd_wgmma(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs):
@@ -1020,9 +1255,11 @@ def empty_general_grads(cfg: FusedNeRFConfig, device):
             [torch.empty((s[1],), dtype=torch.float32, device=device) for s in shapes])
 
 
-def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc: bool = False):
+def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc: bool = False,
+                        workspace=None):
     """The mma.sync/FFMA general route, or with ``tc`` the tensor-core one:
-    the same grads, workspace rule and arguments, each its own layout."""
+    the same grads, workspace rule and arguments, each its own layout; a
+    ``workspace`` given is used (and keeps the stash at its start)."""
     m = pts.shape[0]
     dims = kernel_dims(cfg)
     f32 = int(cfg.compute_dtype == torch.float32)
@@ -1030,7 +1267,10 @@ def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs
     gw, gb = empty_general_grads(cfg, pts.device)
     nbytes = (lib.fused_nerf_bwd_tc_workspace_bytes if tc else lib.fused_nerf_bwd_general_workspace_bytes)(
         m, dims[0], dims[6], dims[7], f32)
-    workspace = torch.empty(nbytes, dtype=torch.uint8, device=pts.device)
+    if workspace is None:
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=pts.device)
+    elif workspace.numel() < nbytes:
+        raise ValueError(f"the workspace holds {workspace.numel()} bytes, the kernel needs {nbytes}")
     entry = lib.fused_nerf_bwd_tc if tc else lib.fused_nerf_bwd_general
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
@@ -1091,12 +1331,22 @@ def fused_nerf_apply(
     return _FusedField.apply(cfg, pts, dirs, *_flat(params))
 
 
+def dw_gemm():
+    """The general route's dW GEMM (``csrc/nerf_dw_tc.cuh``), launched
+    inside every general-route kernel 2 and 3 launch and by
+    :func:`general_dw`, ``dw_tc_plan(cfg, points).windows`` launches of
+    its kernel a pass: its launch counts (``dw_gemm.launches``,
+    ``.shapes`` by point count, ``.route_launches``), as the libraries
+    counted them where they launched it."""
+
+
 def reset_launches() -> None:
-    """Set the forward's and the backward's launch counts, total, by shape
-    and by route, to 0."""
-    launch_count.reset(fused_nerf_apply, fused_nerf_bwd)
+    """Set the forward's, the backward's and the dW GEMM's launch counts,
+    total, by shape and by route, to 0."""
+    launch_count.reset(fused_nerf_apply, fused_nerf_bwd, dw_gemm)
 
 
 fused_nerf_apply.route_launches = dict.fromkeys(ROUTES, 0)
 fused_nerf_bwd.route_launches = dict.fromkeys(ROUTES, 0)
+dw_gemm.route_launches = dict.fromkeys(ROUTES, 0)
 reset_launches()

@@ -155,6 +155,19 @@ def general_stash_bytes(cfg: fn.FusedNeRFConfig, points: int) -> int:
     return points * (2 * (acts + dzs) * size + bits)
 
 
+def dw_floors(cfg: fn.FusedNeRFConfig, points: int) -> dict:
+    """The general route's dW GEMM over ``points``: its operations (2 x
+    rows x dz columns a point, every layer, at the stashes' padded widths)
+    and the bytes it must move (each stash read once, the f32 grads
+    written once): ``{"flops", "bytes"}``."""
+    acts, dzs = fn.stash_widths(cfg)
+    size = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    rows = [sum(acts[s] for s in segs) for segs in fn.DW_SEGMENTS]
+    grads = sum(r * n + n for r, n in zip(rows, dzs))
+    return {"flops": 2 * points * sum(r * n for r, n in zip(rows, dzs)),
+            "bytes": points * (sum(acts.values()) + sum(dzs)) * size + 4 * grads}
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_train.cu``."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
@@ -172,6 +185,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_train_general_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_train_error_string.argtypes = [ctypes.c_int]
     lib.fused_train_error_string.restype = ctypes.c_char_p
+    lib.fused_train_dw_launches.argtypes = []
+    lib.fused_train_dw_launches.restype = ctypes.c_longlong
     return lib
 
 
@@ -187,6 +202,10 @@ def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_train_tc_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_tc_train_error_string.argtypes = [ctypes.c_int]
     lib.fused_tc_train_error_string.restype = ctypes.c_char_p
+    lib.fused_tc_train_set_dw_fault.argtypes = [ctypes.c_int]
+    lib.fused_tc_train_set_dw_fault.restype = None
+    lib.fused_tc_train_dw_launches.argtypes = []
+    lib.fused_tc_train_dw_launches.restype = ctypes.c_longlong
     return lib
 
 
@@ -213,6 +232,7 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
         raise ValueError(f"{n} x {s} points exceed the kernel's 32-bit point index")
     lib = _tc_library() if route in fn.TC_ROUTES else _library()
     error_string = lib.fused_tc_train_error_string if route in fn.TC_ROUTES else lib.fused_train_error_string
+    dw_launches = lib.fused_tc_train_dw_launches if route in fn.TC_ROUTES else lib.fused_train_dw_launches
     dims = fn.kernel_dims(cfg)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=t.device)
     weights = torch.empty((n, s), dtype=torch.float32, device=t.device)
@@ -237,6 +257,7 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
         nbytes = (lib.fused_train_tc_workspace_bytes if tc else lib.fused_train_general_workspace_bytes)(
             n * s, dims[0], dims[6], dims[7], f32)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=t.device)
+    dw_before = dw_launches()
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = entry(
@@ -251,6 +272,7 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
     launch_count.count(fused_train_pass, (n, s))
     fused_train_pass.route_launches[route] += 1
     if route != "wgmma":
+        fn.count_dw(route, n * s, dw_launches() - dw_before)
         grads = fn.grads_from_general(gw, gb, cfg)
     return rgb, weights, grads
 

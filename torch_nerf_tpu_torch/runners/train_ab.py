@@ -1,17 +1,23 @@
-"""Time two versions of the training kernels in turns on one card.
+"""Time versions of the training kernels in turns on one card.
 
-Each side is a whole checkout of the port: this repository and the one at
+Each side is a whole checkout of the port: this repository and each
 ``--other DIR`` (for example ``git archive`` of an earlier commit unpacked
 under ``outputs/``), each with its own kernels and its own weight-layout
 code, so two designs whose layouts differ can be held side by side. Every
 turn is a fresh process run from one side's checkout (``PYTHONPATH`` set to
 it, this file run by its path): it builds that side's kernels into the
-side's own ``_build`` (both sides are built first, at once) and times, at
+side's own ``_build`` (every side is built first, at once) and times, at
 ``bench.py``'s train point, kernel 3 at the fine (4096 x 192) and the
 coarse (4096 x 64) pass and kernel 2 at the fine points (CUDA events), then
-whole fused and ``force_generic`` train steps (host clock). Turns alternate
-(other, repo, repo, other, ...). The first turn of each side saves its
-fine pass's outputs, and the two sides' largest difference is printed.
+whole fused and ``force_generic`` train steps (host clock) and the peak
+device memory of those steps (``torch.cuda.max_memory_allocated``). With
+``--kernel dw`` a turn times instead the general route's dW GEMM alone
+(``fused_nerf.general_dw``, in checkouts that have it) over each
+``--config``'s kernel-2 stash at the fine shape (786,432 seeded random
+points, port-init weights). Turns alternate (others, repo, repo, others,
+...). The first turn of each side saves its outputs (the fine pass's, or
+the dW's grads), and each side's largest difference from this
+repository's is printed.
 Prints one JSON line per turn with the SM clock, temperature and power
 draw after it, then each side's median and quartiles and the card's
 ``nvidia-smi`` line. ``--route f32_wgmma`` or ``wgmma_general`` times the
@@ -24,6 +30,8 @@ tensor-core route gives paths A and B: ``train_profile.MMA_FFMA_NAME``),
 so that each side's route takes it.
 
     python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4] [--route R [--other-route R]]
+    python -m torch_nerf_tpu_torch.runners.train_ab --kernel dw --other DIR [--other DIR ...]
+        [--config 512:12 --config 256:10:f32] [--rounds 2]
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from torch_nerf_tpu_torch import cameras, renderer, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
+from torch_nerf_tpu_torch.models.nerf import init_nerf_params
 from torch_nerf_tpu_torch.ops import fused_nerf as fn
 from torch_nerf_tpu_torch.ops import fused_train as ftm
 from torch_nerf_tpu_torch.ops import sampling
@@ -103,11 +112,42 @@ def turn(steps: int, save: str = "", route: str = "wgmma") -> dict:
                                 "grads": {n: {k: v.cpu() for k, v in p.items()} for n, p in grads.items()}}, save)
         state, _ = step(state, images, poses, gen)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         for _ in range(steps):
             state, _ = step(state, images, poses, gen)
         torch.cuda.synchronize()
         out[f"{path}_step_ms"] = (time.perf_counter() - t0) / steps * 1e3
+        out[f"{path}_step_peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    out["sm_clock_temp_power"] = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+    return out
+
+
+def dw_turn(configs, save: str = "") -> dict:
+    """This checkout's dW GEMM alone on each config's fine stash."""
+    dev = resolve_device("cuda")
+    out, grads = {}, {}
+    for spec in configs:
+        feat, level, *dtype = spec.split(":")
+        cfg = fn.FusedNeRFConfig(coord_encode_level=int(level), feat_dim=int(feat),
+                                 compute_dtype=torch.float32 if dtype == ["f32"] else torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        m = 4096 * 192
+        pts = torch.rand((m, 3), generator=gen, device=dev) * 4 - 2
+        dirs = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1)
+        g_sigma = torch.randn((m,), generator=gen, device=dev)
+        g_rgb = torch.randn((m, 3), generator=gen, device=dev)
+        params = init_nerf_params(torch.Generator(device=dev).manual_seed(0), cfg.pos_enc_dim, cfg.dir_enc_dim,
+                                  cfg.feat_dim, device=dev)
+        workspace = fn.general_stash(params, pts, dirs, g_sigma, g_rgb, cfg)
+        out[f"{spec}_ms"] = event_ms(lambda: fn.general_dw(workspace, m, cfg), 10)
+        if save:
+            grads[spec] = {str(i): t.cpu() for i, t in enumerate(t for ts in fn.general_dw(workspace, m, cfg)
+                                                               for t in ts)}
+        del workspace
+        torch.cuda.empty_cache()
+    if save:
+        torch.save(grads, save)
     out["sm_clock_temp_power"] = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
     return out
 
@@ -118,9 +158,9 @@ def _run(side: Path, args) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, check=True)
 
 
-def _build(side: Path) -> subprocess.Popen:
+def _build(side: Path, kernels) -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=str(side))
-    names = [k for k in KERNELS if (side / "torch_nerf_tpu_torch" / "ops" / "csrc" / f"{k}.cu").exists()]
+    names = [k for k in kernels if (side / "torch_nerf_tpu_torch" / "ops" / "csrc" / f"{k}.cu").exists()]
     code = f"from torch_nerf_tpu_torch.ops import build; build.build({names!r})"
     return subprocess.Popen([sys.executable, "-c", code], cwd=side, env=env)
 
@@ -133,7 +173,11 @@ def _max_diff(a, b) -> float:
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--other", help="a checkout of another version of the port")
+    parser.add_argument("--other", action="append", default=[], help="a checkout of another version of the port")
+    parser.add_argument("--kernel", choices=("train", "dw"), default="train",
+                        help="train: kernels 2-3 and the train steps; dw: the general route's dW GEMM alone")
+    parser.add_argument("--config", action="append", help="with --kernel dw: FEAT:LEVEL (bf16) or FEAT:LEVEL:f32 "
+                                                          "(default: 512:12 and 256:10:f32)")
     parser.add_argument("--rounds", type=int, default=4)
     parser.add_argument("--steps", type=int, default=10, help="timed train steps per path and turn")
     parser.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
@@ -145,31 +189,39 @@ def main(argv=None) -> dict:
                         help="the same config's route name in the other checkout (default: "
                              "train_profile.MMA_FFMA_NAME's)")
     args = parser.parse_args(argv)
+    configs = args.config or ["512:12", "256:10:f32"]
     if args.turn:
-        print(json.dumps(turn(args.steps, args.save, args.route)), flush=True)
+        row = dw_turn(configs, args.save) if args.kernel == "dw" else turn(args.steps, args.save, args.route)
+        print(json.dumps(row), flush=True)
         return {}
     if not args.other:
         parser.error("--other is required")
-    routes = {"repo": args.route, "other": args.other_route or train_profile.MMA_FFMA_NAME.get(args.route, args.route)}
-    sides = {"other": Path(args.other).resolve(), "repo": REPO}
-    builds = [_build(side) for side in sides.values()]
+    others = {("other" if len(args.other) == 1 else f"other{i}"): Path(d).resolve() for i, d in enumerate(args.other)}
+    sides = {**others, "repo": REPO}
+    other_route = args.other_route or train_profile.MMA_FFMA_NAME.get(args.route, args.route)
+    flags = {side: (["--kernel", "dw"] + [f for c in configs for f in ("--config", c)] if args.kernel == "dw" else
+                    ["--steps", str(args.steps), "--route", args.route if side == "repo" else other_route])
+             for side in sides}
+    builds = [_build(side, ["fused_tc_bwd"] if args.kernel == "dw" else KERNELS) for side in sides.values()]
     if any(p.wait() != 0 for p in builds):
         raise RuntimeError("a side's kernels did not build")
     out_dir = REPO / "outputs" / "train_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     results = {side: {} for side in sides}
+    names = list(sides)
     for r in range(args.rounds):
-        for side in (("other", "repo") if r % 2 == 0 else ("repo", "other")):
+        for side in (names if r % 2 == 0 else names[::-1]):
             extra = ["--save", str(out_dir / f"{side}.pt")] if r == 0 else []
-            row = json.loads(_run(sides[side], ["--turn", "--steps", str(args.steps), "--route", routes[side],
-                                                *extra]).stdout.splitlines()[-1])
+            row = json.loads(_run(sides[side], ["--turn", *flags[side], *extra]).stdout.splitlines()[-1])
             for k, v in row.items():
                 if k != "sm_clock_temp_power":
                     results[side].setdefault(k, []).append(v)
             print(json.dumps({"round": r, "side": side, **row}), flush=True)
         if r == 0:
-            a, b = (torch.load(out_dir / f"{s}.pt") for s in ("repo", "other"))
-            print(json.dumps({"max_abs_diff_repo_vs_other": _max_diff(a, b)}), flush=True)
+            repo = torch.load(out_dir / "repo.pt")
+            for side in others:
+                print(json.dumps({"side": side, "max_abs_diff_repo_vs_other": _max_diff(repo, torch.load(
+                    out_dir / f"{side}.pt"))}), flush=True)
 
     summary = {side: {k: quartiles(v) for k, v in res.items()} for side, res in results.items()}
     print(json.dumps({"summary": summary, "card": nvidia_smi("name,power.limit")}), flush=True)

@@ -25,8 +25,10 @@ B), both on the tensor-core general route; ``--route mma_sync`` (bf16 at
 width 1024) and ``--route f32`` (f32 at width 320) configs that stay on
 the mma.sync/FFMA general route: each its forward, chain and dW kernels beside their
 floors by operations at the route's peak (989 TFLOP/s bf16, 989 / 8 for
-f32_wgmma's eight bf16 products, 67 for f32's FFMA) and the pass's stash
-bytes (``fused_train.general_stash_bytes``) at 3.35 TB/s.
+f32_wgmma's eight bf16 products, 67 for f32's FFMA; the dW GEMM, on the
+tensor cores for every general route, at 989 or 989 / 8, and by bytes,
+each stash read once) and the pass's stash bytes
+(``fused_train.general_stash_bytes``) at 3.35 TB/s.
 
     python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--occupancy] [--route R] [--steps 5]
 """
@@ -122,11 +124,20 @@ def phases(kernels_ms: dict, cfg, passes) -> dict:
 def general_phases(kernels_ms: dict, cfg, passes) -> dict:
     """The general route's forward, chain and dW kernels' ms per step beside
     their floors by operations over the step's passes, at the peak of the
-    route's products, and the pass's stash floor by bytes."""
+    route's products (the dW GEMM's, ``dw_tc_kernel``, on both general
+    routes' tensor cores: 989 TFLOP/s, 989 / 8 in f32), the dW GEMM's floor
+    by bytes (each stash read once, ``fused_train.dw_floors``) and its
+    reduce's ms (``dw_tc_reduce``), and the pass's stash floor by bytes."""
     peak = ROUTE_PEAKS.get(fused_nerf.train_route(cfg), PEAK_FLOPS)
     flops = fused_nerf.flops_per_point(cfg) * sum(passes)
     out = {name: dict(ms=kernels_ms.get(name, 0.0), floor_ops_ms=flops / peak * 1e3)
-           for name in ("forward_kernel", "chain_kernel", "dw_kernel")}
+           for name in ("forward_kernel", "chain_kernel")}
+    dw = [fused_train.dw_floors(cfg, m) for m in passes]
+    dw_peak = PEAK_FLOPS / (8 if cfg.compute_dtype == torch.float32 else 1)
+    out["dw_tc_kernel"] = dict(ms=kernels_ms.get("dw_tc_kernel", 0.0),
+                               floor_ops_ms=sum(f["flops"] for f in dw) / dw_peak * 1e3,
+                               floor_bytes_ms=sum(f["bytes"] for f in dw) / PEAK_BYTES * 1e3)
+    out["dw_tc_reduce"] = dict(ms=kernels_ms.get("dw_tc_reduce", 0.0))
     out["stash_floor_ms"] = sum(fused_train.general_stash_bytes(cfg, m) for m in passes) / PEAK_BYTES * 1e3
     return out
 
