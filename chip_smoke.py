@@ -17,13 +17,15 @@ Phases: device, build (one nvcc per source, all at once, sm_90a); kernel
 (the field's forward at full width, ragged tail, PyTorch-default and
 He-scaled weights, on its wgmma route at widths 256, 128 and 64, the
 tensor-core general route at path B's 512 with a 75-wide encoding, 48
-(padded to 64) and 384 in bf16 (wgmma_general) and path A's 256 in f32
-(f32_wgmma), the mma.sync/FFMA general route where it stays (mma.sync at 96 and 1024,
-FFMA at 320), three trunk faults planted in the wgmma route's forward
-images and in each of paths A's and B's forward images, and path A's f32
-matrices rounded to TF32 and to bf16, that the comparison must reject; the
-f32 limits have a floor of 1e-5, bf16's 1e-3; the tensor-core route's
-Python twin of its shared-memory cut against its C++ side);
+(padded to 64), 384 and the wide configs (96, 160, 576, 1024 and 512 with
+both encodings 123 wide) in bf16 (wgmma_general, in column passes) and
+path A's 256 in f32 (f32_wgmma), the FFMA general route at 320, three
+trunk faults planted in the wgmma route's forward images and in each of
+paths A's and B's forward images, a later column pass's rows and a half
+K-slice zeroed at the wide configs, and path A's f32 matrices rounded to
+TF32 and to bf16, that the comparison must reject; the f32 limits have a
+floor of 1e-5, bf16's 1e-3; the tensor-core route's plan twin against
+its C++ side at every padded bf16 width);
 kernel_bwd (the field's backward on 2^16 + 37 points and at the
 train path's 4096 x 64 and 4096 x 192, every grad against the plain
 version, three planted faults in the training kernels' weight images, a
@@ -33,9 +35,11 @@ against the plain f32) on the 786,432 fine points, a second launch
 bit-identical, three faults and path A's two roundings planted in its
 images, and the dW GEMM's own faults (a slice skipped, a tile's db
 dropped, a panel's swizzle off by one chunk; in f32 the low and middle
-pieces dropped); then dw_gemm: the general route's dW GEMM
+pieces dropped); the backward at each wide config on 2^16 + 37 random
+points, relaunched bit-identically, a chain image zeroed and the column
+passes' faults planted; then dw_gemm: the general route's dW GEMM
 (``csrc/nerf_dw_tc.cuh``) alone over kernel 2's stashes at paths A and B
-(fine points and random ones) and at the mma.sync/FFMA configs, against
+(fine points and random ones), at the FFMA config and at bf16 1024 and 96, against
 the plain version on the same stashes (f32 within 2x its error + 5e-7),
 relaunched bit-identically, each planted fault, the f32 low piece dropped
 too, failing that check at paths A and B's fine shape, and its plan's
@@ -43,7 +47,9 @@ Python twin against the library's); kernel_train (the fused train pass at
 4096 x 64, 4096 x 192 and a ragged batch, rgb, weights and grads, planted
 faults in the weight images and in the composite, a second launch
 bit-identical; then kernel_train_general: the pass at paths A and B at
-4096 x 64 and 4096 x 192, the same rules one precision up for f32);
+4096 x 64 and 4096 x 192, the same rules one precision up for f32, and at
+each wide config at 4096 x 64 with the column passes' faults, and at
+bf16 1024 and 96 at 4096 x 192 too);
 serve (``run_render`` + ``evaluate`` on 128x128 test views, kernel launches
 counted, the kernel's render held against the plain version's); train
 (``run_train`` for 24 steps with a validation, a checkpoint and a
@@ -54,14 +60,18 @@ same CLI sequence as train: the default preset with
 ``device.compute_dtype=float32`` (f32_wgmma), and ``network.feat_dim=512
 signal_encoder.coord_encode_level=12`` (wgmma_general); every launch
 counted by route from 0: kernel 3 twice a step and kernel 1 twice a chunk
-on the path's route, none on the others, the mma.sync/FFMA routes included); train_bench
+on the path's route, none on the others, the FFMA route included);
+train_1024 (the same CLI sequence at ``network.feat_dim=1024`` in bf16,
+four column passes, 100x100 views: every launch on wgmma_general); train_bench
 (train steps at ``bench.py``'s operating point, fused and through
 autograd, each kernel timed beside its bound and its plain version);
 train_bench_general (paths A and B at the same point, fused and
 ``force_generic``, kernel 1 held against its plain version at the path's
 coarse and fine render chunks, kernels 1-3 timed alone; then kernels 1-3 on
-a config that stays on each route of the mma.sync/FFMA engine, mma.sync at width 1024 and
-FFMA at 320, held against their plain versions and timed); bench (800x800 frames at ``bench.py --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
+the config that stays on the FFMA engine, f32 at 320, held against their
+plain versions and timed, and kernels 1-3 on wgmma_general at bf16 1024
+and 96 timed, kernel 1 first held against its plain version on their fine
+chunk); bench (800x800 frames at ``bench.py --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
 per-corner hash encodes forward and backward, at full width on the 2^20
 points of a train batch plus 37 negative, integral and large ones, three
 planted faults that must be rejected, then kernels 4-7 on the points of
@@ -175,12 +185,22 @@ GENERAL = {"f32_wgmma": dict(feat_dim=256, coord_encode_level=10, dtype=torch.fl
 GENERAL_OVERRIDES = {"f32_wgmma": ["device.compute_dtype=float32"],
                      "wgmma_general": ["network.feat_dim=512", "signal_encoder.coord_encode_level=12"]}
 GENERAL_PHASES = {"f32_wgmma": "train_f32", "wgmma_general": "train_wide"}
-# a config on each route of the general route that the tensor-core engine
-# does not hold (csrc/nerf_mlp_general.cuh): bf16 at width 1024 (mma_sync;
-# the engine takes up to 512) and f32 at width 320 (f32, FFMA; up to 256),
-# launched, checked and timed in train_bench_general
-MMA_FFMA_ROUTES = {"mma_sync": dict(feat_dim=1024, coord_encode_level=10, dtype=torch.bfloat16),
-               "f32": dict(feat_dim=320, coord_encode_level=10, dtype=torch.float32)}
+# the config of the general route that the tensor-core engine does not
+# hold (csrc/nerf_mlp_general.cuh): f32 at width 320 (f32, FFMA; the engine
+# takes f32 up to 256), launched, checked and timed in train_bench_general
+FFMA_ROUTES = {"f32": dict(feat_dim=320, coord_encode_level=10, dtype=torch.float32)}
+# the bf16 configs the tensor-core engine took over from the mma.sync one
+# (csrc/nerf_mlp_tc.cuh's column passes), by name: (feat_dim,
+# coord_encode_level, dir_encode_level). Widths off the 64s (96, 160: each
+# trunk input ends on a half K-slice), 576 and 1024 (three and four column
+# passes, the outputs of the earlier ones held in registers) and 512 with
+# both encodings two panels wide (one pass of 256, the encodings sharing a
+# tile). Kernels 1-3 are held against their plain versions at each; 1024
+# and 96 are timed in train_bench_general, and 1024 runs the CLIs
+# (train_1024).
+TC_WIDE = {"96": (96, 10, 4), "160": (160, 10, 4), "576": (576, 10, 4), "1024": (1024, 10, 4),
+           "512/L20": (512, 20, 20)}
+TC_TIMED = ("1024", "96")
 # the floor of every limit that holds a kernel of one compute type against
 # the plain version one precision up (2x the plain version's own error +
 # the floor): 1e-3 for bf16; for f32 1e-5, 1/50 of TF32's unit roundoff
@@ -191,8 +211,12 @@ FLOOR = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 PRECISION_CONTROLS = {"tf32_rounded": 10, "bf16_rounded": 7}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def card_peaks(name: str):
@@ -245,10 +269,12 @@ def he_scaled(params):
     return {n: {"w": v["w"] * math.sqrt(6.0), "b": v["b"]} for n, v in params.items()}
 
 
-def width_cfg(feat: int = FULL["feat_dim"], dtype=torch.bfloat16, level: int = FULL["coord_encode_level"]):
+def width_cfg(feat: int = FULL["feat_dim"], dtype=torch.bfloat16, level: int = FULL["coord_encode_level"],
+              dir_level: int = FULL["dir_encode_level"]):
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    return fn.FusedNeRFConfig(**dict(FULL, feat_dim=feat, coord_encode_level=level), compute_dtype=dtype)
+    return fn.FusedNeRFConfig(**dict(FULL, feat_dim=feat, coord_encode_level=level, dir_encode_level=dir_level),
+                              compute_dtype=dtype)
 
 
 def reference_of(params, tensors, cfg):
@@ -263,7 +289,7 @@ def reference_of(params, tensors, cfg):
 
 
 def kernel_errors(params, pts, dirs, feat: int = FULL["feat_dim"], dtype=torch.bfloat16,
-                  level: int = FULL["coord_encode_level"]) -> dict:
+                  level: int = FULL["coord_encode_level"], dir_level: int = FULL["dir_encode_level"]) -> dict:
     """One kernel launch against the plain version one precision up
     (:func:`reference_of`: f32 on the same bf16-rounded weights for bf16,
     f64 for f32); the plain version's own error in the config's type is
@@ -271,7 +297,7 @@ def kernel_errors(params, pts, dirs, feat: int = FULL["feat_dim"], dtype=torch.b
     the type's :data:`FLOOR`."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    cfg = width_cfg(feat, dtype, level)
+    cfg = width_cfg(feat, dtype, level, dir_level)
     public = params.public if isinstance(params, fn.KernelWeights) else params
     ref_params, (rp, rd), ref_cfg = reference_of(public, [pts, dirs], cfg)
     before = fn.fused_nerf_apply.launches
@@ -285,7 +311,8 @@ def kernel_errors(params, pts, dirs, feat: int = FULL["feat_dim"], dtype=torch.b
     floor = FLOOR[dtype]
     ok = launched == 1 and all(math.isfinite(err[k]) and err[k] <= 2.0 * scale[k] + floor for k in err)
     plain = "plain_bf16_err" if dtype == torch.bfloat16 else "plain_f32_err"
-    return {"points": pts.shape[0], "feat_dim": feat, "coord_encode_level": level, "route": fn.forward_route(cfg),
+    return {"points": pts.shape[0], "feat_dim": feat, "coord_encode_level": level, "dir_encode_level": dir_level,
+            "route": fn.forward_route(cfg),
             "reference": str(ref_cfg.compute_dtype), "max_abs_err": err, plain: scale,
             "tolerance": f"err <= 2 * {plain} + {floor}", "sigma_ref_max": s32.max().item(),
             "sigma_positive_share": (s32 > 0).float().mean().item(), "rgb_ref_std": c32.std().item(),
@@ -293,9 +320,9 @@ def kernel_errors(params, pts, dirs, feat: int = FULL["feat_dim"], dtype=torch.b
 
 
 def compare_with_plain(params, pts, dirs, feat: int = FULL["feat_dim"], dtype=torch.bfloat16,
-                       level: int = FULL["coord_encode_level"]) -> dict:
+                       level: int = FULL["coord_encode_level"], dir_level: int = FULL["dir_encode_level"]) -> dict:
     """:func:`kernel_errors`, raising unless ``ok``."""
-    result = kernel_errors(params, pts, dirs, feat, dtype, level)
+    result = kernel_errors(params, pts, dirs, feat, dtype, level, dir_level)
     if not result["ok"]:
         emit("kernel", **result)
         raise SystemExit("chip_smoke: kernel disagrees with its plain version")
@@ -330,14 +357,14 @@ def planted_faults(w, params) -> dict:
     }
 
 
-# (width, route, coord_encode_level) of every kernel-1 check: the wgmma
-# route at the training widths; the tensor-core general route at path B's
-# config (512, a 75-wide encoding), a padded width (48 -> 64), 384 and
-# path A's config in f32; the mma.sync route at widths it keeps (96: off
-# the 64s; 1024: 32-point tiles) and the FFMA route at 320
-KERNEL1_WIDTHS = ((256, "wgmma", 10), (128, "wgmma", 10), (64, "wgmma", 10), (96, "mma_sync", 10),
-                  (256, "f32_wgmma", 10), (512, "wgmma_general", 12), (48, "wgmma_general", 10),
-                  (384, "wgmma_general", 10), (1024, "mma_sync", 10), (320, "f32", 10))
+# (width, route, coord_encode_level[, dir_encode_level]) of every kernel-1
+# check: the wgmma route at the training widths; the tensor-core general
+# route at path B's config (512, a 75-wide encoding), a padded width (48 ->
+# 64), 384 (two passes of 96), path A's config in f32 and every config of
+# :data:`TC_WIDE`; the FFMA route at 320
+KERNEL1_WIDTHS = ((256, "wgmma", 10), (128, "wgmma", 10), (64, "wgmma", 10), (256, "f32_wgmma", 10),
+                  (512, "wgmma_general", 12), (48, "wgmma_general", 10), (384, "wgmma_general", 10),
+                  *((f, "wgmma_general", lv, dl) for f, lv, dl in TC_WIDE.values()), (320, "f32", 10))
 
 
 def route_dtype(route: str):
@@ -346,10 +373,10 @@ def route_dtype(route: str):
     return fn.ROUTE_DTYPE[route]
 
 
-def level_params(feat: int, level: int, seed: int, dev):
+def level_params(feat: int, level: int, seed: int, dev, dir_level: int = FULL["dir_encode_level"]):
     from torch_nerf_tpu_torch.models.nerf import init_nerf_params  # noqa: PLC0415
 
-    cfg = width_cfg(feat, level=level)
+    cfg = width_cfg(feat, level=level, dir_level=dir_level)
     return init_nerf_params(torch.Generator(device=dev).manual_seed(seed), cfg.pos_enc_dim, cfg.dir_enc_dim,
                             feat, device=dev)
 
@@ -382,9 +409,23 @@ def rounded_to(x, bits: int):
 # the same faults in the tensor-core general route's images (csrc/
 # nerf_mlp_tc.cuh): a layer zeroed, its K-slices rolled by one stage (one
 # image's slice: a bf16 piece in f32), a layer written without the 128-byte
-# swizzle (each image's slices row-major)
-def tc_fault(images, mats, index, kind):
-    if kind == "zeroed":
+# swizzle (each image's slices row-major); and, in a layer of several column
+# passes (``rows`` image rows a pass), its last pass's rows zeroed, or at a
+# width off the 64s the half K-slice that ends each pass zeroed
+def tc_fault(images, mats, index, kind, rows=None):
+    if kind in ("later_pass_zeroed", "partial_slice_zeroed"):
+        image = images[index].clone()
+        cols = mats[index].shape[1]
+        pieces = image.numel() // mats[index].numel()
+        block = rows * cols * pieces  # one pass's image
+        if kind == "later_pass_zeroed":
+            image[-block:] = 0
+        else:
+            last = rows * 64 * pieces  # one K-slice of a pass
+            for b in range(0, image.numel(), block):
+                image[b + block - last:b + block] = 0
+        images[index] = image
+    elif kind == "zeroed":
         images[index] = torch.zeros_like(images[index])
     elif kind == "k_tiles_rolled":
         images[index] = torch.roll(images[index], mats[index].shape[0] * 64)
@@ -406,7 +447,9 @@ def general_forward_faults(w, params, cfg) -> dict:
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     tc = w.route in fn.TC_ROUTES
-    mats = fn.tc_matrices(params, cfg)[0] if tc else [fwd for fwd, _, _ in fn.general_matrices(params, cfg)]
+    # kernel 1's images: its own passes (fused_nerf.tc_plan, stash False)
+    mats = fn.tc_matrices(params, cfg, stash=False)[0] if tc else [fwd for fwd, _, _ in
+                                                                    fn.general_matrices(params, cfg)]
     out = {}
     for name, index, kind in (("fc_1_zeroed", 1, "zeroed"), ("fc_6_k_tiles_rolled", 6, "k_tiles_rolled"),
                               ("fc_3_other_layout", 3, "other_layout")):
@@ -424,27 +467,79 @@ def general_forward_faults(w, params, cfg) -> dict:
     return out
 
 
-# (width, coord_encode_level, dir_encode_level, dtype) whose verdict the
-# tensor-core general route's Python twin (fused_nerf.tc_stages) and its C++
-# side (nerf_mlp_tc.cuh's takes, through fused_tc_takes) must share
-TC_TWIN_CONFIGS = [(f, lv, dl, dt) for f in (64, 96, 192, 256, 320, 512, 576) for lv, dl in ((10, 4), (12, 4), (20, 20))
-                   for dt in (torch.bfloat16, torch.float32)]
+def tc_wide_forward_faults(w, params, cfg) -> dict:
+    """Copies of the tensor-core route's forward images ``w`` at a config of
+    :data:`TC_WIDE` with fc_2's last column pass zeroed (where a layer
+    takes several passes) or the half K-slice that ends each of fc_2's
+    passes zeroed (at a width off the 64s)."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    mats, rows = fn.tc_matrices(params, cfg, stash=False)[0], fn.tc_pass_rows(cfg, stash=False)[0]
+    out = {}
+    for kind in tc_wide_kinds(cfg):
+        images = list(w.weights)
+        tc_fault(images, mats, 2, kind, rows[2])
+        out[f"fc_2_{kind}"] = dataclasses.replace(w, weights=tuple(images))
+    return out
+
+
+def tc_wide_kinds(cfg) -> list:
+    """The column passes' fault kinds a config can show: a later pass's
+    rows where a layer takes several passes, a half K-slice at a width off
+    the 64s."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    return ((["later_pass_zeroed"] if fn.tc_plan(cfg).passes > 1 else [])
+            + (["partial_slice_zeroed"] if fn.padded_config(cfg).feat_dim % 64 else []))
+
+
+def tc_wide_train_faults(cfg) -> dict:
+    """name -> a context that plants it in the training kernels at a config
+    of :data:`TC_WIDE`: a chain image zeroed, and each of
+    :func:`tc_wide_kinds` in fc_2's forward image and fc_3's chain image."""
+    out = {"chain_fc_6_zeroed": lambda: planted_general(6, "zeroed", 2, tc=True)}
+    for kind in tc_wide_kinds(cfg):
+        out[f"fwd_fc_2_{kind}"] = lambda k=kind: planted_general(2, k, 0, tc=True)
+        out[f"chain_fc_3_{kind}"] = lambda k=kind: planted_general(3, k, 2, tc=True)
+    return out
+
+
+# (width, coord_encode_level, dir_encode_level, dtype) whose plan the
+# tensor-core general route's Python twin (fused_nerf.tc_plan) and its C++
+# side (nerf_mlp_tc.cuh's choose and plan_of, through fused_tc_takes and
+# fused_tc_plan) must share: every padded bf16 width and the f32 ones
+TC_TWIN_CONFIGS = ([(f, lv, dl, torch.bfloat16) for f in range(32, 1025, 32) for lv, dl in ((10, 4), (20, 20))]
+                   + [(f, lv, dl, dt) for f in (64, 96, 192, 256, 320, 512, 576, 1000) for lv, dl in ((12, 4),)
+                      for dt in (torch.bfloat16, torch.float32)]
+                   + [(f, lv, dl, torch.float32) for f in (64, 128, 192, 256, 320) for lv, dl in ((10, 4), (20, 20))])
 
 
 def tc_twin_agrees() -> dict:
     """Each config of :data:`TC_TWIN_CONFIGS` taken or refused alike by
-    ``fused_nerf.tc_stages`` and the library's ``fused_tc_takes``."""
+    ``fused_nerf.tc_plan`` and the library's ``fused_tc_takes``, and where
+    taken at the same plan: pass width, passes, each kernel's stages and
+    shared memory, sign-bit words, CTAs an SM, kernel 1's passes
+    (``fused_tc_plan``)."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     lib = fn._tc_library()
-    rows = {}
+    rows, disagree = {}, []
     for feat, level, dir_level, dtype in TC_TWIN_CONFIGS:
         cfg = fn.FusedNeRFConfig(coord_encode_level=level, dir_encode_level=dir_level, feat_dim=feat,
                                  compute_dtype=dtype)
-        d = fn.kernel_dims(cfg)
-        c_side = bool(lib.fused_tc_takes(d[0], d[4], d[5], d[6], d[7], int(dtype == torch.float32)))
-        rows[f"{feat}/{level}/{dir_level}/{str(dtype)[6:]}"] = [fn.tc_stages(cfg) is not None, c_side]
-    return {"configs": rows, "ok": all(a == b for a, b in rows.values())}
+        key = f"{feat}/{level}/{dir_level}/{str(dtype)[6:]}"
+        plan = fn.tc_plan(cfg)
+        c_side = fn.tc_plan_on_card(cfg)
+        alone = fn.tc_plan(cfg, stash=False)
+        py = (0,) * 12 if plan is None else (plan.np, plan.passes, *plan.stages, *plan.smem_bytes, plan.bit_words,
+                                             plan.ctas, alone.np, alone.passes)
+        taken = bool(lib.fused_tc_takes(*fn.kernel_dims(cfg)[:1], *fn.kernel_dims(cfg)[4:8],
+                                        int(dtype == torch.float32)))
+        rows[key] = py if plan is not None else None
+        if py != c_side or taken != (plan is not None):
+            disagree.append({key: {"python": py, "library": c_side, "taken": taken}})
+    return {"configs": len(rows), "plans": {k: v for k, v in rows.items() if k.endswith("/10/4/bfloat16")},
+            "disagree": disagree, "ok": not disagree}
 
 
 def phase_kernel():
@@ -465,12 +560,13 @@ def phase_kernel():
     pts = torch.rand((m, 3), generator=gen, device=dev) * 8.0 - 4.0
     dirs = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1)
     results, routes_ok = {}, True
-    for feat, route, level in KERNEL1_WIDTHS:
-        base = level_params(feat, level, 0, dev)
+    for feat, route, level, *dir_level in KERNEL1_WIDTHS:
+        dl = dir_level[0] if dir_level else FULL["dir_encode_level"]
+        base = level_params(feat, level, 0, dev, dl)
         for wname, params in (("port_init", base), ("he", he_scaled(base))):
             before = dict(fn.fused_nerf_apply.route_launches)
-            key = f"{feat}/{route}/L{level}/{wname}"
-            results[key] = compare_with_plain(params, pts, dirs, feat, route_dtype(route), level)
+            key = f"{feat}/{route}/L{level}" + (f"/D{dl}" if dir_level else "") + f"/{wname}"
+            results[key] = compare_with_plain(params, pts, dirs, feat, route_dtype(route), level, dl)
             counted = {k: fn.fused_nerf_apply.route_launches[k] - before[k] for k in before}
             routes_ok = routes_ok and results[key]["route"] == route and counted[route] == 1
     base = _seeded_params(0, dev)
@@ -486,6 +582,13 @@ def phase_kernel():
             for fault, bad in general_forward_faults(fn.prepare(params, cfg), params, cfg).items():
                 r = kernel_errors(bad, pts, dirs, g["feat_dim"], g["dtype"], g["coord_encode_level"])
                 faults[f"{wname}/{route}/{fault}"] = {"rejected": not r["ok"], "max_abs_err": r["max_abs_err"]}
+    # the column passes' faults: a later pass's rows, a half K-slice
+    for name, (feat, level, dl) in TC_WIDE.items():
+        cfg = width_cfg(feat, torch.bfloat16, level, dl)
+        params = he_scaled(level_params(feat, level, 0, dev, dl))
+        for fault, bad in tc_wide_forward_faults(fn.prepare(params, cfg), params, cfg).items():
+            r = kernel_errors(bad, pts, dirs, feat, torch.bfloat16, level, dl)
+            faults[f"he/wgmma_general/{name}/{fault}"] = {"rejected": not r["ok"], "max_abs_err": r["max_abs_err"]}
     twin = tc_twin_agrees()
     ok = routes_ok and twin["ok"] and all(v["rejected"] for k, v in faults.items() if k.startswith("he/"))
     emit("kernel", weights=results, routes_ok=routes_ok, planted_faults=faults, tc_twin=twin,
@@ -493,9 +596,13 @@ def phase_kernel():
               "route's Python twin takes the configs its C++ side takes", ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: kernel phase failed (a route, or a planted fault passed the comparison)")
-    # the routes and widths of the earlier slices, as this phase returned them
-    return max(e for k, r in results.items() if k.split("/")[1] == "wgmma" or k.startswith("96/")
-               for e in r["max_abs_err"].values())
+    # the wgmma route's error (the preset kernel 1's entry) and each wide
+    # config's
+    wide = {name: max(e for k, r in results.items()
+                      if k.startswith(f"{f}/wgmma_general/L{lv}/D{dl}/") for e in r["max_abs_err"].values())
+            for name, (f, lv, dl) in TC_WIDE.items()}
+    return {"wgmma": max(e for k, r in results.items() if k.split("/")[1] == "wgmma"
+                         for e in r["max_abs_err"].values()), "wide": wide}
 
 
 def rel_l2(got: dict, ref: dict) -> dict:
@@ -712,7 +819,8 @@ def planted_general(index, kind, which, tc: bool = False):
         out = list(real(params, cfg))
         images = list(out[which])
         if tc:
-            tc_fault(images, fn.tc_matrices(params, cfg)[which // 2], index, kind)
+            tc_fault(images, fn.tc_matrices(params, cfg)[which // 2], index, kind,
+                     fn.tc_pass_rows(cfg)[which // 2][index])
         else:
             general_fault(images, [m[which] for m in fn.general_matrices(params, cfg)], index, kind,
                           cfg.compute_dtype)
@@ -832,6 +940,11 @@ def general_bwd_checks(batch) -> dict:
                     faults[f"{wname}/{route}/{fname}"] = {"rejected": not v["ok"], "worst": v["worst"],
                                                          "worst_err": v["worst_err"],
                                                          "worst_limit": v["worst_limit"]}
+    wide, wide_faults = tc_wide_bwd_checks(rand, gen)
+    results.update(wide)
+    faults.update(wide_faults)
+    for key, r in wide.items():
+        worst[key.rsplit("/", 1)[0]] = max(worst.get(key.rsplit("/", 1)[0], 0.0), r["max_abs_err"])
     ok = all(r["ok"] for r in results.values()) and all(
         v["rejected"] for k, v in faults.items() if k.startswith("he/"))
     emit("kernel_bwd_general", cases=results, planted_faults=faults, routes={r: str(g) for r, g in GENERAL.items()},
@@ -842,6 +955,54 @@ def general_bwd_checks(batch) -> dict:
         raise SystemExit("chip_smoke: kernel_bwd_general failed")
     worst["dw_gemm"] = dw_gemm_checks(fine, rand, gen)
     return worst
+
+
+def tc_wide_bwd_checks(rand, gen) -> tuple:
+    """Kernel 2 at each config of :data:`TC_WIDE` on the 2^16 + 37 random
+    points ``rand`` with seeded random cotangents, the He-scaled
+    PyTorch-default weights (every layer's signal reaches the outputs;
+    kernel 1 is held with both sets), by :func:`bwd_verdict` against the plain
+    version one precision up (f32 on the bf16-rounded weights) within 2x
+    the plain bf16 version's error + 1e-3, on wgmma_general, a second
+    launch bit-identical; then with the He-scaled weights the planted
+    faults of :func:`tc_wide_train_faults`, each of which must fail that
+    check. -> ``({"wgmma_general/<name>/<weights>": verdict}, {fault:
+    verdict})``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    pts, dirs = rand
+    results, faults = {}, {}
+    for name, (feat, level, dl) in TC_WIDE.items():
+        cfg = width_cfg(feat, torch.bfloat16, level, dl)
+        base = level_params(feat, level, 0, dev, dl)
+        g_sigma = torch.randn((pts.shape[0],), generator=gen, device=dev)
+        g_rgb = torch.randn((pts.shape[0], 3), generator=gen, device=dev)
+        for wname, params in (("he", he_scaled(base)),):
+            rparams, rt, rcfg = reference_of(params, [pts, dirs, g_sigma, g_rgb], cfg)
+            ref = bwd_reference(rparams, *rt, rcfg)
+            scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref)
+
+            def check(runs=None):
+                return bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref, scale, runs, cfg)
+
+            before = fn.fused_nerf_bwd.route_launches["wgmma_general"]
+            runs = []
+            v = check(runs)
+            check(runs)
+            same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+            on_route = fn.fused_nerf_bwd.route_launches["wgmma_general"] == before + 2
+            results[f"wgmma_general/{name}/{wname}"] = dict(
+                v, points=pts.shape[0], route=fn.train_route(cfg), relaunch_bit_identical=same,
+                ok=v["ok"] and same and on_route)
+            for fname, plant in tc_wide_train_faults(cfg).items():
+                with plant():
+                    f = check()
+                faults[f"he/wgmma_general/{name}/{fname}"] = {"rejected": not f["ok"], "worst": f["worst"],
+                                                             "worst_err": f["worst_err"],
+                                                             "worst_limit": f["worst_limit"]}
+        torch.cuda.empty_cache()
+    return results, faults
 
 
 # the configs whose dW plan's Python twin (fused_nerf.dw_tc_plan) and C++
@@ -856,7 +1017,7 @@ def dw_gemm_checks(fine, rand, gen) -> dict:
     kernel 2's stashes (``fused_nerf.general_stash``): paths A and B
     (:data:`GENERAL`) on the fine batch's 786,432 points with port-init
     weights and on 2^16 + 37 random points with the He-scaled copy, the
-    configs of :data:`MMA_FFMA_ROUTES` on the random points; each layer's
+    configs of :data:`FFMA_ROUTES` on the random points; each layer's
     dW and db against the plain version (``backward_from_activations``'
     products) on the same stash, the exact f64 sums the reference, within
     2x the plain version's relative L2 + ``general_check.DW_FLOOR`` (bf16
@@ -872,10 +1033,14 @@ def dw_gemm_checks(fine, rand, gen) -> dict:
 
     dev = torch.device("cuda")
     out, ok = {}, True
-    configs = [(r, g, True) for r, g in GENERAL.items()] + [(r, g, False) for r, g in MMA_FFMA_ROUTES.items()]
+    wide = {f"wgmma_general/{n}": dict(feat_dim=TC_WIDE[n][0], coord_encode_level=TC_WIDE[n][1],
+                                       dir_encode_level=TC_WIDE[n][2], dtype=torch.bfloat16) for n in TC_TIMED}
+    configs = ([(r, g, True) for r, g in GENERAL.items()] + [(r, g, False) for r, g in FFMA_ROUTES.items()]
+               + [(r, g, False) for r, g in wide.items()])
     for route, g, main_path in configs:
-        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
-        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+        dl = g.get("dir_encode_level", FULL["dir_encode_level"])
+        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"], dl)
+        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev, dl)
         cases = {"random/he": (he_scaled(base), rand)}
         if main_path:
             cases = {"fine/port_init": (base, fine), **cases}
@@ -1191,6 +1356,12 @@ def general_train_checks(batch) -> dict:
                     faults[f"{wname}/{route}/{fname}"] = {"rejected": not v["ok"], "worst": v["worst"],
                                                          "worst_err": v["worst_err"],
                                                          "worst_limit": v["worst_limit"]}
+    wide, wide_faults = tc_wide_train_checks(batch)
+    results.update(wide)
+    faults.update(wide_faults)
+    for key, r in wide.items():
+        config = "/".join(key.split("/")[:2])
+        worst[config] = max(worst.get(config, 0.0), r["max_abs_err"])
     ok = all(r["ok"] for r in results.values()) and all(
         v["rejected"] for k, v in faults.items() if k.startswith("he/"))
     emit("kernel_train_general", cases=results, planted_faults=faults,
@@ -1201,6 +1372,83 @@ def general_train_checks(batch) -> dict:
     if not ok:
         raise SystemExit("chip_smoke: kernel_train_general failed")
     return worst
+
+
+def train_verdict(params, args, cfg, ref, scale, cr, wr, gr, cp, wp, tail, runs=None) -> dict:
+    """One kernel-3 launch of ``cfg`` on ``args`` (o, d, t, delta, gt; 4096
+    real rays) against the plain version one precision up (``cr, wr, gr``;
+    the plain version's own ``cp, wp`` and grads' error ``scale``): rgb and
+    weights by :func:`composite_errors`, the 22 grads by relative L2, each
+    within 2x the plain version's error + the type's :data:`FLOOR`; one
+    launch. With ``runs``, the kernel's outputs are appended to it."""
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+
+    before = ftm.fused_train_pass.launches
+    c, w, g_ = ftm.fused_train_pass(params, *args, cfg, 4096)
+    torch.cuda.synchronize()
+    if runs is not None:
+        runs.append(named(g_, rgb=c, weights=w))
+    verdict = judge(rel_l2(named(g_), ref), scale, FLOOR[cfg.compute_dtype])
+    comp = composite_errors(c, w, cr.float(), wr.float(), cp, wp, tail, FLOOR[cfg.compute_dtype])
+    verdict.update(grads_ok=verdict["ok"], composite=comp)
+    verdict["ok"] = verdict["ok"] and comp["ok"] and ftm.fused_train_pass.launches == before + 1
+    verdict["max_abs_err"] = max([comp["max_abs_err"]] + [
+        (g_[n_][k].double() - gr[n_][k].double()).abs().max().item() for n_ in g_ for k in g_[n_]])
+    return verdict
+
+
+def tc_wide_train_checks(batch) -> tuple:
+    """Kernel 3 at each config of :data:`TC_WIDE` at the coarse shape (the
+    batch's 4096 x 64 sorted depths) and, for :data:`TC_TIMED`, at the fine
+    shape too (4096 x 192: the multi-pass forward and chain and the
+    windowed dW at 1024 as the CLIs run them), the He-scaled
+    PyTorch-default weights, by :func:`train_verdict` on wgmma_general, a
+    second launch bit-identical; then, at the coarse shape, the planted
+    faults of :func:`tc_wide_train_faults`, each of which must fail that
+    check. -> ``({"wgmma_general/<name>/<shape>/<weights>": verdict},
+    {fault: verdict})``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    results, faults = {}, {}
+    cases = [(name, "coarse") for name in TC_WIDE] + [(name, "fine") for name in TC_TIMED]
+    for name, shape in cases:
+        feat, level, dl = TC_WIDE[name]
+        t = batch["t_c" if shape == "coarse" else "t_f"]
+        delta = sampling.t_deltas(t)
+        args = (batch["o"], batch["d"], t, delta, batch["gt"])
+        cfg = width_cfg(feat, torch.bfloat16, level, dl)
+        base = level_params(feat, level, 0, dev, dl)
+        for wname, params in (("he", he_scaled(base)),):
+            rparams, rargs, rcfg = reference_of(params, list(args), cfg)
+            cr, wr, gr = train_reference(rparams, *rargs, rcfg, 4096)
+            cp, wp, gp = train_reference(params, *args, cfg, 4096)
+            ref = named(gr)
+            scale = rel_l2(named(gp), ref)
+
+            def check(runs=None):
+                return train_verdict(params, args, cfg, ref, scale, cr, wr, gr, cp, wp, delta >= 1e7, runs)
+
+            before = ftm.fused_train_pass.route_launches["wgmma_general"]
+            runs = []
+            v = check(runs)
+            check(runs)
+            same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+            on_route = ftm.fused_train_pass.route_launches["wgmma_general"] == before + 2
+            results[f"wgmma_general/{name}/{shape}/{wname}"] = dict(
+                v, points=t.numel(), route=fn.train_route(cfg), relaunch_bit_identical=same,
+                ok=v["ok"] and same and on_route)
+            for fname, plant in tc_wide_train_faults(cfg).items() if shape == "coarse" else ():
+                with plant():
+                    f = check()
+                faults[f"he/wgmma_general/{name}/{fname}"] = {"rejected": not f["ok"], "worst": f["worst"],
+                                                             "worst_err": f["worst_err"],
+                                                             "worst_limit": f["worst_limit"]}
+            del cr, wr, gr, cp, wp, gp, ref
+        torch.cuda.empty_cache()
+    return results, faults
 
 
 def _field_and_params(dev, use_kernel=True, dtype=torch.bfloat16):
@@ -1413,7 +1661,8 @@ def phase_train(work: Path):
     vis = sorted(str(p.relative_to(run)) for p in (run / "vis").rglob("*.png"))
     val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
     first8, last8 = sum(losses[:8]) / 8, sum(losses[-8:]) / 8
-    ok = (launches == [48, 16] and [c["wgmma"] for c in k1] == want_k1 and all(c["mma_sync"] == 0 for c in k1)
+    ok = (launches == [48, 16] and [c["wgmma"] for c in k1] == want_k1
+          and all(v == 0 for c in k1 for r, v in c.items() if r != "wgmma")
           and len(losses) == 32 and all(math.isfinite(v) for v in losses)
           and last8 < first8 and "Resumed from step 24." in logs[1] and len(val) == 1
           and vis == ["vis/epoch_3/pred_imgs/view_000.png"]
@@ -1425,7 +1674,7 @@ def phase_train(work: Path):
          png_shapes=shapes, psnr_vs_gt=scores["psnr"], ssim_vs_gt=scores["ssim"], ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: train phase failed")
-    return {"fused_train_pass": sum(launches), "fused_nerf_fwd": sum(c["wgmma"] + c["mma_sync"] for c in k1)}
+    return {"fused_train_pass": sum(launches), "fused_nerf_fwd": sum(c["wgmma"] for c in k1)}
 
 
 def dw_launches_due(cfg, *shape_counts) -> int:
@@ -1476,6 +1725,50 @@ def train_resume_render_routes(work: Path, route: str) -> dict:
          expected={"train": want[0], "resume": want[1], "render": want[2]}, **done["report"], ok=ok)
     if not ok:
         raise SystemExit(f"chip_smoke: {name} phase failed")
+    return {"fused_train_pass": sum(c[0][route] for c in got), "fused_nerf_fwd": sum(c[1][route] for c in got),
+            "dw_gemm": sum(c[3][route] for c in got)}
+
+
+# the full-width CLI phase of the tensor-core engine's column passes: the
+# default preset in bf16 at width 1024 (four passes of 128), its views at
+# 200x200 (data.img_size 100) so that the phase is seconds of steps
+WIDE_OVERRIDES = ["network.feat_dim=1024"]
+
+
+def phase_train_1024(work: Path) -> dict:
+    """Width 1024 in bf16 (``wgmma_general``, four column passes) through
+    the CLIs: ``run_train --config default network.feat_dim=1024`` on
+    gaussian_blobs at 100x100 (8 views), 24 steps with a validation (a
+    200x200 view, 10 chunks), a checkpoint and a visualisation (100x100, 3
+    chunks), a resume for 8 more, then ``run_render`` + ``evaluate`` of two
+    200x200 test views. Each call's launches counted by route from 0:
+    kernel 3 twice a step and kernel 1 twice a 4096-ray chunk, all on
+    wgmma_general, none on another route; kernel 2 not at all; the dW
+    GEMM's kernel as often as kernel 3's launches owe."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+
+    route = "wgmma_general"
+    counted = [ftm.fused_train_pass, fn.fused_nerf_apply, fn.fused_nerf_bwd, fn.dw_gemm]
+    small = [o.replace("data.img_size=400", "data.img_size=100") for o in NGP_TRAIN_OVERRIDES]
+    done = train_resume_render(work, "train_1024", ["--config", "default"] + WIDE_OVERRIDES + small, counted, size=200)
+    chunks_val, chunks_vis = -(-200 * 200 // 4096), -(-100 * 100 // 4096)
+
+    def on_route(k3, k1, dw):
+        return [{r: (k3 if r == route else 0) for r in fn.ROUTES}, {r: (k1 if r == route else 0) for r in fn.ROUTES},
+                dict.fromkeys(fn.ROUTES, 0), {r: (dw if r == route else 0) for r in fn.ROUTES}]
+
+    cfg = width_cfg(1024, torch.bfloat16, 10)
+    dw_due = [dw_launches_due(cfg, shapes[0], shapes[2]) for shapes in done["shapes"] + [done["render_shapes"]]]
+    want = [on_route(48, 2 * (chunks_val + chunks_vis), dw_due[0]), on_route(16, 0, dw_due[1]),
+            on_route(0, 2 * 2 * chunks_val, dw_due[2])]
+    got = done["route_launches"]
+    ok = done["ok"] and got == want and all(d > 0 for d in dw_due[:2])
+    emit("train_1024", route=route, config=WIDE_OVERRIDES, seconds=done["seconds"],
+         route_launches_kernel3_kernel1_kernel2_dw={"train": got[0], "resume": got[1], "render": got[2]},
+         expected={"train": want[0], "resume": want[1], "render": want[2]}, **done["report"], ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: train_1024 phase failed")
     return {"fused_train_pass": sum(c[0][route] for c in got), "fused_nerf_fwd": sum(c[1][route] for c in got),
             "dw_gemm": sum(c[3][route] for c in got)}
 
@@ -1610,7 +1903,7 @@ def phase_train_bench_general(smi: str) -> dict:
     kernel 1 on the fine chunk (786,432 points), by CUDA events, beside
     their bounds (:func:`route_peak`; path A also beside the f32 FFMA
     peak's, and kernel 3 beside its stash floor) and the plain versions'
-    times; then :func:`mma_ffma_route_checks`."""
+    times; then :func:`ffma_route_checks`."""
     from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
@@ -1717,12 +2010,81 @@ def phase_train_bench_general(smi: str) -> dict:
                           fwd_chunk_checks=chunk_checks,
                           fwd_max_abs_err=max(e for r in chunk_checks.values() for e in r["max_abs_err"].values()),
                           generic_bwd_launches=paths["generic"]["route_launches"]["fused_nerf_bwd"][route])
-    kept, kept_ok = mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw)
-    ok = ok and kept_ok
+    kept, kept_ok = ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw)
+    wide = tc_wide_timings(o, d, gt, t_f, bf16_peak, peak_bw)
+    ok = ok and kept_ok and all(w["ok"] for w in wide.values())
     out.update(kept)
+    out.update(wide)
     emit("train_bench_general", card=smi, routes=out, peak_bytes_per_s=peak_bw, ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: train_bench_general phase failed")
+    return out
+
+
+def tc_wide_timings(o, d, gt, t_f, bf16_peak, peak_bw) -> dict:
+    """Kernels 1-3 of each config of :data:`TC_TIMED` on wgmma_general at
+    the fine shape (4096 x 192 = 786,432 points of a step's batch): kernel
+    1 first held against its plain version on that chunk
+    (:func:`compare_with_plain`, port-init weights and their He-scaled
+    copy), then each kernel, port-init weights, by CUDA events beside its
+    bound (the bf16 tensor cores' peak; kernel 3 also beside its stash
+    floor) and the plain version's time, every timed launch counted on the
+    route; then its dW GEMM alone (:func:`dw_bench`). Kernels 2-3's checks
+    against the plain versions are the kernel_bwd_general and
+    kernel_train_general phases'. -> ``{"wgmma_general/<name>":
+    results}``."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    fpts, fdirs = ray_points(o, d, t_f)
+    mf = fpts.shape[0]
+    fs = torch.randn((mf,), generator=gen, device=dev)
+    fr = torch.randn((mf, 3), generator=gen, device=dev)
+    delta = sampling.t_deltas(t_f)
+    out = {}
+    for name in TC_TIMED:
+        feat, level, dl = TC_WIDE[name]
+        cfg = width_cfg(feat, torch.bfloat16, level, dl)
+        params = level_params(feat, level, 0, dev, dl)
+        param_bytes = 4 * sum(t.numel() for v in params.values() for t in v.values())
+        flops = fn.flops_per_point(cfg) * mf
+        chunk_checks = {wname: compare_with_plain(fn.prepare(p, cfg), fpts, fdirs, feat, torch.bfloat16, level, dl)
+                        for wname, p in (("port_init", params), ("he", he_scaled(params)))}
+        fn.reset_launches()
+        ftm.reset_launches()
+        kernels = {}
+        with torch.no_grad():
+            ms = cuda_ms(lambda: ftm.fused_train_pass(params, o, d, t_f, delta, gt, cfg, 4096), 2)
+            plain = cuda_ms(lambda: train_reference(params, o, d, t_f, delta, gt, cfg, 4096), 1)
+            kernels["fused_train_pass/fine"] = bound_entry(ms, plain, 3 * flops, 12 * mf + 48 * 4096 + 2 * param_bytes,
+                                                           bf16_peak, peak_bw, mf)
+            kernels["fused_train_pass/fine"]["stash_floor_ms"] = stash_floor_ms(cfg, mf, peak_bw)
+            ms = cuda_ms(lambda: fn.fused_nerf_bwd(params, fpts, fdirs, fs, fr, cfg), 2)
+            plain = cuda_ms(lambda: bwd_reference(params, fpts, fdirs, fs, fr, cfg), 1)
+            kernels["fused_nerf_bwd/fine"] = bound_entry(ms, plain, 3 * flops, 64 * mf + 2 * param_bytes, bf16_peak,
+                                                         peak_bw, mf)
+            prepared = fn.prepare(params, cfg)
+            ms = cuda_ms(lambda: fn.fused_nerf_apply(prepared, fpts, fdirs, cfg), 3)
+            plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(params, fpts, fdirs, cfg), 1)
+            kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, flops, 40 * mf + param_bytes, bf16_peak, peak_bw,
+                                                         mf)
+        launched = {"fused_nerf_fwd": dict(fn.fused_nerf_apply.route_launches),
+                    "fused_nerf_bwd": dict(fn.fused_nerf_bwd.route_launches),
+                    "fused_train_pass": dict(ftm.fused_train_pass.route_launches),
+                    "dw_gemm": dict(fn.dw_gemm.route_launches)}
+        on_route = all(c["wgmma_general"] > 0 and sum(c.values()) == c["wgmma_general"] for c in launched.values())
+        kernels["dw_gemm/fine"] = dw_bench(cfg, params, fpts, fdirs, fs, fr, bf16_peak, peak_bw)
+        out[f"wgmma_general/{name}"] = dict(config={"feat_dim": feat, "coord_encode_level": level,
+                                                    "dir_encode_level": dl, "dtype": "torch.bfloat16"},
+                                            plan=dataclasses.asdict(fn.tc_plan(cfg)), kernels=kernels,
+                                            route_launches=launched, peak_flops=bf16_peak, ok=on_route,
+                                            fwd_chunk_checks=chunk_checks,
+                                            fwd_max_abs_err=max(e for r in chunk_checks.values()
+                                                                for e in r["max_abs_err"].values()))
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1750,7 +2112,7 @@ def dw_bench(cfg, params, pts, dirs, g_sigma, g_rgb, peak: float, peak_bw: float
 
 def route_peak(route: str, bf16_peak: float) -> float:
     """The peak of ``route``'s products: the bf16 tensor cores' (wgmma,
-    mma_sync), an eighth of it for f32_wgmma (eight bf16 products a
+    wgmma_general), an eighth of it for f32_wgmma (eight bf16 products a
     multiply-add), :data:`F32_PEAK` for the FFMA route."""
     return {"f32": F32_PEAK, "f32_wgmma": bf16_peak / 8}.get(route, bf16_peak)
 
@@ -1763,8 +2125,8 @@ def stash_floor_ms(cfg, points: int, peak_bw: float) -> float:
     return ftm.general_stash_bytes(cfg, points) / peak_bw * 1e3
 
 
-def mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
-    """Kernels 1-3 on each config of :data:`MMA_FFMA_ROUTES` (the routes the
+def ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
+    """Kernels 1-3 on each config of :data:`FFMA_ROUTES` (the routes the
     tensor-core engine leaves to nerf_mlp_general.cuh): kernel 1 and 2 on
     2^16 + 37 random points, kernel 3 at the coarse shape (the batch's 4096
     x 64 depths), with port-init weights and their He-scaled copy, each
@@ -1785,7 +2147,7 @@ def mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
     g_sigma = torch.randn((m,), generator=gen, device=dev)
     g_rgb = torch.randn((m, 3), generator=gen, device=dev)
     out, ok = {}, True
-    for route, g in MMA_FFMA_ROUTES.items():
+    for route, g in FFMA_ROUTES.items():
         cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
         base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
         fn.reset_launches()
@@ -1852,7 +2214,7 @@ def mma_ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
             kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, fn.flops_per_point(cfg) * mf,
                                                          40 * mf + param_bytes, peak, peak_bw, mf)
         kernels["dw_gemm/fine"] = dw_bench(cfg, params, fpts, fdirs, fs, fr,
-                                           route_peak("f32_wgmma" if g["dtype"] == torch.float32 else "mma_sync",
+                                           route_peak("f32_wgmma" if g["dtype"] == torch.float32 else "wgmma_general",
                                                       bf16_peak), peak_bw)
         out[route] = dict(config={k: str(v) for k, v in g.items()}, checks=checks, route_launches=launched,
                           expected_launches=want, kernels=kernels,
@@ -2147,11 +2509,12 @@ def run_cli(fn, argv, counted):
     return result, buf.getvalue(), [w.launches for w in counted], [dict(w.shapes) for w in counted]
 
 
-def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
+def train_resume_render(work: Path, name: str, train_args, counted, size: int = 800) -> dict:
     """``run_train`` with ``train_args`` into ``work/<name>_run`` for 24
     steps (one validation, checkpoint and visualisation at 8 views), a
-    resume for 8 more, then ``run_render`` + ``evaluate`` of two 800x800
-    test views; the ``counted`` wrappers' launches over each CLI call."""
+    resume for 8 more, then ``run_render`` + ``evaluate`` of two test views
+    of ``size`` x ``size`` (twice ``data.img_size``); the ``counted``
+    wrappers' launches over each CLI call."""
     from torch_nerf_tpu_torch import config, session  # noqa: PLC0415
     from torch_nerf_tpu_torch.logging_utils import load_png, save_png  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners import evaluate, run_render, run_train  # noqa: PLC0415
@@ -2190,7 +2553,7 @@ def train_resume_render(work: Path, name: str, train_args, counted) -> dict:
     val = [ln for log in logs for ln in log.splitlines() if ln.startswith("validation @")]
     ok = (len(losses) == 32 and all(math.isfinite(v) for v in losses) and last8 < first8 and resumed
           and len(val) == 1 and (run / "ckpt" / "ckpt_000024.pt").exists()
-          and (run / "ckpt" / "ckpt_000032.pt").exists() and shapes == [[800, 800, 3]] * 2
+          and (run / "ckpt" / "ckpt_000032.pt").exists() and shapes == [[size, size, 3]] * 2
           and all(math.isfinite(v) for v in scores.values()))
     return dict(ok=ok, seconds=train_s, results=results, launches=launches, render_launches=render_launches,
                 route_launches=routes,
@@ -4324,7 +4687,9 @@ def general_entries(done: dict) -> list:
     version one precision up at the main path's shapes (kernel 1:
     train_bench_general's chunk checks), and their times and bounds at the
     fine shape from train_bench_general; then kernels 1-3 on each route of
-    :data:`MMA_FFMA_ROUTES`, launched over train_bench_general's checks;
+    :data:`FFMA_ROUTES`, launched over train_bench_general's checks;
+    then kernels 1-3 on wgmma_general at each config of :data:`TC_TIMED`
+    (1024: kernels 1 and 3 launched over train_1024's CLI calls);
     after each route's kernels, its dW GEMM (launched inside kernels 2 and
     3: its kernel's launches over the same calls as its libraries counted
     them, its error from dw_gemm, its time at the fine shape beside the
@@ -4333,9 +4698,24 @@ def general_entries(done: dict) -> list:
     sources = {"fused_nerf_fwd": ("fused_nerf_fwd.cu", "fused_tc_fwd.cu", "fused_nerf.py:397"),
                "fused_nerf_bwd": ("fused_nerf_bwd.cu", "fused_tc_bwd.cu", "fused_nerf.py:487"),
                "fused_train_pass": ("fused_train.cu", "fused_tc_train.cu", "fused_train.py:196")}
-    for route in list(GENERAL) + list(MMA_FFMA_ROUTES):
+    for route in list(GENERAL) + list(FFMA_ROUTES) + [f"wgmma_general/{n}" for n in TC_TIMED]:
         bench = done["train_bench_general"][route]
-        if route in GENERAL:
+        wide = route.startswith("wgmma_general/")
+        if wide:
+            # 1024: kernels 1 and 3 over train_1024's CLI calls, kernel 2
+            # over train_bench_general's timing; 96: all three there
+            name = route.split("/", 1)[1]
+            launches = {k: bench["route_launches"][k]["wgmma_general"] for k in sources}
+            where = dict.fromkeys(sources, "train_bench_general")
+            if name == "1024":
+                launches.update(fused_nerf_fwd=done["train_1024"]["fused_nerf_fwd"],
+                                fused_train_pass=done["train_1024"]["fused_train_pass"])
+                where.update(fused_nerf_fwd="train_1024", fused_train_pass="train_1024")
+            errors = {"fused_nerf_fwd": max(done["kernel"]["wide"][name], bench["fwd_max_abs_err"]),
+                      "fused_nerf_bwd": done["kernel_bwd"]["general"][route],
+                      "fused_train_pass": done["kernel_train"]["general"][route]}
+            config = bench["config"]
+        elif route in GENERAL:
             path = done[GENERAL_PHASES[route]]
             launches = {"fused_nerf_fwd": path["fused_nerf_fwd"], "fused_train_pass": path["fused_train_pass"],
                         "fused_nerf_bwd": bench["generic_bwd_launches"]}
@@ -4349,10 +4729,10 @@ def general_entries(done: dict) -> list:
             launches = {name: bench["route_launches"][name][route] for name in sources}
             errors = bench["max_abs_err"]
             where = dict.fromkeys(sources, "train_bench_general")
-            config = {k: str(v) for k, v in MMA_FFMA_ROUTES[route].items()}
+            config = {k: str(v) for k, v in FFMA_ROUTES[route].items()}
         for name, (src, tc_src, replaces) in sources.items():
             k = bench["kernels"][f"{name}/fine"]
-            source = (f"torch_nerf_tpu_torch/ops/csrc/{tc_src} + nerf_mlp_tc.cuh" if route in GENERAL else
+            source = (f"torch_nerf_tpu_torch/ops/csrc/{tc_src} + nerf_mlp_tc.cuh" if route in GENERAL or wide else
                       f"torch_nerf_tpu_torch/ops/csrc/{src} + nerf_mlp_general.cuh")
             out.append({"name": f"{name}/{route}", "route": "cuda", "source": source,
                         "replaces": f"torch_nerf_tpu/ops/pallas/{replaces}", "launches": launches[name],
@@ -4368,8 +4748,11 @@ def general_entries(done: dict) -> list:
                     "source": "torch_nerf_tpu_torch/ops/csrc/nerf_dw_tc.cuh",
                     "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:414",
                     "launches": (done[GENERAL_PHASES[route]]["dw_gemm"] if route in GENERAL
+                                 else done["train_1024"]["dw_gemm"] if route == "wgmma_general/1024"
+                                 else bench["route_launches"]["dw_gemm"]["wgmma_general"] if wide
                                  else bench["route_launches"]["dw_gemm"][route]),
-                    "launches_path": GENERAL_PHASES[route] if route in GENERAL else "train_bench_general",
+                    "launches_path": (GENERAL_PHASES[route] if route in GENERAL else "train_1024"
+                                      if route == "wgmma_general/1024" else "train_bench_general"),
                     "config": config, "max_abs_err": dw["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                     "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                     "library": k["library"], "floor_ops_ms": k["floor_ops_ms"],
@@ -4380,7 +4763,7 @@ def general_entries(done: dict) -> list:
 def _kernel_entries(done: dict) -> list:
     shapes = done["bench"]
     fine = shapes["fine"]
-    k1_err = max([done["kernel"]] + [e for s in shapes.values()
+    k1_err = max([done["kernel"]["wgmma"]] + [e for s in shapes.values()
                                      for k in ("max_abs_err", "he_max_abs_err") for e in s[k].values()])
     tb = done["train_bench"]["kernels"]
     k2, k3 = tb["fused_nerf_bwd/fine"], tb["fused_train_pass/fine"]
@@ -4451,6 +4834,7 @@ def main() -> int:
         "train": phase_train(work),
         "train_f32": train_resume_render_routes(work, "f32_wgmma"),
         "train_wide": train_resume_render_routes(work, "wgmma_general"),
+        "train_1024": phase_train_1024(work),
         "train_bench": phase_train_bench(smi),
         "train_bench_general": phase_train_bench_general(smi),
         "bench": phase_bench(smi),

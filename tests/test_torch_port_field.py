@@ -109,26 +109,9 @@ def test_init_matches_layer_dims_and_bounds():
     assert torch.equal(again["fc_9"]["w"], params["fc_9"]["w"])
 
 
-def test_fragment_order_is_the_mma_b_operand():
-    w = torch.arange(32 * 24, dtype=torch.float32).reshape(32, 24)
-    frags = fused_nerf.fragment_order(w)
-    assert frags.shape == (2 * 3 * 32, 4)
-    for kt in range(2):
-        for nt in range(3):
-            for lane in range(32):
-                g, t = lane // 4, lane % 4
-                row = frags[(kt * 3 + nt) * 32 + lane]
-                for j, dk in enumerate((0, 1, 8, 9)):
-                    assert row[j] == w[16 * kt + 2 * t + dk, 8 * nt + g]
-
-
-def _unfragment(frags, k, n):
-    return frags.reshape(k // 16, n // 8, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2).reshape(k, n)
-
-
 def test_kernel_weight_layout_replays_the_plain_version():
     """Run the general route's data flow (padded segments, fc_8's sigma at
-    column F after its features) in f32 from the laid-out fragments, with
+    column F after its features) in f32 from the laid-out matrices, with
     the kernel's bf16 roundings: it must equal the plain bf16 version up to
     the final sigmoid, which the kernel keeps in f32."""
     params = nerf.params_from_jax(_jax_params(5))
@@ -136,10 +119,10 @@ def test_kernel_weight_layout_replays_the_plain_version():
     mats = fused_nerf.general_matrices(params, cfg)
     fwd, biases, _ = fused_nerf.general_layout(params, cfg)
     laid = []
-    for (w, b, _), frags, bias in zip(mats, fwd, biases):
+    for (w, b, _), got, bias in zip(mats, fwd, biases):
         assert w.shape[0] % 16 == 0 and w.shape[1] % 8 == 0 and b.shape == (w.shape[1],)
-        assert torch.equal(bias, b)
-        laid.append((_unfragment(frags, *w.shape).float(), b.float()))
+        assert torch.equal(bias, b) and torch.equal(got, w)
+        laid.append((got.float(), b.float()))
     assert [tuple(w.shape) for w, _, _ in mats][:1] == [(32, FEAT)]
     assert tuple(mats[5][0].shape) == (32 + FEAT, FEAT)
     assert tuple(mats[8][0].shape) == (FEAT, FEAT + 8)

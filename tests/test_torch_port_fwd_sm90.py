@@ -3,7 +3,8 @@ that refuses, before any data loads, a config the card cannot train.
 
 Kernel 1 takes bf16 widths 64, 128 and 256 on ``wgmma``, reading the
 training kernels' forward images, any other bf16 config up to width 1024
-on ``mma.sync`` and f32 on ``f32``, the general route, reading its
+on ``wgmma_general`` (the tensor-core general route's column passes) and
+f32 on ``f32_wgmma`` or ``f32``, reading the general route's images or
 matrices (``fused_nerf.forward_route``). The
 kernel runs only on a Hopper card; here the Python side of its contract
 is held on the CPU: the forward images of ``kernel_weights`` turn back into
@@ -65,13 +66,16 @@ def test_wgmma_weights_are_the_forward_images(feat):
         assert w.weights[i].dtype == torch.bfloat16 and w.weights[i].dim() == 1, name
         assert torch.equal(_unpanel(w.weights[i], *fwd.shape), fwd), name
         assert torch.equal(w.biases[i], bias), name
-    # the mma.sync route reads the general route's matrices in fragment order
-    frags = fused_nerf.kernel_weights(params, cfg, "mma_sync")
-    assert frags.route == "mma_sync"
-    for got, (mat, _, _) in zip(frags.weights, fused_nerf.general_matrices(params, cfg)):
-        assert torch.equal(got, fused_nerf.fragment_order(mat))
-    with pytest.raises(ValueError, match="route"):
-        fused_nerf.kernel_weights(params, cfg, "tensor_cores")
+    # the tensor-core general route reads tc_layout's forward images and
+    # biases (any bf16 config; the mma.sync route is gone)
+    tc = fused_nerf.kernel_weights(params, cfg, "wgmma_general")
+    images, biases, _ = fused_nerf.tc_layout(params, cfg)
+    assert tc.route == "wgmma_general"
+    assert all(torch.equal(a, b) for a, b in zip(tc.weights, images))
+    assert all(torch.equal(a, b) for a, b in zip(tc.biases, biases))
+    for route in ("tensor_cores", "mma_sync"):
+        with pytest.raises(ValueError, match="route"):
+            fused_nerf.kernel_weights(params, cfg, route)
 
 
 def _walk(image, rows, cols, x):
@@ -155,19 +159,20 @@ def test_a_walk_over_the_forward_images_is_the_field(feat, dtype):
 
 
 @pytest.mark.parametrize("feat,route", [(64, "wgmma"), (128, "wgmma"), (256, "wgmma"),
-                                        (96, "mma_sync"), (160, "mma_sync")])
+                                        (96, "wgmma_general"), (160, "wgmma_general")])
 def test_forward_route_by_width(feat, route):
     assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=feat)) == route
 
 
 def test_forward_route_raises_and_keeps_every_width():
     # a width off the 32s is padded (48 to 64, onto the tensor-core general
-    # route), f32 takes wgmma on bf16 pieces, 1024 fits 32-point tiles;
-    # past the limits the route raises
+    # route), f32 takes wgmma on bf16 pieces, 1024 four column passes (f32
+    # at 1024: the FFMA route's 16-point tiles); past the limits the route
+    # raises
     assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=48)) == "wgmma_general"
     assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32)) == "f32_wgmma"
     wide = fused_nerf.FusedNeRFConfig(feat_dim=1024)
-    assert fused_nerf.forward_route(wide) == "mma_sync" and fused_nerf.tile_rows(wide) == (32, 32, 32)
+    assert fused_nerf.forward_route(wide) == "wgmma_general" and fused_nerf.tc_plan(wide).passes == 4
     with pytest.raises(ValueError, match="feat_dim up to 1024"):
         fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=1056))
     # encodings wider than 64 leave the wgmma route but are still served
@@ -176,12 +181,11 @@ def test_forward_route_raises_and_keeps_every_width():
 
 
 def test_route_launch_counts_start_at_zero_and_reset():
-    fused_nerf.fused_nerf_apply.route_launches["mma_sync"] += 2
+    fused_nerf.fused_nerf_apply.route_launches["wgmma_general"] += 2
     fused_nerf.fused_nerf_apply.launches += 2
     fused_nerf.reset_launches()
     assert fused_nerf.fused_nerf_apply.launches == 0
-    assert fused_nerf.fused_nerf_apply.route_launches == {"wgmma": 0, "wgmma_general": 0, "f32_wgmma": 0,
-                                                          "mma_sync": 0, "f32": 0}
+    assert fused_nerf.fused_nerf_apply.route_launches == {"wgmma": 0, "wgmma_general": 0, "f32_wgmma": 0, "f32": 0}
 
 
 @pytest.mark.parametrize("override,key", [("network.feat_dim=2048", "network.feat_dim"),

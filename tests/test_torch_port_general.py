@@ -97,16 +97,16 @@ def test_a_width_of_32s_is_not_padded():
 
 @pytest.mark.parametrize("feat,level,dtype,route", [
     (256, 10, torch.bfloat16, "wgmma"), (64, 10, torch.bfloat16, "wgmma"),
-    (256, 11, torch.bfloat16, "wgmma_general"), (96, 10, torch.bfloat16, "mma_sync"),
+    (256, 11, torch.bfloat16, "wgmma_general"), (96, 10, torch.bfloat16, "wgmma_general"),
     (48, 10, torch.bfloat16, "wgmma_general"), (512, 12, torch.bfloat16, "wgmma_general"),
-    (1024, 20, torch.bfloat16, "mma_sync"), (256, 10, torch.float32, "f32_wgmma"),
+    (1024, 20, torch.bfloat16, "wgmma_general"), (256, 10, torch.float32, "f32_wgmma"),
     (64, 10, torch.float32, "f32_wgmma"), (1000, 20, torch.float32, "f32"),
-    # the tensor-core general route: padded widths % 64 == 0, bf16 to 512
-    # and f32 to 256, where a ring of two stages fits beside the tiles
+    # the tensor-core general route: every padded bf16 width up to 1024 in
+    # column passes; f32 at widths % 64 == 0 up to 256
     (192, 10, torch.bfloat16, "wgmma_general"), (320, 10, torch.bfloat16, "wgmma_general"),
     (384, 12, torch.bfloat16, "wgmma_general"), (500, 10, torch.bfloat16, "wgmma_general"),
-    (512, 20, torch.bfloat16, "wgmma_general"), (160, 10, torch.bfloat16, "mma_sync"),
-    (576, 10, torch.bfloat16, "mma_sync"), (128, 12, torch.float32, "f32_wgmma"),
+    (512, 20, torch.bfloat16, "wgmma_general"), (160, 10, torch.bfloat16, "wgmma_general"),
+    (576, 10, torch.bfloat16, "wgmma_general"), (128, 12, torch.float32, "f32_wgmma"),
     (192, 20, torch.float32, "f32_wgmma"), (256, 20, torch.float32, "f32_wgmma"),
     (320, 10, torch.float32, "f32"), (96, 10, torch.float32, "f32"),
 ])
@@ -133,10 +133,11 @@ def test_routes_raise_only_past_the_limits(kwargs, match):
         fused_nerf.forward_route(cfg)
 
 
-@pytest.mark.parametrize("feat,dtype,rows", [(256, torch.float32, (32, 32, 32)), (512, torch.bfloat16, (32, 32, 32)),
-                                             (1024, torch.bfloat16, (32, 32, 32)), (512, torch.float32, (32, 32, 32)),
-                                             (1024, torch.float32, (16, 16, 16)), (96, torch.bfloat16, (64, 32, 32)),
-                                             (256, torch.bfloat16, (64, 32, 32))])
+# the FFMA route's tiles (f32: every bf16 config is on the tensor cores)
+@pytest.mark.parametrize("feat,dtype,rows", [(256, torch.float32, (32, 32, 32)), (640, torch.float32, (32, 32, 32)),
+                                             (768, torch.float32, (16, 16, 16)), (512, torch.float32, (32, 32, 32)),
+                                             (1024, torch.float32, (16, 16, 16)), (96, torch.float32, (32, 32, 32)),
+                                             (896, torch.float32, (16, 16, 16))])
 def test_tiles_shrink_where_32_points_do_not_fit(feat, dtype, rows):
     cfg = _cfg(feat, level=20, dtype=dtype)
     assert fused_nerf.tile_rows(cfg) == rows
@@ -151,7 +152,7 @@ def test_route_launch_counts_reset_for_every_route():
     fused_train.reset_launches()
     for fn_ in (fused_nerf.fused_nerf_apply, fused_nerf.fused_nerf_bwd, fused_train.fused_train_pass):
         assert fn_.launches == 0 and fn_.route_launches == {"wgmma": 0, "wgmma_general": 0, "f32_wgmma": 0,
-                                                            "mma_sync": 0, "f32": 0}
+                                                            "f32": 0}
 
 
 @pytest.mark.parametrize("override", ["device.compute_dtype=float32", "network.feat_dim=48",
@@ -174,19 +175,10 @@ def test_check_trainable_refuses_past_the_limits(override, key):
 # a plain walk over the general route's matrices, in the kernels' steps
 
 
-def _unfragment(frags, k, n):
-    return frags.reshape(k // 16, n // 8, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2).reshape(k, n)
-
-
 def _layout(params, cfg):
-    """The matrices the kernels read, back in (K, N) form, in f32."""
+    """The matrices the kernels read, (K, N) row-major, in f32."""
     fwd, biases, chain = fused_nerf.general_layout(params, cfg)
     mats = fused_nerf.general_matrices(params, cfg)
-    if cfg.compute_dtype == torch.bfloat16:
-        for i, (f, _, c) in enumerate(mats):
-            assert fwd[i].shape == (f.numel() // 4, 4) and chain[i].shape == (c.numel() // 4, 4)
-        fwd = [_unfragment(w, *m[0].shape) for w, m in zip(fwd, mats)]
-        chain = [_unfragment(w, *m[2].shape) for w, m in zip(chain, mats)]
     for (f, b, c), w, wt in zip(mats, fwd, chain):
         assert torch.equal(w, f) and torch.equal(wt, c)
     return [w.float() for w in fwd], [b.float() for b in biases], [w.float() for w in chain]

@@ -1,5 +1,7 @@
 """The tensor-core general route of kernels 1-3 (``csrc/nerf_mlp_tc.cuh``:
-``wgmma_general`` in bf16 up to width 512, ``f32_wgmma`` in f32 up to 256).
+``wgmma_general`` in bf16 up to width 1024, ``f32_wgmma`` in f32 up to 256;
+its column passes at the widths the mma.sync engine held:
+``test_torch_port_wide_tc.py``).
 
 The kernels run only on a Hopper card; here the Python side of their
 contract is held on the CPU: the three bf16 pieces of the f32 weights (each
@@ -135,27 +137,35 @@ def test_matrices_put_the_encodings_last_and_pad_to_slices():
 @pytest.mark.parametrize("feat,level,dir_level,dtype,stages", [
     # path B: tiles 64 + 16 + 8 KB, fc_8's stage 520 x 128 B: 2 deep
     (512, 12, 4, torch.bfloat16, (2, 2, 2)),
-    # path A: tiles 64 + 8 + 8 KB (f32 panels of 32 columns), stages 264 and
-    # 256 rows of one bf16 piece image: 4 deep
+    # path A: tiles 64 + 16 + 8 KB (f32 panels of 32 columns), stages 264
+    # and 256 rows of one bf16 piece image: 4 deep
     (256, 10, 4, torch.float32, (4, 4, 4)),
     (64, 12, 4, torch.bfloat16, (4, 4, 4)),
     (512, 20, 4, torch.bfloat16, (2, 2, 2)),
     (256, 20, 4, torch.float32, (3, 4, 4)),
-    (384, 12, 12, torch.bfloat16, (2, 3, 3)),
-    # both encodings two panels at 512: a ring of one stage, not taken
-    (512, 12, 12, torch.bfloat16, None),
-    (576, 10, 4, torch.bfloat16, None),
+    # two column passes of 96 (one tile for both encodings): stages of 200
+    # and 192 rows
+    (384, 12, 12, torch.bfloat16, (4, 4, 4)),
+    # both encodings two panels at 512: two passes of 128
+    (512, 12, 12, torch.bfloat16, (4, 4, 4)),
+    # three passes of 96; one pass of 48 (96 ends on a half K-slice)
+    (576, 10, 4, torch.bfloat16, (4, 4, 4)),
     (320, 10, 4, torch.float32, None),
-    (96, 10, 4, torch.bfloat16, None),
+    (96, 10, 4, torch.bfloat16, (4, 4, 4)),
 ])
 def test_shared_memory_cut_by_config(feat, level, dir_level, dtype, stages):
     cfg = _cfg(feat, level, dtype, dir_level)
     assert fused_nerf.tc_stages(cfg) == stages
     if stages is not None:
         pc = fused_nerf.panel_cols(dtype)
-        tiles = (feat // pc + -(-cfg.pos_enc_dim // pc) + -(-cfg.dir_enc_dim // pc)) * 64 * 128
-        used = 1024 + 64 + tiles + stages[0] * (feat + 8) * 128
-        assert used <= 232_448 < used + (feat + 8) * 128 or stages[0] == 4
+        plan = fused_nerf.tc_plan(cfg)
+        pe, de = -(-cfg.pos_enc_dim // pc), -(-cfg.dir_enc_dim // pc)
+        shared = plan.passes > 1 or (dtype == torch.bfloat16 and 96 <= plan.np <= 128)
+        tiles = (-(-feat // pc) + (max(pe, de) if shared else pe + de)) * 64 * 128
+        stage = (2 * plan.np + 8) * 128  # a pass of fc_8: the forward's widest stage
+        used = 1024 + 64 + tiles + stages[0] * stage
+        block = 232_448 if plan.ctas == 1 else 233_472 // 2 - 1024
+        assert used <= block < used + stage or stages[0] == 4
 
 
 # ---------------------------------------------------------------------------

@@ -160,11 +160,10 @@ def test_a_plain_walk_over_the_images_reproduces_each_layer(feat):
 
 def test_training_route_takes_its_widths_and_raises_on_others():
     # the wgmma templates keep their widths; the tensor-core general route
-    # takes the other configs it holds, mma_sync (bf16) or f32 the rest up
-    # to the general route's limits
+    # takes every other bf16 config up to the general route's limits
     for feat in WIDTHS:
         assert fused_nerf.train_route(_cfg(feat)) == "wgmma"
-    assert fused_nerf.train_route(_cfg(96)) == "mma_sync"
+    assert fused_nerf.train_route(_cfg(96)) == "wgmma_general"
     assert fused_nerf.train_route(fused_nerf.FusedNeRFConfig(coord_encode_level=11)) == "wgmma_general"
     assert fused_nerf.train_route(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32)) == "f32_wgmma"
     with pytest.raises(ValueError, match="feat_dim up to 1024"):

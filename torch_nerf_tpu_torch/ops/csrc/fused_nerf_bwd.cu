@@ -16,12 +16,12 @@
 // FLOP per point at 989 TFLOP/s dense bf16 (2.83 ms for 786,432 points);
 // the stashes' ~20 KB per point put this design's floor at ~4.8 ms there.
 //
-// fused_nerf_bwd_general takes every other config the wrapper's
-// train_route does not give wgmma: widths F % 32 == 0 up to 1024,
-// encodings up to 128 wide, bf16 on mma.sync or f32 on FFMA, with
-// nerf_mlp_general.cuh's forward with its stash, chain (with the encodings'
-// cotangents and their VJP to dpts, ddirs) and dW GEMM (its header note
-// gives the design and the layouts).
+// fused_nerf_bwd_general takes the f32 configs the tensor-core general
+// route (fused_tc_bwd.cu) does not hold: widths F % 32 == 0 up to 1024,
+// encodings up to 128 wide, on FFMA, with nerf_mlp_general.cuh's forward
+// with its stash, chain (with the encodings' cotangents and their VJP to
+// dpts, ddirs) and dW GEMM (its header note gives the design and the
+// layouts).
 //
 // Layout contract of the wgmma route with torch_nerf_tpu_torch/ops/fused_nerf.py: weights,
 // biases, weights_t the forward images, biases and chain images of
@@ -122,13 +122,13 @@ extern "C" {
 
 size_t fused_nerf_bwd_general_workspace_bytes(int m, int feat, int pe_pad, int de_pad, int f32) {
   const g::Dims d = g::make_dims(feat, 0, 0, 0, 0, 0, pe_pad, de_pad);
-  return f32 ? general_bytes<float>(m, d) : general_bytes<g::bf16>(m, d);
+  return f32 ? general_bytes<float>(m, d) : 0;
 }
 
-// Launches the general route on `stream`; returns the cudaError_t of the
-// launches (0 on success). weights, weights_t, biases: general_matrices'
-// forward and chain matrices and biases (bf16 in fragment order, or f32
-// row-major with f32 = 1); grads_w[l], grads_b[l]: the kernel-layout f32
+// Launches the FFMA general route on `stream`; returns the cudaError_t of
+// the launches (0 on success). weights, weights_t, biases: general_matrices'
+// forward and chain matrices and biases, f32 row-major (f32 must be 1: a
+// bf16 config is refused); grads_w[l], grads_b[l]: the kernel-layout f32
 // grads (the forward matrix's rows x the dz's columns); workspace of
 // fused_nerf_bwd_general_workspace_bytes(m, ...) bytes; m > 0.
 int fused_nerf_bwd_general(const float* pts, const float* dirs, const float* g_sigma, const float* g_rgb,
@@ -140,8 +140,8 @@ int fused_nerf_bwd_general(const float* pts, const float* dirs, const float* g_s
   if (!g::dims_ok(d) || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const g::Net net = g::make_net(weights, biases, weights_t, d);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) return bwd_general<float>(pts, dirs, g_sigma, g_rgb, net, workspace, grads_w, grads_b, dpts, ddirs, m, s);
-  return bwd_general<g::bf16>(pts, dirs, g_sigma, g_rgb, net, workspace, grads_w, grads_b, dpts, ddirs, m, s);
+  if (!f32) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_general<float>(pts, dirs, g_sigma, g_rgb, net, workspace, grads_w, grads_b, dpts, ddirs, m, s);
 }
 
 // the dW GEMM kernel's launches in this library so far (nerf_dw::launches)

@@ -31,15 +31,15 @@
 //                       forward images (W^T in K-major 128-byte swizzled
 //                       panels, fc_8's sigma row after the features, biases
 //                       in that row order). Writes sigma (m,) and rgb (m, 3).
-//   fused_nerf_fwd_general  every other config: widths F % 32 == 0 up to
-//                       1024 (the wrapper zero-pads the others), encodings
-//                       up to 128 wide, bf16 on mma.sync or f32 on FFMA:
-//                       nerf_mlp_general.cuh's forward without its stash,
-//                       one block of 8 warps per tile of 32 points (16
-//                       where 32 do not fit in shared memory; bf16 64
-//                       where two blocks fit an SM), the weights read
-//                       from L2 in B-fragment order (bf16) or staged
-//                       through shared memory row-major (f32).
+//   fused_nerf_fwd_general  the f32 configs the tensor-core general route
+//                       (fused_tc_fwd.cu: every other bf16 config, f32
+//                       at widths % 64 == 0 up to 256) does not hold:
+//                       widths F % 32 == 0 up to 1024 (the wrapper
+//                       zero-pads the others), encodings up to 128 wide, on
+//                       FFMA: nerf_mlp_general.cuh's forward without its
+//                       stash, one block of 8 warps per tile of 32 points
+//                       (16 where 32 do not fit in shared memory), the
+//                       weights staged through shared memory row-major.
 //
 // fused_nerf_fwd_layout() returns 1: fused_nerf_fwd reads forward panel
 // images.
@@ -109,9 +109,9 @@ int fused_nerf_fwd(const float* pts, const float* dirs, const void* const* weigh
   }
 }
 
-// Launches the general route on `stream`; returns the cudaError_t of the
-// launch (0 on success). f32: 1 for the f32 route (weights and biases f32,
-// row-major), 0 for bf16 (weights in fragment order, bf16 biases); feat %
+// Launches the FFMA general route on `stream`; returns the cudaError_t of
+// the launch (0 on success). f32 must be 1 (weights and biases f32,
+// row-major; a bf16 config is refused: it takes fused_tc_fwd.cu); feat %
 // 32 == 0, feat <= 1024, pe_pad and de_pad the encodings rounded up to 16,
 // at most 128.
 int fused_nerf_fwd_general(const float* pts, const float* dirs, const void* const* weights,
@@ -123,16 +123,11 @@ int fused_nerf_fwd_general(const float* pts, const float* dirs, const void* cons
   const g::Net net = g::make_net(weights, biases, nullptr, d);
   const nerf_train::PointInput in = {pts, dirs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    g::Stash<float> st = {};
-    st.sigma = sigma;
-    st.rgb = rgb;
-    return static_cast<int>(g::run_forward<float, false>(in, net, st, m, s));
-  }
-  g::Stash<g::bf16> st = {};
+  if (!f32) return static_cast<int>(cudaErrorInvalidValue);
+  g::Stash<float> st = {};
   st.sigma = sigma;
   st.rgb = rgb;
-  return static_cast<int>(g::run_forward<g::bf16, false>(in, net, st, m, s));
+  return static_cast<int>(g::run_forward<float, false>(in, net, st, m, s));
 }
 
 }  // extern "C"

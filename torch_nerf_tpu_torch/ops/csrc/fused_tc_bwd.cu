@@ -19,7 +19,7 @@ namespace g = nerf_general;
 template <class T>
 size_t tc_bytes(int m, const g::Dims& d) {
   const size_t mp = g::padded_points(m);
-  return g::stash_bytes<T>(m, d) + nerf_tc::bits_bytes(m) + g::align256(mp * sizeof(float)) +
+  return g::stash_bytes<T>(m, d) + nerf_tc::bits_bytes<T>(m, d) + g::align256(mp * sizeof(float)) +
          g::align256(mp * 3 * sizeof(float)) + g::align256(mp * d.pe_pad * sizeof(float)) +
          g::align256(mp * d.de_pad * sizeof(float)) + g::dw_ws_bytes<T>(m, d);
 }
@@ -33,8 +33,8 @@ int bwd_tc(const float* pts, const float* dirs, const float* g_sigma, const floa
   unsigned char* base = static_cast<unsigned char*>(workspace);
   size_t used = 0;
   g::Stash<T> st = g::carve_stash<T>(base, m, d, &used);
-  uint4* bits = reinterpret_cast<uint4*>(base + used);
-  used += nerf_tc::bits_bytes(m);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(base + used);
+  used += nerf_tc::bits_bytes<T>(m, d);
   auto take = [&](size_t floats) {
     float* p = reinterpret_cast<float*>(base + used);
     used += g::align256(floats * sizeof(float));

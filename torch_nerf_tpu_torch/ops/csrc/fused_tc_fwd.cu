@@ -1,8 +1,8 @@
 // Kernel 1 (the fused field's forward) on the tensor-core general route:
 // nerf_mlp_tc.cuh's forward without its stash, for the configs
 // torch_nerf_tpu_torch/ops/fused_nerf.py::forward_route gives wgmma_general
-// (bf16, padded widths 64..512 off the wgmma presets) or f32_wgmma (f32,
-// padded widths 64..256). Replaces, on those configs, the Pallas TPU kernel
+// (bf16, every padded width 32..1024 off the wgmma presets) or f32_wgmma
+// (f32, padded widths 64..256 % 64). Replaces, on those configs, the Pallas TPU kernel
 // torch_nerf_tpu/ops/pallas/fused_nerf.py::_fwd_kernel (reached through
 // _fused_forward's pl.pallas_call). Bound on an H100 SXM: flops_per_point a
 // point at 989 TFLOP/s dense bf16, or at 989 / 8 TFLOP/s for f32_wgmma (eight
@@ -16,14 +16,25 @@ extern "C" {
 
 const char* fused_tc_fwd_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
-// 1 if the tensor-core general route takes the config (the padded width %
-// 64 == 0, bf16 up to 512 or f32 up to 256, every kernel's ring at least
-// two stages deep beside its tiles), else 0: fused_nerf.py::tc_stages'
-// counterpart
+// 1 if the tensor-core general route takes the config (bf16 at a padded
+// width % 32 == 0 up to 1024, f32 at % 64 == 0 up to 256, every kernel's
+// ring at least two stages deep beside its tiles), else 0: fused_nerf.py::
+// tc_stages' counterpart
 int fused_tc_takes(int feat, int pe_dim, int de_dim, int pe_pad, int de_pad, int f32) {
   namespace g = nerf_general;
   const g::Dims d = g::make_dims(feat, 0, 0, 0, pe_dim, de_dim, pe_pad, de_pad);
   return f32 ? nerf_tc::takes<float>(d) : nerf_tc::takes<nerf_tc::bf16>(d);
+}
+
+// the plan of the config (nerf_mlp_tc.cuh::plan_of: the pass width, the
+// passes, each kernel's ring stages and shared memory, the sign-bit words,
+// the CTAs an SM):
+// fused_nerf.py::tc_plan's counterpart
+void fused_tc_plan(int feat, int pe_dim, int de_dim, int pe_pad, int de_pad, int f32, long long* out) {
+  namespace g = nerf_general;
+  const g::Dims d = g::make_dims(feat, 0, 0, 0, pe_dim, de_dim, pe_pad, de_pad);
+  if (f32) nerf_tc::plan_of<float>(d, out);
+  else nerf_tc::plan_of<nerf_tc::bf16>(d, out);
 }
 
 // Launches the forward on `stream`; returns the cudaError_t of the launch (0

@@ -23,7 +23,7 @@ using nerf_composite::kCompositeWarps;
 template <class T>
 size_t tc_bytes(int m, const g::Dims& d) {
   const size_t mp = g::padded_points(m);
-  return g::stash_bytes<T>(m, d) + nerf_tc::bits_bytes(m) + 3 * g::align256(mp * sizeof(float)) +
+  return g::stash_bytes<T>(m, d) + nerf_tc::bits_bytes<T>(m, d) + 3 * g::align256(mp * sizeof(float)) +
          2 * g::align256(mp * 3 * sizeof(float)) + g::dw_ws_bytes<T>(m, d);
 }
 
@@ -36,8 +36,8 @@ int train_tc(const nerf_train::RayInput& in, const float* delta, const float* rg
   unsigned char* base = static_cast<unsigned char*>(workspace);
   size_t used = 0;
   g::Stash<T> st = g::carve_stash<T>(base, m, net.d, &used);
-  uint4* bits = reinterpret_cast<uint4*>(base + used);
-  used += nerf_tc::bits_bytes(m);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(base + used);
+  used += nerf_tc::bits_bytes<T>(m, net.d);
   auto take = [&](size_t floats) {
     float* p = reinterpret_cast<float*>(base + used);
     used += g::align256(floats * sizeof(float));

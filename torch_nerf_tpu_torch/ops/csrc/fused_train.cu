@@ -31,11 +31,11 @@
 // ~20 bytes per point are noise beside the stashes (~20 KB per point moved),
 // which put this design's floor at ~4.8 ms for the fine pass.
 //
-// fused_train_pass_general runs the same pass for every config the
-// wrapper's train_route does not give wgmma (widths F % 32 == 0 up to 1024,
-// encodings up to 128 wide, bf16 on mma.sync or f32 on FFMA): the forward
-// with its stash, the chain and the dW GEMM of nerf_mlp_general.cuh around
-// the same composite.
+// fused_train_pass_general runs the same pass for the f32 configs the
+// tensor-core general route (fused_tc_train.cu) does not hold (widths F %
+// 32 == 0 up to 1024, encodings up to 128 wide, on FFMA): the forward with
+// its stash, the chain and the dW GEMM of nerf_mlp_general.cuh around the
+// same composite.
 
 #include "nerf_composite.cuh"
 #include "nerf_mlp_general.cuh"
@@ -153,13 +153,13 @@ extern "C" {
 
 size_t fused_train_general_workspace_bytes(int m, int feat, int pe_pad, int de_pad, int f32) {
   const g::Dims d = g::make_dims(feat, 0, 0, 0, 0, 0, pe_pad, de_pad);
-  return f32 ? general_bytes<float>(m, d) : general_bytes<g::bf16>(m, d);
+  return f32 ? general_bytes<float>(m, d) : 0;
 }
 
-// Launches the general route's pass on `stream`; returns the cudaError_t of
-// the launches (0 on success). weights, weights_t, biases: general_matrices'
-// forward and chain matrices and biases (bf16 in fragment order, or f32
-// row-major with f32 = 1); grads_w[l], grads_b[l]: the kernel-layout f32
+// Launches the FFMA general route's pass on `stream`; returns the
+// cudaError_t of the launches (0 on success). weights, weights_t, biases:
+// general_matrices' forward and chain matrices and biases, f32 row-major
+// (f32 must be 1: a bf16 config is refused); grads_w[l], grads_b[l]: the kernel-layout f32
 // grads; workspace of fused_train_general_workspace_bytes(n_rays * samples,
 // ...) bytes.
 int fused_train_pass_general(const float* ray_o, const float* ray_d, const float* t, const float* delta,
@@ -173,11 +173,9 @@ int fused_train_pass_general(const float* ray_o, const float* ray_d, const float
   const g::Net net = g::make_net(weights, biases, weights_t, d);
   const RayInput in = {ray_o, ray_d, t, samples};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32)
-    return train_general<float>(in, delta, rgb_gt, n_rays, num_real, net, workspace, rgb_out, weights_out, grads_w,
-                                grads_b, s);
-  return train_general<g::bf16>(in, delta, rgb_gt, n_rays, num_real, net, workspace, rgb_out, weights_out, grads_w,
-                                grads_b, s);
+  if (!f32) return static_cast<int>(cudaErrorInvalidValue);
+  return train_general<float>(in, delta, rgb_gt, n_rays, num_real, net, workspace, rgb_out, weights_out, grads_w,
+                              grads_b, s);
 }
 
 // the dW GEMM kernel's launches in this library so far (nerf_dw::launches)

@@ -1,51 +1,48 @@
-// The NeRF MLP's general route on Hopper: the forward (kernel 1), its
-// backward (kernel 2) and the train pass's MLP (kernel 3) for every config
-// the wgmma templates of nerf_mlp_train.cuh do not take: any width F % 32
-// == 0 up to 1024 (the wrapper zero-pads other widths to the next multiple
-// of 32), encodings up to 128 columns, in bf16 (mma.sync) or in f32 (FFMA).
+// The NeRF MLP's general route on Hopper in f32 on FFMA: the forward
+// (kernel 1), its backward (kernel 2) and the train pass's MLP (kernel 3)
+// for the f32 configs the tensor-core engine (nerf_mlp_tc.cuh: every bf16
+// config off the wgmma presets, f32 at widths F % 64 == 0 up to 256) does
+// not hold: any width F % 32 == 0 up to 1024 (the wrapper zero-pads other
+// widths to the next multiple of 32), encodings up to 128 columns. Its
+// stashes, encode VJP and dW GEMM serve the tensor-core engine too.
 //
 // Replaces, on those configs, the Pallas TPU kernels torch_nerf_tpu/ops/
 // pallas/fused_nerf.py::_fwd_kernel and _bwd_kernel and fused_train.py::
 // _train_kernel, which take any width and compute_dtype. The design is the
-// training counterpart of the forward's first mma.sync design, cut as the
-// wgmma route is cut (an SM has 227 KB, not a TPU's VMEM):
+// training counterpart of the forward's first design, cut as the wgmma
+// route is cut (an SM has 227 KB, not a TPU's VMEM):
 //
 //   forward_kernel  PE + the 11 layers per tile of R points (32, or 16 where
 //                   32 rows of the widest layer do not fit in shared
-//                   memory; kernel 1 in bf16 64 where two blocks of 64
-//                   fit an SM), every activation in shared memory; with the
+//                   memory), every activation in shared memory; with the
 //                   stash, each activation is also copied to device memory,
 //                   row-major, by 16-byte vectors.
 //   chain_kernel    the backward chain per tile: dz_out from the cotangents,
-//                   dh = dz W^T layer by layer down to fc_in, each dh rounded
-//                   to the compute type and masked by the stashed activation
-//                   (act > 0), each dz to the dz stash; for kernel 2 the
-//                   cotangents of the encodings to device memory, then
-//                   encode_vjp_kernel takes them to dpts and ddirs.
+//                   dh = dz W^T layer by layer down to fc_in, each dh masked
+//                   by the stashed activation (act > 0), each dz to the dz
+//                   stash; for kernel 2 the cotangents of the encodings to
+//                   device memory, then encode_vjp_kernel takes them to dpts
+//                   and ddirs.
 //   run_dw          dW = A^T dZ and db = sum dZ over the stashes on the
 //                   tensor cores (nerf_dw_tc.cuh: TMA-loaded tiles on wgmma,
 //                   the slices' partials summed in a fixed order, so two
 //                   launches give the same grads bit for bit; no atomics).
 //
-// Products. bf16: mma.sync.m16n8k16 (bf16 in, f32 accumulate); the forward
-// and the chain read A from shared memory by ldmatrix and the weights from
-// L2 in B-fragment order (fused_nerf.py::fragment_order), eight warps a
-// block, each warp all R rows and four n8 tiles a pass. f32: FFMA on f32
-// operands, no TF32: the forward and the chain give each thread R/8 rows x
-// 8 columns of a 256-column pass, A read as float4 along K from shared
-// memory (one address a warp), the weights staged 16 rows at a time
-// through a two-stage shared-memory ring by cp.async.
+// Products: FFMA on f32 operands, no TF32: the forward and the chain give
+// each thread R/8 rows x 8 columns of a 256-column pass, A read as float4
+// along K from shared memory (one address a warp), the weights staged 16
+// rows at a time through a two-stage shared-memory ring by cp.async. (The
+// bf16 configs ran here on mma.sync until the tensor-core engine's column
+// passes took them: PERF.md, section 6.)
 //
-// Precision. bf16: as nerf_apply(compute_dtype=bf16): every layer output
-// bf16(bf16(acc) + b), every dh rounded to bf16 before its mask and its
-// next product, dW and db summed in f32. f32: as nerf_apply(compute_dtype=
-// float32): acc + b in f32, no rounding between layers, the encode by exact
-// sincosf (fused_nerf.py:180-194's f32 path).
+// Precision: as nerf_apply(compute_dtype=float32): acc + b in f32, no
+// rounding between layers, the encode by exact sincosf
+// (fused_nerf.py:180-194's f32 path).
 //
-// Bound on an H100 SXM: 3 x flops_per_point FLOP a point for a train pass;
-// bf16 at 989 TFLOP/s dense, f32 at 67 TFLOP/s (FFMA). The stashes move
-// (acts + dzs) x the element size a point each way; the dW GEMM reads
-// each once from device memory (nerf_dw_tc.cuh).
+// Bound on an H100 SXM: 3 x flops_per_point FLOP a point for a train pass
+// at 67 TFLOP/s (FFMA). The stashes move (acts + dzs) x 4 bytes a point
+// each way; the dW GEMM reads each once from device memory
+// (nerf_dw_tc.cuh).
 //
 // Layout contract with torch_nerf_tpu_torch/ops/fused_nerf.py::
 // general_matrices (F the padded width, P, D the encodings padded to 16):
@@ -54,8 +51,7 @@
 //          fc_9 ([features F | de D], F / 2); fc_out (F / 2, 8); others (F, F);
 //   wt[l]  chain matrix W^T (N rounded up to 16, K): its rows the forward's
 //          columns (fc_8: [features, sigma, 0...], F + 16; fc_out: 16);
-//   b[l]   bias (N,) in the compute type;
-//   bf16: w and wt in fragment order; f32: row-major f32.
+//   b[l]   bias (N,); all row-major f32.
 // Grads come out in the forward matrices' row order with the dz's columns
 // (fc_8: F + 16, fc_out: 16); the wrapper maps them to the public layout.
 
@@ -80,7 +76,6 @@ constexpr int kLayers = 11;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemLimit = 232448;   // a block's shared memory
-constexpr int kSmemPerSM = 233472;   // an SM's, 1 KB of it reserved a block
 constexpr int kMaxFeat = 1024;
 constexpr int kMaxEnc = 128;
 constexpr int kPointPad = 64;     // stash rows: m rounded up to this
@@ -127,19 +122,11 @@ struct Stash {
 template <class T>
 struct Elem;
 
+// bf16: the roundings of nerf_mlp_tc.cuh's bf16 epilogues
 template <>
 struct Elem<bf16> {
-  static constexpr int kPad = 8;  // row padding in shared memory, elements
-  static constexpr int kVec = 8;  // elements in 16 bytes
   static __device__ __forceinline__ bf16 from(float v) { return __float2bfloat16_rn(v); }
-  static __device__ __forceinline__ float to(bf16 v) { return __bfloat162float(v); }
   static __device__ __forceinline__ float round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-  static __device__ __forceinline__ void store2(bf16* p, float a, float b) {
-    *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-  static __device__ __forceinline__ float2 load2(const bf16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-  }
   // bf16(bf16(acc) + b) of the column pair: a bf16x2 add rounds the exact
   // sum once, as rounding its f32 sum does
   static __device__ __forceinline__ float2 bias(float v0, float v1, const void* bias, int n) {
@@ -148,11 +135,6 @@ struct Elem<bf16> {
   static __device__ __forceinline__ bf162 bias2(float v0, float v1, const void* bias, int n) {
     const bf162 b2 = *reinterpret_cast<const bf162*>(static_cast<const bf16*>(bias) + n);
     return __hadd2(__floats2bfloat162_rn(v0, v1), b2);
-  }
-  // relu(bf16(bf16(acc) + b)) of the column pair to p, in bf16x2 (a NaN
-  // kept, as relu_nan keeps it)
-  static __device__ __forceinline__ void store_relu(bf16* p, float v0, float v1, const void* bias, int n) {
-    *reinterpret_cast<bf162*>(p) = __hmax2_nan(bias2(v0, v1, bias, n), __float2bfloat162_rn(0.f));
   }
 };
 
@@ -186,26 +168,12 @@ struct Seg {
 };
 
 // ---------------------------------------------------------------------------
-// products of an R-row tile in shared memory with a weight matrix in L2:
+// the product of an R-row tile in shared memory with a weight matrix in L2:
 // out (R, n) = [s0 | s1] (R, s0.k + s1.k) x W; epi(r, c, v0, v1) takes the
 // f32 sums of row r, columns c and c + 1 (c even)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // the f32 product's weight ring at the start of dynamic shared memory: two
@@ -227,83 +195,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// bf16 on mma.sync: the weights (K, n) in fragment order; each warp owns all
-// R rows and 4 n8 tiles a pass, B fragments loaded from L2 two k-steps ahead
-// in a register ring (a shared-memory ring filled by cp.async ran slower:
-// PERF.md section 6, PR 13)
-template <int R, class Epi>
-__device__ __forceinline__ void product(Seg<bf16> s0, Seg<bf16> s1, const void* w, int n, Epi epi) {
-  constexpr int MT = R / 16;
-  constexpr int NT = 4;
-  const uint2* __restrict__ wf = static_cast<const uint2*>(w);
-  const int ntiles = n / 8;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int kt0 = s0.k / 16;
-  const int ktiles = kt0 + s1.k / 16;
-  const int lrow = lane & 15;
-  const int lcol = (lane >> 4) * 8;
-  const uint32_t a0 = smem_addr(s0.buf + lrow * s0.ld + lcol);
-  const uint32_t a1 = s1.k ? smem_addr(s1.buf + lrow * s1.ld + lcol) : 0u;
-  const uint32_t mstep0 = 16u * s0.ld * sizeof(bf16);
-  const uint32_t mstep1 = 16u * s1.ld * sizeof(bf16);
-  const int kstride = ntiles * 32;
-
-  for (int nt0 = warp * NT; nt0 < ntiles; nt0 += kWarps * NT) {
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    const int jn = min(NT, ntiles - nt0);
-    const uint2* __restrict__ wlane = wf + nt0 * 32 + lane;
-    auto load_b = [&](uint2 (&b)[NT], int kt) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) b[j] = j < jn ? __ldg(wlane + kt * kstride + j * 32) : make_uint2(0u, 0u);
-    };
-    auto step = [&](const uint2 (&b)[NT], int kt) {
-      const bool first = kt < kt0;
-      const uint32_t abase = first ? a0 + 32u * kt : a1 + 32u * (kt - kt0);
-      const uint32_t mstep = first ? mstep0 : mstep1;
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) ldmatrix_x4(a[i], abase + i * mstep);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          if (j < jn) mma_bf16(acc[i][j], a[i], b[j].x, b[j].y);
-    };
-
-    uint2 b0[NT], b1[NT];
-    load_b(b0, 0);
-    if (ktiles > 1) load_b(b1, 1);
-    for (int kt = 0; kt < ktiles; kt += 2) {
-      step(b0, kt);
-      if (kt + 2 < ktiles) load_b(b0, kt + 2);
-      if (kt + 1 < ktiles) {
-        step(b1, kt + 1);
-        if (kt + 3 < ktiles) load_b(b1, kt + 3);
-      }
-    }
-    // accumulator (i, j, h, e): row 16i + g + 8h, column 8(nt0 + j) + 2t + e
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= jn) continue;
-      const int c = 8 * (nt0 + j) + 2 * t;
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) epi(16 * i + g + 8 * h, c, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-    }
-  }
 }
 
 // f32 on FFMA. The weights (K, n) row-major f32 go through the ring, 16
@@ -459,9 +350,9 @@ __host__ __device__ inline size_t chain_smem_bytes(const Dims& d, int rows) {
 
 // The forward of one tile: PE + 11 layers, sigma (m,) and rgb (m, 3) out;
 // with kStash every activation to the stash as well. At most 128 registers
-// a thread, so that two blocks fit an SM: 64-point bf16 tiles need the
-// bound, and a bound of one block let ptxas take the f32 tile from 128 to
-// 164 registers, one block an SM and its forward ~25% slower.
+// a thread, so that two blocks fit an SM: a bound of one block let ptxas
+// take the f32 tile from 128 to 164 registers, one block an SM and its
+// forward ~25% slower.
 template <class T, int R, bool kStash, class In>
 __global__ void __launch_bounds__(kThreads, 2)
     forward_kernel(In in, const __grid_constant__ Net net, const __grid_constant__ Stash<T> st, int m) {
@@ -716,15 +607,10 @@ inline Net make_net(const void* const* w, const void* const* b, const void* cons
   return net;
 }
 
-// rows a tile: 32, or 16 where 32 do not fit in shared memory (with the
-// stash, 64-point tiles ran slower on both routes, one block of 8 warps an
-// SM: PERF.md section 6, PR 13). Kernel 1 in bf16 (no stash) takes 64
-// where two blocks of 64 fit an SM: each weight fragment read from L2 then
-// serves 64 points, as in the mma.sync forward this route replaced, which
-// ran 1.6x faster at width 96 on 32-point tiles.
-template <class T, bool kStash>
+// rows a tile: 32, or 16 where 32 do not fit in shared memory (64-point
+// tiles ran slower, one block of 8 warps an SM: PERF.md section 6)
+template <class T>
 inline int forward_rows(const Dims& d) {
-  if (!kStash && sizeof(T) == 2 && 2 * (forward_smem_bytes<T>(d, 64) + 1024) <= kSmemPerSM) return 64;
   return forward_smem_bytes<T>(d, 32) <= kSmemLimit ? 32 : 16;
 }
 
@@ -799,11 +685,7 @@ template <class T, bool kStash, class In>
 inline cudaError_t run_forward(const In& in, const Net& net, const Stash<T>& st, int m, cudaStream_t stream) {
   if (!dims_ok(net.d)) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const int rows = forward_rows<T, kStash>(net.d);
-  if constexpr (!kStash && sizeof(T) == 2) {
-    if (rows == 64) return forward_r<T, 64, kStash>(in, net, st, m, stream);
-  }
-  if (rows == 32) return forward_r<T, 32, kStash>(in, net, st, m, stream);
+  if (forward_rows<T>(net.d) == 32) return forward_r<T, 32, kStash>(in, net, st, m, stream);
   return forward_r<T, 16, kStash>(in, net, st, m, stream);
 }
 

@@ -1,37 +1,47 @@
 // The NeRF MLP's general route on Hopper's tensor cores: the forward (kernel
 // 1), the forward with its stash and the backward chain (kernels 2 and 3)
 // for the general configs the wgmma templates of nerf_mlp_train.cuh do not
-// take, at padded widths F % 64 == 0: bf16 up to F = 512 on wgmma (route
-// wgmma_general), f32 up to F = 256 on wgmma's bf16 product over three bf16
-// pieces of each operand (route f32_wgmma). The stashes are
-// nerf_mlp_general.cuh's, row-major: its encode VJP and its dW GEMM
-// (nerf_dw_tc.cuh: wgmma on TMA-loaded stash tiles, the same three bf16
-// pieces for f32, a fixed-order reduce) are used as they are.
+// take: bf16 at every padded width F % 32 == 0 up to 1024 with encodings
+// up to 128 wide (route wgmma_general), f32 at F % 64 == 0 up to 256 on
+// wgmma's bf16 product over three bf16 pieces of each operand (route
+// f32_wgmma). The stashes are nerf_mlp_general.cuh's, row-major: its encode
+// VJP and its dW GEMM (nerf_dw_tc.cuh: wgmma on TMA-loaded stash tiles, the
+// same three bf16 pieces for f32, a fixed-order reduce) are used as they are.
 //
 // Replaces, on those configs, the Pallas TPU kernels torch_nerf_tpu/ops/
 // pallas/fused_nerf.py::_fwd_kernel and _bwd_kernel and fused_train.py::
-// _train_kernel, as nerf_mlp_general.cuh's mma.sync and FFMA products did
-// before it; those stay for the configs this engine cannot hold.
+// _train_kernel; nerf_mlp_general.cuh's FFMA products stay for the f32
+// configs this engine cannot hold.
 //
 // Design: nerf_mlp_train.cuh's engine carried over to any width. A CTA owns
 // 64 points; a producer warpgroup streams every layer's weights, one K-slice
-// (64 columns: 128 bf16 bytes of every image row) a stage, through a ring
-// of 2-4 shared-memory stages by bulk asynchronous copies on mbarriers, so
-// each weight is read from L2 once a tile, not by every warp. The two
-// consumer warpgroups share
-// the tile's 64 rows and each takes half of a layer's output columns: a
-// 64 x F/2 f32 sum is at most 128 registers a thread at F = 512, where a
-// 128-row tile (each warpgroup all F columns) would hold 128 KB of
-// activations and need two N-passes. Each layer's output overwrites its
-// input in place once both warpgroups' products are done (a barrier of the
-// 256 consumer threads), then goes to the stash row-major, 16 bytes a
-// thread; a relu layer's sign bits go to a bits stash, one 16-byte word a
-// thread in the accumulator's order, which the chain's thread of the same
-// columns reads back as its mask. The forward's fc_8 sigma group is an n8
-// product beside the features' (the upper warpgroup writes it); the
-// chain's input grads (kernel 2:
-// fc_9's de rows, fc_5's and fc_in's pe rows) are products of their own, 64
-// columns a warpgroup, the encodings padded to 128.
+// (64 columns: 128 bf16 bytes of every image row of the current pass) a
+// stage, through a ring of 2-4 shared-memory stages by bulk asynchronous
+// copies on mbarriers, so each weight is read from L2 once a tile, not by
+// every warp. The two consumer warpgroups share the tile's 64 rows and
+// take a layer's output columns in column passes: pass p of an F-wide
+// layer is columns [2p NP, 2p NP + 2 NP), NP of them a warpgroup, so a
+// warpgroup's 64 x NP f32 sum is NP / 2 registers a thread whatever F is
+// (NP a template value, F a runtime one; kernel 1-3's plan picks NP and
+// the passes, nerf_mlp_tc.cuh::choose). A layer's output overwrites its
+// input in place, so the outputs of a layer's earlier passes wait in
+// registers, packed bf16, until both warpgroups are done with its last
+// pass (a barrier of the 256 consumer threads): at F = 1024, NP = 128,
+// 3 x 32 held registers beside a 64-register sum, where a second 128 KB
+// activation tile does not fit beside the ring. Then they go to the tile
+// and on to the stash row-major, 16 bytes a thread; a relu layer's sign
+// bits go to a bits stash, one word a thread per 32 sums of a pass in the
+// accumulator's order, which the chain's thread of the same columns reads
+// back as its mask. The two encodings share one tile: fc_9's direction
+// encoding is written where fc_in and fc_5's position encoding was, once
+// fc_5 is done with it. The forward's fc_8 sigma group is an n8 product
+// beside each pass's features (the upper warpgroup writes it on the first
+// pass); fc_9 (F / 2 outputs) takes the same passes at NP / 2 columns a
+// warpgroup; the chain's input grads (kernel 2: fc_9's de rows, fc_5's
+// and fc_in's pe rows) are products of their own, 64 columns a warpgroup,
+// the encodings padded to 128. A width off the 64s ends each trunk input
+// on a half K-slice, read for its two k16 steps only: the activation
+// tile's columns past F are never read.
 //
 // Products. bf16: wgmma m64nNk16 with A (the activations) and B (the
 // weight stage) K-major in 128-byte swizzled panels. f32: an f32 x is
@@ -49,22 +59,26 @@
 //
 // Bound on an H100 SXM: flops_per_point a point a phase, at 989 TFLOP/s
 // dense bf16 or, for f32_wgmma, 989 / 8 TFLOP/s (eight bf16 products). The
-// weights stream from L2 once a 64-point tile, at F = 512 bf16 ~72 KB a
-// point; a CTA pair multicasting the ring to halve that ran slower (a CTA
-// waits on its partner's releases: PERF.md, section 6).
+// weights stream from L2 once a 64-point tile: 2 x 64 x F^2 FLOP over F^2
+// weights, 64 FLOP a byte at every width; a CTA pair multicasting the ring
+// to halve that ran slower (a CTA waits on its partner's releases:
+// PERF.md, section 6).
 //
 // Layout contract with torch_nerf_tpu_torch/ops/fused_nerf.py::tc_layout
-// (F the padded width; each input segment padded to 64 columns):
-//   fwd[l]   B = W^T (rows the layer's outputs: F; fc_8 F + 8, its features
-//            then sigma; fc_9 F/2; fc_out 8; columns its inputs, fc_5's
-//            [h4, pe], fc_9's [features, de]), K-slice after K-slice, each
-//            slice rows x 128 bytes of bf16 at the 128-byte swizzle; f32:
-//            each slice's three piece images, the smallest first;
-//   chain[l] B = W (rows the layer's inputs, columns its outputs): fc_out
-//            (F/2, 64); fc_9 its feature rows (F, F/2 padded); fc_8 (F, F +
-//            64), sigma at column F; fc_5 its h4 rows; chain[0] fc_in's pe
-//            rows (128, F); chain[11], chain[12] fc_5's pe rows and fc_9's de
-//            rows (128, ...): the input-grad products;
+// (F the padded width; every K segment padded to 64 columns; a layer's
+// image pass after pass, each pass's rows K-slice after K-slice):
+//   fwd[l]   B = W^T (rows the layer's outputs, 2 NP a pass, the rows past
+//            F zero; fc_8 2 NP + 8 a pass, its features then sigma; fc_9
+//            NP a pass over F/2; fc_out 8), columns its inputs (fc_5's
+//            [h4, pe], fc_9's [features, de]), each slice rows x 128 bytes
+//            of bf16 at the 128-byte swizzle; f32: each slice's three piece
+//            images, the smallest first;
+//   chain[l] B = W (rows the layer's inputs, 2 NP a pass; columns its
+//            outputs): fc_out (NP a pass over F/2, 64); fc_9 its feature
+//            rows (F, F/2 padded); fc_8 (F, F padded + 64), sigma in the
+//            last slice's first column; fc_5 its h4 rows; chain[0] fc_in's
+//            pe rows (128, F); chain[11], chain[12] fc_5's pe rows and
+//            fc_9's de rows (128, ...): the input-grad products;
 //   b[l]     nerf_mlp_general.cuh's biases (the forward's column order).
 
 #pragma once
@@ -111,9 +125,15 @@ constexpr int kMaxStages = 4;
 constexpr int kMaxSegs = 16;
 constexpr int kExtra = 64;      // an input-grad product's columns a warpgroup
 constexpr int kBitSlots = 9;    // h0..h7, h9
-constexpr int kSmemLimit = 232448;
+constexpr int kSmemLimit = 232448;  // a block's shared memory
+constexpr int kSmemPerSM = 233472;  // an SM's, 1 KB of it reserved a block
 constexpr int kSlack = 1024 + 2 * kMaxStages * 8;  // the barriers and up to 1023 bytes to align
 constexpr int kChainPe = 11, kChainDe = 12, kChainImages = 13;
+constexpr int kMaxPasses = 4;   // column passes of a layer: F = 1024 at 128 columns a warpgroup
+constexpr int kPassCap = 128;   // a warpgroup's columns a pass where a layer takes several
+constexpr int kPassMin = 96;    // ... and at least this many
+constexpr int kPairMax = 80;    // the widest bf16 pass width two CTAs an SM hold
+constexpr int kSigmaRows = 8;   // fc_8's sigma group beside each pass's features
 
 template <class T>
 struct Tc;
@@ -157,6 +177,53 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (c / PC) * kPanel + r * 128 + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15));
 }
 
+// passes of a layer that a kernel of pass width NP holds: several in bf16
+// at kPassMin..kPassCap columns a warpgroup (their outputs wait in
+// registers as packed bf16), else one
+template <class T, int NP>
+__host__ __device__ constexpr int pass_cap() {
+  return sizeof(T) == 2 && NP >= kPassMin && NP <= kPassCap ? kMaxPasses : 1;
+}
+
+// CTAs an SM: two at a narrow bf16 pass (a small layer's barriers and ring
+// waits in one CTA overlap the other's products; each then has 96
+// registers a consumer thread and half an SM's shared memory), else one.
+// The chain with input grads keeps one: its input-grad products' sums
+// beside a pass's spill at 96 registers.
+template <class T, int NP, bool kInputGrads = false>
+__host__ __device__ constexpr int ctas() {
+  return sizeof(T) == 2 && NP <= kPairMax && !kInputGrads ? 2 : 1;
+}
+
+// a consumer thread's registers after setmaxnreg (the producer keeps 40):
+// one CTA an SM, 232; two, 96 (384 threads x 80 at launch, the producer's
+// 40 freed to the consumers)
+template <class T, int NP, bool kInputGrads = false>
+__host__ __device__ constexpr int consumer_regs() {
+  return ctas<T, NP, kInputGrads>() == 2 ? 96 : 232;
+}
+
+// a block's shared memory at `ctas` CTAs an SM
+__host__ __device__ constexpr int block_smem(int ctas) { return ctas == 2 ? kSmemPerSM / 2 - 1024 : kSmemLimit; }
+
+// A kernel of several passes (its F a runtime value) gives both encodings
+// one tile, de written where pe was once fc_5 is done with it: without it
+// 1024 with two 128-wide encodings gets one ring stage. A kernel of one
+// pass keeps a tile each, both encoded at the start, and reads every
+// trunk input to its pass's width 2 NP (F itself, or F and the zero
+// columns of the pass's padding): its K-slice loops then have compile-time
+// trip counts. Encoding de between the products, or loops whose trip
+// counts follow a runtime F, made ptxas serialize the wgmma of such a
+// kernel (warnings C7520, C7512) and cost path B's kernel 2 ~16% (PERF.md,
+// section 6).
+template <class T, int NP>
+__host__ __device__ constexpr bool shared_encodings() {
+  return pass_cap<T, NP>() > 1;
+}
+
+// sign-bit words of a pass a thread: one for each 32 of its n / 2 sums
+__host__ __device__ constexpr int bit_words(int n) { return cdiv(n / 2, 32); }
+
 // ---------------------------------------------------------------------------
 // the weight ring
 
@@ -173,6 +240,9 @@ struct Plan {
   int n;
   int stages;
   uint32_t stage_bytes;
+  int np;      // a warpgroup's columns a pass of an F-wide layer
+  int passes;  // column passes of a layer
+  int words;   // sign-bit words a slot a thread: passes x bit_words(np)
 };
 
 struct Ring {
@@ -212,35 +282,46 @@ __device__ __forceinline__ void publish() {
 
 // ---------------------------------------------------------------------------
 // products: acc (64 x N, the warpgroup's columns) = sum over the K-slices of
-// A_s (slice s of the A source) x the stage's image rows [b_row, b_row + N)
-// (byte offset b_off = 128 b_row); `last` k16 steps of the last slice, 4 of
-// the others. With N2 > 0, acc2 (64 x N2) takes rows at b2_off as well. Both
-// warpgroups run every product (a product in a warpgroup-divergent branch
-// makes ptxas serialize the kernel's wgmma), so a small product that one
-// warpgroup needs (fc_out, fc_8's sigma group) is run by both.
+// A_s (slice s of the A source, read for its k16 steps) x the stage's image
+// rows [b_row, b_row + N) (byte offset b_off = 128 b_row). With N2 > 0,
+// acc2 (64 x N2) takes rows at b2_off as well. Both warpgroups run every
+// product (a product in a warpgroup-divergent branch makes ptxas serialize
+// the kernel's wgmma), so a small product that one warpgroup needs
+// (fc_out, fc_8's sigma group) is run by both.
 
-// A's K-slices: n0 slices of the tile at base0, then those at base1 (an
-// encoding, or the chain's x panel)
+// A's K-slices: the n0 slices of the tile at base0, the last of them read
+// for k0 k16 steps, then the n1 slices at base1 (an encoding, or the
+// chain's x panel), the last read for k1. A trunk input of a width off the
+// 64s ends on a half slice, read for its two k16 steps: the tile's columns
+// past F are never read.
 struct ASrc {
   uint32_t base0;
-  int n0;
+  int n0, k0;
   uint32_t base1;
+  int n1, k1;
+  __device__ __forceinline__ int count() const { return n0 + n1; }
   template <class T>
   __device__ __forceinline__ uint32_t slice(int s) const {
     return s < n0 ? slice_addr<T>(base0, s) : slice_addr<T>(base1, s - n0);
   }
+  __device__ __forceinline__ int steps(int s) const { return s == n0 - 1 ? k0 : s == n0 + n1 - 1 ? k1 : 4; }
 };
 
+// the `cols` columns of the tile at base, then those of a second
+__device__ __forceinline__ ASrc a_of(uint32_t base, int cols, uint32_t base1 = 0u, int cols1 = 0) {
+  return {base, slices(cols), last_k(cols), base1, cols1 > 0 ? slices(cols1) : 0, cols1 > 0 ? last_k(cols1) : 4};
+}
+
 template <int N, int N2>
-__device__ __forceinline__ void product_bf16(Ring& ring, const ASrc& src, int slices, int last, uint32_t b_off,
-                                             uint32_t b2_off, float (&acc)[N / 2],
-                                             float (&acc2)[N2 > 0 ? N2 / 2 : 1]) {
+__device__ __forceinline__ void product_bf16(Ring& ring, const ASrc& src, uint32_t b_off, uint32_t b2_off,
+                                             float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1]) {
+  const int slices = src.count();
   for (int s = 0; s < slices; ++s) {
     const int slot = ring.it % ring.stages;
     await_phase(&ring.full[slot], (ring.it / ring.stages) & 1);
     const uint32_t b = smem_u32(ring.stage + slot * ring.stage_bytes);
     const uint32_t a = src.slice<bf16>(s);
-    const int ks = s == slices - 1 ? last : 4;
+    const int ks = src.steps(s);
     wg_fence();
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -317,12 +398,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[3][4]) {
 // an f32 add that rounds to nearest. All 8 products in acc over the whole
 // K read ~10x the plain f32 version's error on the card (PERF.md, section 6).
 template <int N, int N2>
-__device__ __forceinline__ void product_f32(Ring& ring, const ASrc& src, int slices, int last, uint32_t b_off,
-                                            uint32_t b2_off, float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1]) {
+__device__ __forceinline__ void product_f32(Ring& ring, const ASrc& src, uint32_t b_off, uint32_t b2_off,
+                                            float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1]) {
   constexpr int M2 = N2 > 0 ? N2 / 2 : 1;
   float part[N / 2], part2[M2];
+  const int slices = src.count();
   for (int s = 0; s < slices; ++s) {
-    const int ks = s == slices - 1 ? last : 4;
+    const int ks = src.steps(s);
     const uint32_t a = src.slice<float>(s);
 #pragma unroll
     for (int j = 2; j >= 0; --j) {  // W's piece in this stage
@@ -378,17 +460,53 @@ __device__ __forceinline__ void product_f32(Ring& ring, const ASrc& src, int sli
 
 // the product of one layer: b_row the warpgroup's first image row
 template <class T, int N, int N2 = 0>
-__device__ __forceinline__ void product(Ring& ring, const ASrc& src, int slices, int last, int b_row,
-                                        float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1], int b2_row = 0) {
+__device__ __forceinline__ void product(Ring& ring, const ASrc& src, int b_row, float (&acc)[N / 2],
+                                        float (&acc2)[N2 > 0 ? N2 / 2 : 1], int b2_row = 0) {
   if constexpr (sizeof(T) == 2) {
-    product_bf16<N, N2>(ring, src, slices, last, 128u * b_row, 128u * b2_row, acc, acc2);
+    product_bf16<N, N2>(ring, src, 128u * b_row, 128u * b2_row, acc, acc2);
   } else {
-    product_f32<N, N2>(ring, src, slices, last, 128u * b_row, 128u * b2_row, acc, acc2);
+    product_f32<N, N2>(ring, src, 128u * b_row, 128u * b2_row, acc, acc2);
   }
 }
 
 // ---------------------------------------------------------------------------
-// epilogues: the warpgroup's 64 x N sums (columns col0..) into the tile
+// epilogues: the warpgroup's 64 x N sums of a pass (columns col0..) into
+// the tile. Every column is written, those past the layer's width too (the
+// last pass's padding: the tile and the biases cover every pass's columns,
+// and no product reads them): a store under a thread-dependent branch
+// draws the sums' reads into it, and ptxas then serializes the kernel's
+// wgmma behind an arrive in that branch.
+
+// a thread's sign-bit words of one (slot, pass): word j at b[j * stride],
+// stride a word for each consumer thread of the grid
+__device__ __forceinline__ size_t bits_stride() { return static_cast<size_t>(gridDim.x) * kConsumers; }
+
+// slot `slot` (the forward layer whose relu it is), pass p of this CTA's
+// thread: `words` words a slot, bit_words(NP) a pass
+template <int NP>
+__device__ __forceinline__ uint32_t* bits_at(const uint32_t* bits, int words, int slot, int p) {
+  return const_cast<uint32_t*>(bits) + static_cast<size_t>(slot * words + p * bit_words(NP)) * bits_stride() +
+         static_cast<size_t>(blockIdx.x) * kConsumers + threadIdx.x;
+}
+
+template <int W>
+__device__ __forceinline__ void store_bits(uint32_t* b, const uint32_t (&w)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) b[j * bits_stride()] = w[j];
+}
+
+template <int W>
+__device__ __forceinline__ void load_bits(const uint32_t* b, uint32_t (&w)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) w[j] = b[j * bits_stride()];
+}
+
+__device__ __forceinline__ bool bit(const uint32_t* w, int i) { return (w[i >> 5] >> (i & 31)) & 1u; }
+
+__device__ __forceinline__ void set_bits(uint32_t* w, int i, float y0, float y1) {
+  w[i >> 5] |= (y0 > 0.f ? 1u : 0u) << (i & 31);
+  w[(i + 1) >> 5] |= (y1 > 0.f ? 1u : 0u) << ((i + 1) & 31);
+}
 
 template <class T>
 __device__ __forceinline__ void store2(unsigned char* tile, int r, int c, float v0, float v1) {
@@ -402,8 +520,8 @@ __device__ __forceinline__ void store2(unsigned char* tile, int r, int c, float 
 // relu(bias(acc)) as nerf_apply rounds it, and with kBits the sign bits
 template <class T, int N, bool kBits>
 __device__ __forceinline__ void relu_out(const float (&acc)[N / 2], const void* bias, int col0, unsigned char* tile,
-                                         uint4* bits, int t) {
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
+                                         uint32_t* bits, int t) {
+  uint32_t w[bit_words(N)] = {};
 #pragma unroll
   for (int i = 0; i < N / 2; i += 2) {
     const int r = acc_row(t, i);
@@ -420,29 +538,98 @@ __device__ __forceinline__ void relu_out(const float (&acc)[N / 2], const void* 
       y1 = relu_nan(acc[i + 1] + b[c + 1]);
       store2<T>(tile, r, c, y0, y1);
     }
-    if constexpr (kBits) {
-      w[i >> 5] |= (y0 > 0.f ? 1u : 0u) << (i & 31);
-      w[(i + 1) >> 5] |= (y1 > 0.f ? 1u : 0u) << ((i + 1) & 31);
-    }
+    if constexpr (kBits) set_bits(w, i, y0, y1);
   }
-  if constexpr (kBits) *bits = make_uint4(w[0], w[1], w[2], w[3]);
+  if constexpr (kBits) store_bits(bits, w);
 }
 
-// acc rounded to T, kept where the sign bits are set (all of it without
+// acc rounded to T, kept where the sign bits w are set (all of it without
 // kMask): dh masked by its input's relu
 template <class T, int N, bool kMask>
-__device__ __forceinline__ void dz_out(const float (&acc)[N / 2], uint4 bits, int col0, unsigned char* tile, int t) {
-  const uint32_t w[4] = {bits.x, bits.y, bits.z, bits.w};
+__device__ __forceinline__ void dz_out(const float (&acc)[N / 2], const uint32_t (&w)[bit_words(N)], int col0,
+                                       unsigned char* tile, int t) {
 #pragma unroll
   for (int i = 0; i < N / 2; i += 2) {
     float v0 = g::Elem<T>::round(acc[i]);
     float v1 = g::Elem<T>::round(acc[i + 1]);
     if (kMask) {
-      if (!((w[i >> 5] >> (i & 31)) & 1u)) v0 = 0.f;
-      if (!((w[(i + 1) >> 5] >> ((i + 1) & 31)) & 1u)) v1 = 0.f;
+      if (!bit(w, i)) v0 = 0.f;
+      if (!bit(w, i + 1)) v1 = 0.f;
     }
     store2<T>(tile, acc_row(t, i), col0 + acc_col(t, i), v0, v1);
   }
+}
+
+// ---------------------------------------------------------------------------
+// the outputs of a layer's earlier passes, packed bf16, held in registers
+// until both warpgroups are done with its last pass (the layer overwrites
+// its input): slot q holds pass q's N columns a warpgroup
+
+template <int N, int kP>
+struct Held {
+  uint32_t v[kP > 1 ? kP - 1 : 1][N / 4];
+};
+
+// y(i), the packed pair of sums i and i + 1 of pass p, into slot p: p is a
+// runtime value and v a register array, so each slot takes it under a
+// predicate
+template <int N, int kP, class Y>
+__device__ __forceinline__ void hold(Held<N, kP>& h, int p, Y y) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const uint32_t v = y(i);
+#pragma unroll
+    for (int q = 0; q < kP - 1; ++q)
+      if (q == p) h.v[q][i >> 1] = v;
+  }
+}
+
+// slots 0 .. n - 2 to the tile, pass q at columns col(q)..
+template <int N, int kP, class Col>
+__device__ __forceinline__ void unhold(const Held<N, kP>& h, int n, unsigned char* tile, int t, Col col) {
+#pragma unroll
+  for (int q = 0; q < kP - 1; ++q) {
+    if (q < n - 1) {
+      const int col0 = col(q);
+#pragma unroll
+      for (int i = 0; i < N / 2; i += 2)
+        *reinterpret_cast<uint32_t*>(tile + swz<bf16>(acc_row(t, i), col0 + acc_col(t, i))) = h.v[q][i >> 1];
+    }
+  }
+}
+
+// relu_out's pairs (and sign bits) of pass p, held
+template <int N, int kP, bool kBits>
+__device__ __forceinline__ void hold_relu(Held<N, kP>& h, int p, const float (&acc)[N / 2], const void* bias,
+                                          int col0, uint32_t* bits, int t) {
+  uint32_t w[bit_words(N)] = {};
+  hold(h, p, [&](int i) {
+    const bf162 y = __hmax2_nan(g::Elem<bf16>::bias2(acc[i], acc[i + 1], bias, col0 + acc_col(t, i)),
+                                __float2bfloat162_rn(0.f));
+    if constexpr (kBits) set_bits(w, i, __low2float(y), __high2float(y));
+    return nerf_train::bits_of(y);
+  });
+  if constexpr (kBits) store_bits(bits, w);
+}
+
+// bf16(bf16(acc) + b) of pass p (fc_8's features), held
+template <int N, int kP>
+__device__ __forceinline__ void hold_bias(Held<N, kP>& h, int p, const float (&acc)[N / 2], const void* bias,
+                                          int col0, int t) {
+  hold(h, p, [&](int i) {
+    return nerf_train::bits_of(g::Elem<bf16>::bias2(acc[i], acc[i + 1], bias, col0 + acc_col(t, i)));
+  });
+}
+
+// dz_out's pairs of pass p, held
+template <int N, int kP, bool kMask>
+__device__ __forceinline__ void hold_dz(Held<N, kP>& h, int p, const float (&acc)[N / 2],
+                                        const uint32_t (&w)[bit_words(N)]) {
+  hold(h, p, [&](int i) {
+    const float v0 = !kMask || bit(w, i) ? acc[i] : 0.f;
+    const float v1 = !kMask || bit(w, i + 1) ? acc[i + 1] : 0.f;
+    return nerf_train::bits_of(__floats2bfloat162_rn(v0, v1));
+  });
 }
 
 // an input-grad product's 64 columns (col0..) to the f32 (m_pad, ld) rows
@@ -490,17 +677,26 @@ __device__ void encode(Value value, int row0, int m, int levels, int include_inp
 
 // columns [0, width) of the tile (columns at or past `split` from tile2's
 // columns from 0) to rows [row0, row0 + 64) of a row-major (m_pad, width)
-// stash, 16 bytes a thread
+// stash, 16 bytes a thread: thread tid's chunks are tid, tid + 256, ... of
+// the tile's row-major chunks, their (row, chunk) stepped on without a
+// division by the runtime width in the loop
 template <class T>
 __device__ __forceinline__ void copy_out(const unsigned char* tile, T* dst, int width, int row0, int tid,
                                          const unsigned char* tile2 = nullptr, int split = 1 << 30) {
   constexpr int V = 16 / sizeof(T);
   const int per_row = width / V;
-  for (int i = tid; i < kRows * per_row; i += kConsumers) {
-    const int r = i / per_row;
-    const int c = (i - r * per_row) * V;
+  const int dr = kConsumers / per_row, dc = kConsumers - dr * per_row;
+  int r = tid / per_row, j = tid - r * per_row;
+  while (r < kRows) {
+    const int c = j * V;
     const unsigned char* src = c < split ? tile + swz<T>(r, c) : tile2 + swz<T>(r, c - split);
     *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row0 + r) * width + c) = *reinterpret_cast<const uint4*>(src);
+    r += dr;
+    j += dc;
+    if (j >= per_row) {
+      j -= per_row;
+      ++r;
+    }
   }
 }
 
@@ -555,73 +751,104 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, int stages) {
 // the forward: PE + 11 layers of a 64-point tile, sigma (m,) and rgb (m, 3)
 // out; with kStash every activation to the stash and the relu bits to bits
 
-
-__device__ __forceinline__ uint4* bits_word(uint4* bits, int slot) {
-  return bits + (static_cast<size_t>(slot) * gridDim.x + blockIdx.x) * kConsumers + threadIdx.x;
+// the activation tile's panels: every pass's columns, a width off the
+// passes too
+template <class T>
+__host__ __device__ inline int act_panels(int feat, int np, int passes) {
+  return panels<T>(feat > 2 * np * passes ? feat : 2 * np * passes);
 }
 
-template <class T, int F, bool kStash, class In>
-__global__ void __launch_bounds__(kThreads, 1)
-    forward_kernel(In in, const __grid_constant__ g::Net net, const __grid_constant__ g::Stash<T> st, uint4* bits,
+template <class T, int NP, bool kStash, class In>
+__global__ void __launch_bounds__(kThreads, ctas<T, NP>())
+    forward_kernel(In in, const __grid_constant__ g::Net net, const __grid_constant__ g::Stash<T> st, uint32_t* bits,
                    int m, const __grid_constant__ Plan plan) {
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = carve(smem_raw, plan.stages);
   const g::Dims& d = net.d;
-  constexpr int P = F / kSliceCols;  // K-slices of an F-wide input
-  constexpr int N = F / 2;           // a warpgroup's columns of an F-wide layer
+  constexpr int kP = pass_cap<T, NP>();
+  constexpr int N9 = NP / 2;  // fc_9's columns a warpgroup a pass
+  constexpr bool kShared = shared_encodings<T, NP>();
+  // the passes: one, known here, where the pass width holds one (choose);
+  // the trunk inputs' K
+  const int F = d.feat, n = kP > 1 ? plan.passes : 1;
+  const int K = kP > 1 ? F : 2 * NP;
   const int pe_np = panels<T>(d.pe_dim), de_np = panels<T>(d.de_dim);
   unsigned char* act = sm.data;
-  unsigned char* pe = act + panels<T>(F) * kPanel;
-  unsigned char* de = pe + pe_np * kPanel;
-  Ring ring = {sm.full, sm.empty, de + de_np * kPanel, plan.stage_bytes, plan.stages, 0};
+  unsigned char* enc = act + act_panels<T>(F, NP, n) * kPanel;  // pe (and with kShared, from fc_8 on, de)
+  unsigned char* enc_de = kShared ? enc : enc + pe_np * kPanel;
+  Ring ring = {sm.full, sm.empty, enc + (kShared ? (pe_np > de_np ? pe_np : de_np) : pe_np + de_np) * kPanel,
+               plan.stage_bytes, plan.stages, 0};
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == kConsumers) produce(plan, ring);
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(consumer_regs<T, NP>()));
   const int tid = threadIdx.x;
   const int t = tid & 127;
   const int row0 = blockIdx.x * kRows;
+  // the warpgroup's first column of pass p of an F-wide layer, of fc_9
+  auto col = [&](int p) { return (2 * p + wg) * NP; };
+  auto col9 = [&](int p) { return (2 * p + wg) * N9; };
+  auto bits_for = [&](int slot, int p) { return kStash ? bits_at<NP>(bits, plan.words, slot, p) : nullptr; };
 
-  encode<T>([&](int i, int c) { return in.pos(i, c); }, row0, m, d.pos_levels, d.include_input, d.pe_dim, pe_np, pe,
+  auto encode_de = [&] {
+    encode<T>([&](int i, int c) { return in.dir(i, c); }, row0, m, d.dir_levels, d.include_input, d.de_dim, de_np,
+              enc_de, tid);
+  };
+  encode<T>([&](int i, int c) { return in.pos(i, c); }, row0, m, d.pos_levels, d.include_input, d.pe_dim, pe_np, enc,
             tid);
-  encode<T>([&](int i, int c) { return in.dir(i, c); }, row0, m, d.dir_levels, d.include_input, d.de_dim, de_np, de,
-            tid);
+  if constexpr (!kShared) encode_de();
   publish();
   if constexpr (kStash) {
-    copy_out<T>(pe, st.act[g::A_PE], d.pe_pad, row0, tid);
-    copy_out<T>(de, st.act[g::A_DE], d.de_pad, row0, tid);
+    copy_out<T>(enc, st.act[g::A_PE], d.pe_pad, row0, tid);
+    if constexpr (!kShared) copy_out<T>(enc_de, st.act[g::A_DE], d.de_pad, row0, tid);
   }
 
-  const uint32_t act_a = smem_u32(act), pe_a = smem_u32(pe), de_a = smem_u32(de);
-  float acc[N / 2];
+  const uint32_t act_a = smem_u32(act), enc_a = smem_u32(enc), de_a = smem_u32(enc_de);
   float unused[1];
-  // A: the tile's K-slices then, where an encoding follows, the encoding's,
-  // whose last slice is the product's last, read for `last` k16 steps
 
   // relu layers fc_in .. fc_7: fc_in reads pe, fc_5 [h4, pe], the others h
   for (int l = 0; l < 8; ++l) {
-    const bool enc = l == 0 || l == 5;
-    const ASrc src = {act_a, l == 0 ? 0 : P, pe_a};
-    product<T, N>(ring, src, src.n0 + (enc ? slices(d.pe_dim) : 0), enc ? last_k(d.pe_dim) : 4, wg * N, acc,
-                  unused);
+    const ASrc src = l == 0 ? a_of(enc_a, d.pe_dim) : a_of(act_a, K, enc_a, l == 5 ? d.pe_dim : 0);
+    float acc[NP / 2];
+    Held<NP, kP> held;
+    for (int p = 0; p < n; ++p) {
+      product<T, NP>(ring, src, wg * NP, acc, unused);
+      if constexpr (kP > 1) {
+        if (p < n - 1) hold_relu<NP, kP, kStash>(held, p, acc, net.b[l], col(p), bits_for(l, p), t);
+      }
+    }
     consumers_sync();
-    relu_out<T, N, kStash>(acc, net.b[l], wg * N, act, kStash ? bits_word(bits, l) : nullptr, t);
+    if constexpr (kP > 1) unhold(held, n, act, t, col);
+    relu_out<T, NP, kStash>(acc, net.b[l], col(n - 1), act, bits_for(l, n - 1), t);
     publish();
     if constexpr (kStash) copy_out<T>(act, st.act[g::A_H0 + l], F, row0, tid);
   }
 
-  // fc_8: the features (no relu); sigma from the n8 group on the image's
-  // rows [F, F + 8), written by the upper warpgroup
+  // fc_5 was pe's last reader: de takes its tile (fc_8's barriers publish
+  // it before fc_9 reads it)
+  if constexpr (kShared) encode_de();
+
+  // fc_8: the features (no relu); sigma from the n8 group on each pass's
+  // rows [2 NP, 2 NP + 8), the same in every pass, written by the upper
+  // warpgroup from the last
   {
-    float acc8[4];
-    product<T, N, 8>(ring, ASrc{act_a, P, 0}, P, 4, wg * N, acc, acc8, F);
+    float acc[NP / 2], acc8[4];
+    Held<NP, kP> held;
+    const ASrc src = a_of(act_a, K);
+    for (int p = 0; p < n; ++p) {
+      product<T, NP, kSigmaRows>(ring, src, wg * NP, acc, acc8, 2 * NP);
+      if constexpr (kP > 1) {
+        if (p < n - 1) hold_bias<NP, kP>(held, p, acc, net.b[g::L_8], col(p), t);
+      }
+    }
     consumers_sync();
+    if constexpr (kP > 1) unhold(held, n, act, t, col);
 #pragma unroll
-    for (int i = 0; i < N / 2; i += 2) {
-      const int c = wg * N + acc_col(t, i);
+    for (int i = 0; i < NP / 2; i += 2) {
+      const int c = col(n - 1) + acc_col(t, i);
       const float2 y = g::Elem<T>::bias(acc[i], acc[i + 1], net.b[g::L_8], c);
       store2<T>(act, acc_row(t, i), c, y.x, y.y);
     }
@@ -634,16 +861,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     publish();
-    if constexpr (kStash) copy_out<T>(act, st.act[g::A_FEAT], F, row0, tid);
+    if constexpr (kStash) {
+      copy_out<T>(act, st.act[g::A_FEAT], F, row0, tid);
+      if constexpr (kShared) copy_out<T>(enc_de, st.act[g::A_DE], d.de_pad, row0, tid);
+    }
   }
 
-  // fc_9 reads [features, de] -> h9 (F/2), a warpgroup F/4 columns
+  // fc_9 reads [features, de] -> h9 (F/2), NP / 2 columns a warpgroup a pass
   {
-    float acc9[N / 4];
-    product<T, N / 2>(ring, ASrc{act_a, P, de_a}, P + slices(d.de_dim), last_k(d.de_dim), wg * (N / 2), acc9,
-                      unused);
+    float acc9[N9 / 2];
+    Held<N9, kP> held;
+    const ASrc src = a_of(act_a, K, de_a, d.de_dim);
+    for (int p = 0; p < n; ++p) {
+      product<T, N9>(ring, src, wg * N9, acc9, unused);
+      if constexpr (kP > 1) {
+        if (p < n - 1) hold_relu<N9, kP, kStash>(held, p, acc9, net.b[g::L_9], col9(p), bits_for(8, p), t);
+      }
+    }
     consumers_sync();
-    relu_out<T, N / 2, kStash>(acc9, net.b[g::L_9], wg * (N / 2), act, kStash ? bits_word(bits, 8) : nullptr, t);
+    if constexpr (kP > 1) unhold(held, n, act, t, col9);
+    relu_out<T, N9, kStash>(acc9, net.b[g::L_9], col9(n - 1), act, bits_for(8, n - 1), t);
     publish();
     if constexpr (kStash) copy_out<T>(act, st.act[g::A_H9], F / 2, row0, tid);
   }
@@ -651,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // fc_out -> sigmoid, written by the lower warpgroup
   {
     float acco[4];
-    product<T, 8>(ring, ASrc{act_a, slices(F / 2), 0}, slices(F / 2), last_k(F / 2), 0, acco, unused);
+    product<T, 8>(ring, a_of(act_a, K / 2), 0, acco, unused);
     if (wg == 0) {
 #pragma unroll
       for (int i = 0; i < 4; i += 2) {
@@ -671,20 +908,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 // the backward chain of a 64-point tile from the stash and the f32
 // cotangents g_sigma (m,), g_rgb (m, 3): every dz to the dz stash; with
 // kInputGrads the f32 cotangents of the encodings to dpe (m_pad, pe_pad)
-// and dde (m_pad, de_pad)
+// and dde (m_pad, de_pad). A pass's mask words are read before its product.
 
-template <class T, int F, bool kInputGrads>
-__global__ void __launch_bounds__(kThreads, 1)
+template <class T, int NP, bool kInputGrads>
+__global__ void __launch_bounds__(kThreads, ctas<T, NP, kInputGrads>())
     chain_kernel(const __grid_constant__ g::Net net, const __grid_constant__ g::Stash<T> st,
-                 const uint4* __restrict__ bits, const float* __restrict__ g_sigma, const float* __restrict__ g_rgb,
-                 float* __restrict__ dpe, float* __restrict__ dde, int m, const __grid_constant__ Plan plan) {
+                 const uint32_t* __restrict__ bits, const float* __restrict__ g_sigma,
+                 const float* __restrict__ g_rgb, float* __restrict__ dpe, float* __restrict__ dde, int m,
+                 const __grid_constant__ Plan plan) {
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = carve(smem_raw, plan.stages);
   const g::Dims& d = net.d;
-  constexpr int P = F / kSliceCols;
-  constexpr int N = F / 2;
+  constexpr int kP = pass_cap<T, NP>();
+  constexpr int N9 = NP / 2;
+  const int F = d.feat, n = kP > 1 ? plan.passes : 1;
+  const int K = kP > 1 ? F : 2 * NP;  // the dz inputs' K, as the forward's
   unsigned char* act = sm.data;
-  unsigned char* x = act + panels<T>(F) * kPanel;
+  unsigned char* x = act + act_panels<T>(F, NP, n) * kPanel;
   Ring ring = {sm.full, sm.empty, x + kPanel, plan.stage_bytes, plan.stages, 0};
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -692,13 +932,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == kConsumers) produce(plan, ring);
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(consumer_regs<T, NP, kInputGrads>()));
   const int tid = threadIdx.x;
   const int t = tid & 127;
   const int row0 = blockIdx.x * kRows;
-  auto bits_of = [&](int slot) { return bits[(static_cast<size_t>(slot) * gridDim.x + blockIdx.x) * kConsumers + tid]; };
+  auto col = [&](int p) { return (2 * p + wg) * NP; };
+  auto col9 = [&](int p) { return (2 * p + wg) * N9; };
+  auto bits_for = [&](int slot, int p) { return bits_at<NP>(bits, plan.words, slot, p); };
   const uint32_t act_a = smem_u32(act), x_a = smem_u32(x);
-  float acc[N / 2];
   float unused[1];
 
   // dz_out = g_rgb rgb (1 - rgb) in x's columns 0..2
@@ -717,12 +958,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   publish();
   copy_out<T>(x, st.dz[g::L_OUT], 16, row0, tid);
 
-  // fc_out^T: dz9 = mask(h9, dz_out W_out^T), a warpgroup F/4 columns
+  // fc_out^T: dz9 = mask(h9, dz_out W_out^T), NP / 2 columns a warpgroup a
+  // pass; this product does not read the tile, so each pass goes straight
+  // to it
   {
-    float acc9[N / 4];
-    const uint4 bw = bits_of(8);
-    product<T, N / 2>(ring, ASrc{x_a, 1, 0}, 1, 1, wg * (N / 2), acc9, unused);
-    dz_out<T, N / 2, true>(acc9, bw, wg * (N / 2), act, t);
+    float acc9[N9 / 2];
+    for (int p = 0; p < n; ++p) {
+      uint32_t w[bit_words(N9)];
+      load_bits(bits_for(8, p), w);
+      product<T, N9>(ring, a_of(x_a, 16), wg * N9, acc9, unused);
+      dz_out<T, N9, true>(acc9, w, col9(p), act, t);
+    }
     publish();
     copy_out<T>(act, st.dz[g::L_9], F / 2, row0, tid);
   }
@@ -730,17 +976,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   // fc_9^T: dz9 W_9^T -> the features' dh (dz8's feature columns, no
   // relu); with input grads dde from the de rows
   {
-    const int np = slices(F / 2), lk = last_k(F / 2);
-    const ASrc src = {act_a, np, 0};
+    const ASrc src = a_of(act_a, K / 2);
     // the input-grad product first: its sums leave before acc's arrive
     if constexpr (kInputGrads) {
       float acce[kExtra / 2];
-      product<T, kExtra>(ring, src, np, lk, wg * kExtra, acce, unused);
+      product<T, kExtra>(ring, src, wg * kExtra, acce, unused);
       grad_out<T, false>(acce, wg * kExtra, dde, d.de_pad, row0, t);
     }
-    product<T, N>(ring, src, np, lk, wg * N, acc, unused);
+    const uint32_t none[bit_words(NP)] = {};
+    float acc[NP / 2];
+    Held<NP, kP> held;
+    for (int p = 0; p < n; ++p) {
+      product<T, NP>(ring, src, wg * NP, acc, unused);
+      if constexpr (kP > 1) {
+        if (p < n - 1) hold_dz<NP, kP, false>(held, p, acc, none);
+      }
+    }
     consumers_sync();
-    dz_out<T, N, false>(acc, uint4{}, wg * N, act, t);
+    if constexpr (kP > 1) unhold(held, n, act, t, col);
+    dz_out<T, NP, false>(acc, none, col(n - 1), act, t);
     // dz8's sigma column: g_sigma where sigma > 0, in x's column 0
     small_panel<T>(x, tid, [&](int r, float (&v)[3]) {
       const int gr = row0 + r;
@@ -754,18 +1008,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   // fc_8^T .. fc_1^T: dh = dz W^T masked by the relu of its input; fc_8^T
   // reads [dz8's features, x's sigma column], fc_5^T's pe rows give dpe
   for (int l = 8; l >= 1; --l) {
-    const uint4 bw = bits_of(l - 1);
-    const ASrc src = {act_a, P, x_a};
+    const ASrc src = a_of(act_a, K, x_a, l == 8 ? 16 : 0);
     if constexpr (kInputGrads) {
       if (l == 5) {
         float acce[kExtra / 2];
-        product<T, kExtra>(ring, src, P, 4, wg * kExtra, acce, unused);
+        product<T, kExtra>(ring, src, wg * kExtra, acce, unused);
         grad_out<T, false>(acce, wg * kExtra, dpe, d.pe_pad, row0, t);
       }
     }
-    product<T, N>(ring, src, l == 8 ? P + 1 : P, l == 8 ? 1 : 4, wg * N, acc, unused);
+    float acc[NP / 2];
+    Held<NP, kP> held;
+    uint32_t w[bit_words(NP)];
+    for (int p = 0; p < n; ++p) {
+      load_bits(bits_for(l - 1, p), w);
+      product<T, NP>(ring, src, wg * NP, acc, unused);
+      if constexpr (kP > 1) {
+        if (p < n - 1) hold_dz<NP, kP, true>(held, p, acc, w);
+      }
+    }
     consumers_sync();
-    dz_out<T, N, true>(acc, bw, wg * N, act, t);
+    if constexpr (kP > 1) unhold(held, n, act, t, col);
+    dz_out<T, NP, true>(acc, w, col(n - 1), act, t);
     publish();
     copy_out<T>(act, st.dz[l - 1], F, row0, tid);
   }
@@ -773,7 +1036,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (kInputGrads) {
     // fc_in^T: dpe += round(dz0 W_in^T)
     float acce[kExtra / 2];
-    product<T, kExtra>(ring, ASrc{act_a, P, 0}, P, 4, wg * kExtra, acce, unused);
+    product<T, kExtra>(ring, a_of(act_a, K), wg * kExtra, acce, unused);
     grad_out<T, true>(acce, wg * kExtra, dpe, d.pe_pad, row0, t);
   }
 }
@@ -781,118 +1044,202 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 // host side
 
-// bytes of a stage: one weight image's K-slice (the f32 route's three piece
-// images are three stages), 128 bytes a row
+// a layer's column passes: NP columns a warpgroup a pass (the kernels' pass
+// width), n passes
+struct Passes {
+  int np;
+  int n;
+};
+
+// bytes of a stage: one weight image's K-slice of a pass's rows (the f32
+// route's three piece images are three stages), 128 bytes a row
 inline uint32_t stage_of(int rows) { return static_cast<uint32_t>(rows) * 128; }
 
-// a layer's `slices` K-slices of `rows` image rows from `image`
+// a layer's `passes` x `slices` K-slices of `rows` image rows a pass
 template <class T>
-inline void add(Plan& plan, const void* image, int slices, int rows) {
+inline void add(Plan& plan, const void* image, int passes, int slices, int rows) {
   plan.seg[plan.n].src = static_cast<const unsigned char*>(image);
-  plan.seg[plan.n].slices = slices * Tc<T>::kImages;
+  plan.seg[plan.n].slices = passes * slices * Tc<T>::kImages;
   plan.seg[plan.n].bytes = stage_of(rows);
   ++plan.n;
   plan.stage_bytes = std::max(plan.stage_bytes, stage_of(rows));
 }
 
-// the ring's depth: as many stages as fit beside the tiles, at most
-// kMaxStages; fewer than 2 and the route does not take the config
-inline int ring_stages(int tiles, uint32_t stage_bytes) {
-  return std::min(kMaxStages, static_cast<int>((kSmemLimit - kSlack - tiles) / static_cast<int>(stage_bytes)));
+// the ring's depth: as many stages as fit beside the tiles in a block's
+// shared memory at `ctas` CTAs an SM, at most kMaxStages; fewer than 2 and
+// the route does not take the config
+inline int ring_stages(int tiles, uint32_t stage_bytes, int ctas) {
+  return std::min(kMaxStages, static_cast<int>((block_smem(ctas) - kSlack - tiles) / static_cast<int>(stage_bytes)));
+}
+
+// CTAs an SM of a pass width (ctas<T, NP, kInputGrads> at run time)
+template <class T>
+inline int ctas_of(int np, bool input_grads = false) {
+  return sizeof(T) == 2 && np <= kPairMax && !input_grads ? 2 : 1;
 }
 
 inline size_t smem_bytes(int tiles, const Plan& plan) {
   return static_cast<size_t>(kSlack) + tiles + static_cast<size_t>(plan.stages) * plan.stage_bytes;
 }
 
+// shared_encodings<T, NP> at run time
 template <class T>
-inline int tile_bytes(const g::Dims& d, bool forward) {
-  const int p = panels<T>(d.feat);
-  return (forward ? p + panels<T>(d.pe_dim) + panels<T>(d.de_dim) : p + 1) * kPanel;
+inline bool shares_encodings(int np) {
+  return sizeof(T) == 2 && np >= kPassMin && np <= kPassCap;
+}
+
+// the forward's tiles: the activations (every pass's columns) and the
+// encodings (one tile for both where the kernel shares it); the chain's:
+// the dz tile and one panel
+template <class T>
+inline int tile_bytes(const g::Dims& d, Passes ps, bool forward) {
+  const int p = act_panels<T>(d.feat, ps.np, ps.n);
+  const int pe = panels<T>(d.pe_dim), de = panels<T>(d.de_dim);
+  return (forward ? p + (shares_encodings<T>(ps.np) ? std::max(pe, de) : pe + de) : p + 1) * kPanel;
+}
+
+// the K of a trunk input (shared_encodings: F, else the pass's width)
+template <class T>
+inline int trunk_k(const g::Dims& d, Passes ps) {
+  return shares_encodings<T>(ps.np) ? d.feat : 2 * ps.np;
 }
 
 template <class T>
-inline Plan forward_plan(const void* const* fwd, const g::Dims& d) {
-  const int f = d.feat, p = f / kSliceCols, pe = slices(d.pe_dim), de = slices(d.de_dim);
+inline void set_passes(Plan& plan, Passes ps) {
+  plan.np = ps.np;
+  plan.passes = ps.n;
+  plan.words = ps.n * bit_words(ps.np);
+}
+
+template <class T>
+inline Plan forward_plan(const void* const* fwd, const g::Dims& d, Passes ps) {
+  const int f = trunk_k<T>(d, ps), k = slices(f), pe = slices(d.pe_dim), de = slices(d.de_dim);
   Plan plan = {};
-  for (int l = 0; l < 8; ++l) add<T>(plan, fwd[l], l == 0 ? pe : (l == 5 ? p + pe : p), f);
-  add<T>(plan, fwd[g::L_8], p, f + 8);
-  add<T>(plan, fwd[g::L_9], p + de, f / 2);
-  add<T>(plan, fwd[g::L_OUT], slices(f / 2), 8);
-  plan.stages = ring_stages(tile_bytes<T>(d, true), plan.stage_bytes);
+  for (int l = 0; l < 8; ++l) add<T>(plan, fwd[l], ps.n, l == 0 ? pe : (l == 5 ? k + pe : k), 2 * ps.np);
+  add<T>(plan, fwd[g::L_8], ps.n, k, 2 * ps.np + kSigmaRows);
+  add<T>(plan, fwd[g::L_9], ps.n, k + de, ps.np);
+  add<T>(plan, fwd[g::L_OUT], 1, slices(f / 2), 8);
+  set_passes<T>(plan, ps);
+  plan.stages = ring_stages(tile_bytes<T>(d, ps, true), plan.stage_bytes, ctas_of<T>(ps.np));
   return plan;
 }
 
 template <class T>
-inline Plan chain_plan(const void* const* chain, const g::Dims& d, bool input_grads) {
-  const int f = d.feat, p = f / kSliceCols, h = slices(f / 2);
+inline Plan chain_plan(const void* const* chain, const g::Dims& d, bool input_grads, Passes ps) {
+  const int f = trunk_k<T>(d, ps), k = slices(f), h = slices(f / 2);
   Plan plan = {};
-  add<T>(plan, chain[g::L_OUT], 1, f / 2);
-  if (input_grads) add<T>(plan, chain[kChainDe], h, 2 * kExtra);
-  add<T>(plan, chain[g::L_9], h, f);
-  add<T>(plan, chain[g::L_8], p + 1, f);
+  add<T>(plan, chain[g::L_OUT], ps.n, 1, ps.np);
+  if (input_grads) add<T>(plan, chain[kChainDe], 1, h, 2 * kExtra);
+  add<T>(plan, chain[g::L_9], ps.n, h, 2 * ps.np);
+  add<T>(plan, chain[g::L_8], ps.n, k + 1, 2 * ps.np);
   for (int l = 7; l >= 1; --l) {
-    if (input_grads && l == 5) add<T>(plan, chain[kChainPe], p, 2 * kExtra);
-    add<T>(plan, chain[l], p, f);
+    if (input_grads && l == 5) add<T>(plan, chain[kChainPe], 1, k, 2 * kExtra);
+    add<T>(plan, chain[l], ps.n, k, 2 * ps.np);
   }
-  if (input_grads) add<T>(plan, chain[g::L_IN], p, 2 * kExtra);
-  plan.stages = ring_stages(tile_bytes<T>(d, false), plan.stage_bytes);
+  if (input_grads) add<T>(plan, chain[g::L_IN], 1, k, 2 * kExtra);
+  set_passes<T>(plan, ps);
+  plan.stages = ring_stages(tile_bytes<T>(d, ps, false), plan.stage_bytes, ctas_of<T>(ps.np, input_grads));
   return plan;
 }
 
-// the widths this engine takes: F % 64 == 0, bf16 up to 512, f32 up to 256,
-// and a ring of at least two stages beside the tiles of every kernel
+// every kernel's ring at least two stages deep beside its tiles
+template <class T>
+inline bool fits(const g::Dims& d, Passes ps) {
+  const void* none[kChainImages] = {};
+  return forward_plan<T>(none, d, ps).stages >= 2 && chain_plan<T>(none, d, true, ps).stages >= 2 &&
+         chain_plan<T>(none, d, false, ps).stages >= 2;
+}
+
+// the column passes of a config, {0, 0} where this engine does not take
+// it. bf16, any padded width F % 32 == 0 up to 1024, C = F / 2 columns a
+// warpgroup: up to 128 one pass of C rounded up to 16 (two CTAs an SM up
+// to 80); else ceil(C / 128) passes of C / passes rounded up to 16, at
+// least kPassMin, the widths of two passes of 128 (480, 512) in one pass
+// of 256 for the forward with its stash and the chain where its ring keeps
+// two stages (path B's engine as it was; kernel 1, the forward alone,
+// reads faster in the two passes and kernels 2-3 slower: PERF.md, section
+// 6). f32, F % 64 == 0 up to 256: one pass of C.
+template <class T>
+inline Passes choose(const g::Dims& d, bool stash = true) {
+  const Passes none = {0, 0};
+  if (!g::dims_ok(d)) return none;
+  const int c = d.feat / 2;
+  Passes ps;
+  if constexpr (sizeof(T) == 4) {
+    if (d.feat % 64 != 0 || d.feat > 256) return none;
+    ps = {c, 1};
+  } else if (c <= kPassCap) {
+    ps = {cdiv(c, 16) * 16, 1};
+  } else {
+    const int n = cdiv(c, kPassCap);
+    ps = {std::max(kPassMin, cdiv(cdiv(c, n), 16) * 16), n};
+    if (stash && n == 2 && ps.np == kPassCap && fits<T>(d, {2 * kPassCap, 1})) return {2 * kPassCap, 1};
+  }
+  return fits<T>(d, ps) ? ps : none;
+}
+
 template <class T>
 inline bool takes(const g::Dims& d) {
-  if (!g::dims_ok(d) || d.feat % 64 != 0 || d.feat > (sizeof(T) == 2 ? 512 : 256)) return false;
-  const void* none[kChainImages] = {};
-  return forward_plan<T>(none, d).stages >= 2 && chain_plan<T>(none, d, true).stages >= 2 &&
-         chain_plan<T>(none, d, false).stages >= 2;
+  return choose<T>(d).n > 0;
 }
 
-inline size_t bits_bytes(int m) {
-  return g::align256(static_cast<size_t>(kBitSlots) * g::padded_points(m) / kRows * kConsumers * sizeof(uint4));
+// the relu bits of m points: 9 slots of every tile's threads' words. The
+// workspace is sized from the padded encodings (the entries' workspace
+// queries know only those): they take the tile panels, and so the passes,
+// of the encodings themselves.
+template <class T>
+inline size_t bits_bytes(int m, const g::Dims& d) {
+  g::Dims padded = d;
+  padded.pe_dim = d.pe_pad;
+  padded.de_dim = d.de_pad;
+  const Passes ps = choose<T>(padded);
+  return g::align256(static_cast<size_t>(kBitSlots) * ps.n * bit_words(ps.np) * (g::padded_points(m) / kRows) *
+                     kConsumers * sizeof(uint32_t));
 }
 
 using nerf_train::set_smem;
 
-template <class T, int F, bool kStash, class In>
-inline cudaError_t forward_f(const In& in, const g::Net& net, const g::Stash<T>& st, uint4* bits, int m,
-                             const Plan& plan, cudaStream_t stream) {
-  const size_t smem = smem_bytes(tile_bytes<T>(net.d, true), plan);
-  cudaError_t err = set_smem(forward_kernel<T, F, kStash, In>, smem);
+template <class T, int NP, bool kStash, class In>
+inline cudaError_t forward_np(const In& in, const g::Net& net, const g::Stash<T>& st, uint32_t* bits, int m,
+                              const Plan& plan, cudaStream_t stream) {
+  const size_t smem = smem_bytes(tile_bytes<T>(net.d, {plan.np, plan.passes}, true), plan);
+  cudaError_t err = set_smem(forward_kernel<T, NP, kStash, In>, smem);
   if (err != cudaSuccess) return err;
-  forward_kernel<T, F, kStash, In><<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(in, net, st, bits, m, plan);
+  forward_kernel<T, NP, kStash, In><<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(in, net, st, bits, m,
+                                                                                           plan);
   return cudaGetLastError();
 }
 
-template <class T, int F, bool kInputGrads>
-inline cudaError_t chain_f(const g::Net& net, const g::Stash<T>& st, const uint4* bits, const float* g_sigma,
-                           const float* g_rgb, float* dpe, float* dde, int m, const Plan& plan, cudaStream_t stream) {
-  const size_t smem = smem_bytes(tile_bytes<T>(net.d, false), plan);
-  cudaError_t err = set_smem(chain_kernel<T, F, kInputGrads>, smem);
+template <class T, int NP, bool kInputGrads>
+inline cudaError_t chain_np(const g::Net& net, const g::Stash<T>& st, const uint32_t* bits, const float* g_sigma,
+                            const float* g_rgb, float* dpe, float* dde, int m, const Plan& plan,
+                            cudaStream_t stream) {
+  const size_t smem = smem_bytes(tile_bytes<T>(net.d, {plan.np, plan.passes}, false), plan);
+  cudaError_t err = set_smem(chain_kernel<T, NP, kInputGrads>, smem);
   if (err != cudaSuccess) return err;
-  chain_kernel<T, F, kInputGrads><<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(net, st, bits, g_sigma,
-                                                                                       g_rgb, dpe, dde, m, plan);
+  chain_kernel<T, NP, kInputGrads><<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(net, st, bits, g_sigma,
+                                                                                          g_rgb, dpe, dde, m, plan);
   return cudaGetLastError();
 }
 
-// F through the widths of the element type: bf16 64..512, f32 64..256
+// NP through the pass widths the kernels are built at: bf16 16..128 by 16
+// and 256; f32 32..128 by 32
 template <class T, class Fn>
-inline cudaError_t by_width(int feat, Fn fn) {
-  switch (feat) {
+inline cudaError_t by_pass_width(int np, Fn fn) {
+  switch (np) {
+    case 32: return fn(std::integral_constant<int, 32>());
     case 64: return fn(std::integral_constant<int, 64>());
+    case 96: return fn(std::integral_constant<int, 96>());
     case 128: return fn(std::integral_constant<int, 128>());
-    case 192: return fn(std::integral_constant<int, 192>());
-    case 256: return fn(std::integral_constant<int, 256>());
     default: break;
   }
   if constexpr (sizeof(T) == 2) {
-    switch (feat) {
-      case 320: return fn(std::integral_constant<int, 320>());
-      case 384: return fn(std::integral_constant<int, 384>());
-      case 448: return fn(std::integral_constant<int, 448>());
-      case 512: return fn(std::integral_constant<int, 512>());
+    switch (np) {
+      case 16: return fn(std::integral_constant<int, 16>());
+      case 48: return fn(std::integral_constant<int, 48>());
+      case 80: return fn(std::integral_constant<int, 80>());
+      case 112: return fn(std::integral_constant<int, 112>());
+      case 256: return fn(std::integral_constant<int, 256>());
       default: break;
     }
   }
@@ -900,27 +1247,58 @@ inline cudaError_t by_width(int feat, Fn fn) {
 }
 
 // the forward of m points: sigma, rgb to st.sigma, st.rgb; with kStash every
-// activation to the stash and the relu bits to bits. fwd: the forward images.
+// activation to the stash and the relu bits to bits (bits_bytes). fwd: the
+// forward images. A config the engine does not take is refused.
 template <class T, bool kStash, class In>
 inline cudaError_t run_forward(const In& in, const g::Net& net, const void* const* fwd, const g::Stash<T>& st,
-                               uint4* bits, int m, cudaStream_t stream) {
-  if (!takes<T>(net.d)) return cudaErrorInvalidValue;
+                               uint32_t* bits, int m, cudaStream_t stream) {
+  const Passes ps = choose<T>(net.d, kStash);
+  if (ps.n == 0) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  const Plan plan = forward_plan<T>(fwd, net.d);
-  return by_width<T>(net.d.feat, [&](auto f) {
-    return forward_f<T, decltype(f)::value, kStash>(in, net, st, bits, m, plan, stream);
+  const Plan plan = forward_plan<T>(fwd, net.d, ps);
+  return by_pass_width<T>(ps.np, [&](auto np) {
+    return forward_np<T, decltype(np)::value, kStash>(in, net, st, bits, m, plan, stream);
   });
 }
 
 template <class T, bool kInputGrads>
-inline cudaError_t run_chain(const g::Net& net, const void* const* chain, const g::Stash<T>& st, const uint4* bits,
+inline cudaError_t run_chain(const g::Net& net, const void* const* chain, const g::Stash<T>& st, const uint32_t* bits,
                              const float* g_sigma, const float* g_rgb, float* dpe, float* dde, int m,
                              cudaStream_t stream) {
-  if (!takes<T>(net.d)) return cudaErrorInvalidValue;
-  const Plan plan = chain_plan<T>(chain, net.d, kInputGrads);
-  return by_width<T>(net.d.feat, [&](auto f) {
-    return chain_f<T, decltype(f)::value, kInputGrads>(net, st, bits, g_sigma, g_rgb, dpe, dde, m, plan, stream);
+  const Passes ps = choose<T>(net.d);
+  if (ps.n == 0) return cudaErrorInvalidValue;
+  const Plan plan = chain_plan<T>(chain, net.d, kInputGrads, ps);
+  return by_pass_width<T>(ps.np, [&](auto np) {
+    return chain_np<T, decltype(np)::value, kInputGrads>(net, st, bits, g_sigma, g_rgb, dpe, dde, m, plan, stream);
   });
+}
+
+// the plan of a config for its Python twin (fused_nerf.tc_plan): out[0..9]
+// = NP, passes, the forward's, the chain's and the chain with input
+// grads' stages, their shared-memory bytes, sign-bit words a slot, CTAs an
+// SM; out[10..11] kernel 1's NP and passes; zeros where the engine does
+// not take the config
+template <class T>
+inline void plan_of(const g::Dims& d, long long* out) {
+  for (int i = 0; i < 12; ++i) out[i] = 0;
+  const Passes ps = choose<T>(d);
+  if (ps.n == 0) return;
+  const void* none[kChainImages] = {};
+  const Plan f = forward_plan<T>(none, d, ps), c = chain_plan<T>(none, d, false, ps),
+             ci = chain_plan<T>(none, d, true, ps);
+  out[0] = ps.np;
+  out[1] = ps.n;
+  out[2] = f.stages;
+  out[3] = c.stages;
+  out[4] = ci.stages;
+  out[5] = static_cast<long long>(smem_bytes(tile_bytes<T>(d, ps, true), f));
+  out[6] = static_cast<long long>(smem_bytes(tile_bytes<T>(d, ps, false), c));
+  out[7] = static_cast<long long>(smem_bytes(tile_bytes<T>(d, ps, false), ci));
+  out[8] = f.words;
+  out[9] = ctas_of<T>(ps.np);
+  const Passes alone = choose<T>(d, false);
+  out[10] = alone.np;
+  out[11] = alone.n;
 }
 
 }  // namespace nerf_tc

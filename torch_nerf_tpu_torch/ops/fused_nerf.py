@@ -7,16 +7,18 @@ Forward (``csrc/fused_nerf_fwd.cu``) replaces the Pallas TPU kernel
 the card's arithmetic: 1,186,816 FLOP per point at width 256, 0.94 ms for a
 786,432-point fine chunk at 989 TFLOP/s bf16 (17.7 ms in f32 at 67 TFLOP/s),
 against 40 bytes of input and output per point. The kernel keeps every
-hidden activation in shared memory, on one of three routes that
+hidden activation in shared memory, on one of four routes that
 :func:`forward_route` picks from the config: bf16 at widths 64, 128 and 256
 with encodings up to 64 wide take ``wgmma``, the training kernels' forward
 without its stash (``csrc/nerf_mlp_train.cuh``), reading the forward images
 of :func:`forward_layout`; any other bf16 config up to width 1024 and
-encodings 128 wide takes ``mma_sync`` and a config in f32 takes ``f32``,
-the general route (``csrc/nerf_mlp_general.cuh``: ``mma.sync`` or FFMA on
-tiles of 32 points, 16 where 32 do not fit in shared memory, the bf16
-forward alone on 64 where two blocks fit an SM: :func:`tile_rows`),
-reading :func:`general_matrices` (bf16 in fragment order, f32 row-major).
+encodings 128 wide takes ``wgmma_general`` and an f32 config at a width %
+64 == 0 up to 256 ``f32_wgmma``, the tensor-core general route
+(``csrc/nerf_mlp_tc.cuh``: column passes, :func:`tc_plan`), reading
+:func:`tc_layout`; any other f32 config takes ``f32``, the FFMA general
+route (``csrc/nerf_mlp_general.cuh``: tiles of 32 points, 16 where 32 do
+not fit in shared memory: :func:`tile_rows`), reading
+:func:`general_matrices` row-major.
 A width that is not a multiple of 32 is zero-padded to the next one
 (:func:`pad_params`): the padded units are ``relu(0) = 0`` and add nothing
 to any later layer.
@@ -82,14 +84,14 @@ WGMMA_MAX_ENC = 64
 # of 32), encodings up to MAX_ENC columns
 MAX_FEAT = 1024
 MAX_ENC = 128
-ROUTES = ("wgmma", "wgmma_general", "f32_wgmma", "mma_sync", "f32")
-# the tensor-core general route (csrc/nerf_mlp_tc.cuh): bf16 on wgmma, f32 on
-# wgmma's bf16 product over three bf16 pieces of each operand; at padded
-# widths % 64 == 0 up to these
+ROUTES = ("wgmma", "wgmma_general", "f32_wgmma", "f32")
+# the tensor-core general route (csrc/nerf_mlp_tc.cuh): bf16 on wgmma at
+# every padded width up to 1024, f32 on wgmma's bf16 product over three bf16
+# pieces of each operand at padded widths % 64 == 0 up to 256
 TC_ROUTES = ("wgmma_general", "f32_wgmma")
-TC_MAX_FEAT = {torch.bfloat16: 512, torch.float32: 256}
-ROUTE_DTYPE = {"wgmma": torch.bfloat16, "wgmma_general": torch.bfloat16, "mma_sync": torch.bfloat16,
-               "f32_wgmma": torch.float32, "f32": torch.float32}
+TC_MAX_FEAT = {torch.bfloat16: MAX_FEAT, torch.float32: 256}
+ROUTE_DTYPE = {"wgmma": torch.bfloat16, "wgmma_general": torch.bfloat16, "f32_wgmma": torch.float32,
+               "f32": torch.float32}
 DTYPES = (torch.bfloat16, torch.float32)
 # what a forward library's fused_nerf_fwd reads (fused_nerf_fwd_layout(); a
 # library without that symbol reads fragment order)
@@ -288,17 +290,6 @@ def _pad_rows(w: torch.Tensor, segments) -> torch.Tensor:
     return torch.cat(parts, dim=0)
 
 
-def fragment_order(w: torch.Tensor) -> torch.Tensor:
-    """(K, N) with K % 16 == N % 8 == 0 -> (K/16 * N/8 * 32, 4): for k-tile
-    ``kt``, n-tile ``nt`` and lane ``l``, the four values
-    ``w[16kt + 2(l%4) + {0, 1, 8, 9}, 8nt + l//4]`` — the B operand of
-    ``mma.m16n8k16`` held by lane ``l``, so one warp reads a fragment with one
-    coalesced 256-byte load."""
-    k, n = w.shape
-    f = w.reshape(k // 16, 2, 4, 2, n // 8, 8)  # (kt, khalf, t, kpair, nt, g)
-    return f.permute(0, 4, 5, 2, 1, 3).reshape(-1, 4).contiguous()
-
-
 def _flat(params: Params) -> List[torch.Tensor]:
     return [params[name][leaf] for name in LAYER_NAMES for leaf in ("w", "b")]
 
@@ -311,9 +302,9 @@ def _tree(tensors: Sequence[torch.Tensor]) -> Params:
 class KernelWeights:
     """One network's parameters: the public tree plus, for parameters on the
     card, the forward's route and its weight layout per layer (``wgmma``:
-    forward panel images and biases in their row order; ``mma_sync`` and
-    ``f32``: :func:`general_layout`'s forward matrices and biases). On the
-    CPU only ``public`` is set."""
+    forward panel images and biases in their row order; ``wgmma_general``
+    and ``f32_wgmma``: :func:`tc_layout`'s; ``f32``: :func:`general_layout`'s
+    forward matrices and biases). On the CPU only ``public`` is set."""
 
     public: Params
     route: Optional[str]
@@ -343,18 +334,20 @@ def forward_route(cfg: FusedNeRFConfig) -> str:
     """The route of ``cfg`` (the forward's and, by :func:`train_route`, the
     training kernels'), chosen before any launch: ``"wgmma"`` for bfloat16
     at feat_dim 64, 128 or 256 with both encodings at most 64 wide; else
-    the tensor-core general route where it takes the config
-    (:func:`tc_stages`), ``"wgmma_general"`` for bfloat16 and
-    ``"f32_wgmma"`` for float32; else the mma.sync/FFMA general route, ``"mma_sync"``
-    or ``"f32"``.
-    Raises past the limits of :func:`check_config`."""
+    ``"wgmma_general"`` for bfloat16 (the tensor-core general route, which
+    takes every bfloat16 config of :func:`check_config`: :func:`tc_plan`);
+    for float32 ``"f32_wgmma"`` where that route takes the config, else the
+    FFMA general route, ``"f32"``. Raises past the limits of
+    :func:`check_config`."""
     check_config(cfg)
     f32 = cfg.compute_dtype == torch.float32
     if not f32 and cfg.feat_dim in TRAIN_WIDTHS and max(cfg.pos_enc_dim, cfg.dir_enc_dim) <= WGMMA_MAX_ENC:
         return "wgmma"
-    if tc_stages(cfg) is not None:
+    if tc_plan(cfg) is not None:
         return "f32_wgmma" if f32 else "wgmma_general"
-    return "f32" if f32 else "mma_sync"
+    if f32:
+        return "f32"
+    raise ValueError(f"no route takes {cfg}: the tensor-core general route's plan does not fit")
 
 
 # the training kernels' (2 and 3) route for a config: the forward's
@@ -471,14 +464,10 @@ def general_biases(params: Params, cfg: FusedNeRFConfig) -> List[torch.Tensor]:
 
 
 def general_layout(params: Params, cfg: FusedNeRFConfig):
-    """``(forward, biases, chain)`` lists the general route's kernels read:
-    :func:`general_matrices` of the parameters as they are at this call, the
-    matrices in fragment order for bf16 (:func:`fragment_order`), row-major
-    for f32."""
+    """``(forward, biases, chain)`` lists the FFMA general route's kernels
+    read: :func:`general_matrices` of the parameters as they are at this
+    call, row-major."""
     mats = general_matrices(params, cfg)
-    if cfg.compute_dtype == torch.bfloat16:
-        return ([fragment_order(w) for w, _, _ in mats], [b for _, b, _ in mats],
-                [fragment_order(c) for _, _, c in mats])
     return [w for w, _, _ in mats], [b for _, b, _ in mats], [c for _, _, c in mats]
 
 
@@ -516,30 +505,33 @@ def grads_from_general(grads_w: Sequence[torch.Tensor], grads_b: Sequence[torch.
 
 
 def tile_rows(cfg: FusedNeRFConfig) -> Tuple[int, int, int]:
-    """Points per block of the general route's kernels (``nerf_mlp_general.
-    cuh``'s ``forward_rows``, ``chain_rows``): kernel 1's forward, the
-    forward with its stash (kernels 2-3) and the chain. 32, or 16 where the
-    buffers of 32 do not fit in shared memory; kernel 1 in bf16 takes 64
-    where two blocks of 64 fit an SM."""
-    size = 2 if cfg.compute_dtype == torch.bfloat16 else 4
-    pad = 8 if size == 2 else 4
-    ring = 0 if size == 2 else 2 * 16 * 256 * 4  # the f32 product's weight ring
+    """Points per block of the FFMA general route's kernels
+    (``nerf_mlp_general.cuh``'s ``forward_rows``, ``chain_rows``, which
+    take f32): kernel 1's forward, the forward with its stash (kernels 2-3)
+    and the chain. 32, or 16 where the buffers of 32 and the weight ring do
+    not fit in shared memory."""
     fp, pp, dp = padded_config(cfg).feat_dim, _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
-    fwd = ((pp + pad) + (dp + pad) + 2 * (fp + pad)) * size
-    chain = 2 * (fp + 16 + pad) * size
+    ring = 2 * 16 * 256 * 4  # the f32 product's weight ring
+    fwd = ((pp + 4) + (dp + 4) + 2 * (fp + 4)) * 4
+    chain = 2 * (fp + 16 + 4) * 4
     stash, back = (32 if 32 * row + ring <= _SMEM_LIMIT else 16 for row in (fwd, chain))
-    alone = 64 if size == 2 and 2 * (64 * fwd + 1024) <= _SMEM_PER_SM else stash
-    return alone, stash, back
+    return stash, stash, back
 
 
-# the tensor-core general route's shared-memory cut (csrc/nerf_mlp_tc.cuh):
-# 64-point tiles of 128-byte panels, a ring of 2-4 weight stages beside them,
-# each stage one image's 64-column K-slice (f32: three, one a bf16 piece)
+# the tensor-core general route's plan (csrc/nerf_mlp_tc.cuh): 64-point
+# tiles of 128-byte panels, a ring of 2-4 weight stages beside them, each
+# stage one image's 64-column K-slice of a column pass's rows (f32: three,
+# one a bf16 piece); a layer's outputs in passes of NP columns a warpgroup
 _TC_ROWS = 64
 _TC_PANEL = _TC_ROWS * 128
 _TC_MAX_STAGES = 4
 _TC_SLACK = 1024 + 2 * _TC_MAX_STAGES * 8
 _TC_EXTRA = 128  # the input-grad products' rows (encodings padded to 128)
+_TC_PASS_CAP = 128  # a warpgroup's columns a pass where a layer takes several
+_TC_PASS_MIN = 96  # ... and at least this many
+_TC_PAIR_MAX = 80  # the widest bf16 pass width two CTAs an SM hold
+_TC_MAX_PASSES = 4
+_TC_SIGMA_ROWS = 8  # fc_8's sigma group beside each pass's features
 
 
 def panel_cols(dtype: torch.dtype) -> int:
@@ -547,68 +539,152 @@ def panel_cols(dtype: torch.dtype) -> int:
     return 128 // torch.empty((), dtype=dtype).element_size()
 
 
-def tc_stages(cfg: FusedNeRFConfig) -> Optional[Tuple[int, int, int]]:
-    """Depth of the weight ring of the tensor-core general route's kernels
-    (``nerf_mlp_tc.cuh``'s ``forward_plan``, ``chain_plan`` and ``takes``):
-    ``(forward, chain, chain with input grads)``, each as many stages as
-    fit in a block's shared memory beside the kernel's tiles, at most 4; or
-    None where the route does not take ``cfg``: a padded width off the 64s,
-    above :data:`TC_MAX_FEAT`, or a ring of fewer than two stages. The
-    forward's tiles are the activations and both encodings, its largest
-    stage fc_8's F + 8 image rows; the chain's the dz tile and one panel,
-    its largest stage F rows, 128 for the input-grad products; 128 bytes a
-    row of either."""
+@dataclasses.dataclass(frozen=True)
+class TcPlan:
+    """The tensor-core general route's plan of a config (``nerf_mlp_tc.cuh``'s
+    ``choose`` and ``plan_of``): each layer's outputs in ``passes`` column
+    passes of ``np`` columns a warpgroup (fc_9 ``np // 2``); each kernel's
+    ring stages and shared memory (the forward, the chain, the chain with
+    input grads); the sign-bit words a relu slot a thread; the CTAs an SM
+    of the forward and the chain (two at a bf16 pass of at most 80
+    columns, each in half an SM's shared memory, its consumers at 96
+    registers, else one at 232; the chain with input grads one); and a
+    consumer thread's registers for a pass's f32 sums and, in bf16, the
+    packed outputs of a layer's earlier passes held until its last is
+    done."""
+
+    np: int
+    passes: int
+    stages: Tuple[int, int, int]
+    smem_bytes: Tuple[int, int, int]
+    bit_words: int
+    ctas: int
+    acc_registers: int
+    held_registers: int
+
+
+def _tc_plan_at(cfg: FusedNeRFConfig, f: int, np_: int, passes: int) -> TcPlan:
+    pc = panel_cols(cfg.compute_dtype)
+    p, pe, de = -(-max(f, 2 * np_ * passes) // pc), -(-cfg.pos_enc_dim // pc), -(-cfg.dir_enc_dim // pc)
+    bf16 = cfg.compute_dtype == torch.bfloat16
+    # the forward's tiles: the activations (every pass's columns) and the
+    # encodings, one tile for both in a kernel of several passes (bf16, NP
+    # 96..128), else one each; its widest stage a pass of fc_8 (2 NP + 8
+    # rows); the chain's tiles the dz tile and one panel, its stages 2 NP
+    # rows, 128 for the input-grad products; 128 bytes a row
+    enc = max(pe, de) if bf16 and _TC_PASS_MIN <= np_ <= _TC_PASS_CAP else pe + de
+    cuts = (((p + enc) * _TC_PANEL, 2 * np_ + _TC_SIGMA_ROWS), ((p + 1) * _TC_PANEL, 2 * np_),
+            ((p + 1) * _TC_PANEL, max(2 * np_, _TC_EXTRA)))
+    ctas = 2 if bf16 and np_ <= _TC_PAIR_MAX else 1
+    # the chain with input grads keeps one CTA an SM
+    blocks = [_SMEM_PER_SM // 2 - 1024 if ctas == 2 else _SMEM_LIMIT] * 2 + [_SMEM_LIMIT]
+    stages = tuple(min(_TC_MAX_STAGES, (block - _TC_SLACK - tiles) // (rows * 128))
+                   for block, (tiles, rows) in zip(blocks, cuts))
+    smem = tuple(_TC_SLACK + tiles + n * rows * 128 for n, (tiles, rows) in zip(stages, cuts))
+    words = passes * -(-(np_ // 2) // 32)
+    # f32: product_f32 sums a slice in a second accumulator
+    acc = np_ // 2 if bf16 else np_
+    return TcPlan(np_, passes, stages, smem, words, ctas, acc, (passes - 1) * np_ // 4 if bf16 else 0)
+
+
+def tc_plan(cfg: FusedNeRFConfig, stash: bool = True) -> Optional[TcPlan]:
+    """The tensor-core general route's plan of ``cfg``, or None where the
+    route does not take it. bf16 at every padded width F % 32 == 0 up to
+    :data:`MAX_FEAT`, C = F / 2 columns a warpgroup: up to 128 one pass of
+    C rounded up to 16; else ceil(C / 128) passes of C / passes rounded
+    up to 16, at least 96 (the widths of two
+    passes of 128, 480 and 512, in one pass of 256 where its ring keeps two
+    stages, but for kernel 1, the forward alone: ``stash`` False). f32 at
+    F % 64 == 0 up to 256 in one pass of C. Encodings up to
+    :data:`MAX_ENC` columns, and every kernel's ring two stages deep."""
     if cfg.compute_dtype not in TC_MAX_FEAT:
         return None
     f = padded_config(cfg).feat_dim
-    if f % 64 or f > TC_MAX_FEAT[cfg.compute_dtype] or max(cfg.pos_enc_dim, cfg.dir_enc_dim) > MAX_ENC:
+    if f > TC_MAX_FEAT[cfg.compute_dtype] or max(cfg.pos_enc_dim, cfg.dir_enc_dim) > MAX_ENC:
         return None
-    pc = panel_cols(cfg.compute_dtype)
-    p, pe, de = f // pc, -(-cfg.pos_enc_dim // pc), -(-cfg.dir_enc_dim // pc)
+    c = f // 2
+    if cfg.compute_dtype == torch.float32:
+        if f % 64:
+            return None
+        candidates = [(c, 1)]
+    elif c <= _TC_PASS_CAP:
+        candidates = [(-(-c // 16) * 16, 1)]
+    else:
+        passes = -(-c // _TC_PASS_CAP)
+        np_ = max(_TC_PASS_MIN, -(-(-(-c // passes)) // 16) * 16)
+        merge = stash and passes == 2 and np_ == _TC_PASS_CAP
+        candidates = ([(2 * _TC_PASS_CAP, 1)] if merge else []) + [(np_, passes)]
+    for np_, passes in candidates:
+        plan = _tc_plan_at(cfg, f, np_, passes)
+        if min(plan.stages) >= 2:
+            return plan
+    return None
 
-    def stages(tiles, rows):
-        return min(_TC_MAX_STAGES, (_SMEM_LIMIT - _TC_SLACK - tiles) // (rows * 128))
 
-    out = (stages((p + pe + de) * _TC_PANEL, f + 8), stages((p + 1) * _TC_PANEL, f),
-           stages((p + 1) * _TC_PANEL, max(f, _TC_EXTRA)))
-    return out if min(out) >= 2 else None
+def tc_stages(cfg: FusedNeRFConfig) -> Optional[Tuple[int, int, int]]:
+    """Depth of the weight ring of the tensor-core general route's kernels
+    (:func:`tc_plan`): ``(forward, chain, chain with input grads)``, or None
+    where the route does not take ``cfg``."""
+    plan = tc_plan(cfg)
+    return None if plan is None else plan.stages
 
 
-def tc_matrices(params: Params, cfg: FusedNeRFConfig):
+def tc_pass_rows(cfg: FusedNeRFConfig, stash: bool = True) -> Tuple[List[int], List[int]]:
+    """Rows a column pass of each matrix of :func:`tc_matrices` (its image
+    is one panel image a pass): forward, the trunk 2 NP, fc_8 2 NP + 8, fc_9
+    NP, fc_out 8; chain, fc_out NP, the input-grad products 128, the others
+    2 NP; at :func:`tc_plan`'s passes for ``stash``."""
+    np_ = tc_plan(cfg, stash).np
+    forward = [2 * np_] * 8 + [2 * np_ + _TC_SIGMA_ROWS, np_, 8]
+    chain = [_TC_EXTRA] + [2 * np_] * 9 + [np_, _TC_EXTRA, _TC_EXTRA]
+    return forward, chain
+
+
+def tc_matrices(params: Params, cfg: FusedNeRFConfig, stash: bool = True):
     """``(forward, chain)`` matrices of the tensor-core general route in
     ``cfg.compute_dtype``, before the panel images, from the public tree
-    padded by :func:`pad_params` to F. ``forward``: per layer B = W^T, rows
-    its outputs (fc_8's features, sigma at row F, padded to F + 8; fc_9 F/2;
-    fc_out padded to 8), columns its inputs, each segment padded to a
-    64-column slice: fc_5's ``[h4, pe]`` (the encoding last, so that its
-    partial slice is the product's last), fc_9's ``[features, de]``.
-    ``chain``: 13 matrices B = W, rows the layer's inputs, columns its
-    outputs padded to 64: fc_out (F/2, 64); fc_9's feature rows; fc_8 with
-    sigma at column F; fc_5's h4 rows; the others W; index 0 fc_in's pe
-    rows, 11 fc_5's pe rows and 12 fc_9's de rows, each padded to 128 rows
-    (the input-grad products)."""
+    padded by :func:`pad_params` to F, at :func:`tc_plan`'s passes (NP
+    columns a warpgroup, ``passes`` of them). ``forward``: per layer B =
+    W^T, rows its outputs in pass order, an F-wide layer's padded to passes
+    x 2 NP (fc_8 a pass's 2 NP feature rows, then sigma and 7 zero rows;
+    fc_9 passes x NP; fc_out 8), columns its inputs, each segment padded to
+    a 64-column slice: fc_5's ``[h4, pe]`` (the encoding last), fc_9's
+    ``[features, de]``. ``chain``: 13 matrices B = W, rows the layer's
+    inputs (F padded to passes x 2 NP), columns its outputs, each segment
+    padded to 64: fc_out (passes x NP, 64); fc_9's feature rows; fc_8 with
+    sigma first in the slice after the features'; fc_5's h4 rows; the
+    others W; index 0 fc_in's pe rows, 11 fc_5's pe rows and 12 fc_9's de
+    rows, each padded to 128 rows (the input-grad products). ``stash``
+    False: kernel 1's passes."""
+    plan = tc_plan(cfg, stash)
+    if plan is None:
+        raise ValueError(f"the tensor-core general route does not take {cfg}")
     dt = cfg.compute_dtype
     fp, p, d = padded_config(cfg).feat_dim, cfg.pos_enc_dim, cfg.dir_enc_dim
-    pp, dp, hp = _round64(p), _round64(d), _round64(fp // 2)
+    pp, dp, hp, kp = _round64(p), _round64(d), _round64(fp // 2), _round64(fp)
+    rows, rows9 = 2 * plan.np * plan.passes, plan.np * plan.passes
     w = {name: t["w"].detach().to(dt) for name, t in pad_params(params, cfg).items()}
     w8 = torch.cat([w["fc_8"][:, 1:], w["fc_8"][:, :1]], dim=1)  # [features, sigma]
+    feats = _pad(w8[:, :fp].t(), rows, kp).reshape(plan.passes, 2 * plan.np, kp)
+    sigma = _pad(w8[:, fp:].t(), _TC_SIGMA_ROWS, kp).expand(plan.passes, _TC_SIGMA_ROWS, kp)
     fwd = {
-        "fc_in": _pad(w["fc_in"], pp, fp).t(),
-        "fc_5": torch.cat([w["fc_5"][p:], _pad(w["fc_5"][:p], pp, fp)]).t(),
-        "fc_8": _pad(w8.t(), fp + 8, fp),
-        "fc_9": torch.cat([w["fc_9"][:fp], _pad(w["fc_9"][fp:], dp, fp // 2)]).t(),
-        "fc_out": _pad(w["fc_out"].t(), 8, hp),
+        "fc_in": _pad(_pad(w["fc_in"], pp, fp).t(), rows, pp),
+        "fc_5": _pad(torch.cat([_pad(w["fc_5"][p:], kp, fp), _pad(w["fc_5"][:p], pp, fp)]).t(), rows, kp + pp),
+        "fc_8": torch.cat([feats, sigma], dim=1).reshape(-1, kp),
+        "fc_9": _pad(torch.cat([_pad(w["fc_9"][:fp], kp, fp // 2), _pad(w["fc_9"][fp:], dp, fp // 2)]).t(),
+                     rows9, kp + dp),
+        "fc_out": _pad(_pad(w["fc_out"], hp, 3).t(), 8, hp),
     }
-    forward = [fwd[name] if name in fwd else w[name].t() for name in LAYER_NAMES]
+    forward = [fwd[name] if name in fwd else _pad(w[name].t(), rows, kp) for name in LAYER_NAMES]
     chain = {
-        "fc_in": _pad(w["fc_in"], _TC_EXTRA, fp),
-        "fc_5": w["fc_5"][p:],
-        "fc_8": _pad(w8, fp, fp + 64),
-        "fc_9": _pad(w["fc_9"][:fp], fp, hp),
-        "fc_out": _pad(w["fc_out"], fp // 2, 64),
+        "fc_in": _pad(w["fc_in"], _TC_EXTRA, kp),
+        "fc_5": _pad(w["fc_5"][p:], rows, kp),
+        "fc_8": _pad(torch.cat([_pad(w8[:, :fp], fp, kp), w8[:, fp:]], dim=1), rows, kp + 64),
+        "fc_9": _pad(w["fc_9"][:fp], rows, hp),
+        "fc_out": _pad(w["fc_out"], rows9, 64),
     }
-    chains = [chain[name] if name in chain else w[name] for name in LAYER_NAMES]
-    chains += [_pad(w["fc_5"][:p], _TC_EXTRA, fp), _pad(w["fc_9"][fp:], _TC_EXTRA, hp)]
+    chains = [chain[name] if name in chain else _pad(w[name], rows, kp) for name in LAYER_NAMES]
+    chains += [_pad(w["fc_5"][:p], _TC_EXTRA, kp), _pad(w["fc_9"][fp:], _TC_EXTRA, hp)]
     return [t.contiguous() for t in forward], [t.contiguous() for t in chains]
 
 
@@ -746,12 +822,15 @@ def bf16_pieces(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
     return x0, x1, (r - x1.float()).to(torch.bfloat16)
 
 
-def tc_panel_image(mat: torch.Tensor) -> torch.Tensor:
+def tc_panel_image(mat: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
     """``(R, C)`` with ``C % 64 == 0`` -> the flat image the tensor-core
-    route's weight ring copies as it is: bf16, :func:`panel_image`; f32,
-    each 64-column K-slice as the panel images of its three
-    :func:`bf16_pieces`, the smallest first (``x2, x1, x0``: the kernel
-    adds a slice's small products before its leading one)."""
+    route's weight ring copies as it is, one image a column pass of
+    ``rows`` rows (all R rows by default), pass after pass: bf16,
+    :func:`panel_image`; f32, each 64-column K-slice as the panel images of
+    its three :func:`bf16_pieces`, the smallest first (``x2, x1, x0``: the
+    kernel adds a slice's small products before its leading one)."""
+    if rows is not None and rows < mat.shape[0]:
+        return torch.cat([tc_panel_image(block) for block in mat.split(rows)])
     if mat.dtype == torch.bfloat16:
         return panel_image(mat)
     rows, cols = mat.shape
@@ -759,13 +838,30 @@ def tc_panel_image(mat: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts, dim=1).reshape(-1)
 
 
+def tc_images(mats, rows) -> List[torch.Tensor]:
+    """The :func:`tc_panel_image` of each matrix at its rows a pass."""
+    return [tc_panel_image(m, r) for m, r in zip(mats, rows)]
+
+
+def tc_biases(params: Params, cfg: FusedNeRFConfig, stash: bool = True) -> List[torch.Tensor]:
+    """The biases of :func:`general_biases` (the forward's column order),
+    zero-padded to every column of their layer's passes (:func:`tc_plan`:
+    passes x 2 NP, fc_8 also its sigma group, fc_9 passes x NP): the
+    kernels add a bias to each column of a pass, the padding's too."""
+    plan = tc_plan(cfg, stash)
+    cover = [2 * plan.np * plan.passes] * 9 + [plan.np * plan.passes, 8]
+    return [torch.nn.functional.pad(b, (0, max(0, n - b.shape[0]))).contiguous()
+            for b, n in zip(general_biases(params, cfg), cover)]
+
+
 def tc_layout(params: Params, cfg: FusedNeRFConfig):
     """``(forward images, biases, chain images)`` the tensor-core general
     route's kernels read, of the parameters as they are at this call: the
-    :func:`tc_panel_image` of each of :func:`tc_matrices`, the biases of
-    :func:`general_matrices` (the forward's column order)."""
+    images of :func:`tc_matrices` pass by pass (:func:`tc_pass_rows`), the
+    biases of :func:`tc_biases`."""
     forward, chain = tc_matrices(params, cfg)
-    return [tc_panel_image(m) for m in forward], general_biases(params, cfg), [tc_panel_image(m) for m in chain]
+    fwd_rows, chain_rows = tc_pass_rows(cfg)
+    return tc_images(forward, fwd_rows), tc_biases(params, cfg), tc_images(chain, chain_rows)
 
 
 def forward_layout(params: Params, cfg: FusedNeRFConfig):
@@ -792,15 +888,16 @@ def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWe
     """The forward's weight layout of ``route`` on the parameters' device:
     ``wgmma``, the forward images and biases of :func:`forward_layout`;
     ``wgmma_general`` and ``f32_wgmma``, the forward images and biases of
-    :func:`tc_layout`; ``mma_sync`` and ``f32``, the forward matrices and
-    biases of :func:`general_layout`."""
+    :func:`tc_layout`; ``f32``, the forward matrices and biases of
+    :func:`general_layout`."""
     if route == "wgmma":
         images, biases = forward_layout(params, cfg)
         return KernelWeights(public=params, route=route, weights=tuple(images), biases=tuple(biases))
-    if route in TC_ROUTES:
-        forward, _ = tc_matrices(params, cfg)
-        images = tuple(tc_panel_image(m) for m in forward)
-        return KernelWeights(public=params, route=route, weights=images, biases=tuple(general_biases(params, cfg)))
+    if route in TC_ROUTES:  # kernel 1's own passes (tc_plan, stash False)
+        forward, _ = tc_matrices(params, cfg, stash=False)
+        images = tuple(tc_images(forward, tc_pass_rows(cfg, stash=False)[0]))
+        return KernelWeights(public=params, route=route, weights=images,
+                             biases=tuple(tc_biases(params, cfg, stash=False)))
     if route not in ROUTES:
         raise ValueError(f"unknown forward route {route!r}; routes are {ROUTES}")
     fwd, biases, _ = general_layout(params, cfg)
@@ -839,8 +936,8 @@ def library_layout(lib: ctypes.CDLL) -> int:
 
 def _entry(lib: ctypes.CDLL, route: str):
     """The C function of ``lib`` that runs ``route``: in this source,
-    ``fused_nerf_fwd`` (wgmma) and ``fused_nerf_fwd_general`` (mma_sync,
-    f32); a library that lacks the route's entry raises."""
+    ``fused_nerf_fwd`` (wgmma) and ``fused_nerf_fwd_general`` (f32); a
+    library that lacks the route's entry raises."""
     if route == "wgmma":
         if library_layout(lib) != LAYOUT_IMAGES:
             raise ValueError("this library's fused_nerf_fwd reads fragment order, not the wgmma route's images")
@@ -874,14 +971,16 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_tc_fwd.cu``: ``fused_tc_fwd``
-    takes ``fused_nerf_fwd_general``'s arguments; ``fused_tc_takes``, the
-    C++ side of :func:`tc_stages`'s verdict."""
+    takes ``fused_nerf_fwd_general``'s arguments; ``fused_tc_takes`` and
+    ``fused_tc_plan``, the C++ side of :func:`tc_plan`."""
     args = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 2
             + [ctypes.c_int] * 10)
     lib.fused_tc_fwd.argtypes = args + [ctypes.c_void_p]
     lib.fused_tc_fwd.restype = ctypes.c_int
     lib.fused_tc_takes.argtypes = [ctypes.c_int] * 6
     lib.fused_tc_takes.restype = ctypes.c_int
+    lib.fused_tc_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_tc_plan.restype = None
     lib.fused_tc_fwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_tc_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -1215,6 +1314,18 @@ def general_dw(workspace: torch.Tensor, points: int, cfg: FusedNeRFConfig):
     return gw, gb
 
 
+def tc_plan_on_card(cfg: FusedNeRFConfig) -> Tuple[int, ...]:
+    """The C++ side of :func:`tc_plan`: ``(NP, passes, the forward's, the
+    chain's and the chain with input grads' stages, their shared-memory
+    bytes, sign-bit words a slot, CTAs an SM, kernel 1's NP and passes)``
+    from the library, zeros where the route does not take ``cfg``."""
+    lib = _tc_library()
+    dims = kernel_dims(cfg)
+    out = (ctypes.c_longlong * 12)()
+    lib.fused_tc_plan(dims[0], dims[4], dims[5], dims[6], dims[7], int(cfg.compute_dtype == torch.float32), out)
+    return tuple(out)
+
+
 def dw_plan_on_card(cfg: FusedNeRFConfig, points: int) -> Tuple[int, ...]:
     """The C++ side of :func:`dw_tc_plan`: ``(tiles, slices, points a
     slice, shared memory a CTA, workspace bytes, slices a launch,
@@ -1257,7 +1368,7 @@ def empty_general_grads(cfg: FusedNeRFConfig, device):
 
 def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc: bool = False,
                         workspace=None):
-    """The mma.sync/FFMA general route, or with ``tc`` the tensor-core one:
+    """The FFMA general route, or with ``tc`` the tensor-core one:
     the same grads, workspace rule and arguments, each its own layout; a
     ``workspace`` given is used (and keeps the stash at its start)."""
     m = pts.shape[0]

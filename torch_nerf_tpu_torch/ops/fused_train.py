@@ -15,10 +15,12 @@ and computes dW = A^T dZ in a split-K GEMM of its own, every product on
 header's note gives the design). The composite and its VJP run in f32 (one warp per
 ray), not as the TPU's bf16 masked-matmul scans. That is the ``wgmma``
 route of ``fused_nerf.train_route``; every other config (bf16 at any width
-up to 1024 and encodings up to 128 wide, or f32) takes the general route
-(``csrc/nerf_mlp_general.cuh``: the same stash, chain and dW GEMM cut on
-``mma.sync`` or FFMA, around the same composite), its bound the same 3 x
-``flops_per_point`` at the card's rate for the compute type.
+up to 1024 and encodings up to 128 wide, or f32) takes a general route
+(``wgmma_general`` and ``f32_wgmma`` on ``csrc/nerf_mlp_tc.cuh``'s column
+passes, ``fused_tc_train.cu``; other f32 configs ``f32`` on
+``csrc/nerf_mlp_general.cuh``'s FFMA: the same stash, chain and dW GEMM
+around the same composite), its bound the same 3 x ``flops_per_point`` at
+the card's rate for the compute type.
 
 :func:`fused_train_pass` launches the kernels for CUDA tensors (or raises)
 and runs :func:`fused_train_pass_reference`, its plain version written out

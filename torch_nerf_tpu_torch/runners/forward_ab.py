@@ -8,8 +8,9 @@ Where the other version reads a layout this package no longer builds (the
 of its own, with that side's checkout root first on ``sys.path``: each
 builds its own kernels from its own sources and launches its own
 ``fused_nerf_apply`` on its own ``prepare``d weights. At each config
-(``FEAT:LEVEL``: feat_dim and coord_encode_level in bf16, ``FEAT:LEVEL:f32``
-in f32; ``--route R`` adds the config of ``R``'s path,
+(``FEAT:LEVEL[:DIR_LEVEL]``: feat_dim, coord_encode_level and
+dir_encode_level (default 4) in bf16, ``...:f32`` in f32; ``--route R``
+adds the config of ``R``'s path,
 ``train_profile.ROUTE_FIELDS``) it takes one launch at the coarse and at
 the fine render chunk (4096 rays of an 800x800 view x 64 and x 192 sorted
 depths, 262,144 and 786,432 points) by CUDA events, after its max-abs
@@ -25,6 +26,7 @@ each side's median and quartiles and the card's ``nvidia-smi`` line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,7 +34,7 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 # FEAT:LEVEL[:f32] of each route's path (train_profile.ROUTE_FIELDS)
-ROUTE_SPECS = {"wgmma": "256:10", "wgmma_general": "512:12", "f32_wgmma": "256:10:f32", "mma_sync": "1024:10",
+ROUTE_SPECS = {"wgmma": "256:10", "wgmma_general": "512:12", "f32_wgmma": "256:10:f32", "wide": "1024:10",
                "f32": "320:10:f32"}
 # a turn's process: this file loaded by path (importing it as part of the
 # package would import this checkout's package), then :func:`turn`
@@ -40,6 +42,15 @@ _TURN = ("import importlib.util, sys; "
          "spec = importlib.util.spec_from_file_location('forward_ab_turn', sys.argv[1]); "
          "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
          "m.turn(sys.argv[2], sys.argv[3])")
+
+
+def parse_spec(spec: str):
+    """``FEAT:LEVEL[:DIR_LEVEL][:f32]`` -> ``(feat_dim, coord_encode_level,
+    dir_encode_level (default 4), f32)``."""
+    parts = spec.split(":")
+    single = parts[-1] == "f32"
+    parts = parts[:-1] if single else parts
+    return int(parts[0]), int(parts[1]), int(parts[2]) if len(parts) > 2 else 4, single
 
 
 def turn(root: str, configs: str) -> None:
@@ -69,16 +80,14 @@ def turn(root: str, configs: str) -> None:
         chunks[name] = (pts, d[:, None, :].expand(-1, samples, -1).reshape(-1, 3).contiguous())
     out = {}
     for spec in configs.split(","):
-        feat, level, *dtype = spec.split(":")
-        feat, level = int(feat), int(level)
-        single = dtype == ["f32"]
-        cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=level, feat_dim=feat,
+        feat, level, dir_level, single = parse_spec(spec)
+        cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=level, dir_encode_level=dir_level, feat_dim=feat,
                                          compute_dtype=torch.float32 if single else torch.bfloat16)
         params = init_nerf_params(torch.Generator(device=dev).manual_seed(0), cfg.pos_enc_dim, cfg.dir_enc_dim,
                                   feat, device=dev)
         up = torch.float64 if single else torch.float32
         rounded = {n: {k: v.to(cfg.compute_dtype).to(up) for k, v in p.items()} for n, p in params.items()}
-        ref_cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=level, feat_dim=feat, compute_dtype=up)
+        ref_cfg = dataclasses.replace(cfg, compute_dtype=up)
         w = fused_nerf.prepare(params, cfg)
         row = {"route": w.route}
         for name, (pts, dirs) in chunks.items():
@@ -95,8 +104,8 @@ def main(argv=None) -> dict:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other-root", required=True, help="the other checkout's root (e.g. from git archive)")
-    parser.add_argument("--config", action="append", help="FEAT:LEVEL (bf16) or FEAT:LEVEL:f32 (default: 96:10 "
-                                                          "and 512:12)")
+    parser.add_argument("--config", action="append", help="FEAT:LEVEL[:DIR_LEVEL] (bf16) or FEAT:LEVEL[:DIR_LEVEL]:f32 "
+                                                          "(default: 96:10 and 512:12)")
     parser.add_argument("--route", action="append", choices=tuple(ROUTE_SPECS),
                         help="the config of the route's path (train_profile.ROUTE_FIELDS)")
     parser.add_argument("--rounds", type=int, default=2)

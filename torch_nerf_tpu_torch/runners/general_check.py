@@ -1,5 +1,5 @@
 """Hold kernels 1-3 of the general routes against their plain versions on
-the card, and time them against the mma.sync/FFMA engine in this checkout.
+the card, and time them (f32: against the FFMA engine in this checkout).
 
 For each config (``FEAT:LEVEL`` in bf16, ``FEAT:LEVEL:f32`` in f32) on the
 route ``fused_nerf.forward_route`` gives it: kernel 1 on ``--points``
@@ -12,10 +12,10 @@ relative L2 error of each grad (dpts, ddirs too), each beside the plain
 version's own error in the config's type, and the worst grad's share of
 the limit 2x that + the type's floor (1e-3 bf16, 1e-5 f32). Then, with
 ``--time``, kernels 1-3 at a step's fine shape (4096 rays x 192 depths,
-786,432 points) on the config's route and on the mma.sync/FFMA route for the same
-config (``mma_sync`` or ``f32``, forced by ``train_route``), in turns, by
-CUDA events, and the dW GEMM alone (``csrc/nerf_dw_tc.cuh``, on both
-routes) over that shape's kernel-2 stash beside one cuBLAS GEMM a stash
+786,432 points) on the config's route and, for an f32 config, on the FFMA
+route for the same config (``f32``, forced by ``train_route``), in turns,
+by CUDA events, and the dW GEMM alone (``csrc/nerf_dw_tc.cuh``) over
+that shape's kernel-2 stash beside one cuBLAS GEMM a stash
 segment (``dw_library``: a yardstick, never on the path), the plain
 version and its floors by operations and by bytes (``dw_times``). With
 ``--library N`` only that yardstick, on random stashes of N points at the
@@ -47,8 +47,8 @@ FLOOR = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # H100 SXM data-sheet peaks: dense bf16, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 LIBRARY = "torch.matmul(A.t(), dZ) a stash segment (bf16: f32 accumulate, bf16 out; f32: TF32 off)"
-# the mma.sync/FFMA engine's route of each compute type
-MMA_FFMA = {torch.bfloat16: "mma_sync", torch.float32: "f32"}
+# the FFMA engine's route (f32 only: every bf16 config is on the tensor cores)
+FFMA = {torch.float32: "f32"}
 
 
 def _up(params, tensors, cfg):
@@ -250,8 +250,8 @@ def dw_library_ms(cfg, points: int, dev, iters: int = 5) -> float:
 
 
 def time_routes(cfg, params, gen, dev) -> dict:
-    """Kernels 1-3 at the fine shape on the config's route and the
-    mma.sync/FFMA one, in turns (that, the config's, the config's, that)."""
+    """Kernels 1-3 at the fine shape on the config's route and, in f32, the
+    FFMA one, in turns (that, the config's, the config's, that)."""
     n, s = 4096, 192
     o = torch.randn((n, 3), generator=gen, device=dev)
     d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device=dev), dim=-1)
@@ -262,10 +262,10 @@ def time_routes(cfg, params, gen, dev) -> dict:
     dirs = d[:, None, :].expand(n, s, 3).reshape(-1, 3).contiguous()
     g_sigma = torch.randn((pts.shape[0],), generator=gen, device=dev)
     g_rgb = torch.randn((pts.shape[0], 3), generator=gen, device=dev)
-    route, old = fn.train_route(cfg), MMA_FFMA[cfg.compute_dtype]
+    route, old = fn.train_route(cfg), FFMA.get(cfg.compute_dtype)
     picked = fn.train_route
     out = {}
-    for r in (old, route, route, old):
+    for r in (old, route, route, old) if old else (route, route):
         w = fn.kernel_weights(params, cfg, r)
         fn.train_route = lambda c, r=r: r
         try:
@@ -285,7 +285,7 @@ def main(argv=None) -> list:
     parser.add_argument("--config", action="append", help="FEAT:LEVEL (bf16) or FEAT:LEVEL:f32")
     parser.add_argument("--points", type=int, default=2**14 + 37)
     parser.add_argument("--cotangent", choices=("both", "rgb", "sigma"), default="both")
-    parser.add_argument("--time", action="store_true", help="time each config against the mma.sync/FFMA route")
+    parser.add_argument("--time", action="store_true", help="time each config (f32: against the FFMA route)")
     parser.add_argument("--library", type=int, action="append",
                         help="only the dW GEMM's cuBLAS yardstick on random stashes of this many points")
     args = parser.parse_args(argv)

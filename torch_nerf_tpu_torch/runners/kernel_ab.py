@@ -79,8 +79,9 @@ def field_forward(other: Path, rounds: int, frames: int, dev) -> dict:
         "repo": fused_nerf.bind(build.load(fused_nerf.KERNEL)),
         "other": fused_nerf.bind(build.load_source(other)),
     }
-    routes = {side: "wgmma" if fused_nerf.library_layout(lib) == fused_nerf.LAYOUT_IMAGES else "mma_sync"
-              for side, lib in libs.items()}
+    if any(fused_nerf.library_layout(lib) != fused_nerf.LAYOUT_IMAGES for lib in libs.values()):
+        raise ValueError("a library that reads fragment order times through forward_ab, each side in its checkout")
+    routes = dict.fromkeys(libs, "wgmma")
     print(json.dumps({"routes": routes}), flush=True)
     cfg = fused_nerf.FusedNeRFConfig()
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -21,13 +21,15 @@ repository's is printed.
 Prints one JSON line per turn with the SM clock, temperature and power
 draw after it, then each side's median and quartiles and the card's
 ``nvidia-smi`` line. ``--route f32_wgmma`` or ``wgmma_general`` times the
-tensor-core general route at path A's or B's config, ``mma_sync`` or
-``f32`` a config that stays on the mma.sync/FFMA general route
+tensor-core general route at path A's or B's config, ``wide`` its bf16
+1024, ``f32`` the config that stays on the FFMA general route
 (``train_profile.ROUTE_FIELDS``), in place of the preset's ``wgmma``; the
 other side runs the same config under the route name its checkout knows
 (``--other-route``, by default the name a checkout without the
 tensor-core route gives paths A and B: ``train_profile.MMA_FFMA_NAME``),
-so that each side's route takes it.
+so that each side's route takes it. ``--field FEAT:LEVEL[:DIR_LEVEL][:f32]``
+times that classic config on both sides instead, each on the route its
+own checkout gives it.
 
     python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4] [--route R [--other-route R]]
     python -m torch_nerf_tpu_torch.runners.train_ab --kernel dw --other DIR [--other DIR ...]
@@ -72,16 +74,28 @@ def step_batch(step, images, poses, camera, gen):
     return o.contiguous(), d.contiguous(), images[idx][pix].contiguous(), draws.rays
 
 
-def turn(steps: int, save: str = "", route: str = "wgmma") -> dict:
-    """One side's timings, in the checkout this process imports."""
+def field_of(spec: str):
+    """The classic field of ``FEAT:LEVEL[:DIR_LEVEL][:f32]`` (dir level 4
+    by default), its kernels on. (A turn imports the other side's package,
+    whose runners may not parse such specs: this file parses its own.)"""
+    parts = spec.split(":")
+    single = parts[-1] == "f32"
+    parts = parts[:-1] if single else parts
+    return make_nerf_field(coord_encode_level=int(parts[1]), dir_encode_level=int(parts[2]) if len(parts) > 2 else 4,
+                           feat_dim=int(parts[0]), compute_dtype=torch.float32 if single else torch.bfloat16)
+
+
+def turn(steps: int, save: str = "", route: str = "wgmma", field_spec: str = "") -> dict:
+    """One side's timings, in the checkout this process imports: the
+    field of ``field_spec`` where given, else ``route``'s path's."""
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
     images, poses = torch.as_tensor(images, device=dev), torch.as_tensor(poses, device=dev)
-    field = make_nerf_field(**train_profile.ROUTE_FIELDS[route])
+    field = field_of(field_spec) if field_spec else make_nerf_field(**train_profile.ROUTE_FIELDS[route])
     cfg = field.fused_cfg
     settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
     optim = train.OptimConfig()
-    out = {}
+    out = {"route": fn.train_route(cfg)}
     for path, generic in (("fused", False), ("generic", True)):
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
         step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
@@ -184,14 +198,18 @@ def main(argv=None) -> dict:
     parser.add_argument("--save", default="", help=argparse.SUPPRESS)
     parser.add_argument("--route", choices=tuple(train_profile.ROUTE_FIELDS), default="wgmma",
                         help="the classic field's route: f32_wgmma (path A), wgmma_general (path B, width 512), "
-                             "mma_sync (width 1024) or f32 (width 320)")
+                             "wide (bf16 1024) or f32 (width 320)")
+    parser.add_argument("--field", default="", help="FEAT:LEVEL[:DIR_LEVEL][:f32]: time this classic config on "
+                                                     "both sides, each on the route its checkout gives it (in "
+                                                     "place of --route)")
     parser.add_argument("--other-route", default=None,
                         help="the same config's route name in the other checkout (default: "
                              "train_profile.MMA_FFMA_NAME's)")
     args = parser.parse_args(argv)
     configs = args.config or ["512:12", "256:10:f32"]
     if args.turn:
-        row = dw_turn(configs, args.save) if args.kernel == "dw" else turn(args.steps, args.save, args.route)
+        row = (dw_turn(configs, args.save) if args.kernel == "dw" else
+               turn(args.steps, args.save, args.route, args.field))
         print(json.dumps(row), flush=True)
         return {}
     if not args.other:
@@ -200,7 +218,8 @@ def main(argv=None) -> dict:
     sides = {**others, "repo": REPO}
     other_route = args.other_route or train_profile.MMA_FFMA_NAME.get(args.route, args.route)
     flags = {side: (["--kernel", "dw"] + [f for c in configs for f in ("--config", c)] if args.kernel == "dw" else
-                    ["--steps", str(args.steps), "--route", args.route if side == "repo" else other_route])
+                    ["--steps", str(args.steps), "--route", args.route if side == "repo" else other_route]
+                    + (["--field", args.field] if args.field else []))
              for side in sides}
     builds = [_build(side, ["fused_tc_bwd"] if args.kernel == "dw" else KERNELS) for side in sides.values()]
     if any(p.wait() != 0 for p in builds):
@@ -214,7 +233,7 @@ def main(argv=None) -> dict:
             extra = ["--save", str(out_dir / f"{side}.pt")] if r == 0 else []
             row = json.loads(_run(sides[side], ["--turn", *flags[side], *extra]).stdout.splitlines()[-1])
             for k, v in row.items():
-                if k != "sm_clock_temp_power":
+                if k not in ("sm_clock_temp_power", "route"):
                     results[side].setdefault(k, []).append(v)
             print(json.dumps({"round": r, "side": side, **row}), flush=True)
         if r == 0:

@@ -188,7 +188,8 @@ def check_trainable(cfg: cfg_mod.ExperimentConfig, device: torch.device) -> None
     take ``network.feat_dim`` up to 1024, encodings up to 128 wide
     (``signal_encoder.coord_encode_level`` and ``dir_encode_level`` <= 20)
     and ``device.compute_dtype`` bfloat16 or float32
-    (``fused_nerf.train_route``: ``wgmma``, ``mma_sync`` or ``f32``). The
+    (``fused_nerf.train_route``: ``wgmma``, ``wgmma_general``, ``f32_wgmma``
+    or ``f32``). The
     message names each offending key and that ``parallel.use_pallas=false``
     trains the config on the card through the plain path; nothing falls
     back to it unasked. Needs no card."""
