@@ -13,13 +13,14 @@ the ``kernels`` line, the card's name and power limit, and last
 
     python3 chip_smoke.py
 
-Phases: device, build (one nvcc per source, all at once, sm_90a); kernel
+Phases: device, build (one nvcc per source and per part of one, all at
+once, sm_90a); kernel
 (the field's forward at full width, ragged tail, PyTorch-default and
 He-scaled weights, on its wgmma route at widths 256, 128 and 64, the
 tensor-core general route at path B's 512 with a 75-wide encoding, 48
 (padded to 64), 384 and the wide configs (96, 160, 576, 1024 and 512 with
 both encodings 123 wide) in bf16 (wgmma_general, in column passes) and
-path A's 256 in f32 (f32_wgmma), the FFMA general route at 320, three
+path A's 256 and 96, 320, 512 and 1024 in f32 (f32_wgmma), three
 trunk faults planted in the wgmma route's forward images and in each of
 paths A's and B's forward images, a later column pass's rows and a half
 K-slice zeroed at the wide configs, and path A's f32 matrices rounded to
@@ -39,7 +40,7 @@ pieces dropped); the backward at each wide config on 2^16 + 37 random
 points, relaunched bit-identically, a chain image zeroed and the column
 passes' faults planted; then dw_gemm: the general route's dW GEMM
 (``csrc/nerf_dw_tc.cuh``) alone over kernel 2's stashes at paths A and B
-(fine points and random ones), at the FFMA config and at bf16 1024 and 96, against
+(fine points and random ones), at f32 320 and 1024 and at bf16 1024 and 96, against
 the plain version on the same stashes (f32 within 2x its error + 5e-7),
 relaunched bit-identically, each planted fault, the f32 low piece dropped
 too, failing that check at paths A and B's fine shape, and its plan's
@@ -60,16 +61,23 @@ same CLI sequence as train: the default preset with
 ``device.compute_dtype=float32`` (f32_wgmma), and ``network.feat_dim=512
 signal_encoder.coord_encode_level=12`` (wgmma_general); every launch
 counted by route from 0: kernel 3 twice a step and kernel 1 twice a chunk
-on the path's route, none on the others, the FFMA route included);
+on the path's route, none on the others);
 train_1024 (the same CLI sequence at ``network.feat_dim=1024`` in bf16,
-four column passes, 100x100 views: every launch on wgmma_general); train_bench
+four column passes, 100x100 views: every launch on wgmma_general);
+train_f32_1024 (the same at ``device.compute_dtype=float32
+network.feat_dim=1024``, 1024 rays a step: every launch on f32_wgmma,
+streaming its layers through device memory); train_bench
 (train steps at ``bench.py``'s operating point, fused and through
 autograd, each kernel timed beside its bound and its plain version);
 train_bench_general (paths A and B at the same point, fused and
 ``force_generic``, kernel 1 held against its plain version at the path's
 coarse and fine render chunks, kernels 1-3 timed alone; then kernels 1-3 on
-the config that stays on the FFMA engine, f32 at 320, held against their
-plain versions and timed, and kernels 1-3 on wgmma_general at bf16 1024
+f32_wgmma at f32 96, 320, 512 (level 12) and 1024 held against their plain
+versions by the f32 rule (kernel 2 on the fine batch's points, kernel 3
+at the coarse shape; at 1024 and 96 kernels 1 and 3 on the fine shape
+too), relaunched bit-identically, the low bf16 piece of every weight
+dropped at 320 (a tile) and 1024 (streaming) and rejected, every launch
+on f32_wgmma, 320 and 1024 timed; and kernels 1-3 on wgmma_general at bf16 1024
 and 96 timed, kernel 1 first held against its plain version on their fine
 chunk); bench (800x800 frames at ``bench.py --render``'s operating point); kernel_hash (kernels 4-7, the bricked and
 per-corner hash encodes forward and backward, at full width on the 2^20
@@ -185,10 +193,19 @@ GENERAL = {"f32_wgmma": dict(feat_dim=256, coord_encode_level=10, dtype=torch.fl
 GENERAL_OVERRIDES = {"f32_wgmma": ["device.compute_dtype=float32"],
                      "wgmma_general": ["network.feat_dim=512", "signal_encoder.coord_encode_level=12"]}
 GENERAL_PHASES = {"f32_wgmma": "train_f32", "wgmma_general": "train_wide"}
-# the config of the general route that the tensor-core engine does not
-# hold (csrc/nerf_mlp_general.cuh): f32 at width 320 (f32, FFMA; the engine
-# takes f32 up to 256), launched, checked and timed in train_bench_general
-FFMA_ROUTES = {"f32": dict(feat_dim=320, coord_encode_level=10, dtype=torch.float32)}
+# the f32 configs of the tensor-core engine off path A (route f32_wgmma), by
+# name: (feat_dim, coord_encode_level, dir_encode_level). 96: a half K-slice
+# (one pass of 64, its trunk read to F); 320: two passes of 80, the first
+# held as f32 in registers; 512 with a 75-wide encoding: four passes of 64,
+# the widest f32 tile; 1024: streaming, every layer through device memory.
+# Kernels 1-3 are held against their plain versions at each
+# (f32_route_checks), at F32_FINE on the fine shape too; the low bf16 piece
+# of every weight is dropped at F32_FAULTED (one width of each design); 320
+# and 1024 are timed, and 1024 runs the CLIs (train_f32_1024)
+F32_WIDE = {"96": (96, 10, 4), "320": (320, 10, 4), "512/L12": (512, 12, 4), "1024": (1024, 10, 4)}
+F32_FINE = ("1024", "96")
+F32_FAULTED = ("320", "1024")
+F32_TIMED = ("320", "1024")
 # the bf16 configs the tensor-core engine took over from the mma.sync one
 # (csrc/nerf_mlp_tc.cuh's column passes), by name: (feat_dim,
 # coord_encode_level, dir_encode_level). Widths off the 64s (96, 160: each
@@ -361,10 +378,11 @@ def planted_faults(w, params) -> dict:
 # check: the wgmma route at the training widths; the tensor-core general
 # route at path B's config (512, a 75-wide encoding), a padded width (48 ->
 # 64), 384 (two passes of 96), path A's config in f32 and every config of
-# :data:`TC_WIDE`; the FFMA route at 320
+# :data:`TC_WIDE`; f32 at every config of :data:`F32_WIDE`
 KERNEL1_WIDTHS = ((256, "wgmma", 10), (128, "wgmma", 10), (64, "wgmma", 10), (256, "f32_wgmma", 10),
                   (512, "wgmma_general", 12), (48, "wgmma_general", 10), (384, "wgmma_general", 10),
-                  *((f, "wgmma_general", lv, dl) for f, lv, dl in TC_WIDE.values()), (320, "f32", 10))
+                  *((f, "wgmma_general", lv, dl) for f, lv, dl in TC_WIDE.values()),
+                  *((f, "f32_wgmma", lv, dl) for f, lv, dl in F32_WIDE.values()))
 
 
 def route_dtype(route: str):
@@ -381,23 +399,6 @@ def level_params(feat: int, level: int, seed: int, dev, dir_level: int = FULL["d
                             feat, device=dev)
 
 
-# faults planted in the general route's matrices, the way a wrong pointer,
-# k-tile order or layout would break them: a layer zeroed, a layer's
-# k16-tiles rolled by one tile, a layer in the other type's layout
-# (row-major in place of bf16 fragment order; the transpose in place of the
-# f32 row-major matrix)
-def general_fault(images, mats, index, kind, dtype):
-    bf16 = dtype == torch.bfloat16
-    if kind == "zeroed":
-        images[index] = torch.zeros_like(images[index])
-    elif kind == "k_tiles_rolled":
-        n = mats[index].shape[1]
-        images[index] = torch.roll(images[index], n // 8 * 32 if bf16 else 16, dims=0)
-    else:
-        m = mats[index]
-        images[index] = m.reshape(-1, 4).contiguous() if bf16 else m.t().contiguous()
-
-
 def rounded_to(x, bits: int):
     """f32 ``x`` rounded to nearest at ``bits`` mantissa bits (ties away
     from zero): 10 is TF32's, 7 bf16's."""
@@ -406,12 +407,13 @@ def rounded_to(x, bits: int):
     return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
 
 
-# the same faults in the tensor-core general route's images (csrc/
-# nerf_mlp_tc.cuh): a layer zeroed, its K-slices rolled by one stage (one
-# image's slice: a bf16 piece in f32), a layer written without the 128-byte
-# swizzle (each image's slices row-major); and, in a layer of several column
-# passes (``rows`` image rows a pass), its last pass's rows zeroed, or at a
-# width off the 64s the half K-slice that ends each pass zeroed
+# faults planted in the tensor-core general route's images (csrc/
+# nerf_mlp_tc.cuh), the way a wrong pointer, slice order or layout would
+# break them: a layer zeroed, its K-slices rolled by one stage (one image's
+# slice: a bf16 piece in f32), a layer written without the 128-byte swizzle
+# (each image's slices row-major); and, in a layer of several column passes
+# (``rows`` image rows a pass), its last pass's rows zeroed, or at a width
+# off the 64s the half K-slice that ends each pass zeroed
 def tc_fault(images, mats, index, kind, rows=None):
     if kind in ("later_pass_zeroed", "partial_slice_zeroed"):
         image = images[index].clone()
@@ -439,30 +441,36 @@ def tc_fault(images, mats, index, kind, rows=None):
                                      for p in pieces], dim=1).reshape(-1).contiguous()
 
 
+def low_piece_dropped(images, rows):
+    """f32 piece images with each K-slice's low bf16 piece (x2, the first
+    of its three images) zeroed: every weight kept to its 16 leading
+    significand bits, as a product that drops x_i w_2 would read it;
+    ``rows`` each image's rows a pass."""
+    out = []
+    for image, r in zip(images, rows):
+        image = image.clone()
+        image.view(-1, 3, r * 64)[:, 0] = 0
+        out.append(image)
+    return out
+
+
 def general_forward_faults(w, params, cfg) -> dict:
-    """Copies of the general route's forward weights ``w`` (either engine's,
-    by ``w.route``) with fc_1 zeroed, fc_6's k-tiles rolled, fc_3 in
-    another layout; in f32 also every matrix rounded as
-    :data:`PRECISION_CONTROLS` says."""
+    """Copies of the general route's forward images ``w`` with fc_1
+    zeroed, fc_6's k-tiles rolled, fc_3 in another layout; in f32 also
+    every matrix rounded as :data:`PRECISION_CONTROLS` says."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    tc = w.route in fn.TC_ROUTES
     # kernel 1's images: its own passes (fused_nerf.tc_plan, stash False)
-    mats = fn.tc_matrices(params, cfg, stash=False)[0] if tc else [fwd for fwd, _, _ in
-                                                                    fn.general_matrices(params, cfg)]
+    mats = fn.tc_matrices(params, cfg, stash=False)[0]
     out = {}
     for name, index, kind in (("fc_1_zeroed", 1, "zeroed"), ("fc_6_k_tiles_rolled", 6, "k_tiles_rolled"),
                               ("fc_3_other_layout", 3, "other_layout")):
         images = list(w.weights)
-        if tc:
-            tc_fault(images, mats, index, kind)
-        else:
-            general_fault(images, mats, index, kind, cfg.compute_dtype)
+        tc_fault(images, mats, index, kind)
         out[name] = dataclasses.replace(w, weights=tuple(images))
     if cfg.compute_dtype == torch.float32:
         for name, bits in PRECISION_CONTROLS.items():
-            images = (fn.tc_panel_image(rounded_to(m, bits)) for m in mats) if tc else (
-                rounded_to(x, bits) for x in w.weights)
+            images = (fn.tc_panel_image(rounded_to(m, bits)) for m in mats)
             out[name] = dataclasses.replace(w, weights=tuple(images))
     return out
 
@@ -497,29 +505,29 @@ def tc_wide_train_faults(cfg) -> dict:
     """name -> a context that plants it in the training kernels at a config
     of :data:`TC_WIDE`: a chain image zeroed, and each of
     :func:`tc_wide_kinds` in fc_2's forward image and fc_3's chain image."""
-    out = {"chain_fc_6_zeroed": lambda: planted_general(6, "zeroed", 2, tc=True)}
+    out = {"chain_fc_6_zeroed": lambda: planted_general(6, "zeroed", 2)}
     for kind in tc_wide_kinds(cfg):
-        out[f"fwd_fc_2_{kind}"] = lambda k=kind: planted_general(2, k, 0, tc=True)
-        out[f"chain_fc_3_{kind}"] = lambda k=kind: planted_general(3, k, 2, tc=True)
+        out[f"fwd_fc_2_{kind}"] = lambda k=kind: planted_general(2, k, 0)
+        out[f"chain_fc_3_{kind}"] = lambda k=kind: planted_general(3, k, 2)
     return out
 
 
 # (width, coord_encode_level, dir_encode_level, dtype) whose plan the
 # tensor-core general route's Python twin (fused_nerf.tc_plan) and its C++
 # side (nerf_mlp_tc.cuh's choose and plan_of, through fused_tc_takes and
-# fused_tc_plan) must share: every padded bf16 width and the f32 ones
-TC_TWIN_CONFIGS = ([(f, lv, dl, torch.bfloat16) for f in range(32, 1025, 32) for lv, dl in ((10, 4), (20, 20))]
+# fused_tc_plan) must share: every padded width in both types
+TC_TWIN_CONFIGS = ([(f, lv, dl, dt) for f in range(32, 1025, 32) for lv, dl in ((10, 4), (20, 20))
+                    for dt in (torch.bfloat16, torch.float32)]
                    + [(f, lv, dl, dt) for f in (64, 96, 192, 256, 320, 512, 576, 1000) for lv, dl in ((12, 4),)
-                      for dt in (torch.bfloat16, torch.float32)]
-                   + [(f, lv, dl, torch.float32) for f in (64, 128, 192, 256, 320) for lv, dl in ((10, 4), (20, 20))])
+                      for dt in (torch.bfloat16, torch.float32)])
 
 
 def tc_twin_agrees() -> dict:
     """Each config of :data:`TC_TWIN_CONFIGS` taken or refused alike by
     ``fused_nerf.tc_plan`` and the library's ``fused_tc_takes``, and where
     taken at the same plan: pass width, passes, each kernel's stages and
-    shared memory, sign-bit words, CTAs an SM, kernel 1's passes
-    (``fused_tc_plan``)."""
+    shared memory, sign-bit words, CTAs an SM, kernel 1's passes, whether
+    it streams (``fused_tc_plan``)."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     lib = fn._tc_library()
@@ -531,8 +539,8 @@ def tc_twin_agrees() -> dict:
         plan = fn.tc_plan(cfg)
         c_side = fn.tc_plan_on_card(cfg)
         alone = fn.tc_plan(cfg, stash=False)
-        py = (0,) * 12 if plan is None else (plan.np, plan.passes, *plan.stages, *plan.smem_bytes, plan.bit_words,
-                                             plan.ctas, alone.np, alone.passes)
+        py = (0,) * 13 if plan is None else (plan.np, plan.passes, *plan.stages, *plan.smem_bytes, plan.bit_words,
+                                             plan.ctas, alone.np, alone.passes, int(plan.stream))
         taken = bool(lib.fused_tc_takes(*fn.kernel_dims(cfg)[:1], *fn.kernel_dims(cfg)[4:8],
                                         int(dtype == torch.float32)))
         rows[key] = py if plan is not None else None
@@ -601,8 +609,11 @@ def phase_kernel():
     wide = {name: max(e for k, r in results.items()
                       if k.startswith(f"{f}/wgmma_general/L{lv}/D{dl}/") for e in r["max_abs_err"].values())
             for name, (f, lv, dl) in TC_WIDE.items()}
+    f32 = {name: max(e for k, r in results.items()
+                     if k.startswith(f"{f}/f32_wgmma/L{lv}/D{dl}/") for e in r["max_abs_err"].values())
+           for name, (f, lv, dl) in F32_WIDE.items()}
     return {"wgmma": max(e for k, r in results.items() if k.split("/")[1] == "wgmma"
-                         for e in r["max_abs_err"].values()), "wide": wide}
+                         for e in r["max_abs_err"].values()), "wide": wide, "f32": f32}
 
 
 def rel_l2(got: dict, ref: dict) -> dict:
@@ -686,15 +697,22 @@ def sum_trees(a, b):
     return b if a is None else {n: {k: a[n][k] + b[n][k] for k in b[n]} for n in b}
 
 
+def reference_points(cfg) -> int:
+    """Points a slice of the plain versions takes: 2^18, 2^16 past width
+    512 (a slice's f64 activations at 1024 are ~2 GB each)."""
+    return 2**18 if cfg.feat_dim <= 512 else 2**16
+
+
 def bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg) -> dict:
-    """The plain backward over slices of 2^18 points (the whole of a fine
-    pass in f32 would hold tens of GB): the grads summed, dpts and ddirs
-    joined, by name."""
+    """The plain backward over slices of :func:`reference_points` points
+    (the whole of a fine pass in f32 would hold tens of GB): the grads
+    summed, dpts and ddirs joined, by name."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
     total, dps, dds = None, [], []
-    for a in range(0, pts.shape[0], 2**18):
-        sl = slice(a, a + 2**18)
+    step = reference_points(cfg)
+    for a in range(0, pts.shape[0], step):
+        sl = slice(a, a + step)
         g, dp, dd = fn.fused_nerf_bwd_reference(params, pts[sl], dirs[sl], g_sigma[sl], g_rgb[sl], cfg)
         total = sum_trees(total, g)
         dps.append(dp)
@@ -806,32 +824,47 @@ def phase_kernel_bwd(batch):
 
 
 @contextlib.contextmanager
-def planted_general(index, kind, which, tc: bool = False):
-    """Route the general route's layout through :func:`general_fault` of
-    layer ``index`` in its forward (``which`` 0) or chain (2) matrices;
-    with ``tc`` the tensor-core general route's through :func:`tc_fault`."""
+def planted_general(index, kind, which):
+    """Route the general route's layout (``fused_nerf.tc_layout``) through
+    :func:`tc_fault` of layer ``index`` in its forward (``which`` 0) or
+    chain (2) images."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    name = "tc_layout" if tc else "general_layout"
-    real = getattr(fn, name)
+    real = fn.tc_layout
 
     def broken(params, cfg):
         out = list(real(params, cfg))
         images = list(out[which])
-        if tc:
-            tc_fault(images, fn.tc_matrices(params, cfg)[which // 2], index, kind,
-                     fn.tc_pass_rows(cfg)[which // 2][index])
-        else:
-            general_fault(images, [m[which] for m in fn.general_matrices(params, cfg)], index, kind,
-                          cfg.compute_dtype)
+        tc_fault(images, fn.tc_matrices(params, cfg)[which // 2], index, kind,
+                 fn.tc_pass_rows(cfg)[which // 2][index])
         out[which] = images
         return tuple(out)
 
-    setattr(fn, name, broken)
+    fn.tc_layout = broken
     try:
         yield
     finally:
-        setattr(fn, name, real)
+        fn.tc_layout = real
+
+
+@contextlib.contextmanager
+def planted_low_piece():
+    """Route the f32 route's layout through :func:`low_piece_dropped`:
+    every forward and chain image without its low bf16 piece."""
+    from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
+
+    real = fn.tc_layout
+
+    def broken(params, cfg):
+        fwd, biases, chain = real(params, cfg)
+        fwd_rows, chain_rows = fn.tc_pass_rows(cfg)
+        return low_piece_dropped(fwd, fwd_rows), biases, low_piece_dropped(chain, chain_rows)
+
+    fn.tc_layout = broken
+    try:
+        yield
+    finally:
+        fn.tc_layout = real
 
 
 # the training kernels' faults on the general route: (layer, kind, matrices)
@@ -843,28 +876,24 @@ GENERAL_TRAIN_FAULTS = {
 
 
 @contextlib.contextmanager
-def planted_rounding(bits: int, tc: bool = False):
-    """Route the f32 route's layout through :func:`rounded_to`: every
-    forward and chain matrix at ``bits`` mantissa bits, as a chain of
-    TF32 or bf16 products would read its weights; with ``tc`` the
-    tensor-core general route's matrices, before their bf16 pieces."""
+def planted_rounding(bits: int):
+    """Route the f32 route's matrices (``fused_nerf.tc_matrices``, before
+    their bf16 pieces) through :func:`rounded_to`: every forward and chain
+    matrix at ``bits`` mantissa bits, as a chain of TF32 or bf16 products
+    would read its weights."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
 
-    name = "tc_matrices" if tc else "general_layout"
-    real = getattr(fn, name)
+    real = fn.tc_matrices
 
-    def rounded(params, cfg):
-        if tc:
-            fwd, chain = real(params, cfg)
-            return [rounded_to(x, bits) for x in fwd], [rounded_to(x, bits) for x in chain]
-        fwd, biases, chain = real(params, cfg)
-        return [rounded_to(x, bits) for x in fwd], biases, [rounded_to(x, bits) for x in chain]
+    def rounded(params, cfg, stash=True):
+        fwd, chain = real(params, cfg, stash)
+        return [rounded_to(x, bits) for x in fwd], [rounded_to(x, bits) for x in chain]
 
-    setattr(fn, name, rounded)
+    fn.tc_matrices = rounded
     try:
         yield
     finally:
-        setattr(fn, name, real)
+        fn.tc_matrices = real
 
 
 def general_train_faults(route: str) -> dict:
@@ -875,12 +904,10 @@ def general_train_faults(route: str) -> dict:
 
     from torch_nerf_tpu_torch.runners.general_check import planted_dw_fault  # noqa: PLC0415
 
-    tc = route in fn.TC_ROUTES
-    out = {name: (lambda spec=spec: planted_general(*spec, tc=tc)) for name, spec in GENERAL_TRAIN_FAULTS.items()}
+    out = {name: (lambda spec=spec: planted_general(*spec)) for name, spec in GENERAL_TRAIN_FAULTS.items()}
     if fn.ROUTE_DTYPE[route] == torch.float32:
-        out.update({name: (lambda b=bits: planted_rounding(b, tc)) for name, bits in PRECISION_CONTROLS.items()})
-    if tc:
-        out.update({f"dw_{kind}": (lambda k=kind: planted_dw_fault(k)) for kind in DW_PATH_FAULTS[fn.ROUTE_DTYPE[route]]})
+        out.update({name: (lambda b=bits: planted_rounding(b)) for name, bits in PRECISION_CONTROLS.items()})
+    out.update({f"dw_{kind}": (lambda k=kind: planted_dw_fault(k)) for kind in DW_PATH_FAULTS[fn.ROUTE_DTYPE[route]]})
     return out
 
 
@@ -1005,6 +1032,13 @@ def tc_wide_bwd_checks(rand, gen) -> tuple:
     return results, faults
 
 
+def f32_config(name: str) -> dict:
+    """The config of :data:`F32_WIDE`'s ``name`` as :data:`GENERAL`'s are
+    given."""
+    feat, level, dl = F32_WIDE[name]
+    return dict(feat_dim=feat, coord_encode_level=level, dir_encode_level=dl, dtype=torch.float32)
+
+
 # the configs whose dW plan's Python twin (fused_nerf.dw_tc_plan) and C++
 # side (fused_general_dw_plan) must agree, and the point counts
 DW_TWIN_CONFIGS = [(f, lv, dt) for f in (64, 96, 160, 256, 320, 512, 576, 1000, 1024) for lv in (10, 12)
@@ -1017,7 +1051,8 @@ def dw_gemm_checks(fine, rand, gen) -> dict:
     kernel 2's stashes (``fused_nerf.general_stash``): paths A and B
     (:data:`GENERAL`) on the fine batch's 786,432 points with port-init
     weights and on 2^16 + 37 random points with the He-scaled copy, the
-    configs of :data:`FFMA_ROUTES` on the random points; each layer's
+    f32 configs of :data:`F32_TIMED` and the bf16 ones of :data:`TC_TIMED`
+    on the random points; each layer's
     dW and db against the plain version (``backward_from_activations``'
     products) on the same stash, the exact f64 sums the reference, within
     2x the plain version's relative L2 + ``general_check.DW_FLOOR`` (bf16
@@ -1035,8 +1070,8 @@ def dw_gemm_checks(fine, rand, gen) -> dict:
     out, ok = {}, True
     wide = {f"wgmma_general/{n}": dict(feat_dim=TC_WIDE[n][0], coord_encode_level=TC_WIDE[n][1],
                                        dir_encode_level=TC_WIDE[n][2], dtype=torch.bfloat16) for n in TC_TIMED}
-    configs = ([(r, g, True) for r, g in GENERAL.items()] + [(r, g, False) for r, g in FFMA_ROUTES.items()]
-               + [(r, g, False) for r, g in wide.items()])
+    wide.update({f"f32_wgmma/{n}": f32_config(n) for n in F32_TIMED})
+    configs = [(r, g, True) for r, g in GENERAL.items()] + [(r, g, False) for r, g in wide.items()]
     for route, g, main_path in configs:
         dl = g.get("dir_encode_level", FULL["dir_encode_level"])
         cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"], dl)
@@ -1086,12 +1121,13 @@ def dw_gemm_checks(fine, rand, gen) -> dict:
 
 
 def train_reference(params, o, d, t, delta, gt, cfg, num_real):
-    """The plain train pass over ray slices of about 2^18 points, the
-    grads summed: the whole batch in f32 would hold tens of GB."""
+    """The plain train pass over ray slices of about
+    :func:`reference_points` points, the grads summed: the whole batch in
+    f32 would hold tens of GB."""
     from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
 
     n, s = t.shape
-    step = max(1, 2**18 // s)
+    step = max(1, reference_points(cfg) // s)
     rgbs, ws, total = [], [], None
     for a in range(0, n, step):
         b = min(n, a + step)
@@ -1729,46 +1765,52 @@ def train_resume_render_routes(work: Path, route: str) -> dict:
             "dw_gemm": sum(c[3][route] for c in got)}
 
 
-# the full-width CLI phase of the tensor-core engine's column passes: the
-# default preset in bf16 at width 1024 (four passes of 128), its views at
-# 200x200 (data.img_size 100) so that the phase is seconds of steps
-WIDE_OVERRIDES = ["network.feat_dim=1024"]
+# the full-width CLI phases of the tensor-core engine's column passes: the
+# default preset at width 1024 in bf16 (four passes of 128) and in f32
+# (streaming, eight passes of 64, its kernel 3 ~8x bf16's: 1024 rays a
+# step), its views at 200x200 (data.img_size 100) so that each phase is
+# seconds of steps; by phase: (route, overrides, rays a step and a render
+# chunk)
+WIDE_PHASES = {"train_1024": ("wgmma_general", ["network.feat_dim=1024"], 4096),
+               "train_f32_1024": ("f32_wgmma", ["network.feat_dim=1024", "device.compute_dtype=float32",
+                                                "renderer.num_pixels=1024"], 1024)}
 
 
-def phase_train_1024(work: Path) -> dict:
-    """Width 1024 in bf16 (``wgmma_general``, four column passes) through
-    the CLIs: ``run_train --config default network.feat_dim=1024`` on
-    gaussian_blobs at 100x100 (8 views), 24 steps with a validation (a
-    200x200 view, 10 chunks), a checkpoint and a visualisation (100x100, 3
-    chunks), a resume for 8 more, then ``run_render`` + ``evaluate`` of two
-    200x200 test views. Each call's launches counted by route from 0:
-    kernel 3 twice a step and kernel 1 twice a 4096-ray chunk, all on
-    wgmma_general, none on another route; kernel 2 not at all; the dW
-    GEMM's kernel as often as kernel 3's launches owe."""
+def phase_train_1024(work: Path, phase: str = "train_1024") -> dict:
+    """Width 1024 through the CLIs on the route of :data:`WIDE_PHASES`
+    ``phase``: ``run_train --config default network.feat_dim=1024`` (f32:
+    ``device.compute_dtype=float32``) on gaussian_blobs at 100x100 (8
+    views), 24 steps with a validation (a 200x200 view, 10 chunks), a
+    checkpoint and a visualisation (100x100, 3 chunks), a resume for 8
+    more, then ``run_render`` + ``evaluate`` of two 200x200 test views.
+    Each call's launches counted by route from 0: kernel 3 twice a step and
+    kernel 1 twice a render chunk (the phase's rays), all on the phase's route, none on
+    another; kernel 2 not at all; the dW GEMM's kernel as often as kernel
+    3's launches owe."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
 
-    route = "wgmma_general"
+    route, overrides, rays = WIDE_PHASES[phase]
     counted = [ftm.fused_train_pass, fn.fused_nerf_apply, fn.fused_nerf_bwd, fn.dw_gemm]
     small = [o.replace("data.img_size=400", "data.img_size=100") for o in NGP_TRAIN_OVERRIDES]
-    done = train_resume_render(work, "train_1024", ["--config", "default"] + WIDE_OVERRIDES + small, counted, size=200)
-    chunks_val, chunks_vis = -(-200 * 200 // 4096), -(-100 * 100 // 4096)
+    done = train_resume_render(work, phase, ["--config", "default"] + overrides + small, counted, size=200)
+    chunks_val, chunks_vis = -(-200 * 200 // rays), -(-100 * 100 // rays)
 
     def on_route(k3, k1, dw):
         return [{r: (k3 if r == route else 0) for r in fn.ROUTES}, {r: (k1 if r == route else 0) for r in fn.ROUTES},
                 dict.fromkeys(fn.ROUTES, 0), {r: (dw if r == route else 0) for r in fn.ROUTES}]
 
-    cfg = width_cfg(1024, torch.bfloat16, 10)
+    cfg = width_cfg(1024, fn.ROUTE_DTYPE[route], 10)
     dw_due = [dw_launches_due(cfg, shapes[0], shapes[2]) for shapes in done["shapes"] + [done["render_shapes"]]]
     want = [on_route(48, 2 * (chunks_val + chunks_vis), dw_due[0]), on_route(16, 0, dw_due[1]),
             on_route(0, 2 * 2 * chunks_val, dw_due[2])]
     got = done["route_launches"]
     ok = done["ok"] and got == want and all(d > 0 for d in dw_due[:2])
-    emit("train_1024", route=route, config=WIDE_OVERRIDES, seconds=done["seconds"],
+    emit(phase, route=route, config=overrides, seconds=done["seconds"],
          route_launches_kernel3_kernel1_kernel2_dw={"train": got[0], "resume": got[1], "render": got[2]},
          expected={"train": want[0], "resume": want[1], "render": want[2]}, **done["report"], ok=ok)
     if not ok:
-        raise SystemExit("chip_smoke: train_1024 phase failed")
+        raise SystemExit(f"chip_smoke: {phase} phase failed")
     return {"fused_train_pass": sum(c[0][route] for c in got), "fused_nerf_fwd": sum(c[1][route] for c in got),
             "dw_gemm": sum(c[3][route] for c in got)}
 
@@ -1901,9 +1943,9 @@ def phase_train_bench_general(smi: str) -> dict:
     weights and seeded port-init weights and their He-scaled copy; then
     kernel 3 alone per coarse and fine pass, kernel 2 at the fine shape and
     kernel 1 on the fine chunk (786,432 points), by CUDA events, beside
-    their bounds (:func:`route_peak`; path A also beside the f32 FFMA
-    peak's, and kernel 3 beside its stash floor) and the plain versions'
-    times; then :func:`ffma_route_checks`."""
+    their bounds (:func:`route_peak`; kernel 3 also beside its stash floor)
+    and the plain versions' times; then :func:`f32_route_checks` and
+    :func:`tc_wide_timings`."""
     from torch_nerf_tpu_torch import renderer, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.fields import make_nerf_field  # noqa: PLC0415
@@ -1993,9 +2035,6 @@ def phase_train_bench_general(smi: str) -> dict:
             plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(pf, pts, dirs, cfg), 2)
             kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, fn.flops_per_point(cfg) * m,
                                                          40 * m + param_bytes, peak, peak_bw, m)
-        if route == "f32_wgmma":  # the bound at f32's FFMA peak beside the tensor cores'
-            for k in kernels.values():
-                k["ffma_bound_ms"] = k["tflops"] * 1e12 * k["ms"] / F32_PEAK
         kernels["dw_gemm/fine"] = dw_bench(cfg, pf, pts, dirs, g_sigma, g_rgb, peak, peak_bw)
         zero = dict.fromkeys(fn.ROUTES, 0)
         want = {"fused": {"fused_train_pass": dict(zero, **{route: 2 * timed}), "fused_nerf_fwd": zero,
@@ -2010,7 +2049,7 @@ def phase_train_bench_general(smi: str) -> dict:
                           fwd_chunk_checks=chunk_checks,
                           fwd_max_abs_err=max(e for r in chunk_checks.values() for e in r["max_abs_err"].values()),
                           generic_bwd_launches=paths["generic"]["route_launches"]["fused_nerf_bwd"][route])
-    kept, kept_ok = ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw)
+    kept, kept_ok = f32_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw)
     wide = tc_wide_timings(o, d, gt, t_f, bf16_peak, peak_bw)
     ok = ok and kept_ok and all(w["ok"] for w in wide.values())
     out.update(kept)
@@ -2113,8 +2152,8 @@ def dw_bench(cfg, params, pts, dirs, g_sigma, g_rgb, peak: float, peak_bw: float
 def route_peak(route: str, bf16_peak: float) -> float:
     """The peak of ``route``'s products: the bf16 tensor cores' (wgmma,
     wgmma_general), an eighth of it for f32_wgmma (eight bf16 products a
-    multiply-add), :data:`F32_PEAK` for the FFMA route."""
-    return {"f32": F32_PEAK, "f32_wgmma": bf16_peak / 8}.get(route, bf16_peak)
+    multiply-add)."""
+    return bf16_peak / 8 if route == "f32_wgmma" else bf16_peak
 
 
 def stash_floor_ms(cfg, points: int, peak_bw: float) -> float:
@@ -2125,16 +2164,65 @@ def stash_floor_ms(cfg, points: int, peak_bw: float) -> float:
     return ftm.general_stash_bytes(cfg, points) / peak_bw * 1e3
 
 
-def ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
-    """Kernels 1-3 on each config of :data:`FFMA_ROUTES` (the routes the
-    tensor-core engine leaves to nerf_mlp_general.cuh): kernel 1 and 2 on
-    2^16 + 37 random points, kernel 3 at the coarse shape (the batch's 4096
-    x 64 depths), with port-init weights and their He-scaled copy, each
-    against the plain version one precision up at the limits of the GENERAL
-    routes, kernel 2-3 bit-identical relaunched, every launch counted on
-    the route; then each kernel timed at the fine shape (786,432 points)
-    beside its bound and the plain version's time. -> ``({route: results},
-    ok)``."""
+def f32_train_case(params, args, cfg) -> tuple:
+    """Kernel 3 on ``args`` against the plain version one precision up
+    (:func:`train_verdict`): ``(verdict, check)``, the verdict of two
+    launches (bit-identical outputs required), ``check`` one more launch's
+    verdict against the same references (for a planted fault)."""
+    rparams, rargs, rcfg = reference_of(params, list(args), cfg)
+    cr, wr, gr = train_reference(rparams, *rargs, rcfg, 4096)
+    cp, wp, gp = train_reference(params, *args, cfg, 4096)
+    ref = named(gr)
+    scale = rel_l2(named(gp), ref)
+    tail = args[3] >= 1e7
+
+    def check(runs=None):
+        return train_verdict(params, args, cfg, ref, scale, cr, wr, gr, cp, wp, tail, runs)
+
+    runs = []
+    v = check(runs)
+    check(runs)
+    same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+    v.update(relaunch_bit_identical=same, ok=v["ok"] and same)
+    return v, check
+
+
+def f32_bwd_case(params, pts, dirs, g_sigma, g_rgb, cfg) -> tuple:
+    """Kernel 2 on these points against the plain version one precision up
+    (:func:`bwd_verdict`): ``(verdict, check)`` as :func:`f32_train_case`."""
+    rparams, rt, rcfg = reference_of(params, [pts, dirs, g_sigma, g_rgb], cfg)
+    ref = bwd_reference(rparams, *rt, rcfg)
+    scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref)
+
+    def check(runs=None):
+        return bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref, scale, runs, cfg)
+
+    runs = []
+    v = check(runs)
+    check(runs)
+    same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+    v.update(points=pts.shape[0], relaunch_bit_identical=same, ok=v["ok"] and same)
+    return v, check
+
+
+def f32_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
+    """Kernels 1-3 on f32_wgmma at each config of :data:`F32_WIDE`, with
+    port-init weights and their He-scaled copy, each against the plain
+    version one precision up (f64) within 2x the plain f32 version's error
+    (TF32 off) + 1e-5: kernel 1 on 2^16 + 37 random points, kernel 2 on the
+    fine batch's 786,432 points with seeded random cotangents (a few
+    thousand random points can miss by one relu mask flipped by a last
+    bit), kernel 3 at the coarse shape (4096 x 64); at :data:`F32_FINE`
+    kernels 1 and 3 on the fine shape (4096 x 192) too; kernels 2-3 launched
+    twice for bit-identical outputs. At :data:`F32_FAULTED` (a tile and the
+    streaming design) the low bf16 piece of every weight dropped
+    (:func:`low_piece_dropped`) in kernel 1's images and in kernels 2-3's,
+    and the column passes' faults in kernel 1's (:func:`tc_wide_forward_faults`),
+    each of which must fail its check with the He-scaled weights. Every
+    launch counted on f32_wgmma, none elsewhere. Then, at
+    :data:`F32_TIMED`, each kernel timed at the fine shape beside its bound
+    (989/8 TFLOP/s) and the plain version's time, and the dW GEMM alone.
+    -> ``({"f32_wgmma/<name>": results}, ok)``."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
@@ -2144,87 +2232,93 @@ def ffma_route_checks(o, d, gt, t_c, t_f, bf16_peak, peak_bw):
     m = 2**16 + 37
     pts = torch.rand((m, 3), generator=gen, device=dev) * 8.0 - 4.0
     dirs = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device=dev), dim=-1)
-    g_sigma = torch.randn((m,), generator=gen, device=dev)
-    g_rgb = torch.randn((m, 3), generator=gen, device=dev)
+    fpts, fdirs = ray_points(o, d, t_f)
+    mf = fpts.shape[0]
+    fs = torch.randn((mf,), generator=gen, device=dev)
+    fr = torch.randn((mf, 3), generator=gen, device=dev)
+    route, peak = "f32_wgmma", route_peak("f32_wgmma", bf16_peak)
     out, ok = {}, True
-    for route, g in FFMA_ROUTES.items():
-        cfg = width_cfg(g["feat_dim"], g["dtype"], g["coord_encode_level"])
-        base = level_params(g["feat_dim"], g["coord_encode_level"], 0, dev)
+    for name, (feat, level, dl) in F32_WIDE.items():
+        cfg = width_cfg(feat, torch.float32, level, dl)
+        base = level_params(feat, level, 0, dev, dl)
         fn.reset_launches()
         ftm.reset_launches()
-        checks = {}
+        checks, faults = {}, {}
+        shapes = (("coarse", t_c), ("fine", t_f)) if name in F32_FINE else (("coarse", t_c),)
         for wname, params in (("port_init", base), ("he", he_scaled(base))):
-            checks[f"fwd/{wname}"] = kernel_errors(fn.prepare(params, cfg), pts, dirs, g["feat_dim"], g["dtype"],
-                                                   g["coord_encode_level"])
-            rparams, rt, rcfg = reference_of(params, [pts, dirs, g_sigma, g_rgb], cfg)
-            ref = bwd_reference(rparams, *rt, rcfg)
-            scale = rel_l2(bwd_reference(params, pts, dirs, g_sigma, g_rgb, cfg), ref)
-            runs = []
-            checks[f"bwd/{wname}"] = bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref, scale, runs, cfg)
-            bwd_verdict(params, pts, dirs, g_sigma, g_rgb, ref, scale, runs, cfg)
-            checks[f"bwd/{wname}"]["relaunch_bit_identical"] = all(torch.equal(runs[0][k], runs[1][k])
-                                                                   for k in runs[0])
-            delta = sampling.t_deltas(t_c)
-            args = (o, d, t_c, delta, gt)
-            rparams, rargs, rcfg = reference_of(params, list(args), cfg)
-            cr, wr, grr = train_reference(rparams, *rargs, rcfg, 4096)
-            cp, wp, gp = train_reference(params, *args, cfg, 4096)
-            ref3 = named(grr)
-            scale3 = rel_l2(named(gp), ref3)
-            got = [ftm.fused_train_pass(params, *args, cfg, 4096) for _ in range(2)]
-            torch.cuda.synchronize()
-            v = judge(rel_l2(named(got[0][2]), ref3), scale3, FLOOR[g["dtype"]])
-            comp = composite_errors(got[0][0], got[0][1], cr.float(), wr.float(), cp, wp, delta >= 1e7,
-                                    FLOOR[g["dtype"]])
-            same = all(torch.equal(a, b) for a, b in zip(named(got[0][2]).values(), named(got[1][2]).values()))
-            v.update(composite_ok=comp["ok"], relaunch_bit_identical=same, ok=v["ok"] and comp["ok"] and same,
-                     max_abs_err=max([comp["max_abs_err"]] + [(got[0][2][n][k].double() - grr[n][k].double()).abs()
-                                                              .max().item() for n in grr for k in grr[n]]))
-            checks[f"train/{wname}"] = v
+            w = fn.prepare(params, cfg)
+            checks[f"fwd/random/{wname}"] = kernel_errors(w, pts, dirs, feat, torch.float32, level, dl)
+            if name in F32_FINE:
+                checks[f"fwd/fine/{wname}"] = kernel_errors(w, fpts, fdirs, feat, torch.float32, level, dl)
+            checks[f"bwd/fine/{wname}"], bwd_check = f32_bwd_case(params, fpts, fdirs, fs, fr, cfg)
+            train_checks = {}
+            for shape, t in shapes:
+                args = (o, d, t, sampling.t_deltas(t), gt)
+                checks[f"train/{shape}/{wname}"], train_checks[shape] = f32_train_case(params, args, cfg)
+            if wname == "he" and name in F32_FAULTED:
+                rows = fn.tc_pass_rows(cfg, stash=False)[0]
+                bad = {"fwd/low_piece_dropped": dataclasses.replace(w, weights=tuple(low_piece_dropped(w.weights, rows)))}
+                bad.update({f"fwd/{k}": v for k, v in tc_wide_forward_faults(w, params, cfg).items()})
+                for fname, weights in bad.items():
+                    r = kernel_errors(weights, pts, dirs, feat, torch.float32, level, dl)
+                    faults[fname] = {"rejected": not r["ok"], "max_abs_err": r["max_abs_err"]}
+                for fname, check in (("bwd/low_piece_dropped", bwd_check),
+                                     ("train/low_piece_dropped", train_checks["coarse"])):
+                    with planted_low_piece():
+                        v = check()
+                    faults[fname] = {"rejected": not v["ok"], "worst": v["worst"], "worst_err": v["worst_err"],
+                                     "worst_limit": v["worst_limit"]}
+            torch.cuda.empty_cache()
         launched = {"fused_nerf_fwd": dict(fn.fused_nerf_apply.route_launches),
                     "fused_nerf_bwd": dict(fn.fused_nerf_bwd.route_launches),
                     "fused_train_pass": dict(ftm.fused_train_pass.route_launches),
                     "dw_gemm": dict(fn.dw_gemm.route_launches)}
-        want = {"fused_nerf_fwd": 2, "fused_nerf_bwd": 4, "fused_train_pass": 4,
-                "dw_gemm": dw_launches_due(cfg, fn.fused_nerf_bwd.shapes, ftm.fused_train_pass.shapes)}
-        launches_ok = all(launched[k][route] == n and sum(launched[k].values()) == n for k, n in want.items())
-        route_ok = launches_ok and all(c["ok"] and c.get("relaunch_bit_identical", True) for c in checks.values())
-        ok = ok and route_ok
-        peak = route_peak(route, bf16_peak)
-        params = base
-        param_bytes = 4 * sum(t.numel() for v in params.values() for t in v.values())
-        fpts, fdirs = ray_points(o, d, t_f)
-        mf = fpts.shape[0]
-        fs = torch.randn((mf,), generator=gen, device=dev)
-        fr = torch.randn((mf, 3), generator=gen, device=dev)
-        kernels = {}
-        with torch.no_grad():
-            delta = sampling.t_deltas(t_f)
-            ms = cuda_ms(lambda: ftm.fused_train_pass(params, o, d, t_f, delta, gt, cfg, 4096), 2)
-            plain = cuda_ms(lambda: train_reference(params, o, d, t_f, delta, gt, cfg, 4096), 1)
-            kernels["fused_train_pass/fine"] = bound_entry(ms, plain, 3 * fn.flops_per_point(cfg) * mf,
-                                                           12 * mf + 48 * 4096 + 2 * param_bytes, peak, peak_bw, mf)
-            ms = cuda_ms(lambda: fn.fused_nerf_bwd(params, fpts, fdirs, fs, fr, cfg), 2)
-            plain = cuda_ms(lambda: bwd_reference(params, fpts, fdirs, fs, fr, cfg), 1)
-            kernels["fused_nerf_bwd/fine"] = bound_entry(ms, plain, 3 * fn.flops_per_point(cfg) * mf,
-                                                         64 * mf + 2 * param_bytes, peak, peak_bw, mf)
-            prepared = fn.prepare(params, cfg)
-            ms = cuda_ms(lambda: fn.fused_nerf_apply(prepared, fpts, fdirs, cfg), 2)
-            plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(params, fpts, fdirs, cfg), 1)
-            kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, fn.flops_per_point(cfg) * mf,
-                                                         40 * mf + param_bytes, peak, peak_bw, mf)
-        kernels["dw_gemm/fine"] = dw_bench(cfg, params, fpts, fdirs, fs, fr,
-                                           route_peak("f32_wgmma" if g["dtype"] == torch.float32 else "wgmma_general",
-                                                      bf16_peak), peak_bw)
-        out[route] = dict(config={k: str(v) for k, v in g.items()}, checks=checks, route_launches=launched,
-                          expected_launches=want, kernels=kernels,
-                          peak_flops=peak, ok=route_ok,
-                          max_abs_err={"fused_nerf_fwd": max(max(c["max_abs_err"].values())
-                                                             for k, c in checks.items() if k.startswith("fwd/")),
-                                       "fused_nerf_bwd": max(c["max_abs_err"] for k, c in checks.items()
-                                                             if k.startswith("bwd/")),
-                                       "fused_train_pass": max(c["max_abs_err"] for k, c in checks.items()
-                                                               if k.startswith("train/"))})
+        on_route = all(c[route] > 0 and sum(c.values()) == c[route] for c in launched.values())
+        row_ok = on_route and all(c["ok"] for c in checks.values()) and all(f["rejected"] for f in faults.values())
+        row = dict(config={"feat_dim": feat, "coord_encode_level": level, "dir_encode_level": dl,
+                           "dtype": "torch.float32"},
+                   plan=dataclasses.asdict(fn.tc_plan(cfg)), checks=checks, planted_faults=faults,
+                   route_launches=launched, peak_flops=peak,
+                   max_abs_err={"fused_nerf_fwd": max(max(c["max_abs_err"].values())
+                                                      for k, c in checks.items() if k.startswith("fwd/")),
+                                "fused_nerf_bwd": max(c["max_abs_err"] for k, c in checks.items()
+                                                      if k.startswith("bwd/")),
+                                "fused_train_pass": max(c["max_abs_err"] for k, c in checks.items()
+                                                        if k.startswith("train/"))})
+        if name in F32_TIMED:
+            params = base
+            param_bytes = 4 * sum(t.numel() for v in params.values() for t in v.values())
+            flops = fn.flops_per_point(cfg) * mf
+            kernels = {}
+            with torch.no_grad():
+                delta = sampling.t_deltas(t_f)
+                ms = cuda_ms(lambda: ftm.fused_train_pass(params, o, d, t_f, delta, gt, cfg, 4096), 2)
+                plain = cuda_ms(lambda: train_reference(params, o, d, t_f, delta, gt, cfg, 4096), 1)
+                kernels["fused_train_pass/fine"] = bound_entry(ms, plain, 3 * flops,
+                                                               12 * mf + 48 * 4096 + 2 * param_bytes, peak, peak_bw,
+                                                               mf)
+                kernels["fused_train_pass/fine"]["stash_floor_ms"] = stash_floor_ms(cfg, mf, peak_bw)
+                ms = cuda_ms(lambda: fn.fused_nerf_bwd(params, fpts, fdirs, fs, fr, cfg), 2)
+                plain = cuda_ms(lambda: bwd_reference(params, fpts, fdirs, fs, fr, cfg), 1)
+                kernels["fused_nerf_bwd/fine"] = bound_entry(ms, plain, 3 * flops, 64 * mf + 2 * param_bytes, peak,
+                                                             peak_bw, mf)
+                prepared = fn.prepare(params, cfg)
+                ms = cuda_ms(lambda: fn.fused_nerf_apply(prepared, fpts, fdirs, cfg), 2)
+                plain = cuda_ms(lambda: fn.fused_nerf_apply_reference(params, fpts, fdirs, cfg), 1)
+                kernels["fused_nerf_fwd/fine"] = bound_entry(ms, plain, flops, 40 * mf + param_bytes, peak, peak_bw,
+                                                             mf)
+            kernels["dw_gemm/fine"] = dw_bench(cfg, params, fpts, fdirs, fs, fr, peak, peak_bw)
+            row["kernels"] = kernels
+            row["timed_launches"] = {"fused_nerf_fwd": dict(fn.fused_nerf_apply.route_launches),
+                                     "fused_nerf_bwd": dict(fn.fused_nerf_bwd.route_launches),
+                                     "fused_train_pass": dict(ftm.fused_train_pass.route_launches),
+                                     "dw_gemm": dict(fn.dw_gemm.route_launches)}
+            row_ok = row_ok and all(c[route] > 0 and sum(c.values()) == c[route]
+                                    for c in row["timed_launches"].values())
+        row["ok"] = row_ok
+        ok = ok and row_ok
+        out[f"{route}/{name}"] = row
+        torch.cuda.empty_cache()
     return out, ok
 
 
@@ -4686,36 +4780,25 @@ def general_entries(done: dict) -> list:
     force_generic steps), their largest max-abs error against the plain
     version one precision up at the main path's shapes (kernel 1:
     train_bench_general's chunk checks), and their times and bounds at the
-    fine shape from train_bench_general; then kernels 1-3 on each route of
-    :data:`FFMA_ROUTES`, launched over train_bench_general's checks;
-    then kernels 1-3 on wgmma_general at each config of :data:`TC_TIMED`
-    (1024: kernels 1 and 3 launched over train_1024's CLI calls);
-    after each route's kernels, its dW GEMM (launched inside kernels 2 and
-    3: its kernel's launches over the same calls as its libraries counted
-    them, its error from dw_gemm, its time at the fine shape beside the
-    cuBLAS yardstick)."""
+    fine shape from train_bench_general; then kernels 1-3 on wgmma_general
+    at each config of :data:`TC_TIMED` (1024: kernels 1 and 3 launched over
+    train_1024's CLI calls) and on f32_wgmma at each config of
+    :data:`F32_TIMED` (1024: kernels 1 and 3 over train_f32_1024's, the
+    others over train_bench_general's checks and timings); after each
+    route's kernels, its dW GEMM (launched inside kernels 2 and 3: its
+    kernel's launches over the same calls as its libraries counted them,
+    its error from dw_gemm, its time at the fine shape beside the cuBLAS
+    yardstick)."""
     out = []
-    sources = {"fused_nerf_fwd": ("fused_nerf_fwd.cu", "fused_tc_fwd.cu", "fused_nerf.py:397"),
-               "fused_nerf_bwd": ("fused_nerf_bwd.cu", "fused_tc_bwd.cu", "fused_nerf.py:487"),
-               "fused_train_pass": ("fused_train.cu", "fused_tc_train.cu", "fused_train.py:196")}
-    for route in list(GENERAL) + list(FFMA_ROUTES) + [f"wgmma_general/{n}" for n in TC_TIMED]:
+    sources = {"fused_nerf_fwd": ("fused_tc_fwd.cu", "fused_nerf.py:397"),
+               "fused_nerf_bwd": ("fused_tc_bwd.cu", "fused_nerf.py:487"),
+               "fused_train_pass": ("fused_tc_train.cu", "fused_train.py:196")}
+    # the CLI phase that launched a width-1024 config's kernels 1 and 3
+    cli_1024 = {"wgmma_general/1024": "train_1024", "f32_wgmma/1024": "train_f32_1024"}
+    for route in (list(GENERAL) + [f"wgmma_general/{n}" for n in TC_TIMED]
+                  + [f"f32_wgmma/{n}" for n in F32_TIMED]):
         bench = done["train_bench_general"][route]
-        wide = route.startswith("wgmma_general/")
-        if wide:
-            # 1024: kernels 1 and 3 over train_1024's CLI calls, kernel 2
-            # over train_bench_general's timing; 96: all three there
-            name = route.split("/", 1)[1]
-            launches = {k: bench["route_launches"][k]["wgmma_general"] for k in sources}
-            where = dict.fromkeys(sources, "train_bench_general")
-            if name == "1024":
-                launches.update(fused_nerf_fwd=done["train_1024"]["fused_nerf_fwd"],
-                                fused_train_pass=done["train_1024"]["fused_train_pass"])
-                where.update(fused_nerf_fwd="train_1024", fused_train_pass="train_1024")
-            errors = {"fused_nerf_fwd": max(done["kernel"]["wide"][name], bench["fwd_max_abs_err"]),
-                      "fused_nerf_bwd": done["kernel_bwd"]["general"][route],
-                      "fused_train_pass": done["kernel_train"]["general"][route]}
-            config = bench["config"]
-        elif route in GENERAL:
+        if route in GENERAL:
             path = done[GENERAL_PHASES[route]]
             launches = {"fused_nerf_fwd": path["fused_nerf_fwd"], "fused_train_pass": path["fused_train_pass"],
                         "fused_nerf_bwd": bench["generic_bwd_launches"]}
@@ -4725,21 +4808,33 @@ def general_entries(done: dict) -> list:
             where = {name: GENERAL_PHASES[route] if name != "fused_nerf_bwd" else "train_bench_general"
                      for name in sources}
             config = GENERAL_OVERRIDES[route]
+            dw_launches, dw_where = path["dw_gemm"], GENERAL_PHASES[route]
         else:
-            launches = {name: bench["route_launches"][name][route] for name in sources}
-            errors = bench["max_abs_err"]
+            on, name = route.split("/", 1)
+            launches = {k: bench["route_launches"][k][on] for k in sources}
             where = dict.fromkeys(sources, "train_bench_general")
-            config = {k: str(v) for k, v in FFMA_ROUTES[route].items()}
-        for name, (src, tc_src, replaces) in sources.items():
+            if on == "wgmma_general":
+                errors = {"fused_nerf_fwd": max(done["kernel"]["wide"][name], bench["fwd_max_abs_err"]),
+                          "fused_nerf_bwd": done["kernel_bwd"]["general"][route],
+                          "fused_train_pass": done["kernel_train"]["general"][route]}
+            else:
+                errors = dict(bench["max_abs_err"])
+                errors["fused_nerf_fwd"] = max(errors["fused_nerf_fwd"], done["kernel"]["f32"][name])
+            dw_launches, dw_where = bench["route_launches"]["dw_gemm"][on], "train_bench_general"
+            if route in cli_1024:
+                cli = done[cli_1024[route]]
+                launches.update(fused_nerf_fwd=cli["fused_nerf_fwd"], fused_train_pass=cli["fused_train_pass"])
+                where.update(fused_nerf_fwd=cli_1024[route], fused_train_pass=cli_1024[route])
+                dw_launches, dw_where = cli["dw_gemm"], cli_1024[route]
+            config = bench["config"]
+        for name, (src, replaces) in sources.items():
             k = bench["kernels"][f"{name}/fine"]
-            source = (f"torch_nerf_tpu_torch/ops/csrc/{tc_src} + nerf_mlp_tc.cuh" if route in GENERAL or wide else
-                      f"torch_nerf_tpu_torch/ops/csrc/{src} + nerf_mlp_general.cuh")
-            out.append({"name": f"{name}/{route}", "route": "cuda", "source": source,
+            out.append({"name": f"{name}/{route}", "route": "cuda",
+                        "source": f"torch_nerf_tpu_torch/ops/csrc/{src} + nerf_mlp_tc.cuh",
                         "replaces": f"torch_nerf_tpu/ops/pallas/{replaces}", "launches": launches[name],
                         "launches_path": where[name], "config": config, "max_abs_err": errors[name],
                         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"], "library_ms": None,
-                        **({"ffma_bound_ms": k["ffma_bound_ms"]} if "ffma_bound_ms" in k else {}),
                         **({"stash_floor_ms": k["stash_floor_ms"]} if "stash_floor_ms" in k else {})})
         # the dW GEMM, inside kernels 2 and 3: its own launches, checks and times
         k = bench["kernels"]["dw_gemm/fine"]
@@ -4747,12 +4842,7 @@ def general_entries(done: dict) -> list:
         out.append({"name": f"dw_gemm/{route}", "route": "cuda",
                     "source": "torch_nerf_tpu_torch/ops/csrc/nerf_dw_tc.cuh",
                     "replaces": "torch_nerf_tpu/ops/pallas/fused_nerf.py:414",
-                    "launches": (done[GENERAL_PHASES[route]]["dw_gemm"] if route in GENERAL
-                                 else done["train_1024"]["dw_gemm"] if route == "wgmma_general/1024"
-                                 else bench["route_launches"]["dw_gemm"]["wgmma_general"] if wide
-                                 else bench["route_launches"]["dw_gemm"][route]),
-                    "launches_path": (GENERAL_PHASES[route] if route in GENERAL else "train_1024"
-                                      if route == "wgmma_general/1024" else "train_bench_general"),
+                    "launches": dw_launches, "launches_path": dw_where,
                     "config": config, "max_abs_err": dw["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                     "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                     "library": k["library"], "floor_ops_ms": k["floor_ops_ms"],
@@ -4835,6 +4925,7 @@ def main() -> int:
         "train_f32": train_resume_render_routes(work, "f32_wgmma"),
         "train_wide": train_resume_render_routes(work, "wgmma_general"),
         "train_1024": phase_train_1024(work),
+        "train_f32_1024": phase_train_1024(work, "train_f32_1024"),
         "train_bench": phase_train_bench(smi),
         "train_bench_general": phase_train_bench_general(smi),
         "bench": phase_bench(smi),

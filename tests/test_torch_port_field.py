@@ -5,9 +5,8 @@ The plain version ``fused_nerf_apply_reference`` is held against JAX's
 CPU (Pallas interpret mode, float32, tile 64), with the weights carried
 across by ``params_from_jax``: rtol 1e-4 / atol 1e-5, since XLA and torch
 sum the products in different orders. The kernel itself runs only on a
-Hopper card; its host-side weight layout (the general route's, in
-fragment order) is checked here by replaying the kernel's data flow from the
-laid-out fragments.
+Hopper card (its weight layouts are held in ``test_torch_port_wide_tc.py``
+and ``test_torch_port_f32_tc.py``).
 """
 
 import dataclasses
@@ -21,7 +20,6 @@ import torch
 from torch_nerf_tpu.models import nerf as jnerf
 from torch_nerf_tpu.ops.pallas.fused_nerf import FusedNeRFConfig as JaxFusedConfig
 from torch_nerf_tpu.ops.pallas.fused_nerf import fused_nerf_apply as jax_fused_nerf_apply
-from torch_nerf_tpu_torch import encoders
 from torch_nerf_tpu_torch.fields import make_nerf_field
 from torch_nerf_tpu_torch.models import nerf
 from torch_nerf_tpu_torch.ops import fused_nerf
@@ -107,52 +105,6 @@ def test_init_matches_layer_dims_and_bounds():
         assert params[name]["w"].abs().max() <= bound
     again = nerf.init_nerf_params(torch.Generator().manual_seed(0), PE_DIM, DE_DIM, FEAT)
     assert torch.equal(again["fc_9"]["w"], params["fc_9"]["w"])
-
-
-def test_kernel_weight_layout_replays_the_plain_version():
-    """Run the general route's data flow (padded segments, fc_8's sigma at
-    column F after its features) in f32 from the laid-out matrices, with
-    the kernel's bf16 roundings: it must equal the plain bf16 version up to
-    the final sigmoid, which the kernel keeps in f32."""
-    params = nerf.params_from_jax(_jax_params(5))
-    cfg = fused_nerf.FusedNeRFConfig(coord_encode_level=L_POS, dir_encode_level=L_DIR, feat_dim=FEAT)
-    mats = fused_nerf.general_matrices(params, cfg)
-    fwd, biases, _ = fused_nerf.general_layout(params, cfg)
-    laid = []
-    for (w, b, _), got, bias in zip(mats, fwd, biases):
-        assert w.shape[0] % 16 == 0 and w.shape[1] % 8 == 0 and b.shape == (w.shape[1],)
-        assert torch.equal(bias, b) and torch.equal(got, w)
-        laid.append((got.float(), b.float()))
-    assert [tuple(w.shape) for w, _, _ in mats][:1] == [(32, FEAT)]
-    assert tuple(mats[5][0].shape) == (32 + FEAT, FEAT)
-    assert tuple(mats[8][0].shape) == (FEAT, FEAT + 8)
-    assert tuple(mats[9][0].shape) == (FEAT + 16, FEAT // 2)
-    assert tuple(mats[10][0].shape) == (FEAT // 2, 8)
-
-    pts, dirs = (torch.from_numpy(a) for a in _data(70, seed=6))
-
-    def bf(x):
-        return x.to(torch.bfloat16).float()
-
-    def lin(x, i):
-        return bf(bf(x @ laid[i][0]) + laid[i][1])
-
-    pe = torch.nn.functional.pad(bf(encoders.positional_encoding(pts, L_POS)), (0, 32 - PE_DIM))
-    de = torch.nn.functional.pad(bf(encoders.positional_encoding(dirs, L_DIR)), (0, 16 - DE_DIM))
-    h = torch.relu(lin(pe, 0))
-    for i in range(1, 5):
-        h = torch.relu(lin(h, i))
-    h = torch.relu(lin(torch.cat([pe, h], dim=1), 5))
-    for i in (6, 7):
-        h = torch.relu(lin(h, i))
-    z8 = lin(h, 8)
-    sigma = torch.relu(z8[:, FEAT])
-    h9 = torch.relu(lin(torch.cat([z8[:, :FEAT], de], dim=1), 9))
-    z_out = lin(h9, 10)[:, :3]
-
-    ref_sigma, ref_rgb = fused_nerf.fused_nerf_apply_reference(params, pts, dirs, cfg)
-    np.testing.assert_array_equal(sigma.numpy(), ref_sigma.numpy())
-    np.testing.assert_array_equal(bf(torch.sigmoid(z_out)).numpy(), ref_rgb.numpy())
 
 
 def test_flops_per_point():

@@ -167,8 +167,8 @@ def test_forward_route_by_width(feat, route):
 def test_forward_route_raises_and_keeps_every_width():
     # a width off the 32s is padded (48 to 64, onto the tensor-core general
     # route), f32 takes wgmma on bf16 pieces, 1024 four column passes (f32
-    # at 1024: the FFMA route's 16-point tiles); past the limits the route
-    # raises
+    # at 1024: streaming its layers through device memory); past the limits
+    # the route raises
     assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=48)) == "wgmma_general"
     assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(compute_dtype=torch.float32)) == "f32_wgmma"
     wide = fused_nerf.FusedNeRFConfig(feat_dim=1024)
@@ -177,7 +177,8 @@ def test_forward_route_raises_and_keeps_every_width():
         fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(feat_dim=1056))
     # encodings wider than 64 leave the wgmma route but are still served
     assert fused_nerf.forward_route(fused_nerf.FusedNeRFConfig(coord_encode_level=11)) == "wgmma_general"
-    assert fused_nerf.tile_rows(dataclasses.replace(wide, compute_dtype=torch.float32)) == (16, 16, 16)
+    wide32 = dataclasses.replace(wide, compute_dtype=torch.float32)
+    assert fused_nerf.forward_route(wide32) == "f32_wgmma" and fused_nerf.tc_plan(wide32).stream
 
 
 def test_route_launch_counts_start_at_zero_and_reset():
@@ -185,7 +186,7 @@ def test_route_launch_counts_start_at_zero_and_reset():
     fused_nerf.fused_nerf_apply.launches += 2
     fused_nerf.reset_launches()
     assert fused_nerf.fused_nerf_apply.launches == 0
-    assert fused_nerf.fused_nerf_apply.route_launches == {"wgmma": 0, "wgmma_general": 0, "f32_wgmma": 0, "f32": 0}
+    assert fused_nerf.fused_nerf_apply.route_launches == {"wgmma": 0, "wgmma_general": 0, "f32_wgmma": 0}
 
 
 @pytest.mark.parametrize("override,key", [("network.feat_dim=2048", "network.feat_dim"),

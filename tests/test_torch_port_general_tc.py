@@ -1,5 +1,5 @@
 """The tensor-core general route of kernels 1-3 (``csrc/nerf_mlp_tc.cuh``:
-``wgmma_general`` in bf16 up to width 1024, ``f32_wgmma`` in f32 up to 256;
+``wgmma_general`` in bf16 and ``f32_wgmma`` in f32 up to width 1024;
 its column passes at the widths the mma.sync engine held:
 ``test_torch_port_wide_tc.py``).
 
@@ -150,7 +150,8 @@ def test_matrices_put_the_encodings_last_and_pad_to_slices():
     (512, 12, 12, torch.bfloat16, (4, 4, 4)),
     # three passes of 96; one pass of 48 (96 ends on a half K-slice)
     (576, 10, 4, torch.bfloat16, (4, 4, 4)),
-    (320, 10, 4, torch.float32, None),
+    # f32 at 320: two passes of 80 (one tile for both encodings)
+    (320, 10, 4, torch.float32, (4, 4, 4)),
     (96, 10, 4, torch.bfloat16, (4, 4, 4)),
 ])
 def test_shared_memory_cut_by_config(feat, level, dir_level, dtype, stages):

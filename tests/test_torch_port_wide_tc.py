@@ -118,9 +118,9 @@ def test_kernel_1_takes_two_passes_of_128_where_kernels_2_3_take_one_of_256(feat
         assert torch.equal(mats[i], fused_nerf.tc_matrices(params, cfg)[0][i])
 
 
-@pytest.mark.parametrize("feat,dtype", [(320, torch.float32), (96, torch.float32), (1056, torch.bfloat16)])
+@pytest.mark.parametrize("feat,dtype", [(1056, torch.float32), (2048, torch.float32), (1056, torch.bfloat16)])
 def test_plan_refuses_what_the_engine_does_not_hold(feat, dtype):
-    # f32 off the 64s or past 256 stays on the FFMA route; past 1024 nothing
+    # past 1024 nothing, in either type (f32 takes every width up to it)
     assert fused_nerf.tc_plan(_cfg(feat, dtype=dtype)) is None
 
 

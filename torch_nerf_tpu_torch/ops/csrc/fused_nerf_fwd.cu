@@ -17,38 +17,21 @@
 // against 40 bytes of input and output per point and 1.2 MB of weights: the
 // kernel is bound by tensor-core operations (0.94 ms per 786,432-point fine
 // chunk at 989 TFLOP/s). Every activation stays on chip, so no hidden layer
-// touches device memory. Two routes, chosen by the wrapper
-// (torch_nerf_tpu_torch/ops/fused_nerf.py::forward_route):
-//
-//   fused_nerf_fwd      widths 64, 128, 256 with encodings up to 64 wide:
-//                       nerf_mlp_train.cuh's forward without its stash
-//                       (forward_consumer<F, false>), the product loop of
-//                       kernels 2 and 3: 128-point CTAs, two consumer
-//                       warpgroups on wgmma holding a layer's 64 x F sums
-//                       in registers, a producer warpgroup streaming every
-//                       layer's weights through a 3-stage shared-memory ring
-//                       by bulk asynchronous copies. The weights are its
-//                       forward images (W^T in K-major 128-byte swizzled
-//                       panels, fc_8's sigma row after the features, biases
-//                       in that row order). Writes sigma (m,) and rgb (m, 3).
-//   fused_nerf_fwd_general  the f32 configs the tensor-core general route
-//                       (fused_tc_fwd.cu: every other bf16 config, f32
-//                       at widths % 64 == 0 up to 256) does not hold:
-//                       widths F % 32 == 0 up to 1024 (the wrapper
-//                       zero-pads the others), encodings up to 128 wide, on
-//                       FFMA: nerf_mlp_general.cuh's forward without its
-//                       stash, one block of 8 warps per tile of 32 points
-//                       (16 where 32 do not fit in shared memory), the
-//                       weights staged through shared memory row-major.
+// touches device memory. This source is the route of the presets, chosen by
+// the wrapper (torch_nerf_tpu_torch/ops/fused_nerf.py::forward_route): bf16
+// at widths 64, 128 and 256 with encodings up to 64 wide, nerf_mlp_train.cuh's
+// forward without its stash (forward_consumer<F, false>), the product loop
+// of kernels 2 and 3: 128-point CTAs, two consumer warpgroups on wgmma
+// holding a layer's 64 x F sums in registers, a producer warpgroup
+// streaming every layer's weights through a 3-stage shared-memory ring by
+// bulk asynchronous copies. The weights are its forward images (W^T in
+// K-major 128-byte swizzled panels, fc_8's sigma row after the features,
+// biases in that row order). Writes sigma (m,) and rgb (m, 3). Every other
+// config takes the tensor-core general route (fused_tc_fwd.cu).
 //
 // fused_nerf_fwd_layout() returns 1: fused_nerf_fwd reads forward panel
 // images.
-//
-// The general route's weights are the forward matrices of
-// torch_nerf_tpu_torch/ops/fused_nerf.py::general_matrices (the header
-// note of nerf_mlp_general.cuh gives them).
 
-#include "nerf_mlp_general.cuh"
 #include "nerf_mlp_train.cuh"
 
 namespace {
@@ -107,27 +90,6 @@ int fused_nerf_fwd(const float* pts, const float* dirs, const void* const* weigh
     case 256: return static_cast<int>(launch_wgmma<256>(in, net, st, m, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Launches the FFMA general route on `stream`; returns the cudaError_t of
-// the launch (0 on success). f32 must be 1 (weights and biases f32,
-// row-major; a bf16 config is refused: it takes fused_tc_fwd.cu); feat %
-// 32 == 0, feat <= 1024, pe_pad and de_pad the encodings rounded up to 16,
-// at most 128.
-int fused_nerf_fwd_general(const float* pts, const float* dirs, const void* const* weights,
-                           const void* const* biases, float* sigma, float* rgb, int m, int feat,
-                           int pos_levels, int dir_levels, int include_input, int pe_dim, int de_dim,
-                           int pe_pad, int de_pad, int f32, void* stream) {
-  namespace g = nerf_general;
-  const g::Dims d = g::make_dims(feat, pos_levels, dir_levels, include_input, pe_dim, de_dim, pe_pad, de_pad);
-  const g::Net net = g::make_net(weights, biases, nullptr, d);
-  const nerf_train::PointInput in = {pts, dirs};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!f32) return static_cast<int>(cudaErrorInvalidValue);
-  g::Stash<float> st = {};
-  st.sigma = sigma;
-  st.rgb = rgb;
-  return static_cast<int>(g::run_forward<float, false>(in, net, st, m, s));
 }
 
 }  // extern "C"

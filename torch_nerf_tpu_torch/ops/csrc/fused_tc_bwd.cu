@@ -1,7 +1,7 @@
 // Kernel 2 (the fused field's backward) on the tensor-core general route,
 // for the configs torch_nerf_tpu_torch/ops/fused_nerf.py::train_route gives
 // wgmma_general or f32_wgmma: nerf_mlp_tc.cuh's forward with its stash and its
-// chain with the encodings' cotangents, then nerf_mlp_general.cuh's encode
+// chain with the encodings' cotangents, then nerf_stash.cuh's encode
 // VJP to dpts and ddirs and its dW GEMM (nerf_dw_tc.cuh). Replaces, on
 // those configs, the Pallas TPU kernel torch_nerf_tpu/ops/pallas/
 // fused_nerf.py::_bwd_kernel (reached through _fused_bwd's pl.pallas_call).
@@ -9,6 +9,16 @@
 // bf16 or 989 / 8 TFLOP/s for f32_wgmma (eight bf16 products a multiply).
 
 #include "nerf_mlp_tc.cuh"
+
+// kernel 2's f32 forward and chain (every f32_wgmma kernel shape): instantiated in
+// fused_tc_bwd.f32.cu, compiled beside this source and linked into its library
+extern template cudaError_t nerf_tc::run_forward<float, true, nerf_train::PointInput>(
+    const nerf_train::PointInput&, const nerf_general::Net&, const void* const*, nerf_general::Stash<float>, uint32_t*,
+    int, cudaStream_t, void*);
+extern template cudaError_t nerf_tc::run_chain<float, true>(const nerf_general::Net&, const void* const*,
+                                                          const nerf_general::Stash<float>&, const uint32_t*,
+                                                          const float*, const float*, float*, float*, int,
+                                                          cudaStream_t);
 
 namespace {
 
@@ -91,9 +101,11 @@ size_t fused_nerf_bwd_tc_workspace_bytes(int m, int feat, int pe_pad, int de_pad
 }
 
 // Launches the backward on `stream`; returns the cudaError_t of the
-// launches (0 on success). The arguments are fused_nerf_bwd_general's;
-// weights are the route's forward images, weights_t its 13 chain images
-// (fused_nerf.py::tc_layout), biases general_matrices'; m > 0.
+// launches (0 on success). pts, dirs (m, 3), the cotangents g_sigma (m,)
+// and g_rgb (m, 3), all f32; weights the route's forward images, weights_t
+// its 13 chain images (fused_nerf.py::tc_layout), biases tc_biases';
+// grads_w[l], grads_b[l] the kernel-layout f32 grads (nerf_stash.cuh);
+// workspace of fused_nerf_bwd_tc_workspace_bytes(m, ...) bytes; m > 0.
 int fused_nerf_bwd_tc(const float* pts, const float* dirs, const float* g_sigma, const float* g_rgb,
                       const void* const* weights, const void* const* biases, const void* const* weights_t,
                       void* workspace, float* const* grads_w, float* const* grads_b, float* dpts, float* ddirs, int m,
@@ -101,7 +113,7 @@ int fused_nerf_bwd_tc(const float* pts, const float* dirs, const float* g_sigma,
                       int de_pad, int f32, void* stream) {
   const g::Dims d = g::make_dims(feat, pos_levels, dir_levels, include_input, pe_dim, de_dim, pe_pad, de_pad);
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const g::Net net = g::make_net(weights, biases, nullptr, d);
+  const g::Net net = g::make_net(biases, d);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32)
     return bwd_tc<float>(pts, dirs, g_sigma, g_rgb, net, weights, weights_t, workspace, grads_w, grads_b, dpts,

@@ -2,7 +2,7 @@
 // configs torch_nerf_tpu_torch/ops/fused_nerf.py::train_route gives
 // wgmma_general or f32_wgmma: nerf_mlp_tc.cuh's forward with its stash, the
 // composite of nerf_composite.cuh, nerf_mlp_tc.cuh's chain, then
-// nerf_mlp_general.cuh's dW GEMM over the stashes (nerf_dw_tc.cuh).
+// nerf_stash.cuh's dW GEMM over the stashes (nerf_dw_tc.cuh).
 // Replaces, on those configs, the Pallas TPU kernel torch_nerf_tpu/ops/
 // pallas/fused_train.py::_train_kernel (reached through fused_train_pass's
 // pl.pallas_call). Bound on an H100 SXM: 3 x flops_per_point a point at 989
@@ -11,6 +11,16 @@
 
 #include "nerf_composite.cuh"
 #include "nerf_mlp_tc.cuh"
+
+// kernel 3's f32 forward and chain (every f32_wgmma kernel shape): instantiated in
+// fused_tc_train.f32.cu, compiled beside this source and linked into its library
+extern template cudaError_t nerf_tc::run_forward<float, true, nerf_train::RayInput>(
+    const nerf_train::RayInput&, const nerf_general::Net&, const void* const*, nerf_general::Stash<float>, uint32_t*,
+    int, cudaStream_t, void*);
+extern template cudaError_t nerf_tc::run_chain<float, false>(const nerf_general::Net&, const void* const*,
+                                                          const nerf_general::Stash<float>&, const uint32_t*,
+                                                          const float*, const float*, float*, float*, int,
+                                                          cudaStream_t);
 
 namespace {
 
@@ -73,9 +83,12 @@ size_t fused_train_tc_workspace_bytes(int m, int feat, int pe_pad, int de_pad, i
 }
 
 // Launches the pass on `stream`; returns the cudaError_t of the launches (0
-// on success). The arguments are fused_train_pass_general's; weights are the
-// route's forward images, weights_t its 13 chain images (fused_nerf.py::
-// tc_layout), biases general_matrices'; workspace of
+// on success). The rays' origins and directions (n_rays, 3), depths t and
+// intervals delta (n_rays, samples), the ground truth rgb_gt (n_rays, 3),
+// the loss over the first num_real rays; weights the route's forward
+// images, weights_t its 13 chain images (fused_nerf.py::tc_layout), biases
+// tc_biases'; out: rgb (n_rays, 3), the composite weights (n_rays,
+// samples), the kernel-layout f32 grads (nerf_stash.cuh); workspace of
 // fused_train_tc_workspace_bytes(n_rays * samples, ...) bytes.
 int fused_train_pass_tc(const float* ray_o, const float* ray_d, const float* t, const float* delta,
                         const float* rgb_gt, int n_rays, int samples, int num_real, const void* const* weights,
@@ -85,7 +98,7 @@ int fused_train_pass_tc(const float* ray_o, const float* ray_d, const float* t, 
                         void* stream) {
   const g::Dims d = g::make_dims(feat, pos_levels, dir_levels, include_input, pe_dim, de_dim, pe_pad, de_pad);
   if (n_rays <= 0 || samples <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const g::Net net = g::make_net(weights, biases, nullptr, d);
+  const g::Net net = g::make_net(biases, d);
   const nerf_train::RayInput in = {ray_o, ray_d, t, samples};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f32)

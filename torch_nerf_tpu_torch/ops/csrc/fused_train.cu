@@ -31,14 +31,10 @@
 // ~20 bytes per point are noise beside the stashes (~20 KB per point moved),
 // which put this design's floor at ~4.8 ms for the fine pass.
 //
-// fused_train_pass_general runs the same pass for the f32 configs the
-// tensor-core general route (fused_tc_train.cu) does not hold (widths F %
-// 32 == 0 up to 1024, encodings up to 128 wide, on FFMA): the forward with
-// its stash, the chain and the dW GEMM of nerf_mlp_general.cuh around the
-// same composite.
+// Every config off the presets takes the tensor-core general route
+// (fused_tc_train.cu).
 
 #include "nerf_composite.cuh"
-#include "nerf_mlp_general.cuh"
 #include "nerf_mlp_train.cuh"
 
 using namespace nerf_train;
@@ -99,86 +95,5 @@ int fused_train_pass(const float* ray_o, const float* ray_d, const float* t, con
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(run_gemms(net, st, m, feat, ws, grads_w, grads_b, s));
 }
-
-}  // extern "C"
-
-namespace {
-
-namespace g = nerf_general;
-
-// the general route's workspace after the stash: sigma, rgb, the
-// composite's per-point outputs, the dW partials
-template <class T>
-size_t general_bytes(int m, const g::Dims& d) {
-  const size_t mp = g::padded_points(m);
-  return g::stash_bytes<T>(m, d) + 3 * g::align256(mp * sizeof(float)) + 2 * g::align256(mp * 3 * sizeof(float)) +
-         g::dw_ws_bytes<T>(m, d);
-}
-
-template <class T>
-int train_general(const nerf_train::RayInput& in, const float* delta, const float* rgb_gt, int n_rays, int num_real,
-                  const g::Net& net, void* workspace, float* rgb_out, float* weights_out, float* const* grads_w,
-                  float* const* grads_b, cudaStream_t s) {
-  const int m = n_rays * in.samples;
-  const size_t mp = g::padded_points(m);
-  unsigned char* base = static_cast<unsigned char*>(workspace);
-  size_t used = 0;
-  g::Stash<T> st = g::carve_stash<T>(base, m, net.d, &used);
-  auto take = [&](size_t floats) {
-    float* p = reinterpret_cast<float*>(base + used);
-    used += g::align256(floats * sizeof(float));
-    return p;
-  };
-  st.sigma = take(mp);
-  st.rgb = take(mp * 3);
-  float* g_sigma = take(mp);
-  float* trans = take(mp);
-  float* g_rgb = take(mp * 3);
-  float* part = reinterpret_cast<float*>(base + used);
-
-  cudaError_t err = g::run_forward<T, true>(in, net, st, m, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  composite<<<(n_rays + kCompositeWarps - 1) / kCompositeWarps, 32 * kCompositeWarps, 0, s>>>(
-      st.sigma, st.rgb, delta, rgb_gt, n_rays, in.samples, num_real, rgb_out, weights_out, trans, g_sigma, g_rgb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = g::run_chain<T, false>(net, st, g_sigma, g_rgb, nullptr, nullptr, m, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(g::run_dw<T>(st, net.d, m, part, grads_w, grads_b, s));
-}
-
-}  // namespace
-
-extern "C" {
-
-size_t fused_train_general_workspace_bytes(int m, int feat, int pe_pad, int de_pad, int f32) {
-  const g::Dims d = g::make_dims(feat, 0, 0, 0, 0, 0, pe_pad, de_pad);
-  return f32 ? general_bytes<float>(m, d) : 0;
-}
-
-// Launches the FFMA general route's pass on `stream`; returns the
-// cudaError_t of the launches (0 on success). weights, weights_t, biases:
-// general_matrices' forward and chain matrices and biases, f32 row-major
-// (f32 must be 1: a bf16 config is refused); grads_w[l], grads_b[l]: the kernel-layout f32
-// grads; workspace of fused_train_general_workspace_bytes(n_rays * samples,
-// ...) bytes.
-int fused_train_pass_general(const float* ray_o, const float* ray_d, const float* t, const float* delta,
-                             const float* rgb_gt, int n_rays, int samples, int num_real, const void* const* weights,
-                             const void* const* biases, const void* const* weights_t, void* workspace,
-                             float* rgb_out, float* weights_out, float* const* grads_w, float* const* grads_b,
-                             int feat, int pos_levels, int dir_levels, int include_input, int pe_dim, int de_dim,
-                             int pe_pad, int de_pad, int f32, void* stream) {
-  const g::Dims d = g::make_dims(feat, pos_levels, dir_levels, include_input, pe_dim, de_dim, pe_pad, de_pad);
-  if (!g::dims_ok(d) || n_rays <= 0 || samples <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const g::Net net = g::make_net(weights, biases, weights_t, d);
-  const RayInput in = {ray_o, ray_d, t, samples};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!f32) return static_cast<int>(cudaErrorInvalidValue);
-  return train_general<float>(in, delta, rgb_gt, n_rays, num_real, net, workspace, rgb_out, weights_out, grads_w,
-                              grads_b, s);
-}
-
-// the dW GEMM kernel's launches in this library so far (nerf_dw::launches)
-long long fused_train_dw_launches() { return nerf_dw::launches(); }
 
 }  // extern "C"

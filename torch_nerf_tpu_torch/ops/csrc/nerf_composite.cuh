@@ -1,8 +1,7 @@
 // The emission-absorption composite of the fused train pass and its VJP,
 // one warp per ray in f32 (fused_train.cu's header note gives the math),
-// shared by the pass's routes: fused_train.cu (wgmma, and the general
-// route's mma.sync and FFMA) and fused_tc_train.cu (the tensor-core
-// general route).
+// shared by the pass's routes: fused_train.cu (wgmma) and fused_tc_train.cu
+// (the tensor-core general route).
 
 #pragma once
 

@@ -1,7 +1,7 @@
 // The general route's dW GEMM on Hopper's tensor cores: dW = A^T dZ and db =
-// sum dZ for the 11 layers, over nerf_mlp_general.cuh's row-major stashes
+// sum dZ for the 11 layers, over nerf_stash.cuh's row-major stashes
 // ((m_pad, width) each, in the compute type), for kernels 2 and 3 on every
-// general config (nerf_general::run_dw calls it from all four entries).
+// general config (nerf_general::run_dw calls it from the entries).
 //
 // Replaces, with the forward and the chain of the general route, the
 // parameter-gradient sums of the Pallas TPU kernels torch_nerf_tpu/ops/

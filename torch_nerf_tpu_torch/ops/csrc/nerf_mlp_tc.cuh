@@ -1,17 +1,16 @@
 // The NeRF MLP's general route on Hopper's tensor cores: the forward (kernel
 // 1), the forward with its stash and the backward chain (kernels 2 and 3)
-// for the general configs the wgmma templates of nerf_mlp_train.cuh do not
-// take: bf16 at every padded width F % 32 == 0 up to 1024 with encodings
-// up to 128 wide (route wgmma_general), f32 at F % 64 == 0 up to 256 on
-// wgmma's bf16 product over three bf16 pieces of each operand (route
-// f32_wgmma). The stashes are nerf_mlp_general.cuh's, row-major: its encode
-// VJP and its dW GEMM (nerf_dw_tc.cuh: wgmma on TMA-loaded stash tiles, the
+// for every config the wgmma templates of nerf_mlp_train.cuh do not take:
+// bf16 at every padded width F % 32 == 0 up to 1024 with encodings up to
+// 128 wide (route wgmma_general), and f32 at the same widths and encodings
+// on wgmma's bf16 product over three bf16 pieces of each operand (route
+// f32_wgmma). The stashes are nerf_stash.cuh's, row-major: its encode VJP
+// and its dW GEMM (nerf_dw_tc.cuh: wgmma on TMA-loaded stash tiles, the
 // same three bf16 pieces for f32, a fixed-order reduce) are used as they are.
 //
 // Replaces, on those configs, the Pallas TPU kernels torch_nerf_tpu/ops/
 // pallas/fused_nerf.py::_fwd_kernel and _bwd_kernel and fused_train.py::
-// _train_kernel; nerf_mlp_general.cuh's FFMA products stay for the f32
-// configs this engine cannot hold.
+// _train_kernel.
 //
 // Design: nerf_mlp_train.cuh's engine carried over to any width. A CTA owns
 // 64 points; a producer warpgroup streams every layer's weights, one K-slice
@@ -25,8 +24,8 @@
 // (NP a template value, F a runtime one; kernel 1-3's plan picks NP and
 // the passes, nerf_mlp_tc.cuh::choose). A layer's output overwrites its
 // input in place, so the outputs of a layer's earlier passes wait in
-// registers, packed bf16, until both warpgroups are done with its last
-// pass (a barrier of the 256 consumer threads): at F = 1024, NP = 128,
+// registers (bf16 packed in pairs) until both warpgroups are done with its
+// last pass (a barrier of the 256 consumer threads): at F = 1024, NP = 128,
 // 3 x 32 held registers beside a 64-register sum, where a second 128 KB
 // activation tile does not fit beside the ring. Then they go to the tile
 // and on to the stash row-major, 16 bytes a thread; a relu layer's sign
@@ -42,6 +41,22 @@
 // the encodings padded to 128. A width off the 64s ends each trunk input
 // on a half K-slice, read for its two k16 steps only: the activation
 // tile's columns past F are never read.
+//
+// f32 keeps 4 bytes a column: its tile holds as bf16's does up to F = 512
+// (128 KB), an earlier pass's outputs held as f32 (NP / 2 registers a
+// pass beside the NP of a pass's sums and its slice's fold), so a kernel
+// of NP columns holds at most f32_pass_cap(NP) passes. Past 512 a 64-point
+// f32 tile (256 KB at 1024) does not fit a block's 227 KB, and the
+// kernels stream (kStream): each layer's outputs go straight from the
+// registers to device memory, the stash (kernels 2-3) or two scratch
+// buffers in turn and one for h9 (kernel 1), and the next layer's A comes
+// back from there (L2) into registers, a K-slice whole while the slice
+// before it is multiplied (product_f32_raw); shared memory holds the
+// encodings, the chain's x panel and the ring. No layer overwrites its
+// input, so nothing is held. (A 2-CTA cluster holding half the tile each
+// would read half of every A from its partner by DSMEM and wait on it
+// twice a layer, and its halves split fc_9's F / 2 columns off the
+// panels: PERF.md, section 6.)
 //
 // Products. bf16: wgmma m64nNk16 with A (the activations) and B (the
 // weight stage) K-major in 128-byte swizzled panels. f32: an f32 x is
@@ -79,7 +94,8 @@
 //            last slice's first column; fc_5 its h4 rows; chain[0] fc_in's
 //            pe rows (128, F); chain[11], chain[12] fc_5's pe rows and
 //            fc_9's de rows (128, ...): the input-grad products;
-//   b[l]     nerf_mlp_general.cuh's biases (the forward's column order).
+//   b[l]     nerf_stash.cuh's Net: the biases in the forward's column
+//            order, zero-padded to every column of their layer's passes.
 
 #pragma once
 
@@ -90,8 +106,8 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "nerf_mlp_general.cuh"
 #include "nerf_mlp_train.cuh"
+#include "nerf_stash.cuh"
 #include "wgmma_ops.cuh"
 
 namespace nerf_tc {
@@ -129,11 +145,13 @@ constexpr int kSmemLimit = 232448;  // a block's shared memory
 constexpr int kSmemPerSM = 233472;  // an SM's, 1 KB of it reserved a block
 constexpr int kSlack = 1024 + 2 * kMaxStages * 8;  // the barriers and up to 1023 bytes to align
 constexpr int kChainPe = 11, kChainDe = 12, kChainImages = 13;
-constexpr int kMaxPasses = 4;   // column passes of a layer: F = 1024 at 128 columns a warpgroup
+constexpr int kMaxPasses = 4;   // column passes of a tile kernel's layer: F = 1024 at 128 columns a warpgroup
 constexpr int kPassCap = 128;   // a warpgroup's columns a pass where a layer takes several
 constexpr int kPassMin = 96;    // ... and at least this many
 constexpr int kPairMax = 80;    // the widest bf16 pass width two CTAs an SM hold
 constexpr int kSigmaRows = 8;   // fc_8's sigma group beside each pass's features
+constexpr int kF32TileMax = 512;  // the widest f32 config whose 64-point tile fits a block
+constexpr int kTrash = kConsumers * 8;  // a streaming kernel's per-thread sink for padding columns
 
 template <class T>
 struct Tc;
@@ -177,13 +195,16 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (c / PC) * kPanel + r * 128 + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15));
 }
 
-// passes of a layer that a kernel of pass width NP holds: several in bf16
-// at kPassMin..kPassCap columns a warpgroup (their outputs wait in
-// registers as packed bf16), else one
-template <class T, int NP>
-__host__ __device__ constexpr int pass_cap() {
-  return sizeof(T) == 2 && NP >= kPassMin && NP <= kPassCap ? kMaxPasses : 1;
-}
+// passes of a layer that a bf16 kernel of pass width NP holds: several at
+// kPassMin..kPassCap columns a warpgroup (their outputs wait in registers
+// as packed bf16), else one
+__host__ __device__ constexpr int bf16_pass_cap(int np) { return np >= kPassMin && np <= kPassCap ? kMaxPasses : 1; }
+
+// ... and an f32 kernel of several passes: the earlier passes' outputs
+// wait as f32, NP / 2 registers each, beside a pass's NP / 2 sums and its
+// slice's NP / 2 (product_f32): (cap + 1) x NP / 2 <= 160, as bf16's 1024
+// (64 + 96); 0 where no kernel of several passes is built at NP
+__host__ __device__ constexpr int f32_pass_cap(int np) { return np == 64 ? 4 : np == 80 ? 3 : np == 96 ? 2 : 0; }
 
 // CTAs an SM: two at a narrow bf16 pass (a small layer's barriers and ring
 // waits in one CTA overlap the other's products; each then has 96
@@ -215,11 +236,8 @@ __host__ __device__ constexpr int block_smem(int ctas) { return ctas == 2 ? kSme
 // trip counts. Encoding de between the products, or loops whose trip
 // counts follow a runtime F, made ptxas serialize the wgmma of such a
 // kernel (warnings C7520, C7512) and cost path B's kernel 2 ~16% (PERF.md,
-// section 6).
-template <class T, int NP>
-__host__ __device__ constexpr bool shared_encodings() {
-  return pass_cap<T, NP>() > 1;
-}
+// section 6). A streaming kernel keeps a tile each (its shared memory
+// holds no activations).
 
 // sign-bit words of a pass a thread: one for each 32 of its n / 2 sums
 __host__ __device__ constexpr int bit_words(int n) { return cdiv(n / 2, 32); }
@@ -293,12 +311,16 @@ __device__ __forceinline__ void publish() {
 // for k0 k16 steps, then the n1 slices at base1 (an encoding, or the
 // chain's x panel), the last read for k1. A trunk input of a width off the
 // 64s ends on a half slice, read for its two k16 steps: the tile's columns
-// past F are never read.
+// past F are never read. A streaming kernel's first n0 slices are a
+// row-major f32 buffer in device memory instead (g: the tile's first row,
+// gld floats a row; null for a tile).
 struct ASrc {
   uint32_t base0;
   int n0, k0;
   uint32_t base1;
   int n1, k1;
+  const float* g;
+  int gld;
   __device__ __forceinline__ int count() const { return n0 + n1; }
   template <class T>
   __device__ __forceinline__ uint32_t slice(int s) const {
@@ -309,7 +331,18 @@ struct ASrc {
 
 // the `cols` columns of the tile at base, then those of a second
 __device__ __forceinline__ ASrc a_of(uint32_t base, int cols, uint32_t base1 = 0u, int cols1 = 0) {
-  return {base, slices(cols), last_k(cols), base1, cols1 > 0 ? slices(cols1) : 0, cols1 > 0 ? last_k(cols1) : 4};
+  return {base, slices(cols), last_k(cols), base1, cols1 > 0 ? slices(cols1) : 0, cols1 > 0 ? last_k(cols1) : 4,
+          nullptr, 0};
+}
+
+// the `cols` columns of rows [row0, row0 + 64) of a row-major (m_pad, ld)
+// buffer, then those of the tile at base1
+__device__ __forceinline__ ASrc a_rows(const float* buf, int ld, int row0, int cols, uint32_t base1 = 0u,
+                                       int cols1 = 0) {
+  ASrc a = a_of(0u, cols, base1, cols1);
+  a.g = buf + static_cast<size_t>(row0) * ld;
+  a.gld = ld;
+  return a;
 }
 
 template <int N, int N2>
@@ -361,21 +394,27 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& p0, uint32_t&
 }
 
 // k16 step k of the warp's 16 rows of the f32 K-slice at `a` (two 32-column
-// panels), as wgmma's register A fragment, in its three bf16 pieces
-__device__ __forceinline__ void load_a_pieces(uint32_t a, int k, uint32_t (&q)[3][4]) {
+// panels): the four pairs of wgmma's register A fragment, {(r0, c0), (r0 +
+// 8, c0), (r0, c0 + 8), (r0 + 8, c0 + 8)}
+__device__ __forceinline__ void lds_fragment(uint32_t a, int k, float2 (&v)[4]) {
   const int lane = threadIdx.x & 31;
   const int r0 = 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
   const uint32_t panel = a + (k >> 1) * kPanel;
   const int c0 = 16 * (k & 1) + 2 * (lane & 3);
   // rows r0 and r0 + 8 share r % 8, so one swizzled chunk offset serves both
   auto at = [&](int r, int c) { return panel + r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2)); };
-  float v[4][2];
-  lds_f32x2(at(r0, c0), v[0][0], v[0][1]);
-  lds_f32x2(at(r0 + 8, c0), v[1][0], v[1][1]);
-  lds_f32x2(at(r0, c0 + 8), v[2][0], v[2][1]);
-  lds_f32x2(at(r0 + 8, c0 + 8), v[3][0], v[3][1]);
+  lds_f32x2(at(r0, c0), v[0].x, v[0].y);
+  lds_f32x2(at(r0 + 8, c0), v[1].x, v[1].y);
+  lds_f32x2(at(r0, c0 + 8), v[2].x, v[2].y);
+  lds_f32x2(at(r0 + 8, c0 + 8), v[3].x, v[3].y);
+}
+
+// ... as wgmma's register A fragment, in its three bf16 pieces
+__device__ __forceinline__ void load_a_pieces(uint32_t a, int k, uint32_t (&q)[3][4]) {
+  float2 v[4];
+  lds_fragment(a, k, v);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) split3(v[e][0], v[e][1], q[0][e], q[1][e], q[2][e]);
+  for (int e = 0; e < 4; ++e) split3(v[e].x, v[e].y, q[0][e], q[1][e], q[2][e]);
 }
 
 // the registers stay live until the products that read them are done
@@ -397,73 +436,145 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[3][4]) {
 // leading x0 w0 last, four additions, and the slice is folded into acc by
 // an f32 add that rounds to nearest. All 8 products in acc over the whole
 // K read ~10x the plain f32 version's error on the card (PERF.md, section 6).
-template <int N, int N2>
-__device__ __forceinline__ void product_f32(Ring& ring, const ASrc& src, uint32_t b_off, uint32_t b2_off,
-                                            float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1]) {
-  constexpr int M2 = N2 > 0 ? N2 / 2 : 1;
-  float part[N / 2], part2[M2];
-  const int slices = src.count();
-  for (int s = 0; s < slices; ++s) {
-    const int ks = src.steps(s);
-    const uint32_t a = src.slice<float>(s);
+template <int N, int N2, class Load>
+__device__ __forceinline__ void stage_products(int j, int ks, uint32_t b, uint32_t b_off, uint32_t b2_off,
+                                               float (&part)[N / 2], float (&part2)[N2 > 0 ? N2 / 2 : 1],
+                                               Load load) {
+  uint32_t q[3][4];
+  // the products x_i w_j of this stage: i from 0, or from 1 when x0 w0
+  // waits for its own pass below; load(k, q) puts k16 step k's A pieces in q
+  auto products = [&](int i0, int i1) {
 #pragma unroll
-    for (int j = 2; j >= 0; --j) {  // W's piece in this stage
-      const int slot = ring.it % ring.stages;
-      await_phase(&ring.full[slot], (ring.it / ring.stages) & 1);
-      const uint32_t b = smem_u32(ring.stage + slot * ring.stage_bytes);
-      uint32_t q[3][4];
-      // the products x_i w_j of this stage: i from 0, or from 1 when x0 w0
-      // waits for its own pass below
-      auto products = [&](int i0, int i1) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (k < ks) {
-            if (k > 0) {
-              wg_wait<0>();
-              fence_regs(q);
-            }
-            load_a_pieces(a, k, q);
-            wg_fence();
-            const uint64_t db = sw128_desc(b + b_off + 32 * k, 16, 1024);
-            const uint64_t db2 = sw128_desc(b + b2_off + 32 * k, 16, 1024);
-#pragma unroll
-            for (int i = i0; i <= i1; ++i) {
-              const int scale = !(j == 2 && k == 0 && i == i0);  // the slice's first product starts its sums
-              mma_bf16_rs<N>(part, q[i], db, scale);
-              if constexpr (N2 > 0) mma_bf16_rs<N2>(part2, q[i], db2, scale);
-            }
-            wg_commit();
-          }
+    for (int k = 0; k < 4; ++k) {
+      if (k < ks) {
+        if (k > 0) {
+          wg_wait<0>();
+          fence_regs(q);
         }
-        wg_wait<0>();
-        fence_regs(q);
-      };
-      if (j == 0) {
-        products(1, 2);
-        products(0, 0);
-      } else {
-        products(0, 3 - j < 2 ? 3 - j : 2);
+        load(k, q);
+        wg_fence();
+        const uint64_t db = sw128_desc(b + b_off + 32 * k, 16, 1024);
+        const uint64_t db2 = sw128_desc(b + b2_off + 32 * k, 16, 1024);
+#pragma unroll
+        for (int i = i0; i <= i1; ++i) {
+          const int scale = !(j == 2 && k == 0 && i == i0);  // the slice's first product starts its sums
+          mma_bf16_rs<N>(part, q[i], db, scale);
+          if constexpr (N2 > 0) mma_bf16_rs<N2>(part2, q[i], db2, scale);
+        }
+        wg_commit();
       }
-      release(ring, ring.it);
-      ++ring.it;
     }
-    fence_acc(part);
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[i] = s == 0 ? part[i] : acc[i] + part[i];
-    if constexpr (N2 > 0) {
-      fence_acc(part2);
-#pragma unroll
-      for (int i = 0; i < M2; ++i) acc2[i] = s == 0 ? part2[i] : acc2[i] + part2[i];
-    }
+    wg_wait<0>();
+    fence_regs(q);
+  };
+  if (j == 0) {
+    products(1, 2);
+    products(0, 0);
+  } else {
+    products(0, 3 - j < 2 ? 3 - j : 2);
   }
 }
 
-// the product of one layer: b_row the warpgroup's first image row
-template <class T, int N, int N2 = 0>
+// a K-slice's three stages (W's pieces w2, w1, w0) into a fresh
+// accumulator, folded into acc (s the slice's index: slice 0 starts acc);
+// load(k, q) puts the slice's k16 step k's A pieces in q
+template <int N, int N2, class Load>
+__device__ __forceinline__ void slice_products(Ring& ring, int s, int ks, uint32_t b_off, uint32_t b2_off,
+                                               float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1],
+                                               Load load) {
+  constexpr int M2 = N2 > 0 ? N2 / 2 : 1;
+  float part[N / 2], part2[M2];
+#pragma unroll
+  for (int j = 2; j >= 0; --j) {  // W's piece in this stage
+    const int slot = ring.it % ring.stages;
+    await_phase(&ring.full[slot], (ring.it / ring.stages) & 1);
+    stage_products<N, N2>(j, ks, smem_u32(ring.stage + slot * ring.stage_bytes), b_off, b2_off, part, part2, load);
+    release(ring, ring.it);
+    ++ring.it;
+  }
+  fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = s == 0 ? part[i] : acc[i] + part[i];
+  if constexpr (N2 > 0) {
+    fence_acc(part2);
+#pragma unroll
+    for (int i = 0; i < M2; ++i) acc2[i] = s == 0 ? part2[i] : acc2[i] + part2[i];
+  }
+}
+
+template <int N, int N2>
+__device__ __forceinline__ void product_f32(Ring& ring, const ASrc& src, uint32_t b_off, uint32_t b2_off,
+                                            float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1]) {
+  const int slices = src.count();
+  for (int s = 0; s < slices; ++s) {
+    const uint32_t a = src.slice<float>(s);
+    slice_products<N, N2>(ring, s, src.steps(s), b_off, b2_off, acc, acc2,
+                          [&](int k, uint32_t (&q)[3][4]) { load_a_pieces(a, k, q); });
+  }
+}
+
+// a K-slice of A as the warp's raw f32 fragments: k16 step k's four pairs
+// {(r0, c0), (r0 + 8, c0), (r0, c0 + 8), (r0 + 8, c0 + 8)} (lds_fragment's
+// order), from device memory for a streaming kernel's first segment, else
+// from the tile; the steps past the slice's are not read
+__device__ __forceinline__ void load_raw(const ASrc& src, int s, float2 (&v)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+  const int ks = src.steps(s);
+  if (src.g != nullptr && s < src.n0) {
+    const float* p = src.g + static_cast<size_t>(r0) * src.gld + kSliceCols * s + 2 * (lane & 3);
+    const size_t r8 = static_cast<size_t>(8) * src.gld;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k < ks) {
+        v[k][0] = *reinterpret_cast<const float2*>(p + 16 * k);
+        v[k][1] = *reinterpret_cast<const float2*>(p + r8 + 16 * k);
+        v[k][2] = *reinterpret_cast<const float2*>(p + 16 * k + 8);
+        v[k][3] = *reinterpret_cast<const float2*>(p + r8 + 16 * k + 8);
+      }
+    }
+  } else {
+    const uint32_t a = src.slice<float>(s);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < ks) lds_fragment(a, k, v[k]);
+  }
+}
+
+// f32 for a streaming kernel: product_f32's products in its order (the
+// same sums bit for bit), each K-slice's raw A loaded whole before the
+// slice's products and split into pieces at each k16 step, the next
+// slice's loads issued as this one's products start, so that a slice's
+// reads from device memory (L2) wait behind the products of the slice
+// before it, not in front of each k16 step
+template <int N, int N2>
+__device__ __forceinline__ void product_f32_raw(Ring& ring, const ASrc& src, uint32_t b_off, uint32_t b2_off,
+                                                float (&acc)[N / 2], float (&acc2)[N2 > 0 ? N2 / 2 : 1]) {
+  float2 cur[4][4], nxt[4][4];
+  const int slices = src.count();
+  load_raw(src, 0, cur);
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices) load_raw(src, s + 1, nxt);
+    slice_products<N, N2>(ring, s, src.steps(s), b_off, b2_off, acc, acc2, [&](int k, uint32_t (&q)[3][4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split3(cur[k][e].x, cur[k][e].y, q[0][e], q[1][e], q[2][e]);
+    });
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cur[k][e] = nxt[k][e];
+  }
+}
+
+// the product of one layer: b_row the warpgroup's first image row; a
+// streaming kernel's (kStream) f32 products read A as product_f32_raw does
+template <class T, int N, int N2 = 0, bool kStream = false>
 __device__ __forceinline__ void product(Ring& ring, const ASrc& src, int b_row, float (&acc)[N / 2],
                                         float (&acc2)[N2 > 0 ? N2 / 2 : 1], int b2_row = 0) {
   if constexpr (sizeof(T) == 2) {
     product_bf16<N, N2>(ring, src, 128u * b_row, 128u * b2_row, acc, acc2);
+  } else if constexpr (kStream) {
+    product_f32_raw<N, N2>(ring, src, 128u * b_row, 128u * b2_row, acc, acc2);
   } else {
     product_f32<N, N2>(ring, src, 128u * b_row, 128u * b2_row, acc, acc2);
   }
@@ -517,9 +628,33 @@ __device__ __forceinline__ void store2(unsigned char* tile, int r, int c, float 
   }
 }
 
+// where an epilogue's pairs go: the tile's swizzled panels ...
+struct TileOut {
+  unsigned char* tile;
+  template <class T>
+  __device__ __forceinline__ void put(int r, int c, float v0, float v1) const {
+    store2<T>(tile, r, c, v0, v1);
+  }
+};
+
+// ... or, in a streaming kernel, rows [row0, row0 + 64) of a row-major f32
+// (m_pad, ld) buffer (p: row row0): a pass's padding columns, at or past
+// `width`, go to the thread's sink by a select of the address, not a
+// branch (see above)
+struct RowOut {
+  float* p;
+  int ld, width;
+  float2* trash;
+  template <class T>
+  __device__ __forceinline__ void put(int r, int c, float v0, float v1) const {
+    float2* dst = c < width ? reinterpret_cast<float2*>(p + static_cast<size_t>(r) * ld + c) : trash;
+    *dst = make_float2(v0, v1);
+  }
+};
+
 // relu(bias(acc)) as nerf_apply rounds it, and with kBits the sign bits
-template <class T, int N, bool kBits>
-__device__ __forceinline__ void relu_out(const float (&acc)[N / 2], const void* bias, int col0, unsigned char* tile,
+template <class T, int N, bool kBits, class Out>
+__device__ __forceinline__ void relu_out(const float (&acc)[N / 2], const void* bias, int col0, const Out& out,
                                          uint32_t* bits, int t) {
   uint32_t w[bit_words(N)] = {};
 #pragma unroll
@@ -529,14 +664,14 @@ __device__ __forceinline__ void relu_out(const float (&acc)[N / 2], const void* 
     float y0, y1;
     if constexpr (sizeof(T) == 2) {
       const bf162 y = __hmax2_nan(g::Elem<bf16>::bias2(acc[i], acc[i + 1], bias, c), __float2bfloat162_rn(0.f));
-      *reinterpret_cast<bf162*>(tile + swz<T>(r, c)) = y;
+      *reinterpret_cast<bf162*>(out.tile + swz<T>(r, c)) = y;
       y0 = __low2float(y);
       y1 = __high2float(y);
     } else {
       const float* b = static_cast<const float*>(bias);
       y0 = relu_nan(acc[i] + b[c]);
       y1 = relu_nan(acc[i + 1] + b[c + 1]);
-      store2<T>(tile, r, c, y0, y1);
+      out.template put<T>(r, c, y0, y1);
     }
     if constexpr (kBits) set_bits(w, i, y0, y1);
   }
@@ -545,9 +680,9 @@ __device__ __forceinline__ void relu_out(const float (&acc)[N / 2], const void* 
 
 // acc rounded to T, kept where the sign bits w are set (all of it without
 // kMask): dh masked by its input's relu
-template <class T, int N, bool kMask>
+template <class T, int N, bool kMask, class Out>
 __device__ __forceinline__ void dz_out(const float (&acc)[N / 2], const uint32_t (&w)[bit_words(N)], int col0,
-                                       unsigned char* tile, int t) {
+                                       const Out& out, int t) {
 #pragma unroll
   for (int i = 0; i < N / 2; i += 2) {
     float v0 = g::Elem<T>::round(acc[i]);
@@ -556,28 +691,32 @@ __device__ __forceinline__ void dz_out(const float (&acc)[N / 2], const uint32_t
       if (!bit(w, i)) v0 = 0.f;
       if (!bit(w, i + 1)) v1 = 0.f;
     }
-    store2<T>(tile, acc_row(t, i), col0 + acc_col(t, i), v0, v1);
+    out.template put<T>(acc_row(t, i), col0 + acc_col(t, i), v0, v1);
   }
 }
 
 // ---------------------------------------------------------------------------
-// the outputs of a layer's earlier passes, packed bf16, held in registers
-// until both warpgroups are done with its last pass (the layer overwrites
-// its input): slot q holds pass q's N columns a warpgroup
+// the outputs of a layer's earlier passes, held in registers until both
+// warpgroups are done with its last pass (the layer overwrites its input):
+// slot q holds pass q's N columns a warpgroup, a pair of sums a word,
+// packed bf16 or, in f32, as they are
 
-template <int N, int kP>
+template <class T>
+using HeldWord = std::conditional_t<sizeof(T) == 2, uint32_t, float2>;
+
+template <class T, int N, int kP>
 struct Held {
-  uint32_t v[kP > 1 ? kP - 1 : 1][N / 4];
+  HeldWord<T> v[kP > 1 ? kP - 1 : 1][N / 4];
 };
 
-// y(i), the packed pair of sums i and i + 1 of pass p, into slot p: p is a
+// y(i), the pair of sums i and i + 1 of pass p, into slot p: p is a
 // runtime value and v a register array, so each slot takes it under a
 // predicate
-template <int N, int kP, class Y>
-__device__ __forceinline__ void hold(Held<N, kP>& h, int p, Y y) {
+template <class T, int N, int kP, class Y>
+__device__ __forceinline__ void hold(Held<T, N, kP>& h, int p, Y y) {
 #pragma unroll
   for (int i = 0; i < N / 2; i += 2) {
-    const uint32_t v = y(i);
+    const HeldWord<T> v = y(i);
 #pragma unroll
     for (int q = 0; q < kP - 1; ++q)
       if (q == p) h.v[q][i >> 1] = v;
@@ -585,50 +724,67 @@ __device__ __forceinline__ void hold(Held<N, kP>& h, int p, Y y) {
 }
 
 // slots 0 .. n - 2 to the tile, pass q at columns col(q)..
-template <int N, int kP, class Col>
-__device__ __forceinline__ void unhold(const Held<N, kP>& h, int n, unsigned char* tile, int t, Col col) {
+template <class T, int N, int kP, class Col>
+__device__ __forceinline__ void unhold(const Held<T, N, kP>& h, int n, unsigned char* tile, int t, Col col) {
 #pragma unroll
   for (int q = 0; q < kP - 1; ++q) {
     if (q < n - 1) {
       const int col0 = col(q);
 #pragma unroll
       for (int i = 0; i < N / 2; i += 2)
-        *reinterpret_cast<uint32_t*>(tile + swz<bf16>(acc_row(t, i), col0 + acc_col(t, i))) = h.v[q][i >> 1];
+        *reinterpret_cast<HeldWord<T>*>(tile + swz<T>(acc_row(t, i), col0 + acc_col(t, i))) = h.v[q][i >> 1];
     }
   }
 }
 
 // relu_out's pairs (and sign bits) of pass p, held
-template <int N, int kP, bool kBits>
-__device__ __forceinline__ void hold_relu(Held<N, kP>& h, int p, const float (&acc)[N / 2], const void* bias,
+template <class T, int N, int kP, bool kBits>
+__device__ __forceinline__ void hold_relu(Held<T, N, kP>& h, int p, const float (&acc)[N / 2], const void* bias,
                                           int col0, uint32_t* bits, int t) {
   uint32_t w[bit_words(N)] = {};
   hold(h, p, [&](int i) {
-    const bf162 y = __hmax2_nan(g::Elem<bf16>::bias2(acc[i], acc[i + 1], bias, col0 + acc_col(t, i)),
-                                __float2bfloat162_rn(0.f));
-    if constexpr (kBits) set_bits(w, i, __low2float(y), __high2float(y));
-    return nerf_train::bits_of(y);
+    if constexpr (sizeof(T) == 2) {
+      const bf162 y = __hmax2_nan(g::Elem<bf16>::bias2(acc[i], acc[i + 1], bias, col0 + acc_col(t, i)),
+                                  __float2bfloat162_rn(0.f));
+      if constexpr (kBits) set_bits(w, i, __low2float(y), __high2float(y));
+      return nerf_train::bits_of(y);
+    } else {
+      const float* b = static_cast<const float*>(bias);
+      const int c = col0 + acc_col(t, i);
+      const float2 y = make_float2(relu_nan(acc[i] + b[c]), relu_nan(acc[i + 1] + b[c + 1]));
+      if constexpr (kBits) set_bits(w, i, y.x, y.y);
+      return y;
+    }
   });
   if constexpr (kBits) store_bits(bits, w);
 }
 
-// bf16(bf16(acc) + b) of pass p (fc_8's features), held
-template <int N, int kP>
-__device__ __forceinline__ void hold_bias(Held<N, kP>& h, int p, const float (&acc)[N / 2], const void* bias,
+// the bias sums of pass p (fc_8's features: bf16(bf16(acc) + b) in bf16),
+// held
+template <class T, int N, int kP>
+__device__ __forceinline__ void hold_bias(Held<T, N, kP>& h, int p, const float (&acc)[N / 2], const void* bias,
                                           int col0, int t) {
   hold(h, p, [&](int i) {
-    return nerf_train::bits_of(g::Elem<bf16>::bias2(acc[i], acc[i + 1], bias, col0 + acc_col(t, i)));
+    if constexpr (sizeof(T) == 2) {
+      return nerf_train::bits_of(g::Elem<bf16>::bias2(acc[i], acc[i + 1], bias, col0 + acc_col(t, i)));
+    } else {
+      return g::Elem<float>::bias(acc[i], acc[i + 1], bias, col0 + acc_col(t, i));
+    }
   });
 }
 
 // dz_out's pairs of pass p, held
-template <int N, int kP, bool kMask>
-__device__ __forceinline__ void hold_dz(Held<N, kP>& h, int p, const float (&acc)[N / 2],
+template <class T, int N, int kP, bool kMask>
+__device__ __forceinline__ void hold_dz(Held<T, N, kP>& h, int p, const float (&acc)[N / 2],
                                         const uint32_t (&w)[bit_words(N)]) {
   hold(h, p, [&](int i) {
     const float v0 = !kMask || bit(w, i) ? acc[i] : 0.f;
     const float v1 = !kMask || bit(w, i + 1) ? acc[i + 1] : 0.f;
-    return nerf_train::bits_of(__floats2bfloat162_rn(v0, v1));
+    if constexpr (sizeof(T) == 2) {
+      return nerf_train::bits_of(__floats2bfloat162_rn(v0, v1));
+    } else {
+      return make_float2(v0, v1);
+    }
   });
 }
 
@@ -700,6 +856,15 @@ __device__ __forceinline__ void copy_out(const unsigned char* tile, T* dst, int 
   }
 }
 
+// an f32 panel's columns [0, 16) to columns [col, col + 16) of rows [row0,
+// row0 + 64) of a row-major (m_pad, ld) buffer, 16 bytes a thread
+__device__ __forceinline__ void copy_strip(const unsigned char* panel, float* dst, int ld, int col, int row0,
+                                           int tid) {
+  const int r = tid >> 2, j = tid & 3;
+  *reinterpret_cast<uint4*>(dst + static_cast<size_t>(row0 + r) * ld + col + 4 * j) =
+      *reinterpret_cast<const uint4*>(panel + swz<float>(r, 4 * j));
+}
+
 // a 64-row panel whose row r holds v(r, 0..2) (rounded to T) in columns
 // 0..2, zeros elsewhere
 template <class T, class Value>
@@ -758,23 +923,33 @@ __host__ __device__ inline int act_panels(int feat, int np, int passes) {
   return panels<T>(feat > 2 * np * passes ? feat : 2 * np * passes);
 }
 
-template <class T, int NP, bool kStash, class In>
+// A kernel's shape: NP columns a warpgroup a pass; kP the passes its tile
+// holds (1: one pass, its trunk read to 2 NP); kStream: f32 past the tile,
+// every layer through device memory (any number of passes, nothing held).
+// A kernel of one pass reads its trunk to 2 NP, one of several (or a
+// streaming one) to F.
+template <int kP, bool kStream>
+__host__ __device__ constexpr bool multi() {
+  return kP > 1 || kStream;
+}
+
+template <class T, int NP, int kP, bool kStream, bool kStash, class In>
 __global__ void __launch_bounds__(kThreads, ctas<T, NP>())
     forward_kernel(In in, const __grid_constant__ g::Net net, const __grid_constant__ g::Stash<T> st, uint32_t* bits,
                    int m, const __grid_constant__ Plan plan) {
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = carve(smem_raw, plan.stages);
   const g::Dims& d = net.d;
-  constexpr int kP = pass_cap<T, NP>();
   constexpr int N9 = NP / 2;  // fc_9's columns a warpgroup a pass
-  constexpr bool kShared = shared_encodings<T, NP>();
+  constexpr bool kShared = kP > 1 && !kStream;
   // the passes: one, known here, where the pass width holds one (choose);
   // the trunk inputs' K
-  const int F = d.feat, n = kP > 1 ? plan.passes : 1;
-  const int K = kP > 1 ? F : 2 * NP;
+  const int F = d.feat, n = multi<kP, kStream>() ? plan.passes : 1;
+  const int K = multi<kP, kStream>() ? F : 2 * NP;
   const int pe_np = panels<T>(d.pe_dim), de_np = panels<T>(d.de_dim);
   unsigned char* act = sm.data;
-  unsigned char* enc = act + act_panels<T>(F, NP, n) * kPanel;  // pe (and with kShared, from fc_8 on, de)
+  // pe (and with kShared, from fc_8 on, de): after the activation tile, where there is one
+  unsigned char* enc = act + (kStream ? 0 : act_panels<T>(F, NP, n) * kPanel);
   unsigned char* enc_de = kShared ? enc : enc + pe_np * kPanel;
   Ring ring = {sm.full, sm.empty, enc + (kShared ? (pe_np > de_np ? pe_np : de_np) : pe_np + de_np) * kPanel,
                plan.stage_bytes, plan.stages, 0};
@@ -792,6 +967,14 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP>())
   auto col = [&](int p) { return (2 * p + wg) * NP; };
   auto col9 = [&](int p) { return (2 * p + wg) * N9; };
   auto bits_for = [&](int slot, int p) { return kStash ? bits_at<NP>(bits, plan.words, slot, p) : nullptr; };
+  // streaming: activation a in device memory, as a layer's input and as
+  // its output (the sink after the ring)
+  float2* trash = reinterpret_cast<float2*>(ring.stage + plan.stages * plan.stage_bytes) + tid;
+  auto rows_of = [&](int a) { return reinterpret_cast<const float*>(st.act[a]); };
+  auto out_of = [&](int a) {
+    const int w = d.act_width(a);
+    return RowOut{reinterpret_cast<float*>(st.act[a]) + static_cast<size_t>(row0) * w, w, w, trash};
+  };
 
   auto encode_de = [&] {
     encode<T>([&](int i, int c) { return in.dir(i, c); }, row0, m, d.dir_levels, d.include_input, d.de_dim, de_np,
@@ -811,20 +994,31 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP>())
 
   // relu layers fc_in .. fc_7: fc_in reads pe, fc_5 [h4, pe], the others h
   for (int l = 0; l < 8; ++l) {
-    const ASrc src = l == 0 ? a_of(enc_a, d.pe_dim) : a_of(act_a, K, enc_a, l == 5 ? d.pe_dim : 0);
+    const int pe5 = l == 5 ? d.pe_dim : 0;
     float acc[NP / 2];
-    Held<NP, kP> held;
-    for (int p = 0; p < n; ++p) {
-      product<T, NP>(ring, src, wg * NP, acc, unused);
-      if constexpr (kP > 1) {
-        if (p < n - 1) hold_relu<NP, kP, kStash>(held, p, acc, net.b[l], col(p), bits_for(l, p), t);
+    if constexpr (kStream) {
+      const ASrc src = l == 0 ? a_of(enc_a, d.pe_dim) : a_rows(rows_of(g::A_H0 + l - 1), F, row0, K, enc_a, pe5);
+      const RowOut out = out_of(g::A_H0 + l);
+      for (int p = 0; p < n; ++p) {
+        product<T, NP, 0, true>(ring, src, wg * NP, acc, unused);
+        relu_out<T, NP, kStash>(acc, net.b[l], col(p), out, bits_for(l, p), t);
       }
+      consumers_sync();
+    } else {
+      const ASrc src = l == 0 ? a_of(enc_a, d.pe_dim) : a_of(act_a, K, enc_a, pe5);
+      Held<T, NP, kP> held;
+      for (int p = 0; p < n; ++p) {
+        product<T, NP>(ring, src, wg * NP, acc, unused);
+        if constexpr (kP > 1) {
+          if (p < n - 1) hold_relu<T, NP, kP, kStash>(held, p, acc, net.b[l], col(p), bits_for(l, p), t);
+        }
+      }
+      consumers_sync();
+      if constexpr (kP > 1) unhold(held, n, act, t, col);
+      relu_out<T, NP, kStash>(acc, net.b[l], col(n - 1), TileOut{act}, bits_for(l, n - 1), t);
+      publish();
+      if constexpr (kStash) copy_out<T>(act, st.act[g::A_H0 + l], F, row0, tid);
     }
-    consumers_sync();
-    if constexpr (kP > 1) unhold(held, n, act, t, col);
-    relu_out<T, NP, kStash>(acc, net.b[l], col(n - 1), act, bits_for(l, n - 1), t);
-    publish();
-    if constexpr (kStash) copy_out<T>(act, st.act[g::A_H0 + l], F, row0, tid);
   }
 
   // fc_5 was pe's last reader: de takes its tile (fc_8's barriers publish
@@ -836,21 +1030,33 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP>())
   // warpgroup from the last
   {
     float acc[NP / 2], acc8[4];
-    Held<NP, kP> held;
-    const ASrc src = a_of(act_a, K);
-    for (int p = 0; p < n; ++p) {
-      product<T, NP, kSigmaRows>(ring, src, wg * NP, acc, acc8, 2 * NP);
-      if constexpr (kP > 1) {
-        if (p < n - 1) hold_bias<NP, kP>(held, p, acc, net.b[g::L_8], col(p), t);
-      }
-    }
-    consumers_sync();
-    if constexpr (kP > 1) unhold(held, n, act, t, col);
+    auto features = [&](int p, const auto& out) {
 #pragma unroll
-    for (int i = 0; i < NP / 2; i += 2) {
-      const int c = col(n - 1) + acc_col(t, i);
-      const float2 y = g::Elem<T>::bias(acc[i], acc[i + 1], net.b[g::L_8], c);
-      store2<T>(act, acc_row(t, i), c, y.x, y.y);
+      for (int i = 0; i < NP / 2; i += 2) {
+        const int c = col(p) + acc_col(t, i);
+        const float2 y = g::Elem<T>::bias(acc[i], acc[i + 1], net.b[g::L_8], c);
+        out.template put<T>(acc_row(t, i), c, y.x, y.y);
+      }
+    };
+    if constexpr (kStream) {
+      const ASrc src = a_rows(rows_of(g::A_H0 + 7), F, row0, K);
+      const RowOut out = out_of(g::A_FEAT);
+      for (int p = 0; p < n; ++p) {
+        product<T, NP, kSigmaRows, true>(ring, src, wg * NP, acc, acc8, 2 * NP);
+        features(p, out);
+      }
+    } else {
+      Held<T, NP, kP> held;
+      const ASrc src = a_of(act_a, K);
+      for (int p = 0; p < n; ++p) {
+        product<T, NP, kSigmaRows>(ring, src, wg * NP, acc, acc8, 2 * NP);
+        if constexpr (kP > 1) {
+          if (p < n - 1) hold_bias<T, NP, kP>(held, p, acc, net.b[g::L_8], col(p), t);
+        }
+      }
+      consumers_sync();
+      if constexpr (kP > 1) unhold(held, n, act, t, col);
+      features(n - 1, TileOut{act});
     }
     if (wg == 1 && (t & 3) == 0) {
 #pragma unroll
@@ -860,35 +1066,50 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP>())
         if (gr < m) st.sigma[gr] = relu_nan(y.x);
       }
     }
-    publish();
-    if constexpr (kStash) {
-      copy_out<T>(act, st.act[g::A_FEAT], F, row0, tid);
-      if constexpr (kShared) copy_out<T>(enc_de, st.act[g::A_DE], d.de_pad, row0, tid);
+    if constexpr (kStream) {
+      consumers_sync();
+    } else {
+      publish();
+      if constexpr (kStash) {
+        copy_out<T>(act, st.act[g::A_FEAT], F, row0, tid);
+        if constexpr (kShared) copy_out<T>(enc_de, st.act[g::A_DE], d.de_pad, row0, tid);
+      }
     }
   }
 
   // fc_9 reads [features, de] -> h9 (F/2), NP / 2 columns a warpgroup a pass
   {
     float acc9[N9 / 2];
-    Held<N9, kP> held;
-    const ASrc src = a_of(act_a, K, de_a, d.de_dim);
-    for (int p = 0; p < n; ++p) {
-      product<T, N9>(ring, src, wg * N9, acc9, unused);
-      if constexpr (kP > 1) {
-        if (p < n - 1) hold_relu<N9, kP, kStash>(held, p, acc9, net.b[g::L_9], col9(p), bits_for(8, p), t);
+    if constexpr (kStream) {
+      const ASrc src = a_rows(rows_of(g::A_FEAT), F, row0, K, de_a, d.de_dim);
+      const RowOut out = out_of(g::A_H9);
+      for (int p = 0; p < n; ++p) {
+        product<T, N9, 0, true>(ring, src, wg * N9, acc9, unused);
+        relu_out<T, N9, kStash>(acc9, net.b[g::L_9], col9(p), out, bits_for(8, p), t);
       }
+      consumers_sync();
+    } else {
+      Held<T, N9, kP> held;
+      const ASrc src = a_of(act_a, K, de_a, d.de_dim);
+      for (int p = 0; p < n; ++p) {
+        product<T, N9>(ring, src, wg * N9, acc9, unused);
+        if constexpr (kP > 1) {
+          if (p < n - 1) hold_relu<T, N9, kP, kStash>(held, p, acc9, net.b[g::L_9], col9(p), bits_for(8, p), t);
+        }
+      }
+      consumers_sync();
+      if constexpr (kP > 1) unhold(held, n, act, t, col9);
+      relu_out<T, N9, kStash>(acc9, net.b[g::L_9], col9(n - 1), TileOut{act}, bits_for(8, n - 1), t);
+      publish();
+      if constexpr (kStash) copy_out<T>(act, st.act[g::A_H9], F / 2, row0, tid);
     }
-    consumers_sync();
-    if constexpr (kP > 1) unhold(held, n, act, t, col9);
-    relu_out<T, N9, kStash>(acc9, net.b[g::L_9], col9(n - 1), act, bits_for(8, n - 1), t);
-    publish();
-    if constexpr (kStash) copy_out<T>(act, st.act[g::A_H9], F / 2, row0, tid);
   }
 
   // fc_out -> sigmoid, written by the lower warpgroup
   {
     float acco[4];
-    product<T, 8>(ring, a_of(act_a, K / 2), 0, acco, unused);
+    const ASrc src = kStream ? a_rows(rows_of(g::A_H9), F / 2, row0, K / 2) : a_of(act_a, K / 2);
+    product<T, 8, 0, kStream>(ring, src, 0, acco, unused);
     if (wg == 0) {
 #pragma unroll
       for (int i = 0; i < 4; i += 2) {
@@ -909,8 +1130,9 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP>())
 // cotangents g_sigma (m,), g_rgb (m, 3): every dz to the dz stash; with
 // kInputGrads the f32 cotangents of the encodings to dpe (m_pad, pe_pad)
 // and dde (m_pad, de_pad). A pass's mask words are read before its product.
+// A streaming kernel reads each dz back from the stash as the next step's A.
 
-template <class T, int NP, bool kInputGrads>
+template <class T, int NP, int kP, bool kStream, bool kInputGrads>
 __global__ void __launch_bounds__(kThreads, ctas<T, NP, kInputGrads>())
     chain_kernel(const __grid_constant__ g::Net net, const __grid_constant__ g::Stash<T> st,
                  const uint32_t* __restrict__ bits, const float* __restrict__ g_sigma,
@@ -919,12 +1141,11 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP, kInputGrads>())
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = carve(smem_raw, plan.stages);
   const g::Dims& d = net.d;
-  constexpr int kP = pass_cap<T, NP>();
   constexpr int N9 = NP / 2;
-  const int F = d.feat, n = kP > 1 ? plan.passes : 1;
-  const int K = kP > 1 ? F : 2 * NP;  // the dz inputs' K, as the forward's
+  const int F = d.feat, n = multi<kP, kStream>() ? plan.passes : 1;
+  const int K = multi<kP, kStream>() ? F : 2 * NP;  // the dz inputs' K, as the forward's
   unsigned char* act = sm.data;
-  unsigned char* x = act + act_panels<T>(F, NP, n) * kPanel;
+  unsigned char* x = act + (kStream ? 0 : act_panels<T>(F, NP, n) * kPanel);
   Ring ring = {sm.full, sm.empty, x + kPanel, plan.stage_bytes, plan.stages, 0};
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -941,6 +1162,14 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP, kInputGrads>())
   auto bits_for = [&](int slot, int p) { return bits_at<NP>(bits, plan.words, slot, p); };
   const uint32_t act_a = smem_u32(act), x_a = smem_u32(x);
   float unused[1];
+  // streaming: layer l's dz in the stash, as the next step's input and as
+  // a step's output (its columns past `width` to the sink after the ring)
+  float2* trash = reinterpret_cast<float2*>(ring.stage + plan.stages * plan.stage_bytes) + tid;
+  auto dz_rows = [&](int l) { return reinterpret_cast<const float*>(st.dz[l]); };
+  auto dz_of = [&](int l, int width) {
+    const int w = d.dz_width(l);
+    return RowOut{reinterpret_cast<float*>(st.dz[l]) + static_cast<size_t>(row0) * w, w, width, trash};
+  };
 
   // dz_out = g_rgb rgb (1 - rgb) in x's columns 0..2
   small_panel<T>(x, tid, [&](int r, float (&v)[3]) {
@@ -966,35 +1195,51 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP, kInputGrads>())
     for (int p = 0; p < n; ++p) {
       uint32_t w[bit_words(N9)];
       load_bits(bits_for(8, p), w);
-      product<T, N9>(ring, a_of(x_a, 16), wg * N9, acc9, unused);
-      dz_out<T, N9, true>(acc9, w, col9(p), act, t);
+      product<T, N9, 0, kStream>(ring, a_of(x_a, 16), wg * N9, acc9, unused);
+      if constexpr (kStream) {
+        dz_out<T, N9, true>(acc9, w, col9(p), dz_of(g::L_9, F / 2), t);
+      } else {
+        dz_out<T, N9, true>(acc9, w, col9(p), TileOut{act}, t);
+      }
     }
-    publish();
-    copy_out<T>(act, st.dz[g::L_9], F / 2, row0, tid);
+    if constexpr (kStream) {
+      consumers_sync();
+    } else {
+      publish();
+      copy_out<T>(act, st.dz[g::L_9], F / 2, row0, tid);
+    }
   }
 
   // fc_9^T: dz9 W_9^T -> the features' dh (dz8's feature columns, no
   // relu); with input grads dde from the de rows
   {
-    const ASrc src = a_of(act_a, K / 2);
+    const ASrc src = kStream ? a_rows(dz_rows(g::L_9), F / 2, row0, K / 2) : a_of(act_a, K / 2);
     // the input-grad product first: its sums leave before acc's arrive
     if constexpr (kInputGrads) {
       float acce[kExtra / 2];
-      product<T, kExtra>(ring, src, wg * kExtra, acce, unused);
+      product<T, kExtra, 0, kStream>(ring, src, wg * kExtra, acce, unused);
       grad_out<T, false>(acce, wg * kExtra, dde, d.de_pad, row0, t);
     }
     const uint32_t none[bit_words(NP)] = {};
     float acc[NP / 2];
-    Held<NP, kP> held;
-    for (int p = 0; p < n; ++p) {
-      product<T, NP>(ring, src, wg * NP, acc, unused);
-      if constexpr (kP > 1) {
-        if (p < n - 1) hold_dz<NP, kP, false>(held, p, acc, none);
+    if constexpr (kStream) {
+      const RowOut out = dz_of(g::L_8, F);
+      for (int p = 0; p < n; ++p) {
+        product<T, NP, 0, true>(ring, src, wg * NP, acc, unused);
+        dz_out<T, NP, false>(acc, none, col(p), out, t);
       }
+    } else {
+      Held<T, NP, kP> held;
+      for (int p = 0; p < n; ++p) {
+        product<T, NP>(ring, src, wg * NP, acc, unused);
+        if constexpr (kP > 1) {
+          if (p < n - 1) hold_dz<T, NP, kP, false>(held, p, acc, none);
+        }
+      }
+      consumers_sync();
+      if constexpr (kP > 1) unhold(held, n, act, t, col);
+      dz_out<T, NP, false>(acc, none, col(n - 1), TileOut{act}, t);
     }
-    consumers_sync();
-    if constexpr (kP > 1) unhold(held, n, act, t, col);
-    dz_out<T, NP, false>(acc, none, col(n - 1), act, t);
     // dz8's sigma column: g_sigma where sigma > 0, in x's column 0
     small_panel<T>(x, tid, [&](int r, float (&v)[3]) {
       const int gr = row0 + r;
@@ -1002,41 +1247,57 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP, kInputGrads>())
       v[1] = v[2] = 0.f;
     });
     publish();
-    copy_out<T>(act, st.dz[g::L_8], F + 16, row0, tid, x, F);
+    if constexpr (kStream) {
+      copy_strip(x, reinterpret_cast<float*>(st.dz[g::L_8]), F + 16, F, row0, tid);
+    } else {
+      copy_out<T>(act, st.dz[g::L_8], F + 16, row0, tid, x, F);
+    }
   }
 
   // fc_8^T .. fc_1^T: dh = dz W^T masked by the relu of its input; fc_8^T
   // reads [dz8's features, x's sigma column], fc_5^T's pe rows give dpe
   for (int l = 8; l >= 1; --l) {
-    const ASrc src = a_of(act_a, K, x_a, l == 8 ? 16 : 0);
+    const int xs = l == 8 ? 16 : 0;
+    const ASrc src = kStream ? a_rows(dz_rows(l), d.dz_width(l), row0, K, x_a, xs) : a_of(act_a, K, x_a, xs);
     if constexpr (kInputGrads) {
       if (l == 5) {
         float acce[kExtra / 2];
-        product<T, kExtra>(ring, src, wg * kExtra, acce, unused);
+        product<T, kExtra, 0, kStream>(ring, src, wg * kExtra, acce, unused);
         grad_out<T, false>(acce, wg * kExtra, dpe, d.pe_pad, row0, t);
       }
     }
     float acc[NP / 2];
-    Held<NP, kP> held;
     uint32_t w[bit_words(NP)];
-    for (int p = 0; p < n; ++p) {
-      load_bits(bits_for(l - 1, p), w);
-      product<T, NP>(ring, src, wg * NP, acc, unused);
-      if constexpr (kP > 1) {
-        if (p < n - 1) hold_dz<NP, kP, true>(held, p, acc, w);
+    if constexpr (kStream) {
+      const RowOut out = dz_of(l - 1, F);
+      for (int p = 0; p < n; ++p) {
+        load_bits(bits_for(l - 1, p), w);
+        product<T, NP, 0, true>(ring, src, wg * NP, acc, unused);
+        dz_out<T, NP, true>(acc, w, col(p), out, t);
       }
+      consumers_sync();
+    } else {
+      Held<T, NP, kP> held;
+      for (int p = 0; p < n; ++p) {
+        load_bits(bits_for(l - 1, p), w);
+        product<T, NP>(ring, src, wg * NP, acc, unused);
+        if constexpr (kP > 1) {
+          if (p < n - 1) hold_dz<T, NP, kP, true>(held, p, acc, w);
+        }
+      }
+      consumers_sync();
+      if constexpr (kP > 1) unhold(held, n, act, t, col);
+      dz_out<T, NP, true>(acc, w, col(n - 1), TileOut{act}, t);
+      publish();
+      copy_out<T>(act, st.dz[l - 1], F, row0, tid);
     }
-    consumers_sync();
-    if constexpr (kP > 1) unhold(held, n, act, t, col);
-    dz_out<T, NP, true>(acc, w, col(n - 1), act, t);
-    publish();
-    copy_out<T>(act, st.dz[l - 1], F, row0, tid);
   }
 
   if constexpr (kInputGrads) {
     // fc_in^T: dpe += round(dz0 W_in^T)
     float acce[kExtra / 2];
-    product<T, kExtra>(ring, a_of(act_a, K), wg * kExtra, acce, unused);
+    const ASrc src = kStream ? a_rows(dz_rows(g::L_IN), F, row0, K) : a_of(act_a, K);
+    product<T, kExtra, 0, kStream>(ring, src, wg * kExtra, acce, unused);
     grad_out<T, true>(acce, wg * kExtra, dpe, d.pe_pad, row0, t);
   }
 }
@@ -1045,10 +1306,14 @@ __global__ void __launch_bounds__(kThreads, ctas<T, NP, kInputGrads>())
 // host side
 
 // a layer's column passes: NP columns a warpgroup a pass (the kernels' pass
-// width), n passes
+// width), n passes; stream: f32 past kF32TileMax, every layer through
+// device memory; multi: a tile kernel of several passes (its trunk read to
+// F, its earlier passes' outputs held), at n = 1 too
 struct Passes {
   int np;
   int n;
+  bool stream;
+  bool multi;
 };
 
 // bytes of a stage: one weight image's K-slice of a pass's rows (the f32
@@ -1082,26 +1347,30 @@ inline size_t smem_bytes(int tiles, const Plan& plan) {
   return static_cast<size_t>(kSlack) + tiles + static_cast<size_t>(plan.stages) * plan.stage_bytes;
 }
 
-// shared_encodings<T, NP> at run time
+// a kernel of several passes (multi<kP, kStream> at run time): its trunk
+// read to F
 template <class T>
-inline bool shares_encodings(int np) {
-  return sizeof(T) == 2 && np >= kPassMin && np <= kPassCap;
+inline bool multi_of(Passes ps) {
+  return ps.stream || ps.multi;
 }
 
 // the forward's tiles: the activations (every pass's columns) and the
-// encodings (one tile for both where the kernel shares it); the chain's:
-// the dz tile and one panel
+// encodings (one tile for both in a tile kernel of several passes); the
+// chain's: the dz tile and one panel. A streaming kernel's: no
+// activations, its sink after the ring.
 template <class T>
 inline int tile_bytes(const g::Dims& d, Passes ps, bool forward) {
-  const int p = act_panels<T>(d.feat, ps.np, ps.n);
+  const int p = ps.stream ? 0 : act_panels<T>(d.feat, ps.np, ps.n);
   const int pe = panels<T>(d.pe_dim), de = panels<T>(d.de_dim);
-  return (forward ? p + (shares_encodings<T>(ps.np) ? std::max(pe, de) : pe + de) : p + 1) * kPanel;
+  const bool shared = multi_of<T>(ps) && !ps.stream;
+  return (forward ? p + (shared ? std::max(pe, de) : pe + de) : p + 1) * kPanel + (ps.stream ? kTrash : 0);
 }
 
-// the K of a trunk input (shared_encodings: F, else the pass's width)
+// the K of a trunk input (a kernel of several passes: F, else the pass's
+// width)
 template <class T>
 inline int trunk_k(const g::Dims& d, Passes ps) {
-  return shares_encodings<T>(ps.np) ? d.feat : 2 * ps.np;
+  return multi_of<T>(ps) ? d.feat : 2 * ps.np;
 }
 
 template <class T>
@@ -1150,6 +1419,31 @@ inline bool fits(const g::Dims& d, Passes ps) {
          chain_plan<T>(none, d, false, ps).stages >= 2;
 }
 
+// f32's column passes, F = 2 C: at F % 64 == 0 up to 256 one pass of C
+// (paths A's engine as it was); else up to kF32TileMax the kernel of
+// several passes (NP 64, 80 or 96, at most f32_pass_cap(NP) of them) that
+// covers C in the fewest columns, on a tie the fewest passes; past it, or
+// where no tile plan fits, streaming at NP 96 or 64, whichever covers C in
+// fewer columns (96 on a tie)
+inline Passes choose_f32(const g::Dims& d) {
+  const int c = d.feat / 2;
+  if (d.feat % 64 == 0 && c <= kPassCap && fits<float>(d, {c, 1, false, false})) return {c, 1, false, false};
+  if (d.feat <= kF32TileMax) {
+    Passes best = {0, 0, false, true};
+    for (int np : {64, 80, 96}) {
+      const int n = cdiv(c, np);
+      if (n > f32_pass_cap(np)) continue;
+      if (best.n == 0 || np * n < best.np * best.n || (np * n == best.np * best.n && n < best.n)) {
+        best = {np, n, false, true};
+      }
+    }
+    if (best.n > 0 && fits<float>(d, best)) return best;
+  }
+  const Passes s = cdiv(c, 96) * 96 <= cdiv(c, 64) * 64 ? Passes{96, cdiv(c, 96), true, false}
+                                                        : Passes{64, cdiv(c, 64), true, false};
+  return fits<float>(d, s) ? s : Passes{0, 0, false, false};
+}
+
 // the column passes of a config, {0, 0} where this engine does not take
 // it. bf16, any padded width F % 32 == 0 up to 1024, C = F / 2 columns a
 // warpgroup: up to 128 one pass of C rounded up to 16 (two CTAs an SM up
@@ -1158,24 +1452,27 @@ inline bool fits(const g::Dims& d, Passes ps) {
 // of 256 for the forward with its stash and the chain where its ring keeps
 // two stages (path B's engine as it was; kernel 1, the forward alone,
 // reads faster in the two passes and kernels 2-3 slower: PERF.md, section
-// 6). f32, F % 64 == 0 up to 256: one pass of C.
+// 6). f32: choose_f32, every padded width up to 1024.
 template <class T>
 inline Passes choose(const g::Dims& d, bool stash = true) {
-  const Passes none = {0, 0};
+  const Passes none = {0, 0, false, false};
   if (!g::dims_ok(d)) return none;
-  const int c = d.feat / 2;
-  Passes ps;
   if constexpr (sizeof(T) == 4) {
-    if (d.feat % 64 != 0 || d.feat > 256) return none;
-    ps = {c, 1};
-  } else if (c <= kPassCap) {
-    ps = {cdiv(c, 16) * 16, 1};
+    return choose_f32(d);
   } else {
-    const int n = cdiv(c, kPassCap);
-    ps = {std::max(kPassMin, cdiv(cdiv(c, n), 16) * 16), n};
-    if (stash && n == 2 && ps.np == kPassCap && fits<T>(d, {2 * kPassCap, 1})) return {2 * kPassCap, 1};
+    const int c = d.feat / 2;
+    Passes ps;
+    if (c <= kPassCap) {
+      ps = {cdiv(c, 16) * 16, 1, false, false};
+    } else {
+      const int n = cdiv(c, kPassCap);
+      ps = {std::max(kPassMin, cdiv(cdiv(c, n), 16) * 16), n, false, false};
+      const Passes merged = {2 * kPassCap, 1, false, false};
+      if (stash && n == 2 && ps.np == kPassCap && fits<T>(d, merged)) return merged;
+    }
+    ps.multi = bf16_pass_cap(ps.np) > 1;
+    return fits<T>(d, ps) ? ps : none;
   }
-  return fits<T>(d, ps) ? ps : none;
 }
 
 template <class T>
@@ -1197,90 +1494,143 @@ inline size_t bits_bytes(int m, const g::Dims& d) {
                      kConsumers * sizeof(uint32_t));
 }
 
+// kernel 1's scratch where it streams: two row-major (m_pad, F) f32
+// buffers the layers write in turn (h0, h2, .., h6 and the features to the
+// first, h1, .., h7 to the second), and h9's (m_pad, F / 2) of its own (at
+// its own row pitch in either buffer, a tile's h9 rows would overwrite
+// another tile's rows that its layers have still to read)
+template <class T>
+inline size_t scratch_bytes(int m, const g::Dims& d) {
+  g::Dims padded = d;
+  padded.pe_dim = d.pe_pad;
+  padded.de_dim = d.de_pad;
+  if (!choose<T>(padded, false).stream) return 0;
+  const size_t mp = g::padded_points(m);
+  return 2 * g::align256(mp * d.feat * sizeof(float)) + g::align256(mp * d.half() * sizeof(float));
+}
+
 using nerf_train::set_smem;
 
-template <class T, int NP, bool kStash, class In>
-inline cudaError_t forward_np(const In& in, const g::Net& net, const g::Stash<T>& st, uint32_t* bits, int m,
-                              const Plan& plan, cudaStream_t stream) {
-  const size_t smem = smem_bytes(tile_bytes<T>(net.d, {plan.np, plan.passes}, true), plan);
-  cudaError_t err = set_smem(forward_kernel<T, NP, kStash, In>, smem);
+template <class T, int NP, int kP, bool kStream, bool kStash, class In>
+inline cudaError_t forward_shape(const In& in, const g::Net& net, const g::Stash<T>& st, uint32_t* bits, int m,
+                                 const Plan& plan, Passes ps, cudaStream_t stream) {
+  const size_t smem = smem_bytes(tile_bytes<T>(net.d, ps, true), plan);
+  cudaError_t err = set_smem(forward_kernel<T, NP, kP, kStream, kStash, In>, smem);
   if (err != cudaSuccess) return err;
-  forward_kernel<T, NP, kStash, In><<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(in, net, st, bits, m,
-                                                                                           plan);
+  forward_kernel<T, NP, kP, kStream, kStash, In>
+      <<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(in, net, st, bits, m, plan);
   return cudaGetLastError();
 }
 
-template <class T, int NP, bool kInputGrads>
-inline cudaError_t chain_np(const g::Net& net, const g::Stash<T>& st, const uint32_t* bits, const float* g_sigma,
-                            const float* g_rgb, float* dpe, float* dde, int m, const Plan& plan,
-                            cudaStream_t stream) {
-  const size_t smem = smem_bytes(tile_bytes<T>(net.d, {plan.np, plan.passes}, false), plan);
-  cudaError_t err = set_smem(chain_kernel<T, NP, kInputGrads>, smem);
+template <class T, int NP, int kP, bool kStream, bool kInputGrads>
+inline cudaError_t chain_shape(const g::Net& net, const g::Stash<T>& st, const uint32_t* bits, const float* g_sigma,
+                               const float* g_rgb, float* dpe, float* dde, int m, const Plan& plan, Passes ps,
+                               cudaStream_t stream) {
+  const size_t smem = smem_bytes(tile_bytes<T>(net.d, ps, false), plan);
+  cudaError_t err = set_smem(chain_kernel<T, NP, kP, kStream, kInputGrads>, smem);
   if (err != cudaSuccess) return err;
-  chain_kernel<T, NP, kInputGrads><<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(net, st, bits, g_sigma,
-                                                                                          g_rgb, dpe, dde, m, plan);
+  chain_kernel<T, NP, kP, kStream, kInputGrads>
+      <<<g::padded_points(m) / kRows, kThreads, smem, stream>>>(net, st, bits, g_sigma, g_rgb, dpe, dde, m, plan);
   return cudaGetLastError();
 }
 
-// NP through the pass widths the kernels are built at: bf16 16..128 by 16
-// and 256; f32 32..128 by 32
+// the kernel shapes built: fn(NP, kP, kStream) as integral constants.
+// bf16: NP 16..128 by 16 and 256, kP bf16_pass_cap(NP); f32: one pass at
+// NP 32..128 by 32, several at NP 64, 80, 96 (kP f32_pass_cap), streaming
+// at NP 64 and 96
+template <int NP, int kP, bool kStream, class Fn>
+inline cudaError_t shape(Fn& fn) {
+  return fn(std::integral_constant<int, NP>(), std::integral_constant<int, kP>(),
+            std::integral_constant<bool, kStream>());
+}
+
 template <class T, class Fn>
-inline cudaError_t by_pass_width(int np, Fn fn) {
-  switch (np) {
-    case 32: return fn(std::integral_constant<int, 32>());
-    case 64: return fn(std::integral_constant<int, 64>());
-    case 96: return fn(std::integral_constant<int, 96>());
-    case 128: return fn(std::integral_constant<int, 128>());
-    default: break;
-  }
+inline cudaError_t by_shape(Passes ps, Fn fn) {
   if constexpr (sizeof(T) == 2) {
-    switch (np) {
-      case 16: return fn(std::integral_constant<int, 16>());
-      case 48: return fn(std::integral_constant<int, 48>());
-      case 80: return fn(std::integral_constant<int, 80>());
-      case 112: return fn(std::integral_constant<int, 112>());
-      case 256: return fn(std::integral_constant<int, 256>());
-      default: break;
+    switch (ps.np) {
+      case 16: return shape<16, 1, false>(fn);
+      case 32: return shape<32, 1, false>(fn);
+      case 48: return shape<48, 1, false>(fn);
+      case 64: return shape<64, 1, false>(fn);
+      case 80: return shape<80, 1, false>(fn);
+      case 96: return shape<96, bf16_pass_cap(96), false>(fn);
+      case 112: return shape<112, bf16_pass_cap(112), false>(fn);
+      case 128: return shape<128, bf16_pass_cap(128), false>(fn);
+      case 256: return shape<256, 1, false>(fn);
+      default: return cudaErrorInvalidValue;
+    }
+  } else if (ps.stream) {
+    switch (ps.np) {
+      case 64: return shape<64, 1, true>(fn);
+      case 96: return shape<96, 1, true>(fn);
+      default: return cudaErrorInvalidValue;
+    }
+  } else if (ps.multi) {
+    switch (ps.np) {
+      case 64: return shape<64, f32_pass_cap(64), false>(fn);
+      case 80: return shape<80, f32_pass_cap(80), false>(fn);
+      case 96: return shape<96, f32_pass_cap(96), false>(fn);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (ps.np) {
+      case 32: return shape<32, 1, false>(fn);
+      case 64: return shape<64, 1, false>(fn);
+      case 96: return shape<96, 1, false>(fn);
+      case 128: return shape<128, 1, false>(fn);
+      default: return cudaErrorInvalidValue;
     }
   }
-  return cudaErrorInvalidValue;
 }
 
 // the forward of m points: sigma, rgb to st.sigma, st.rgb; with kStash every
 // activation to the stash and the relu bits to bits (bits_bytes). fwd: the
-// forward images. A config the engine does not take is refused.
+// forward images; scratch: kernel 1's scratch_bytes where it streams. A
+// config the engine does not take is refused. (run_forward and run_chain
+// are not inline: an entry source declares its f32 instances extern and a
+// part of its own instantiates them, so that nvcc compiles the f32
+// kernels beside the bf16 ones; ops/build.py links both.)
 template <class T, bool kStash, class In>
-inline cudaError_t run_forward(const In& in, const g::Net& net, const void* const* fwd, const g::Stash<T>& st,
-                               uint32_t* bits, int m, cudaStream_t stream) {
+cudaError_t run_forward(const In& in, const g::Net& net, const void* const* fwd, g::Stash<T> st,
+                               uint32_t* bits, int m, cudaStream_t stream, void* scratch = nullptr) {
   const Passes ps = choose<T>(net.d, kStash);
   if (ps.n == 0) return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
+  if (!kStash && ps.stream) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    const size_t buffer = g::align256(static_cast<size_t>(g::padded_points(m)) * net.d.feat * sizeof(float));
+    unsigned char* base = static_cast<unsigned char*>(scratch);
+    for (int a = g::A_H0; a < g::kActs; ++a)
+      st.act[a] = reinterpret_cast<T*>(base + (a == g::A_H9 ? 2 : (a - g::A_H0) % 2) * buffer);
+  }
   const Plan plan = forward_plan<T>(fwd, net.d, ps);
-  return by_pass_width<T>(ps.np, [&](auto np) {
-    return forward_np<T, decltype(np)::value, kStash>(in, net, st, bits, m, plan, stream);
+  return by_shape<T>(ps, [&](auto np, auto kp, auto stream_) {
+    return forward_shape<T, decltype(np)::value, decltype(kp)::value, decltype(stream_)::value, kStash>(
+        in, net, st, bits, m, plan, ps, stream);
   });
 }
 
 template <class T, bool kInputGrads>
-inline cudaError_t run_chain(const g::Net& net, const void* const* chain, const g::Stash<T>& st, const uint32_t* bits,
+cudaError_t run_chain(const g::Net& net, const void* const* chain, const g::Stash<T>& st, const uint32_t* bits,
                              const float* g_sigma, const float* g_rgb, float* dpe, float* dde, int m,
                              cudaStream_t stream) {
   const Passes ps = choose<T>(net.d);
   if (ps.n == 0) return cudaErrorInvalidValue;
   const Plan plan = chain_plan<T>(chain, net.d, kInputGrads, ps);
-  return by_pass_width<T>(ps.np, [&](auto np) {
-    return chain_np<T, decltype(np)::value, kInputGrads>(net, st, bits, g_sigma, g_rgb, dpe, dde, m, plan, stream);
+  return by_shape<T>(ps, [&](auto np, auto kp, auto stream_) {
+    return chain_shape<T, decltype(np)::value, decltype(kp)::value, decltype(stream_)::value, kInputGrads>(
+        net, st, bits, g_sigma, g_rgb, dpe, dde, m, plan, ps, stream);
   });
 }
 
 // the plan of a config for its Python twin (fused_nerf.tc_plan): out[0..9]
 // = NP, passes, the forward's, the chain's and the chain with input
 // grads' stages, their shared-memory bytes, sign-bit words a slot, CTAs an
-// SM; out[10..11] kernel 1's NP and passes; zeros where the engine does
-// not take the config
+// SM; out[10..11] kernel 1's NP and passes; out[12] 1 where the kernels
+// stream; zeros where the engine does not take the config
 template <class T>
 inline void plan_of(const g::Dims& d, long long* out) {
-  for (int i = 0; i < 12; ++i) out[i] = 0;
+  for (int i = 0; i < 13; ++i) out[i] = 0;
   const Passes ps = choose<T>(d);
   if (ps.n == 0) return;
   const void* none[kChainImages] = {};
@@ -1299,6 +1649,7 @@ inline void plan_of(const g::Dims& d, long long* out) {
   const Passes alone = choose<T>(d, false);
   out[10] = alone.np;
   out[11] = alone.n;
+  out[12] = ps.stream;
 }
 
 }  // namespace nerf_tc

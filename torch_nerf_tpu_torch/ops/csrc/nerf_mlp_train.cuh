@@ -981,8 +981,10 @@ __device__ __forceinline__ void gemm_consumer(const GemmTile& tl, unsigned char*
 }
 
 // grid (tiles, splits): each CTA one tile over one slice of the points of
-// the stashes; acts / dz as Stash, m_pad their rows
-__global__ void __launch_bounds__(kThreads, 1)
+// the stashes; acts / dz as Stash, m_pad their rows. (This kernel and
+// dw_reduce are static: a library of several translation units that
+// include this header holds one of each a unit.)
+static __global__ void __launch_bounds__(kThreads, 1)
     dw_gemm(const __grid_constant__ GemmTiles tiles, const unsigned char* __restrict__ acts,
             const unsigned char* __restrict__ dz, int m, int m_pad) {
   extern __shared__ unsigned char smem_raw[];
@@ -1040,7 +1042,7 @@ struct ReduceJobs {
 };
 
 // grid (blocks, layers): out = sum over splits of the partials, in split order
-__global__ void dw_reduce(const __grid_constant__ ReduceJobs jobs) {
+static __global__ void dw_reduce(const __grid_constant__ ReduceJobs jobs) {
   const ReduceJob& j = jobs.j[blockIdx.y];
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (j.rows_pad + 1) * j.cols_pad) return;

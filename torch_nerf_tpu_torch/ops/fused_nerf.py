@@ -6,19 +6,18 @@ Forward (``csrc/fused_nerf_fwd.cu``) replaces the Pallas TPU kernel
 ``_fused_forward`` and its ``pl.pallas_call``). Its bound on an H100 SXM is
 the card's arithmetic: 1,186,816 FLOP per point at width 256, 0.94 ms for a
 786,432-point fine chunk at 989 TFLOP/s bf16 (17.7 ms in f32 at 67 TFLOP/s),
-against 40 bytes of input and output per point. The kernel keeps every
-hidden activation in shared memory, on one of four routes that
-:func:`forward_route` picks from the config: bf16 at widths 64, 128 and 256
-with encodings up to 64 wide take ``wgmma``, the training kernels' forward
-without its stash (``csrc/nerf_mlp_train.cuh``), reading the forward images
-of :func:`forward_layout`; any other bf16 config up to width 1024 and
-encodings 128 wide takes ``wgmma_general`` and an f32 config at a width %
-64 == 0 up to 256 ``f32_wgmma``, the tensor-core general route
+against 40 bytes of input and output per point. It runs on one of three
+routes that :func:`forward_route` picks from the config: bf16 at widths 64,
+128 and 256 with encodings up to 64 wide take ``wgmma``, the training
+kernels' forward without its stash (``csrc/nerf_mlp_train.cuh``), reading
+the forward images of :func:`forward_layout`; every other config up to
+width 1024 and encodings 128 wide takes the tensor-core general route
 (``csrc/nerf_mlp_tc.cuh``: column passes, :func:`tc_plan`), reading
-:func:`tc_layout`; any other f32 config takes ``f32``, the FFMA general
-route (``csrc/nerf_mlp_general.cuh``: tiles of 32 points, 16 where 32 do
-not fit in shared memory: :func:`tile_rows`), reading
-:func:`general_matrices` row-major.
+:func:`tc_layout`: ``wgmma_general`` in bf16, ``f32_wgmma`` in f32 (three
+bf16 pieces an operand). Every hidden activation stays in shared memory,
+but for f32 past width 512, whose 64-point tile does not fit: there each
+layer's outputs go to device memory and come back from L2 as the next
+layer's input (kernel 1 through a scratch of two such buffers and h9's).
 A width that is not a multiple of 32 is zero-padded to the next one
 (:func:`pad_params`): the padded units are ``relu(0) = 0`` and add nothing
 to any later layer.
@@ -36,11 +35,10 @@ into ``h4`` and ``pe``, the view-direction split at fc_9.
 
 The TPU workarounds of the Pallas kernels are not carried over: the encode
 is plain ``sincosf``, and the public parameter layout reaches the kernels
-with only zero padding and a reordering, done here: on the ``wgmma`` route
-each weight, and for the backward its transpose, as images of ``wgmma``'s
-128-byte swizzled shared-memory layout (:func:`training_layout`,
-:func:`panel_image`); on the general route each weight and its transpose
-with every concatenated input segment padded to 16 (:func:`general_layout`).
+with only zero padding and a reordering, done here: each weight, and for
+the backward its transpose, as images of ``wgmma``'s 128-byte swizzled
+shared-memory layout (:func:`training_layout`, :func:`panel_image`; on the
+general route :func:`tc_layout`, :func:`tc_panel_image`).
 
 :func:`fused_nerf_apply` takes the public parameter tree through a
 ``torch.autograd.Function``: on CUDA tensors its forward launches the
@@ -84,14 +82,12 @@ WGMMA_MAX_ENC = 64
 # of 32), encodings up to MAX_ENC columns
 MAX_FEAT = 1024
 MAX_ENC = 128
-ROUTES = ("wgmma", "wgmma_general", "f32_wgmma", "f32")
-# the tensor-core general route (csrc/nerf_mlp_tc.cuh): bf16 on wgmma at
-# every padded width up to 1024, f32 on wgmma's bf16 product over three bf16
-# pieces of each operand at padded widths % 64 == 0 up to 256
+ROUTES = ("wgmma", "wgmma_general", "f32_wgmma")
+# the tensor-core general route (csrc/nerf_mlp_tc.cuh): bf16 on wgmma, f32 on
+# wgmma's bf16 product over three bf16 pieces of each operand, at every
+# padded width up to 1024
 TC_ROUTES = ("wgmma_general", "f32_wgmma")
-TC_MAX_FEAT = {torch.bfloat16: MAX_FEAT, torch.float32: 256}
-ROUTE_DTYPE = {"wgmma": torch.bfloat16, "wgmma_general": torch.bfloat16, "f32_wgmma": torch.float32,
-               "f32": torch.float32}
+ROUTE_DTYPE = {"wgmma": torch.bfloat16, "wgmma_general": torch.bfloat16, "f32_wgmma": torch.float32}
 DTYPES = (torch.bfloat16, torch.float32)
 # what a forward library's fused_nerf_fwd reads (fused_nerf_fwd_layout(); a
 # library without that symbol reads fragment order)
@@ -280,16 +276,6 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _pad_rows(w: torch.Tensor, segments) -> torch.Tensor:
-    """Zero-pad each row segment ``(length, padded_length)`` of ``w``."""
-    parts, start = [], 0
-    for length, padded in segments:
-        part = w[start : start + length]
-        parts.append(torch.nn.functional.pad(part, (0, 0, 0, padded - length)))
-        start += length
-    return torch.cat(parts, dim=0)
-
-
 def _flat(params: Params) -> List[torch.Tensor]:
     return [params[name][leaf] for name in LAYER_NAMES for leaf in ("w", "b")]
 
@@ -303,8 +289,8 @@ class KernelWeights:
     """One network's parameters: the public tree plus, for parameters on the
     card, the forward's route and its weight layout per layer (``wgmma``:
     forward panel images and biases in their row order; ``wgmma_general``
-    and ``f32_wgmma``: :func:`tc_layout`'s; ``f32``: :func:`general_layout`'s
-    forward matrices and biases). On the CPU only ``public`` is set."""
+    and ``f32_wgmma``: :func:`tc_layout`'s). On the CPU only ``public`` is
+    set."""
 
     public: Params
     route: Optional[str]
@@ -334,20 +320,17 @@ def forward_route(cfg: FusedNeRFConfig) -> str:
     """The route of ``cfg`` (the forward's and, by :func:`train_route`, the
     training kernels'), chosen before any launch: ``"wgmma"`` for bfloat16
     at feat_dim 64, 128 or 256 with both encodings at most 64 wide; else
-    ``"wgmma_general"`` for bfloat16 (the tensor-core general route, which
-    takes every bfloat16 config of :func:`check_config`: :func:`tc_plan`);
-    for float32 ``"f32_wgmma"`` where that route takes the config, else the
-    FFMA general route, ``"f32"``. Raises past the limits of
+    ``"wgmma_general"`` for bfloat16 and ``"f32_wgmma"`` for float32 (the
+    tensor-core general route, whose plan takes every config of
+    :func:`check_config`: :func:`tc_plan`). Raises past the limits of
     :func:`check_config`."""
     check_config(cfg)
     f32 = cfg.compute_dtype == torch.float32
     if not f32 and cfg.feat_dim in TRAIN_WIDTHS and max(cfg.pos_enc_dim, cfg.dir_enc_dim) <= WGMMA_MAX_ENC:
         return "wgmma"
-    if tc_plan(cfg) is not None:
-        return "f32_wgmma" if f32 else "wgmma_general"
-    if f32:
-        return "f32"
-    raise ValueError(f"no route takes {cfg}: the tensor-core general route's plan does not fit")
+    if tc_plan(cfg) is None:
+        raise ValueError(f"no route takes {cfg}: the tensor-core general route's plan does not fit")
+    return "f32_wgmma" if f32 else "wgmma_general"
 
 
 # the training kernels' (2 and 3) route for a config: the forward's
@@ -422,37 +405,10 @@ def unpad_grads(grads: Params, cfg: FusedNeRFConfig) -> Params:
     return out
 
 
-def general_matrices(params: Params, cfg: FusedNeRFConfig):
-    """Per layer ``(forward, bias, chain)`` of the general route in
-    ``cfg.compute_dtype``, from the public tree at ``cfg.feat_dim`` padded
-    by :func:`pad_params` to F: ``forward`` the (K, N) matrix the layer's
-    input multiplies (rows: its inputs, each concatenated segment padded to
-    16, ``[pe, h4]`` for fc_5, ``[features, de]`` for fc_9; columns: its
-    outputs, fc_8's features then sigma at column F, padded to 8), ``bias``
-    in that column order, ``chain`` the forward's transpose with its rows
-    padded to 16 (the backward's ``dh = dz W^T``)."""
-    dt = cfg.compute_dtype
-    pcfg = padded_config(cfg)
-    fp, p, d = pcfg.feat_dim, cfg.pos_enc_dim, cfg.dir_enc_dim
-    pp, dp = _round16(p), _round16(d)
-    padded = pad_params(params, cfg)
-    rows = {"fc_in": [(p, pp)], "fc_5": [(p, pp), (fp, fp)], "fc_9": [(fp, fp), (d, dp)]}
-    out = []
-    for name, bias in zip(LAYER_NAMES, general_biases(params, cfg)):
-        w = padded[name]["w"].detach().to(dt)
-        if name == "fc_8":  # outputs [sigma, features] -> [features, sigma]
-            w = torch.cat([w[:, 1:], w[:, :1]], dim=1)
-        w = _pad_rows(w, rows.get(name, [(w.shape[0], w.shape[0])]))
-        fwd = torch.nn.functional.pad(w, (0, bias.shape[0] - w.shape[1])).contiguous()
-        chain = _pad(fwd.t(), _round16(bias.shape[0]), fwd.shape[0]).contiguous()
-        out.append((fwd, bias, chain))
-    return out
-
-
 def general_biases(params: Params, cfg: FusedNeRFConfig) -> List[torch.Tensor]:
-    """The biases of :func:`general_matrices` alone: each layer's padded
-    bias in ``cfg.compute_dtype``, fc_8's sigma after its features, padded
-    to a multiple of 8."""
+    """Each layer's bias of :func:`pad_params`'s network in
+    ``cfg.compute_dtype``, in the general route's column order (fc_8's
+    sigma after its features), padded to a multiple of 8."""
     padded = pad_params(params, cfg)
     out = []
     for name in LAYER_NAMES:
@@ -463,18 +419,12 @@ def general_biases(params: Params, cfg: FusedNeRFConfig) -> List[torch.Tensor]:
     return out
 
 
-def general_layout(params: Params, cfg: FusedNeRFConfig):
-    """``(forward, biases, chain)`` lists the FFMA general route's kernels
-    read: :func:`general_matrices` of the parameters as they are at this
-    call, row-major."""
-    mats = general_matrices(params, cfg)
-    return [w for w, _, _ in mats], [b for _, b, _ in mats], [c for _, _, c in mats]
-
-
 def general_grad_shapes(cfg: FusedNeRFConfig):
     """Per layer the ``(rows, columns)`` of the grads the general route's
-    kernels write: the forward matrix's rows by the width of the layer's dz
-    (fc_8: F + 16, its features then sigma; fc_out: 16)."""
+    kernels write: the layer's inputs, each concatenated segment padded to
+    16 (fc_in ``pe``; fc_5 ``[pe, h4]``; fc_9 ``[features, de]``), by the
+    width of the layer's dz (fc_8: F + 16, its features then sigma; fc_out:
+    16)."""
     fp, pp, dp = padded_config(cfg).feat_dim, _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
     shapes = {"fc_in": (pp, fp), "fc_5": (pp + fp, fp), "fc_8": (fp, fp + 16), "fc_9": (fp + dp, fp // 2),
               "fc_out": (fp // 2, 16)}
@@ -504,20 +454,6 @@ def grads_from_general(grads_w: Sequence[torch.Tensor], grads_b: Sequence[torch.
     return unpad_grads(out, cfg)
 
 
-def tile_rows(cfg: FusedNeRFConfig) -> Tuple[int, int, int]:
-    """Points per block of the FFMA general route's kernels
-    (``nerf_mlp_general.cuh``'s ``forward_rows``, ``chain_rows``, which
-    take f32): kernel 1's forward, the forward with its stash (kernels 2-3)
-    and the chain. 32, or 16 where the buffers of 32 and the weight ring do
-    not fit in shared memory."""
-    fp, pp, dp = padded_config(cfg).feat_dim, _round16(cfg.pos_enc_dim), _round16(cfg.dir_enc_dim)
-    ring = 2 * 16 * 256 * 4  # the f32 product's weight ring
-    fwd = ((pp + 4) + (dp + 4) + 2 * (fp + 4)) * 4
-    chain = 2 * (fp + 16 + 4) * 4
-    stash, back = (32 if 32 * row + ring <= _SMEM_LIMIT else 16 for row in (fwd, chain))
-    return stash, stash, back
-
-
 # the tensor-core general route's plan (csrc/nerf_mlp_tc.cuh): 64-point
 # tiles of 128-byte panels, a ring of 2-4 weight stages beside them, each
 # stage one image's 64-column K-slice of a column pass's rows (f32: three,
@@ -532,6 +468,14 @@ _TC_PASS_MIN = 96  # ... and at least this many
 _TC_PAIR_MAX = 80  # the widest bf16 pass width two CTAs an SM hold
 _TC_MAX_PASSES = 4
 _TC_SIGMA_ROWS = 8  # fc_8's sigma group beside each pass's features
+# f32: the widest config whose 64-point tile fits a block; the passes an f32
+# tile kernel of several passes holds at each of its pass widths (their
+# outputs wait as f32: (cap + 1) x NP / 2 registers <= 160); past the tile
+# the kernels stream at these pass widths; a streaming kernel's sink
+_TC_F32_TILE_MAX = 512
+F32_PASS_CAP = {64: 4, 80: 3, 96: 2}
+_TC_STREAM_NP = (96, 64)
+_TC_TRASH = 256 * 8
 
 
 def panel_cols(dtype: torch.dtype) -> int:
@@ -548,10 +492,14 @@ class TcPlan:
     input grads); the sign-bit words a relu slot a thread; the CTAs an SM
     of the forward and the chain (two at a bf16 pass of at most 80
     columns, each in half an SM's shared memory, its consumers at 96
-    registers, else one at 232; the chain with input grads one); and a
-    consumer thread's registers for a pass's f32 sums and, in bf16, the
-    packed outputs of a layer's earlier passes held until its last is
-    done."""
+    registers, else one at 232; the chain with input grads one); a
+    consumer thread's registers for a pass's f32 sums (f32: and its
+    slice's), the outputs of a layer's earlier passes held until its last
+    is done (bf16 packed, at the plan's passes; f32 as f32, every slot the
+    kernel holds) and f32's A fragments (its three pieces; streaming, also
+    two K-slices of raw f32); ``multi``: a tile kernel of several passes,
+    its trunk read to F; ``stream``: f32 past the tile (width 512), every
+    layer's outputs through device memory."""
 
     np: int
     passes: int
@@ -561,20 +509,32 @@ class TcPlan:
     ctas: int
     acc_registers: int
     held_registers: int
+    a_registers: int = 0
+    multi: bool = False
+    stream: bool = False
+
+    @property
+    def registers(self) -> int:
+        """The reckoned registers of the arrays a consumer thread keeps."""
+        return self.acc_registers + self.held_registers + self.a_registers
 
 
-def _tc_plan_at(cfg: FusedNeRFConfig, f: int, np_: int, passes: int) -> TcPlan:
+def _tc_plan_at(cfg: FusedNeRFConfig, f: int, np_: int, passes: int, multi: bool = False,
+                stream: bool = False) -> TcPlan:
     pc = panel_cols(cfg.compute_dtype)
-    p, pe, de = -(-max(f, 2 * np_ * passes) // pc), -(-cfg.pos_enc_dim // pc), -(-cfg.dir_enc_dim // pc)
+    pe, de = -(-cfg.pos_enc_dim // pc), -(-cfg.dir_enc_dim // pc)
+    p = 0 if stream else -(-max(f, 2 * np_ * passes) // pc)
     bf16 = cfg.compute_dtype == torch.bfloat16
-    # the forward's tiles: the activations (every pass's columns) and the
-    # encodings, one tile for both in a kernel of several passes (bf16, NP
-    # 96..128), else one each; its widest stage a pass of fc_8 (2 NP + 8
-    # rows); the chain's tiles the dz tile and one panel, its stages 2 NP
-    # rows, 128 for the input-grad products; 128 bytes a row
-    enc = max(pe, de) if bf16 and _TC_PASS_MIN <= np_ <= _TC_PASS_CAP else pe + de
-    cuts = (((p + enc) * _TC_PANEL, 2 * np_ + _TC_SIGMA_ROWS), ((p + 1) * _TC_PANEL, 2 * np_),
-            ((p + 1) * _TC_PANEL, max(2 * np_, _TC_EXTRA)))
+    # the forward's tiles: the activations (every pass's columns; none where
+    # it streams) and the encodings, one tile for both in a tile kernel of
+    # several passes, else one each; its widest stage a pass of fc_8 (2 NP +
+    # 8 rows); the chain's tiles the dz tile and one panel, its stages 2 NP
+    # rows, 128 for the input-grad products; 128 bytes a row; a streaming
+    # kernel's sink after the ring
+    enc = max(pe, de) if multi and not stream else pe + de
+    extra = _TC_TRASH if stream else 0
+    cuts = (((p + enc) * _TC_PANEL + extra, 2 * np_ + _TC_SIGMA_ROWS), ((p + 1) * _TC_PANEL + extra, 2 * np_),
+            ((p + 1) * _TC_PANEL + extra, max(2 * np_, _TC_EXTRA)))
     ctas = 2 if bf16 and np_ <= _TC_PAIR_MAX else 1
     # the chain with input grads keeps one CTA an SM
     blocks = [_SMEM_PER_SM // 2 - 1024 if ctas == 2 else _SMEM_LIMIT] * 2 + [_SMEM_LIMIT]
@@ -582,31 +542,48 @@ def _tc_plan_at(cfg: FusedNeRFConfig, f: int, np_: int, passes: int) -> TcPlan:
                    for block, (tiles, rows) in zip(blocks, cuts))
     smem = tuple(_TC_SLACK + tiles + n * rows * 128 for n, (tiles, rows) in zip(stages, cuts))
     words = passes * -(-(np_ // 2) // 32)
-    # f32: product_f32 sums a slice in a second accumulator
-    acc = np_ // 2 if bf16 else np_
-    return TcPlan(np_, passes, stages, smem, words, ctas, acc, (passes - 1) * np_ // 4 if bf16 else 0)
+    if bf16:
+        return TcPlan(np_, passes, stages, smem, words, ctas, np_ // 2, (passes - 1) * np_ // 4, 0, multi, stream)
+    # f32: product_f32 sums a slice in a second accumulator beside the pass's
+    held = (F32_PASS_CAP[np_] - 1) * np_ // 2 if multi else 0
+    return TcPlan(np_, passes, stages, smem, words, ctas, np_, held, 12 + (64 if stream else 0), multi, stream)
+
+
+def _f32_candidates(f: int):
+    """f32's plans in ``choose_f32``'s order, ``(np, passes, multi,
+    stream)``: one pass of C = F / 2 at F % 64 == 0 up to 256 (path A's
+    engine); up to width 512 the tile kernel of several passes that covers
+    C in the fewest columns (on a tie the fewest passes); streaming at NP
+    96 or 64, whichever covers C in fewer columns (96 on a tie)."""
+    c = f // 2
+    out = [(c, 1, False, False)] if f % 64 == 0 and c <= _TC_PASS_CAP else []
+    if f <= _TC_F32_TILE_MAX:
+        tiles = [(np_ * -(-c // np_), -(-c // np_), np_) for np_, cap in F32_PASS_CAP.items() if -(-c // np_) <= cap]
+        if tiles:
+            _, passes, np_ = min(tiles)
+            out.append((np_, passes, True, False))
+    np_ = min(_TC_STREAM_NP, key=lambda n: n * -(-c // n))
+    return out + [(np_, -(-c // np_), False, True)]
 
 
 def tc_plan(cfg: FusedNeRFConfig, stash: bool = True) -> Optional[TcPlan]:
     """The tensor-core general route's plan of ``cfg``, or None where the
-    route does not take it. bf16 at every padded width F % 32 == 0 up to
-    :data:`MAX_FEAT`, C = F / 2 columns a warpgroup: up to 128 one pass of
-    C rounded up to 16; else ceil(C / 128) passes of C / passes rounded
-    up to 16, at least 96 (the widths of two
-    passes of 128, 480 and 512, in one pass of 256 where its ring keeps two
-    stages, but for kernel 1, the forward alone: ``stash`` False). f32 at
-    F % 64 == 0 up to 256 in one pass of C. Encodings up to
-    :data:`MAX_ENC` columns, and every kernel's ring two stages deep."""
-    if cfg.compute_dtype not in TC_MAX_FEAT:
+    route does not take it: every padded width F % 32 == 0 up to
+    :data:`MAX_FEAT`, encodings up to :data:`MAX_ENC` columns, every
+    kernel's ring two stages deep. bf16, C = F / 2 columns a warpgroup: up
+    to 128 one pass of C rounded up to 16; else ceil(C / 128) passes of C /
+    passes rounded up to 16, at least 96 (the widths of two passes of 128,
+    480 and 512, in one pass of 256 where its ring keeps two stages, but
+    for kernel 1, the forward alone: ``stash`` False). f32: the first of
+    :func:`_f32_candidates` that fits."""
+    if cfg.compute_dtype not in DTYPES:
         return None
     f = padded_config(cfg).feat_dim
-    if f > TC_MAX_FEAT[cfg.compute_dtype] or max(cfg.pos_enc_dim, cfg.dir_enc_dim) > MAX_ENC:
+    if f > MAX_FEAT or max(cfg.pos_enc_dim, cfg.dir_enc_dim) > MAX_ENC:
         return None
     c = f // 2
     if cfg.compute_dtype == torch.float32:
-        if f % 64:
-            return None
-        candidates = [(c, 1)]
+        candidates = _f32_candidates(f)
     elif c <= _TC_PASS_CAP:
         candidates = [(-(-c // 16) * 16, 1)]
     else:
@@ -614,8 +591,9 @@ def tc_plan(cfg: FusedNeRFConfig, stash: bool = True) -> Optional[TcPlan]:
         np_ = max(_TC_PASS_MIN, -(-(-(-c // passes)) // 16) * 16)
         merge = stash and passes == 2 and np_ == _TC_PASS_CAP
         candidates = ([(2 * _TC_PASS_CAP, 1)] if merge else []) + [(np_, passes)]
-    for np_, passes in candidates:
-        plan = _tc_plan_at(cfg, f, np_, passes)
+    for np_, passes, *flags in candidates:
+        multi, stream = flags or (_TC_PASS_MIN <= np_ <= _TC_PASS_CAP, False)
+        plan = _tc_plan_at(cfg, f, np_, passes, multi, stream)
         if min(plan.stages) >= 2:
             return plan
     return None
@@ -713,8 +691,8 @@ DW_FAULTS = {"slice_skipped": 1, "db_dropped": 2, "swizzle_off_by_one_chunk": 3,
 
 
 def stash_widths(cfg: FusedNeRFConfig) -> Tuple[Dict[str, int], List[int]]:
-    """Columns of the general route's row-major stashes (``nerf_mlp_general.
-    cuh``'s ``act_width``, ``dz_width``): ``({activation: width}, [each
+    """Columns of the general route's row-major stashes (``nerf_stash.cuh``'s
+    ``act_width``, ``dz_width``): ``({activation: width}, [each
     layer's dz width])``, F the padded width, the encodings padded to 16,
     fc_8's dz F + 16 (features, sigma, zeros), fc_out's 16."""
     f = padded_config(cfg).feat_dim
@@ -888,20 +866,16 @@ def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWe
     """The forward's weight layout of ``route`` on the parameters' device:
     ``wgmma``, the forward images and biases of :func:`forward_layout`;
     ``wgmma_general`` and ``f32_wgmma``, the forward images and biases of
-    :func:`tc_layout`; ``f32``, the forward matrices and biases of
-    :func:`general_layout`."""
+    :func:`tc_layout` at kernel 1's own passes (:func:`tc_plan`, ``stash``
+    False)."""
     if route == "wgmma":
         images, biases = forward_layout(params, cfg)
         return KernelWeights(public=params, route=route, weights=tuple(images), biases=tuple(biases))
-    if route in TC_ROUTES:  # kernel 1's own passes (tc_plan, stash False)
-        forward, _ = tc_matrices(params, cfg, stash=False)
-        images = tuple(tc_images(forward, tc_pass_rows(cfg, stash=False)[0]))
-        return KernelWeights(public=params, route=route, weights=images,
-                             biases=tuple(tc_biases(params, cfg, stash=False)))
-    if route not in ROUTES:
+    if route not in TC_ROUTES:
         raise ValueError(f"unknown forward route {route!r}; routes are {ROUTES}")
-    fwd, biases, _ = general_layout(params, cfg)
-    return KernelWeights(public=params, route=route, weights=tuple(fwd), biases=tuple(biases))
+    forward, _ = tc_matrices(params, cfg, stash=False)
+    images = tuple(tc_images(forward, tc_pass_rows(cfg, stash=False)[0]))
+    return KernelWeights(public=params, route=route, weights=images, biases=tuple(tc_biases(params, cfg, stash=False)))
 
 
 # ---------------------------------------------------------------------------
@@ -911,8 +885,9 @@ def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWe
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from
     ``csrc/fused_nerf_fwd.cu``, or from an earlier version of it (which may
-    have no ``fused_nerf_fwd_general``, or no ``fused_nerf_fwd_layout`` and
-    one entry, ``fused_nerf_fwd``, reading fragment order)."""
+    have a ``fused_nerf_fwd_general``, not declared here, or no
+    ``fused_nerf_fwd_layout`` and one entry, ``fused_nerf_fwd``, reading
+    fragment order)."""
     args = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 2
             + [ctypes.c_int] * 9)
     lib.fused_nerf_fwd.argtypes = args + [ctypes.c_void_p]
@@ -920,9 +895,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "fused_nerf_fwd_layout"):
         lib.fused_nerf_fwd_layout.argtypes = []
         lib.fused_nerf_fwd_layout.restype = ctypes.c_int
-    if hasattr(lib, "fused_nerf_fwd_general"):
-        lib.fused_nerf_fwd_general.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
-        lib.fused_nerf_fwd_general.restype = ctypes.c_int
     lib.fused_nerf_fwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_nerf_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -932,19 +904,6 @@ def library_layout(lib: ctypes.CDLL) -> int:
     """What ``lib.fused_nerf_fwd`` reads: :data:`LAYOUT_IMAGES` or, for a
     library without ``fused_nerf_fwd_layout``, :data:`LAYOUT_FRAGMENTS`."""
     return lib.fused_nerf_fwd_layout() if hasattr(lib, "fused_nerf_fwd_layout") else LAYOUT_FRAGMENTS
-
-
-def _entry(lib: ctypes.CDLL, route: str):
-    """The C function of ``lib`` that runs ``route``: in this source,
-    ``fused_nerf_fwd`` (wgmma) and ``fused_nerf_fwd_general`` (f32); a
-    library that lacks the route's entry raises."""
-    if route == "wgmma":
-        if library_layout(lib) != LAYOUT_IMAGES:
-            raise ValueError("this library's fused_nerf_fwd reads fragment order, not the wgmma route's images")
-        return lib.fused_nerf_fwd
-    if not hasattr(lib, "fused_nerf_fwd_general"):
-        raise ValueError(f"this library has no general route (fused_nerf_fwd_general) for {route!r}")
-    return lib.fused_nerf_fwd_general
 
 
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -958,25 +917,23 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_nerf_bwd_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_nerf_bwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_nerf_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_nerf_bwd_general.argtypes = args + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.fused_nerf_bwd_general.restype = ctypes.c_int
-    lib.fused_nerf_bwd_general_workspace_bytes.argtypes = [ctypes.c_int] * 5
-    lib.fused_nerf_bwd_general_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_nerf_bwd_error_string.argtypes = [ctypes.c_int]
     lib.fused_nerf_bwd_error_string.restype = ctypes.c_char_p
-    lib.fused_nerf_bwd_dw_launches.argtypes = []
-    lib.fused_nerf_bwd_dw_launches.restype = ctypes.c_longlong
     return lib
 
 
 def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_tc_fwd.cu``: ``fused_tc_fwd``
-    takes ``fused_nerf_fwd_general``'s arguments; ``fused_tc_takes`` and
-    ``fused_tc_plan``, the C++ side of :func:`tc_plan`."""
+    (``fused_nerf_fwd``'s arguments, the padded encodings' widths, f32 and
+    kernel 1's scratch of ``fused_tc_fwd_workspace_bytes``);
+    ``fused_tc_takes`` and ``fused_tc_plan``, the C++ side of
+    :func:`tc_plan`."""
     args = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 2
             + [ctypes.c_int] * 10)
-    lib.fused_tc_fwd.argtypes = args + [ctypes.c_void_p]
+    lib.fused_tc_fwd.argtypes = args + [ctypes.c_void_p] * 2
     lib.fused_tc_fwd.restype = ctypes.c_int
+    lib.fused_tc_fwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_tc_fwd_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_tc_takes.argtypes = [ctypes.c_int] * 6
     lib.fused_tc_takes.restype = ctypes.c_int
     lib.fused_tc_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
@@ -987,8 +944,8 @@ def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def bind_tc_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of ``csrc/fused_tc_bwd.cu`` (the arguments
-    of ``fused_nerf_bwd_general``; the dW GEMM alone, :func:`general_dw`)."""
+    """Declare the C interface of ``csrc/fused_tc_bwd.cu`` (kernel 2; the
+    dW GEMM alone, :func:`general_dw`)."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     args = ([ctypes.c_void_p] * 4 + [ptrs] * 3 + [ctypes.c_void_p] + [ptrs] * 2
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10)
@@ -1074,18 +1031,24 @@ def kernel_dims(cfg: FusedNeRFConfig) -> list:
 def _launch(w: KernelWeights, pts: torch.Tensor, dirs: torch.Tensor, cfg: FusedNeRFConfig):
     """Launch the forward kernel of ``w``'s route on the current stream."""
     _check_inputs(pts, dirs, w, cfg)
-    if w.route in TC_ROUTES:
-        lib = _tc_library()
-        entry, error_string = lib.fused_tc_fwd, lib.fused_tc_fwd_error_string
-    else:
-        lib = _library()
-        entry, error_string = _entry(lib, w.route), lib.fused_nerf_fwd_error_string
     m = pts.shape[0]
     sigma = torch.empty((m,), dtype=torch.float32, device=pts.device)
     rgb = torch.empty((m, 3), dtype=torch.float32, device=pts.device)
     if m == 0:
         return sigma, rgb
-    extra = [] if w.route == "wgmma" else [int(ROUTE_DTYPE[w.route] == torch.float32)]
+    if w.route == "wgmma":
+        lib = _library()
+        if library_layout(lib) != LAYOUT_IMAGES:
+            raise ValueError("this library's fused_nerf_fwd reads fragment order, not the wgmma route's images")
+        entry, error_string, extra = lib.fused_nerf_fwd, lib.fused_nerf_fwd_error_string, []
+    else:
+        lib = _tc_library()
+        entry, error_string = lib.fused_tc_fwd, lib.fused_tc_fwd_error_string
+        dims, f32 = kernel_dims(cfg), int(cfg.compute_dtype == torch.float32)
+        # kernel 1's scratch where it streams its layers (f32 past 512)
+        nbytes = lib.fused_tc_fwd_workspace_bytes(m, dims[0], dims[6], dims[7], f32)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=pts.device) if nbytes else None
+        extra = [f32, scratch.data_ptr() if nbytes else None]
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         err = entry(pts.data_ptr(), dirs.data_ptr(), pointers(w.weights), pointers(w.biases),
@@ -1208,24 +1171,22 @@ def _launch_bwd(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfig)
     if m == 0:
         return {n: {k: torch.zeros_like(t, dtype=torch.float32) for k, t in p.items()}
                 for n, p in params.items()}, dpts, ddirs
-    if route in TC_ROUTES:
-        lib = _tc_bwd_library()
-        error_string, dw_launches = lib.fused_tc_bwd_error_string, lib.fused_tc_bwd_dw_launches
-        dw_before = dw_launches()
-        grads, err = _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc=True)
-    else:
+    if route == "wgmma":
         lib = _bwd_library()
-        error_string, dw_launches = lib.fused_nerf_bwd_error_string, lib.fused_nerf_bwd_dw_launches
-        dw_before = dw_launches()
-        launch = _launch_bwd_wgmma if route == "wgmma" else _launch_bwd_general
-        grads, err = launch(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
+        error_string = lib.fused_nerf_bwd_error_string
+        grads, err = _launch_bwd_wgmma(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
+    else:
+        lib = _tc_bwd_library()
+        error_string = lib.fused_tc_bwd_error_string
+        dw_before = lib.fused_tc_bwd_dw_launches()
+        grads, err = _launch_bwd_tc(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs)
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(f"fused_nerf_bwd ({route}) launch failed: {msg} (cudaError {err})")
     launch_count.count(fused_nerf_bwd, m)
     fused_nerf_bwd.route_launches[route] += 1
     if route != "wgmma":
-        count_dw(route, m, dw_launches() - dw_before)
+        count_dw(route, m, lib.fused_tc_bwd_dw_launches() - dw_before)
         grads = grads_from_general(*grads, cfg)
     return grads, dpts, ddirs
 
@@ -1242,7 +1203,7 @@ def count_dw(route: str, points: int, launches: int) -> None:
 
 def stash_views(workspace: torch.Tensor, points: int, cfg: FusedNeRFConfig):
     """The general route's stashes at the start of a kernel 2 or 3
-    workspace (``nerf_mlp_general.cuh``'s ``carve_stash``: each activation,
+    workspace (``nerf_stash.cuh``'s ``carve_stash``: each activation,
     then each layer's dz, ``(m_pad, width)`` row-major in the compute type,
     256-byte aligned, m_pad ``points`` rounded up to 64), as ``({activation:
     (points, width)}, [each layer's dz (points, width)])`` views."""
@@ -1258,8 +1219,8 @@ def stash_views(workspace: torch.Tensor, points: int, cfg: FusedNeRFConfig):
 
 
 def stash_nbytes(points: int, cfg: FusedNeRFConfig) -> int:
-    """Bytes of the stashes :func:`stash_views` reads (``nerf_mlp_general.
-    cuh``'s ``stash_bytes``)."""
+    """Bytes of the stashes :func:`stash_views` reads (``nerf_stash.cuh``'s
+    ``stash_bytes``)."""
     acts, dzs = stash_widths(cfg)
     size = torch.empty((), dtype=cfg.compute_dtype).element_size()
     mp = -(-points // 64) * 64
@@ -1274,17 +1235,15 @@ def general_stash(params: Params, pts, dirs, g_sigma, g_rgb, cfg: FusedNeRFConfi
     route = train_route(cfg)
     if route == "wgmma":
         raise ValueError(f"{cfg} is not on a general route")
-    tc = route in TC_ROUTES
-    lib = _tc_bwd_library() if tc else _bwd_library()
+    lib = _tc_bwd_library()
     dims = kernel_dims(cfg)
-    nbytes = (lib.fused_nerf_bwd_tc_workspace_bytes if tc else lib.fused_nerf_bwd_general_workspace_bytes)(
-        pts.shape[0], dims[0], dims[6], dims[7], int(cfg.compute_dtype == torch.float32))
+    nbytes = lib.fused_nerf_bwd_tc_workspace_bytes(pts.shape[0], dims[0], dims[6], dims[7],
+                                                    int(cfg.compute_dtype == torch.float32))
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=pts.device)
-    _, err = _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, torch.empty_like(pts),
-                                 torch.empty_like(dirs), tc=tc, workspace=workspace)
+    _, err = _launch_bwd_tc(lib, params, pts, dirs, g_sigma, g_rgb, cfg, torch.empty_like(pts),
+                            torch.empty_like(dirs), workspace=workspace)
     if err != 0:
-        msg = (lib.fused_tc_bwd_error_string if tc else lib.fused_nerf_bwd_error_string)(err).decode()
-        raise RuntimeError(f"fused_nerf_bwd ({route}, stash) launch failed: {msg}")
+        raise RuntimeError(f"fused_nerf_bwd ({route}, stash) launch failed: {lib.fused_tc_bwd_error_string(err).decode()}")
     return workspace
 
 
@@ -1317,11 +1276,12 @@ def general_dw(workspace: torch.Tensor, points: int, cfg: FusedNeRFConfig):
 def tc_plan_on_card(cfg: FusedNeRFConfig) -> Tuple[int, ...]:
     """The C++ side of :func:`tc_plan`: ``(NP, passes, the forward's, the
     chain's and the chain with input grads' stages, their shared-memory
-    bytes, sign-bit words a slot, CTAs an SM, kernel 1's NP and passes)``
-    from the library, zeros where the route does not take ``cfg``."""
+    bytes, sign-bit words a slot, CTAs an SM, kernel 1's NP and passes, 1
+    where the kernels stream)`` from the library, zeros where the route
+    does not take ``cfg``."""
     lib = _tc_library()
     dims = kernel_dims(cfg)
-    out = (ctypes.c_longlong * 12)()
+    out = (ctypes.c_longlong * 13)()
     lib.fused_tc_plan(dims[0], dims[4], dims[5], dims[6], dims[7], int(cfg.compute_dtype == torch.float32), out)
     return tuple(out)
 
@@ -1366,26 +1326,23 @@ def empty_general_grads(cfg: FusedNeRFConfig, device):
             [torch.empty((s[1],), dtype=torch.float32, device=device) for s in shapes])
 
 
-def _launch_bwd_general(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, tc: bool = False,
-                        workspace=None):
-    """The FFMA general route, or with ``tc`` the tensor-core one:
-    the same grads, workspace rule and arguments, each its own layout; a
-    ``workspace`` given is used (and keeps the stash at its start)."""
+def _launch_bwd_tc(lib, params, pts, dirs, g_sigma, g_rgb, cfg, dpts, ddirs, workspace=None):
+    """Kernel 2 on the tensor-core general route, its weights laid out by
+    :func:`tc_layout` at this call; a ``workspace`` given is used (and
+    keeps the stash at its start)."""
     m = pts.shape[0]
     dims = kernel_dims(cfg)
     f32 = int(cfg.compute_dtype == torch.float32)
-    fwd, biases, chain = (tc_layout if tc else general_layout)(params, cfg)
+    fwd, biases, chain = tc_layout(params, cfg)
     gw, gb = empty_general_grads(cfg, pts.device)
-    nbytes = (lib.fused_nerf_bwd_tc_workspace_bytes if tc else lib.fused_nerf_bwd_general_workspace_bytes)(
-        m, dims[0], dims[6], dims[7], f32)
+    nbytes = lib.fused_nerf_bwd_tc_workspace_bytes(m, dims[0], dims[6], dims[7], f32)
     if workspace is None:
         workspace = torch.empty(nbytes, dtype=torch.uint8, device=pts.device)
     elif workspace.numel() < nbytes:
         raise ValueError(f"the workspace holds {workspace.numel()} bytes, the kernel needs {nbytes}")
-    entry = lib.fused_nerf_bwd_tc if tc else lib.fused_nerf_bwd_general
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        err = entry(
+        err = lib.fused_nerf_bwd_tc(
             pts.data_ptr(), dirs.data_ptr(), g_sigma.data_ptr(), g_rgb.data_ptr(),
             pointers(fwd), pointers(biases), pointers(chain), workspace.data_ptr(),
             pointers(gw), pointers(gb), dpts.data_ptr(), ddirs.data_ptr(), m, *dims, f32, stream,

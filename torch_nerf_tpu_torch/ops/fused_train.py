@@ -14,13 +14,14 @@ and computes dW = A^T dZ in a split-K GEMM of its own, every product on
 ``wgmma`` from shared-memory tiles filled by bulk asynchronous copies (the
 header's note gives the design). The composite and its VJP run in f32 (one warp per
 ray), not as the TPU's bf16 masked-matmul scans. That is the ``wgmma``
-route of ``fused_nerf.train_route``; every other config (bf16 at any width
-up to 1024 and encodings up to 128 wide, or f32) takes a general route
-(``wgmma_general`` and ``f32_wgmma`` on ``csrc/nerf_mlp_tc.cuh``'s column
-passes, ``fused_tc_train.cu``; other f32 configs ``f32`` on
-``csrc/nerf_mlp_general.cuh``'s FFMA: the same stash, chain and dW GEMM
-around the same composite), its bound the same 3 x ``flops_per_point`` at
-the card's rate for the compute type.
+route of ``fused_nerf.train_route``; every other config (bf16 or f32 at
+any width up to 1024 and encodings up to 128 wide) takes the tensor-core
+general route (``wgmma_general`` and ``f32_wgmma`` on
+``csrc/nerf_mlp_tc.cuh``'s column passes, ``fused_tc_train.cu``: the
+forward with its stash, the same composite, the chain and the dW GEMM of
+``csrc/nerf_dw_tc.cuh``), its bound the same 3 x ``flops_per_point`` at the
+card's rate for the compute type (f32: an eighth of bf16's, eight bf16
+products a multiply-add).
 
 :func:`fused_train_pass` launches the kernels for CUDA tensors (or raises)
 and runs :func:`fused_train_pass_reference`, its plain version written out
@@ -142,7 +143,7 @@ def phase_floors(cfg: fn.FusedNeRFConfig, points: int) -> dict:
 
 def general_stash_bytes(cfg: fn.FusedNeRFConfig, points: int) -> int:
     """Device-memory bytes a general-route train pass moves through its
-    stashes over ``points``, each byte once (``nerf_mlp_general.cuh``'s
+    stashes over ``points``, each byte once (``nerf_stash.cuh``'s
     row-major stashes in the compute type): the forward writes every
     activation, the chain every dz, the dW GEMM reads both; on the
     tensor-core route (``nerf_mlp_tc.cuh``) the forward also writes the
@@ -181,20 +182,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_train_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_train_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_train_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_train_pass_general.argtypes = args + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    lib.fused_train_pass_general.restype = ctypes.c_int
-    lib.fused_train_general_workspace_bytes.argtypes = [ctypes.c_int] * 5
-    lib.fused_train_general_workspace_bytes.restype = ctypes.c_size_t
     lib.fused_train_error_string.argtypes = [ctypes.c_int]
     lib.fused_train_error_string.restype = ctypes.c_char_p
-    lib.fused_train_dw_launches.argtypes = []
-    lib.fused_train_dw_launches.restype = ctypes.c_longlong
     return lib
 
 
 def bind_tc(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/fused_tc_train.cu`` (the arguments
-    of ``fused_train_pass_general``)."""
+    of ``fused_train_pass``, the padded encodings' widths and f32)."""
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     args = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ptrs] * 3 + [ctypes.c_void_p] * 3
             + [ptrs] * 2 + [ctypes.c_int] * 9)
@@ -232,9 +227,8 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
         raise ValueError(f"num_real_rays must be in 1..{n}, got {num_real_rays}")
     if n * s >= 2**31:
         raise ValueError(f"{n} x {s} points exceed the kernel's 32-bit point index")
-    lib = _tc_library() if route in fn.TC_ROUTES else _library()
-    error_string = lib.fused_tc_train_error_string if route in fn.TC_ROUTES else lib.fused_train_error_string
-    dw_launches = lib.fused_tc_train_dw_launches if route in fn.TC_ROUTES else lib.fused_train_dw_launches
+    lib = _library() if route == "wgmma" else _tc_library()
+    error_string = lib.fused_train_error_string if route == "wgmma" else lib.fused_tc_train_error_string
     dims = fn.kernel_dims(cfg)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=t.device)
     weights = torch.empty((n, s), dtype=torch.float32, device=t.device)
@@ -250,16 +244,13 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
         nbytes = lib.fused_train_workspace_bytes(n * s, cfg.feat_dim)
         dims = dims[:6]
     else:
-        tc = route in fn.TC_ROUTES
-        fwd, biases, chain = (fn.tc_layout if tc else fn.general_layout)(params, cfg)
+        fwd, biases, chain = fn.tc_layout(params, cfg)
         gw, gb = fn.empty_general_grads(cfg, t.device)
         f32 = int(cfg.compute_dtype == torch.float32)
-        entry = lib.fused_train_pass_tc if tc else lib.fused_train_pass_general
-        extra = [f32]
-        nbytes = (lib.fused_train_tc_workspace_bytes if tc else lib.fused_train_general_workspace_bytes)(
-            n * s, dims[0], dims[6], dims[7], f32)
+        entry, extra = lib.fused_train_pass_tc, [f32]
+        nbytes = lib.fused_train_tc_workspace_bytes(n * s, dims[0], dims[6], dims[7], f32)
+        dw_before = lib.fused_tc_train_dw_launches()
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=t.device)
-    dw_before = dw_launches()
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = entry(
@@ -274,7 +265,7 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
     launch_count.count(fused_train_pass, (n, s))
     fused_train_pass.route_launches[route] += 1
     if route != "wgmma":
-        fn.count_dw(route, n * s, dw_launches() - dw_before)
+        fn.count_dw(route, n * s, lib.fused_tc_train_dw_launches() - dw_before)
         grads = fn.grads_from_general(gw, gb, cfg)
     return rgb, weights, grads
 

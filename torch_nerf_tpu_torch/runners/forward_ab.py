@@ -35,7 +35,7 @@ from pathlib import Path
 REPO_ROOT = Path(__file__).resolve().parents[2]
 # FEAT:LEVEL[:f32] of each route's path (train_profile.ROUTE_FIELDS)
 ROUTE_SPECS = {"wgmma": "256:10", "wgmma_general": "512:12", "f32_wgmma": "256:10:f32", "wide": "1024:10",
-               "f32": "320:10:f32"}
+               "f32_wide": "1024:10:f32"}
 # a turn's process: this file loaded by path (importing it as part of the
 # package would import this checkout's package), then :func:`turn`
 _TURN = ("import importlib.util, sys; "

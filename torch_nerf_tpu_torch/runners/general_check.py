@@ -1,5 +1,5 @@
 """Hold kernels 1-3 of the general routes against their plain versions on
-the card, and time them (f32: against the FFMA engine in this checkout).
+the card, and time them.
 
 For each config (``FEAT:LEVEL`` in bf16, ``FEAT:LEVEL:f32`` in f32) on the
 route ``fused_nerf.forward_route`` gives it: kernel 1 on ``--points``
@@ -12,9 +12,9 @@ relative L2 error of each grad (dpts, ddirs too), each beside the plain
 version's own error in the config's type, and the worst grad's share of
 the limit 2x that + the type's floor (1e-3 bf16, 1e-5 f32). Then, with
 ``--time``, kernels 1-3 at a step's fine shape (4096 rays x 192 depths,
-786,432 points) on the config's route and, for an f32 config, on the FFMA
-route for the same config (``f32``, forced by ``train_route``), in turns,
-by CUDA events, and the dW GEMM alone (``csrc/nerf_dw_tc.cuh``) over
+786,432 points) on the config's route, in two turns, by CUDA events (to
+hold them against another version, ``train_ab`` and ``forward_ab`` with
+``--other``), and the dW GEMM alone (``csrc/nerf_dw_tc.cuh``) over
 that shape's kernel-2 stash beside one cuBLAS GEMM a stash
 segment (``dw_library``: a yardstick, never on the path), the plain
 version and its floors by operations and by bytes (``dw_times``). With
@@ -47,8 +47,6 @@ FLOOR = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # H100 SXM data-sheet peaks: dense bf16, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 LIBRARY = "torch.matmul(A.t(), dZ) a stash segment (bf16: f32 accumulate, bf16 out; f32: TF32 off)"
-# the FFMA engine's route (f32 only: every bf16 config is on the tensor cores)
-FFMA = {torch.float32: "f32"}
 
 
 def _up(params, tensors, cfg):
@@ -250,8 +248,7 @@ def dw_library_ms(cfg, points: int, dev, iters: int = 5) -> float:
 
 
 def time_routes(cfg, params, gen, dev) -> dict:
-    """Kernels 1-3 at the fine shape on the config's route and, in f32, the
-    FFMA one, in turns (that, the config's, the config's, that)."""
+    """Kernels 1-3 at the fine shape on the config's route, two turns."""
     n, s = 4096, 192
     o = torch.randn((n, 3), generator=gen, device=dev)
     d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device=dev), dim=-1)
@@ -262,20 +259,15 @@ def time_routes(cfg, params, gen, dev) -> dict:
     dirs = d[:, None, :].expand(n, s, 3).reshape(-1, 3).contiguous()
     g_sigma = torch.randn((pts.shape[0],), generator=gen, device=dev)
     g_rgb = torch.randn((pts.shape[0], 3), generator=gen, device=dev)
-    route, old = fn.train_route(cfg), FFMA.get(cfg.compute_dtype)
-    picked = fn.train_route
+    route = fn.train_route(cfg)
+    w = fn.prepare(params, cfg)
     out = {}
-    for r in (old, route, route, old) if old else (route, route):
-        w = fn.kernel_weights(params, cfg, r)
-        fn.train_route = lambda c, r=r: r
-        try:
-            with torch.no_grad():
-                row = {"kernel1_ms": event_ms(lambda: fn.fused_nerf_apply(w, pts, dirs, cfg), 3),
-                       "kernel3_ms": event_ms(lambda: ftm.fused_train_pass(params, o, d, t, delta, gt, cfg, n), 3),
-                       "kernel2_ms": event_ms(lambda: fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, cfg), 2)}
-        finally:
-            fn.train_route = picked
-        out.setdefault(r, []).append(row)
+    for _ in range(2):
+        with torch.no_grad():
+            row = {"kernel1_ms": event_ms(lambda: fn.fused_nerf_apply(w, pts, dirs, cfg), 3),
+                   "kernel3_ms": event_ms(lambda: ftm.fused_train_pass(params, o, d, t, delta, gt, cfg, n), 3),
+                   "kernel2_ms": event_ms(lambda: fn.fused_nerf_bwd(params, pts, dirs, g_sigma, g_rgb, cfg), 2)}
+        out.setdefault(route, []).append(row)
     out["dw_gemm"] = dw_times(cfg, fn.general_stash(params, pts, dirs, g_sigma, g_rgb, cfg), pts.shape[0])
     return out
 
@@ -285,7 +277,7 @@ def main(argv=None) -> list:
     parser.add_argument("--config", action="append", help="FEAT:LEVEL (bf16) or FEAT:LEVEL:f32")
     parser.add_argument("--points", type=int, default=2**14 + 37)
     parser.add_argument("--cotangent", choices=("both", "rgb", "sigma"), default="both")
-    parser.add_argument("--time", action="store_true", help="time each config (f32: against the FFMA route)")
+    parser.add_argument("--time", action="store_true", help="time each config's kernels 1-3 and its dW GEMM")
     parser.add_argument("--library", type=int, action="append",
                         help="only the dW GEMM's cuBLAS yardstick on random stashes of this many points")
     args = parser.parse_args(argv)

@@ -11,8 +11,8 @@ each side's median and quartiles, and the card's ``nvidia-smi`` line.
 ``fused_nerf_fwd.cu``, which needs the headers it includes beside it):
 each side on its own weight layout, as its library's
 ``fused_nerf_fwd_layout`` says (forward panel images on the ``wgmma``
-route; a library without that symbol predates it and runs only where it
-has the general route's ``fused_nerf_fwd_general``); one launch at the
+route; a library without that symbol predates it, and this package no
+longer lays out its fragment order); one launch at the
 fine chunk (786,432 points) and at the coarse chunk (262,144 points) by
 CUDA events, and whole 800x800 frames by the host clock, through a field
 that prepares that side's layout. Before the turns, each side's count of

@@ -22,14 +22,14 @@ Prints one JSON line per turn with the SM clock, temperature and power
 draw after it, then each side's median and quartiles and the card's
 ``nvidia-smi`` line. ``--route f32_wgmma`` or ``wgmma_general`` times the
 tensor-core general route at path A's or B's config, ``wide`` its bf16
-1024, ``f32`` the config that stays on the FFMA general route
-(``train_profile.ROUTE_FIELDS``), in place of the preset's ``wgmma``; the
-other side runs the same config under the route name its checkout knows
-(``--other-route``, by default the name a checkout without the
-tensor-core route gives paths A and B: ``train_profile.MMA_FFMA_NAME``),
-so that each side's route takes it. ``--field FEAT:LEVEL[:DIR_LEVEL][:f32]``
-times that classic config on both sides instead, each on the route its
-own checkout gives it.
+1024 (``train_profile.ROUTE_FIELDS``), in place of the preset's ``wgmma``;
+the other side runs the same config under the route name its checkout
+knows (``--other-route``, by default the same name), so that each side's
+route takes it. ``--field FEAT:LEVEL[:DIR_LEVEL][:f32]`` times that
+classic config on both sides instead, each on the route its own checkout
+gives it (an f32 config past 512 against a checkout that ran it on FFMA,
+for example). ``--steps 0`` leaves out the train steps (kernels 2-3
+alone: a step's generic path at f32 1024 holds more than the card).
 
     python -m torch_nerf_tpu_torch.runners.train_ab --other DIR [--rounds 4] [--route R [--other-route R]]
     python -m torch_nerf_tpu_torch.runners.train_ab --kernel dw --other DIR [--other DIR ...]
@@ -96,7 +96,7 @@ def turn(steps: int, save: str = "", route: str = "wgmma", field_spec: str = "")
     settings = renderer.RenderSettings(num_samples_coarse=64, num_samples_fine=128)
     optim = train.OptimConfig()
     out = {"route": fn.train_route(cfg)}
-    for path, generic in (("fused", False), ("generic", True)):
+    for path, generic in (("fused", False), ("generic", True)) if steps else (("fused", False),):
         state = train.create_train_state(torch.Generator(device=dev).manual_seed(0), field, settings, optim, dev)
         step = train.make_image_train_step(field, settings, optim, camera, 4096, force_generic=generic)
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -124,6 +124,8 @@ def turn(steps: int, save: str = "", route: str = "wgmma", field_spec: str = "")
                                                          4096)
                     torch.save({"rgb": rgb.cpu(), "weights": w.cpu(),
                                 "grads": {n: {k: v.cpu() for k, v in p.items()} for n, p in grads.items()}}, save)
+        if not steps:
+            break
         state, _ = step(state, images, poses, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -193,7 +195,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--config", action="append", help="with --kernel dw: FEAT:LEVEL (bf16) or FEAT:LEVEL:f32 "
                                                           "(default: 512:12 and 256:10:f32)")
     parser.add_argument("--rounds", type=int, default=4)
-    parser.add_argument("--steps", type=int, default=10, help="timed train steps per path and turn")
+    parser.add_argument("--steps", type=int, default=10, help="timed train steps per path and turn (0: none)")
     parser.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--save", default="", help=argparse.SUPPRESS)
     parser.add_argument("--route", choices=tuple(train_profile.ROUTE_FIELDS), default="wgmma",
@@ -204,7 +206,7 @@ def main(argv=None) -> dict:
                                                      "place of --route)")
     parser.add_argument("--other-route", default=None,
                         help="the same config's route name in the other checkout (default: "
-                             "train_profile.MMA_FFMA_NAME's)")
+                             "the same name)")
     args = parser.parse_args(argv)
     configs = args.config or ["512:12", "256:10:f32"]
     if args.turn:
@@ -216,7 +218,7 @@ def main(argv=None) -> dict:
         parser.error("--other is required")
     others = {("other" if len(args.other) == 1 else f"other{i}"): Path(d).resolve() for i, d in enumerate(args.other)}
     sides = {**others, "repo": REPO}
-    other_route = args.other_route or train_profile.MMA_FFMA_NAME.get(args.route, args.route)
+    other_route = args.other_route or args.route
     flags = {side: (["--kernel", "dw"] + [f for c in configs for f in ("--config", c)] if args.kernel == "dw" else
                     ["--steps", str(args.steps), "--route", args.route if side == "repo" else other_route]
                     + (["--field", args.field] if args.field else []))

@@ -22,14 +22,12 @@ passes (``fused_train.phase_floors``); then the card's ``nvidia-smi`` line.
 ``--route f32_wgmma`` profiles the classic NeRF in f32 (path A) and
 ``--route wgmma_general`` at width 512 with a 75-wide encoding in bf16 (path
 B), both on the tensor-core general route; ``--route wide`` bf16 at width
-1024 on the same route (four column passes); ``--route f32`` (f32 at
-width 320) the config that stays on the FFMA general route: each its
-forward, chain and dW kernels beside their
-floors by operations at the route's peak (989 TFLOP/s bf16, 989 / 8 for
-f32_wgmma's eight bf16 products, 67 for f32's FFMA; the dW GEMM, on the
-tensor cores for every general route, at 989 or 989 / 8, and by bytes,
-each stash read once) and the pass's stash bytes
-(``fused_train.general_stash_bytes``) at 3.35 TB/s.
+1024 on the same route (four column passes), ``--route f32_wide`` f32 at
+1024 (streaming its layers through device memory): each its forward,
+chain and dW kernels beside their floors by operations at the route's
+peak (989 TFLOP/s bf16, 989 / 8 for f32_wgmma's eight bf16 products; the
+dW GEMM at 989 or 989 / 8, and by bytes, each stash read once) and the
+pass's stash bytes (``fused_train.general_stash_bytes``) at 3.35 TB/s.
 
     python -m torch_nerf_tpu_torch.runners.train_profile [--model instant_nerf [--layout L]] [--occupancy] [--route R] [--steps 5]
 """
@@ -94,21 +92,17 @@ def profile_path(step, state, grid, images, poses, gen, steps: int) -> dict:
                 kernels_ms_per_step=dict(sorted(kernels.items(), key=lambda kv: -kv[1])))
 
 
-# H100 SXM data-sheet peaks: dense bf16, HBM3; f32 outside the tensor cores
+# H100 SXM data-sheet peaks: dense bf16, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-F32_PEAK_FLOPS = 67e12
 # the classic field of each route: the preset (wgmma), path B, path A,
-# width 1024 in bf16 (wgmma_general's column passes) and the config the
-# tensor-core engine leaves to the FFMA one
+# width 1024 in bf16 (wgmma_general's column passes) and in f32 (f32_wgmma,
+# streaming)
 ROUTE_FIELDS = {"wgmma": dict(compute_dtype=torch.bfloat16),
                 "wgmma_general": dict(compute_dtype=torch.bfloat16, feat_dim=512, coord_encode_level=12),
                 "f32_wgmma": dict(compute_dtype=torch.float32),
                 "wide": dict(compute_dtype=torch.bfloat16, feat_dim=1024),
-                "f32": dict(compute_dtype=torch.float32, feat_dim=320)}
-# the route a checkout without the tensor-core engine gives each of paths A
-# and B (train_ab's other side, which knows only its own route names)
-MMA_FFMA_NAME = {"wgmma_general": "mma_sync", "f32_wgmma": "f32"}
-ROUTE_PEAKS = {"f32": F32_PEAK_FLOPS, "f32_wgmma": PEAK_FLOPS / 8}
+                "f32_wide": dict(compute_dtype=torch.float32, feat_dim=1024)}
+ROUTE_PEAKS = {"f32_wgmma": PEAK_FLOPS / 8}
 
 
 def phases(kernels_ms: dict, cfg, passes) -> dict:
@@ -153,7 +147,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--occupancy", action="store_true", help="also the occupancy-pruned step")
     parser.add_argument("--route", choices=tuple(ROUTE_FIELDS), default="wgmma",
                         help="the classic field's route: f32_wgmma (path A), wgmma_general (path B, width "
-                             "512), wide (bf16 1024, wgmma_general) or f32 (width 320, the FFMA engine)")
+                             "512), wide (bf16 1024, wgmma_general) or f32_wide (f32 1024, f32_wgmma)")
     args = parser.parse_args(argv)
     dev = resolve_device("cuda")
     images, poses, camera, _ = synthetic.make_dataset(num_views=8, img_size=400, device=dev)
