@@ -77,6 +77,22 @@ def test_ngp_train_resume_render_evaluate_on_cpu(preset, tmp_path, capsys):
     assert [fn.launches for fn in PRESETS[preset]] == [0, 0]
 
 
+@pytest.mark.parametrize("layout", ["hash", "packed_dual"])
+def test_flops_count_the_model_layers(layout):
+    """The MFU gauge's multiply-adds a point are the sum over the weight
+    matrices ``init_instant_ngp_params`` draws: 17,600 at the preset."""
+    cfg = config.resolve("instant_nerf", [f"network.table_layout={layout}"])
+    field = session.build_field(config.resolve("instant_nerf", [f"network.table_layout={layout}",
+                                                                "network.log_max_entry_per_level=10"]))
+    params = field.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    macs = sum(layer["w"].shape[0] * layer["w"].shape[1] for mlp in ("density_mlp", "color_mlp")
+               for layer in params[mlp].values())
+    r = cfg.renderer
+    assert session.estimate_flops_per_step(cfg) == 6 * macs * r.num_pixels * r.num_samples_coarse
+    if layout == "hash":
+        assert macs == 17_600
+
+
 def test_session_builds_the_ngp_field_on_either_route():
     cfg = config.resolve("instant_nerf_tpu", ["network.num_level=2", "network.log_max_entry_per_level=10"])
     field = session.build_field(cfg)
@@ -92,8 +108,11 @@ def test_session_builds_the_ngp_field_on_either_route():
     for a, b in zip(field.apply(params, pts, dirs), plain.apply(params, pts, dirs)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     for preset in ("instant_nerf", "instant_nerf_tpu"):
+        # the port counts the colour MLP's second 64x64 hidden layer, which
+        # the JAX package's estimate leaves out
+        r = config.resolve(preset).renderer
         assert session.estimate_flops_per_step(config.resolve(preset)) == \
-            jsession.estimate_flops_per_step(jcfg.resolve(preset))
+            jsession.estimate_flops_per_step(jcfg.resolve(preset)) + 6 * 64 * 64 * r.num_pixels * r.num_samples_coarse
         assert session.build_optim_config(config.resolve(preset, ["train_params.optim.table_weight_decay=0.1"])) \
             .table_weight_decay == 0.1
     # the packed layouts build, and so does their smoothness loss

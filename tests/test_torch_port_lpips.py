@@ -151,6 +151,10 @@ def test_profile_steps_write_a_trace(tmp_path, monkeypatch, capsys, num_scenes):
     trace = json.loads((log_dir / "profile" / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)
+    # the port's spans of the two steps, in the trace and beside it
+    spans = [json.loads(ln) for ln in (log_dir / "profile" / "spans.jsonl").read_text().splitlines()]
+    assert sorted(s["step"] for s in spans if s["name"] == "train.step") == [10, 11]
+    assert {"train.step", "train.adam"} <= names
     val = [ln for ln in out.splitlines() if ln.startswith("validation @ step 12")]
     assert len(val) == 1
     if num_scenes == 1:

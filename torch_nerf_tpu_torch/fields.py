@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from torch_nerf_tpu_torch import encoders
+from torch_nerf_tpu_torch import encoders, tracing
 from torch_nerf_tpu_torch.models import nerf as nerf_model
 from torch_nerf_tpu_torch.ops import fused_nerf
 
@@ -71,10 +71,12 @@ def make_nerf_field(
 
         def apply(params, pts: torch.Tensor, dirs: torch.Tensor):
             batch_shape = pts.shape[:-1]
-            sigma, rgb = fused_nerf.fused_nerf_apply(
-                params, pts.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous(), cfg
-            )
-            return sigma.reshape(batch_shape), rgb.reshape(*batch_shape, 3)
+            tracing.add("points", pts.numel() // 3)
+            with tracing.span("field.forward"):
+                sigma, rgb = fused_nerf.fused_nerf_apply(
+                    params, pts.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous(), cfg
+                )
+                return sigma.reshape(batch_shape), rgb.reshape(*batch_shape, 3)
 
         return Field(
             init=init,
@@ -85,6 +87,7 @@ def make_nerf_field(
         )
 
     def apply(params, pts: torch.Tensor, dirs: torch.Tensor):
+        tracing.add("points", pts.numel() // 3)
         pos_enc = encoders.positional_encoding(pts, coord_encode_level, include_input)
         dir_enc = encoders.positional_encoding(dirs, dir_encode_level, include_input)
         return nerf_model.nerf_apply(params, pos_enc, dir_enc, compute_dtype=compute_dtype)

@@ -14,7 +14,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from torch_nerf_tpu_torch import encoders
+from torch_nerf_tpu_torch import encoders, tracing
 from torch_nerf_tpu_torch.fields import Field
 from torch_nerf_tpu_torch.models import instant_ngp
 from torch_nerf_tpu_torch.models.hash_math import level_resolutions
@@ -67,7 +67,9 @@ def make_instant_ngp_field(
         )
 
     def apply(params, pts: torch.Tensor, dirs: torch.Tensor):
-        dir_enc = encoders.sh_encoding(dirs, sh_degree)
+        tracing.add("points", pts.numel() // 3)
+        with tracing.span("field.sh"):
+            dir_enc = encoders.sh_encoding(dirs, sh_degree)
         return instant_ngp.instant_ngp_apply(
             params, pts, dir_enc, resolutions(pts.device), is_hdr=is_hdr,
             compute_dtype=compute_dtype, table_layout=table_layout, use_kernel=kernel,

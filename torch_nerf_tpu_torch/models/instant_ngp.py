@@ -25,11 +25,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from torch_nerf_tpu_torch import tracing
 from torch_nerf_tpu_torch.ops import hash_grid
 
 Params = Dict[str, Any]
 
 LAYOUTS = ("hash", "bricked", "packed", "packed_dual")
+DENSITY_OUT = 16
+DENSITY_HIDDEN, COLOR_HIDDEN = 1, 2
 
 
 def check_layout(table_layout: str) -> None:
@@ -140,16 +143,22 @@ def _init_linear(generator, fan_in: int, fan_out: int, device) -> Dict[str, torc
     return {"w": w, "b": _uniform(generator, (fan_out,), -bound, bound, device)}
 
 
+def small_mlp_shapes(in_dim: int, out_dim: int, feat_dim: int, num_hidden_layer: int) -> Dict[str, Tuple[int, int]]:
+    """``{layer: (fan_in, fan_out)}`` of a small MLP, in its layers' order."""
+    shapes = {"fc_in": (in_dim, feat_dim)}
+    for i in range(num_hidden_layer):
+        shapes[f"fc_hidden_{i}"] = (feat_dim, feat_dim)
+    shapes["fc_out"] = (feat_dim, out_dim)
+    return shapes
+
+
 def init_small_mlp(
     generator: torch.Generator, in_dim: int, out_dim: int, feat_dim: int, num_hidden_layer: int,
     device: Optional[torch.device] = None,
 ) -> Params:
     """fc_in, fc_hidden_0.., fc_out, each drawn weight then bias."""
-    params = {"fc_in": _init_linear(generator, in_dim, feat_dim, device)}
-    for i in range(num_hidden_layer):
-        params[f"fc_hidden_{i}"] = _init_linear(generator, feat_dim, feat_dim, device)
-    params["fc_out"] = _init_linear(generator, feat_dim, out_dim, device)
-    return params
+    return {name: _init_linear(generator, fan_in, fan_out, device)
+            for name, (fan_in, fan_out) in small_mlp_shapes(in_dim, out_dim, feat_dim, num_hidden_layer).items()}
 
 
 def small_mlp_apply(params: Params, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -173,6 +182,23 @@ def small_mlp_apply(params: Params, x: torch.Tensor, compute_dtype: torch.dtype 
 # full model
 
 
+def mlp_shapes(
+    view_dir_dim: int,
+    num_level: int = 16,
+    table_feat_dim: int = 2,
+    density_feat_dim: int = 64,
+    color_feat_dim: int = 64,
+    table_layout: str = "hash",
+) -> Dict[str, Dict[str, Tuple[int, int]]]:
+    """The two MLPs' layer shapes, ``{"density_mlp": small_mlp_shapes,
+    "color_mlp": ...}``, as :func:`init_instant_ngp_params` draws them."""
+    table_levels = 2 * num_level if table_layout == "packed_dual" else num_level
+    return {
+        "density_mlp": small_mlp_shapes(table_levels * table_feat_dim, DENSITY_OUT, density_feat_dim, DENSITY_HIDDEN),
+        "color_mlp": small_mlp_shapes(DENSITY_OUT + view_dir_dim, 3, color_feat_dim, COLOR_HIDDEN),
+    }
+
+
 def init_instant_ngp_params(
     generator: torch.Generator,
     view_dir_dim: int,
@@ -194,13 +220,12 @@ def init_instant_ngp_params(
         table_layout, init_packed_hash_table
     )
     tables = init_table(generator, table_levels, log_max_entry_per_level, table_feat_dim, device)
-    density_out = 16
     return {
         "tables": tables,
         "density_mlp": init_small_mlp(
-            generator, table_levels * table_feat_dim, density_out, density_feat_dim, 1, device
+            generator, table_levels * table_feat_dim, DENSITY_OUT, density_feat_dim, DENSITY_HIDDEN, device
         ),
-        "color_mlp": init_small_mlp(generator, density_out + view_dir_dim, 3, color_feat_dim, 2, device),
+        "color_mlp": init_small_mlp(generator, DENSITY_OUT + view_dir_dim, 3, color_feat_dim, COLOR_HIDDEN, device),
     }
 
 
@@ -218,25 +243,34 @@ def instant_ngp_apply(
     directions ``(..., D)``: density ``2 ** out[..., 0]``, colour sigmoid
     (exp when ``is_hdr``). ``use_kernel`` routes the encode through the
     hash kernels (their plain versions on CPU tensors); False takes the plain
-    versions by autograd on every device."""
+    versions by autograd on every device. While ``tracing`` records, the
+    backward's spans between gradient hooks on the tensors at these
+    boundaries name the colour MLP's, the colour input's and the density
+    MLP's backward."""
     check_layout(table_layout)
     batch_shape = pos.shape[:-1]
     flat_pos = pos.reshape(-1, 3).contiguous()
     flat_dir = view_dir_enc.reshape(-1, view_dir_enc.shape[-1])
     tables = params["tables"]
-    if table_layout in ("packed", "packed_dual"):
-        # 2L pseudo-levels when dual: F from fc_in's rows, as the JAX package
-        feat_dim = params["density_mlp"]["fc_in"]["w"].shape[0] // tables.shape[0]
-        offsets = None
-        if table_layout == "packed_dual":
-            resolutions, offsets = dual_resolutions_offsets(resolutions)
-        feats = hash_encode_packed(tables, flat_pos, resolutions, feat_dim, offsets, use_kernel)
-    else:
-        encode = hash_encode_bricked if table_layout == "bricked" else hash_encode
-        feats = encode(tables, flat_pos, resolutions, use_kernel)
-    density_out = small_mlp_apply(params["density_mlp"], feats, compute_dtype)
-    sigma = torch.exp2(density_out[..., 0])
-    color_in = torch.cat([density_out, flat_dir], dim=-1)
-    color_out = small_mlp_apply(params["color_mlp"], color_in, compute_dtype)
-    rgb = torch.exp(color_out) if is_hdr else torch.sigmoid(color_out)
+    with tracing.span("field.encode"):
+        if table_layout in ("packed", "packed_dual"):
+            # 2L pseudo-levels when dual: F from fc_in's rows, as the JAX package
+            feat_dim = params["density_mlp"]["fc_in"]["w"].shape[0] // tables.shape[0]
+            offsets = None
+            if table_layout == "packed_dual":
+                resolutions, offsets = dual_resolutions_offsets(resolutions)
+            feats = hash_encode_packed(tables, flat_pos, resolutions, feat_dim, offsets, use_kernel)
+        else:
+            encode = hash_encode_bricked if table_layout == "bricked" else hash_encode
+            feats = encode(tables, flat_pos, resolutions, use_kernel)
+    with tracing.span("field.density_mlp"):
+        density_out = small_mlp_apply(params["density_mlp"], feats, compute_dtype)
+        sigma = torch.exp2(density_out[..., 0])
+    with tracing.span("field.color_in"):
+        color_in = torch.cat([density_out, flat_dir], dim=-1)
+    with tracing.span("field.color_mlp"):
+        color_out = small_mlp_apply(params["color_mlp"], color_in, compute_dtype)
+        rgb = torch.exp(color_out) if is_hdr else torch.sigmoid(color_out)
+    tracing.backward_spans([(rgb, "field.color_mlp.bwd"), (color_in, "field.color_in.bwd"),
+                            (density_out, "field.density_mlp.bwd"), (feats, None)])
     return sigma.reshape(batch_shape), rgb.reshape(*batch_shape, 3)

@@ -30,7 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from torch_nerf_tpu_torch import cameras, train
+from torch_nerf_tpu_torch import cameras, tracing, train
 from torch_nerf_tpu_torch.fields import Field
 from torch_nerf_tpu_torch.renderer import RenderSettings
 from torch_nerf_tpu_torch.train import ImageDraws, OptimConfig, TrainState
@@ -137,21 +137,22 @@ def make_multiscene_train_step(
         return [image_step.draw(gen, num_views) for gen in generators]
 
     def step_fn(state: TrainState, images, poses, generators=None, draws: Optional[Sequence[ImageDraws]] = None):
-        if draws is None:
-            draws = draw(generators, images.shape[1])
-        if len(draws) != num_scenes or images.shape[0] != num_scenes:
-            raise ValueError(f"a {num_scenes}-scene step needs {num_scenes} image pools and draws.")
-        scene_metrics, scene_grads = [], []
-        for s in range(num_scenes):
-            params = _requiring_grad(scene_params(state, s))
-            batch = image_step.ray_batch(images[s], poses[s], draws[s])
-            metrics, grads = grad_fn(params, *batch, draws[s].rays)
-            scene_metrics.append(metrics)
-            scene_grads.append(grads)
-        train._apply_grads(state, [torch.stack(g) for g in zip(*scene_grads)])
-        metrics = {k: torch.stack([m[k] for m in scene_metrics]) for k in scene_metrics[0]}
-        metrics["loss"] = metrics["loss"].mean()
-        return state, metrics
+        with tracing.unit("train.step", step=state.step):
+            if draws is None:
+                draws = draw(generators, images.shape[1])
+            if len(draws) != num_scenes or images.shape[0] != num_scenes:
+                raise ValueError(f"a {num_scenes}-scene step needs {num_scenes} image pools and draws.")
+            scene_metrics, scene_grads = [], []
+            for s in range(num_scenes):
+                params = _requiring_grad(scene_params(state, s))
+                batch = image_step.ray_batch(images[s], poses[s], draws[s])
+                metrics, grads = grad_fn(params, *batch, draws[s].rays)
+                scene_metrics.append(metrics)
+                scene_grads.append(grads)
+            train._apply_grads(state, [torch.stack(g) for g in zip(*scene_grads)])
+            metrics = {k: torch.stack([m[k] for m in scene_metrics]) for k in scene_metrics[0]}
+            metrics["loss"] = metrics["loss"].mean()
+            return state, metrics
 
     step_fn.draw = draw
     step_fn.num_pixels = image_step.num_pixels

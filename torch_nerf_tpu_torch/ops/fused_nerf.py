@@ -61,7 +61,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from torch_nerf_tpu_torch import encoders
+from torch_nerf_tpu_torch import encoders, tracing
 from torch_nerf_tpu_torch.models.nerf import LAYER_NAMES, Params, nerf_apply
 from torch_nerf_tpu_torch.ops import build, launch_count
 
@@ -867,15 +867,18 @@ def kernel_weights(params: Params, cfg: FusedNeRFConfig, route: str) -> KernelWe
     ``wgmma``, the forward images and biases of :func:`forward_layout`;
     ``wgmma_general`` and ``f32_wgmma``, the forward images and biases of
     :func:`tc_layout` at kernel 1's own passes (:func:`tc_plan`, ``stash``
-    False)."""
+    False). Each call counts one of ``tracing``'s ``layout_builds`` and
+    its ``layout_bytes``."""
     if route == "wgmma":
         images, biases = forward_layout(params, cfg)
-        return KernelWeights(public=params, route=route, weights=tuple(images), biases=tuple(biases))
-    if route not in TC_ROUTES:
+    elif route in TC_ROUTES:
+        forward, _ = tc_matrices(params, cfg, stash=False)
+        images, biases = tc_images(forward, tc_pass_rows(cfg, stash=False)[0]), tc_biases(params, cfg, stash=False)
+    else:
         raise ValueError(f"unknown forward route {route!r}; routes are {ROUTES}")
-    forward, _ = tc_matrices(params, cfg, stash=False)
-    images = tuple(tc_images(forward, tc_pass_rows(cfg, stash=False)[0]))
-    return KernelWeights(public=params, route=route, weights=images, biases=tuple(tc_biases(params, cfg, stash=False)))
+    tracing.add("layout_builds", 1)
+    tracing.add("layout_bytes", sum(x.nbytes for x in (*images, *biases)))
+    return KernelWeights(public=params, route=route, weights=tuple(images), biases=tuple(biases))
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from torch_nerf_tpu_torch import tracing
 from torch_nerf_tpu_torch.models.nerf import Params
 from torch_nerf_tpu_torch.ops import build, launch_count
 from torch_nerf_tpu_torch.ops import fused_nerf as fn
@@ -214,6 +215,18 @@ def _tc_library() -> ctypes.CDLL:
     return bind_tc(build.load(KERNEL_TC))
 
 
+def weight_images(params: Params, cfg: fn.FusedNeRFConfig, route: str):
+    """``(forward images, biases, chain images)`` of ``route`` for the
+    parameters as they are at this call (:func:`fn.training_layout` on
+    ``wgmma``, else :func:`fn.tc_layout`), counted as one of ``tracing``'s
+    ``layout_builds`` with its ``layout_bytes``."""
+    with tracing.span("field.layout"):
+        images = (fn.training_layout if route == "wgmma" else fn.tc_layout)(params, cfg)
+        tracing.add("layout_builds", 1)
+        tracing.add("layout_bytes", sum(x.nbytes for group in images for x in group))
+    return images
+
+
 def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFConfig, num_real_rays: int):
     """Launch the pass of ``fn.train_route(cfg)`` on the current stream."""
     route = fn.train_route(cfg)
@@ -236,22 +249,24 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
         smem = lib.fused_train_smem_bytes(cfg.feat_dim)
         if smem > fn._SMEM_LIMIT:
             raise ValueError(f"feat_dim {cfg.feat_dim} needs {smem} B of shared memory per block")
-        fwd, biases, chain = fn.training_layout(params, cfg)
-        grads = fn.empty_grads(params)
-        flat = fn._flat(grads)
-        gw, gb = flat[0::2], flat[1::2]
+        fwd, biases, chain = weight_images(params, cfg, route)
+        with tracing.span("field.grads"):
+            grads = fn.empty_grads(params)
+            flat = fn._flat(grads)
+            gw, gb = flat[0::2], flat[1::2]
         entry, extra = lib.fused_train_pass, []
         nbytes = lib.fused_train_workspace_bytes(n * s, cfg.feat_dim)
         dims = dims[:6]
     else:
-        fwd, biases, chain = fn.tc_layout(params, cfg)
-        gw, gb = fn.empty_general_grads(cfg, t.device)
+        fwd, biases, chain = weight_images(params, cfg, route)
+        with tracing.span("field.grads"):
+            gw, gb = fn.empty_general_grads(cfg, t.device)
         f32 = int(cfg.compute_dtype == torch.float32)
         entry, extra = lib.fused_train_pass_tc, [f32]
         nbytes = lib.fused_train_tc_workspace_bytes(n * s, dims[0], dims[6], dims[7], f32)
         dw_before = lib.fused_tc_train_dw_launches()
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=t.device)
-    with torch.cuda.device(t.device):
+    with torch.cuda.device(t.device), tracing.span("field.train_pass"):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = entry(
             ray_o.data_ptr(), ray_d.data_ptr(), t.data_ptr(), delta.data_ptr(), rgb_gt.data_ptr(),
@@ -266,7 +281,8 @@ def _launch(params: Params, ray_o, ray_d, t, delta, rgb_gt, cfg: fn.FusedNeRFCon
     fused_train_pass.route_launches[route] += 1
     if route != "wgmma":
         fn.count_dw(route, n * s, lib.fused_tc_train_dw_launches() - dw_before)
-        grads = fn.grads_from_general(gw, gb, cfg)
+        with tracing.span("field.grads"):
+            grads = fn.grads_from_general(gw, gb, cfg)
     return rgb, weights, grads
 
 
@@ -285,8 +301,10 @@ def fused_train_pass(
     the first ``num_real_rays`` rays with respect to ``params`` (public
     layout, f32). ``t``/``delta`` ``(N, S)`` are the sample depths and
     quadrature intervals of each ray."""
+    tracing.add("points", t.numel())
     if t.device.type == "cpu":
-        return fused_train_pass_reference(params, ray_o, ray_d, t, delta, rgb_gt, cfg, num_real_rays)
+        with tracing.span("field.train_pass"):
+            return fused_train_pass_reference(params, ray_o, ray_d, t, delta, rgb_gt, cfg, num_real_rays)
     return _launch(
         params, ray_o.contiguous(), ray_d.contiguous(), t.contiguous(), delta.contiguous(),
         rgb_gt.contiguous(), cfg, num_real_rays,

@@ -57,6 +57,7 @@ import ctypes
 import numpy as np
 import torch
 
+from torch_nerf_tpu_torch import tracing
 from torch_nerf_tpu_torch.models.hash_math import CORNERS, LANES, as_int32, hash_axis, lattice_u32, packed_prep
 from torch_nerf_tpu_torch.ops import build, launch_count
 from torch_nerf_tpu_torch.ops.fused_nerf import check_tensor
@@ -475,7 +476,8 @@ class _BrickEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         coords, resolutions = ctx.saved_tensors
-        return hash_brick_bwd(g.contiguous(), coords, resolutions, ctx.num_bricks), None, None
+        with tracing.span("field.encode_bwd"):
+            return hash_brick_bwd(g.contiguous(), coords, resolutions, ctx.num_bricks), None, None
 
 
 class _CornerEncode(torch.autograd.Function):
@@ -489,7 +491,8 @@ class _CornerEncode(torch.autograd.Function):
     def backward(ctx, g):
         coords, resolutions = ctx.saved_tensors
         _, num_entries, f = ctx.table_shape
-        return hash_corner_bwd(g.contiguous(), coords, resolutions, num_entries, f), None, None
+        with tracing.span("field.encode_bwd"):
+            return hash_corner_bwd(g.contiguous(), coords, resolutions, num_entries, f), None, None
 
 
 class _FoldEncode(torch.autograd.Function):
@@ -502,7 +505,8 @@ class _FoldEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         coords, resolutions, offsets = ctx.saved_tensors
-        dtables = hash_fold_bwd(g.contiguous(), coords, resolutions, offsets, ctx.num_lines, ctx.feat_dim)
+        with tracing.span("field.encode_bwd"):
+            dtables = hash_fold_bwd(g.contiguous(), coords, resolutions, offsets, ctx.num_lines, ctx.feat_dim)
         return dtables, None, None, None, None
 
 

@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from torch_nerf_tpu_torch import cameras
+from torch_nerf_tpu_torch import cameras, tracing
 from torch_nerf_tpu_torch.fields import Field
 from torch_nerf_tpu_torch.ops import integration, sampling
 
@@ -76,23 +76,25 @@ def render_rays(
     or ``field.prepare`` handles (forward only)."""
     if uniforms is None:
         uniforms = draw_uniforms(generator, ray_origin.shape[0], settings)
-    t_coarse = sampling.stratified_t_samples_from_uniforms(
-        uniforms.coarse, settings.t_near, settings.t_far
-    )
+    with tracing.span("sample.coarse"):
+        t_coarse = sampling.stratified_t_samples_from_uniforms(
+            uniforms.coarse, settings.t_near, settings.t_far
+        )
     out = _render_pass(field, params_coarse, ray_origin, ray_dir, t_coarse)
     result = {"rgb_coarse": out["rgb"], "weights_coarse": out["weights"], "t_coarse": t_coarse}
 
     if settings.hierarchical:
         if params_fine is None:
             raise ValueError("Hierarchical rendering requires fine-network params.")
-        t_fine = sampling.hierarchical_t_samples_from_uniforms(
-            out["weights"].detach(),
-            settings.t_near,
-            settings.t_far,
-            uniforms.fine_coarse,
-            uniforms.u,
-            uniforms.fine,
-        )
+        with tracing.span("sample.fine"):
+            t_fine = sampling.hierarchical_t_samples_from_uniforms(
+                out["weights"].detach(),
+                settings.t_near,
+                settings.t_far,
+                uniforms.fine_coarse,
+                uniforms.u,
+                uniforms.fine,
+            )
         fine_out = _render_pass(field, params_fine, ray_origin, ray_dir, t_fine)
         result.update(rgb_fine=fine_out["rgb"], weights_fine=fine_out["weights"], t_fine=t_fine)
     return result
@@ -109,8 +111,9 @@ def _render_pass(
     pts = sampling.points_along_rays(ray_origin, ray_dir, t_samples)
     dirs = ray_dir[:, None, :].expand_as(pts)
     sigma, radiance = field.apply(params, pts, dirs)
-    delta = sampling.t_deltas(t_samples)
-    rgb, weights = integration.composite(sigma, radiance, delta)
+    with tracing.span("render.composite"):
+        delta = sampling.t_deltas(t_samples)
+        rgb, weights = integration.composite(sigma, radiance, delta)
     return {"rgb": rgb, "weights": weights}
 
 
@@ -137,29 +140,35 @@ def render_image(
     draws; by default they come from a generator seeded by
     :func:`chunk_seed`.
     """
-    device = extrinsic.device
-    h, w = camera.img_height, camera.img_width
-    num_pixels = h * w
-    num_chunks = -(-num_pixels // chunk_size)
-    pixel_idx = torch.arange(num_chunks * chunk_size, device=device).clamp_max(num_pixels - 1)
-    origins, dirs = cameras.rays_for_pixels(
-        pixel_idx, camera, extrinsic,
-        use_ndc=settings.project_to_ndc, ndc_z_near=settings.ndc_z_near,
-    )
-    pc = field.prepare(params_coarse)
-    pf = field.prepare(params_fine) if params_fine is not None else None
+    with tracing.unit("render.frame", seed=seed) as frame:
+        device = extrinsic.device
+        h, w = camera.img_height, camera.img_width
+        num_pixels = h * w
+        num_chunks = -(-num_pixels // chunk_size)
+        with tracing.span("render.rays"):
+            pixel_idx = torch.arange(num_chunks * chunk_size, device=device).clamp_max(num_pixels - 1)
+            origins, dirs = cameras.rays_for_pixels(
+                pixel_idx, camera, extrinsic,
+                use_ndc=settings.project_to_ndc, ndc_z_near=settings.ndc_z_near,
+            )
+        with tracing.span("field.prepare"):
+            pc = field.prepare(params_coarse)
+            pf = field.prepare(params_fine) if params_fine is not None else None
 
-    out = []
-    with torch.inference_mode():
-        for c in range(num_chunks):
-            first = c * chunk_size
-            if uniforms_for_chunk is not None:
-                uniforms = uniforms_for_chunk(first, chunk_size)
-            else:
-                gen = torch.Generator(device=device).manual_seed(chunk_seed(seed, first))
-                uniforms = draw_uniforms(gen, chunk_size, settings)
-            rows = slice(first, first + chunk_size)
-            res = render_rays(field, pc, pf, origins[rows], dirs[rows], None, settings, uniforms)
-            out.append(res["rgb_fine"] if settings.hierarchical else res["rgb_coarse"])
-    rgb = torch.cat(out, dim=0)[:num_pixels]
-    return rgb.reshape(h, w, 3)
+        out = []
+        with torch.inference_mode():
+            for c in range(num_chunks):
+                first = c * chunk_size
+                with tracing.unit("render.chunk", frame=frame.id if frame else None, first=first):
+                    with tracing.span("render.uniforms"):
+                        if uniforms_for_chunk is not None:
+                            uniforms = uniforms_for_chunk(first, chunk_size)
+                        else:
+                            gen = torch.Generator(device=device).manual_seed(chunk_seed(seed, first))
+                            uniforms = draw_uniforms(gen, chunk_size, settings)
+                    rows = slice(first, first + chunk_size)
+                    res = render_rays(field, pc, pf, origins[rows], dirs[rows], None, settings, uniforms)
+                    out.append(res["rgb_fine"] if settings.hierarchical else res["rgb_coarse"])
+        with tracing.span("render.gather"):
+            rgb = torch.cat(out, dim=0)[:num_pixels]
+            return rgb.reshape(h, w, 3)

@@ -26,7 +26,9 @@ card the scenes train one after another within a step.
 
 ``--profile-steps N`` traces steps ``start + 10`` to ``start + 10 + N``
 with ``torch.profiler`` into ``<log_dir>/profile/trace.json`` (a Chrome
-trace).
+trace, the port's spans among its events) and writes the port's spans of
+those steps (``tracing``: name, parent, unit, thread, start and end in
+Unix ns, each step's counters) to ``<log_dir>/profile/spans.jsonl``.
 
 ``--distributed`` runs one process per rank under torchrun (the
 counterpart of the JAX CLI's ``jax.distributed.initialize()``):
@@ -62,7 +64,7 @@ import numpy as np
 import torch
 
 from torch_nerf_tpu_torch import checkpoints, config as cfg_mod, lpips, metrics as metrics_mod
-from torch_nerf_tpu_torch import multiscene, occupancy, session, train
+from torch_nerf_tpu_torch import multiscene, occupancy, session, tracing, train
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.logging_utils import MetricsLogger, StepTimer, save_png
 from torch_nerf_tpu_torch.parallel import collectives, mesh as pmesh, steps as psteps
@@ -268,8 +270,10 @@ class StepProfiler:
     """``--profile-steps N``: ``torch.profiler`` (CPU activity, and CUDA on
     the card) over the steps ``start + 10`` to ``start + 10 + N``, the JAX
     CLI's window after compilation and warm-up, its Chrome trace written to
-    ``<log_dir>/profile/trace.json`` when the window ends (or the run does,
-    inside it). Does nothing for N = 0."""
+    ``<log_dir>/profile/trace.json`` and the port's spans of the window
+    (``tracing``, on while the profiler records) to
+    ``<log_dir>/profile/spans.jsonl`` when the window ends (or the run
+    does, inside it). Does nothing for N = 0."""
 
     def __init__(self, log_dir, start_step: int, num_steps: int, device: torch.device):
         self.dir = Path(log_dir) / "profile"
@@ -284,6 +288,7 @@ class StepProfiler:
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=activities)
+            tracing.clear()
             self.prof.start()
 
     def after(self, step_idx: int) -> None:
@@ -298,6 +303,7 @@ class StepProfiler:
         self.prof.stop()
         self.dir.mkdir(parents=True, exist_ok=True)
         self.prof.export_chrome_trace(str(self.dir / "trace.json"))
+        tracing.dump(self.dir / "spans.jsonl")
         self.prof = None
         print(f"profiler trace written to {self.dir}")
 

@@ -11,14 +11,22 @@ probes). ``--occupancy`` adds the occupancy-pruned step of each model at
 ``bench.py --occupancy``'s point (classic: 32 of 64 coarse and 128 of 192
 fine samples kept, through the fused pass; NGP: 128 of 256; the default
 grid, whose warmup reads every cell occupied, swept at steps 0, 16, ...).
-Prints one JSON line per path:
-the host-clock ms per step, the device ms per step of every kernel by name
-(each launch's own device time, summed and divided by the steps), their
-sum, and the device's idle share of the step (1 - busy / step); for the
+The steps are traced with device activity alone, between two marker
+fills that bound the stretch on the device's clock, while the port's own
+spans are stored (``tracing``). Prints one JSON line per path: the
+host-clock ms per step, the stretch's ms per step on the device's clock
+(``window_ms``), the device's busy ms per step (the union of its kernel,
+copy and fill intervals, so the dW GEMM's two streams count once) and its
+idle share of the window, the device ms per step of every kernel by name
+(each launch's own device time), and the step's split by phase
+(``phases``): for each port span, its host ms per step and the device's
+idle ms per step whose gap began while it was the deepest span open (the
+spans laid on the trace's clock by its ``baseTimeNanoseconds``); for the
 fused classic path also each kernel of the train pass (forward, composite,
 chain, dW GEMM, reduce) beside its floors by operations (989 TFLOP/s) and
 by the bytes the design moves (3.35 TB/s), over the step's coarse and fine
-passes (``fused_train.phase_floors``); then the card's ``nvidia-smi`` line.
+passes (``fused_train.phase_floors``; ``floors``); then the card's
+``nvidia-smi`` line.
 ``--route f32_wgmma`` profiles the classic NeRF in f32 (path A) and
 ``--route wgmma_general`` at width 512 with a 75-wide encoding in bf16 (path
 B), both on the tensor-core general route; ``--route wide`` bf16 at width
@@ -35,13 +43,16 @@ pass's stash bytes (``fused_train.general_stash_bytes``) at 3.35 TB/s.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import re
+import tempfile
 import time
 
 import torch
 
-from torch_nerf_tpu_torch import config, occupancy, renderer, session, train
+from torch_nerf_tpu_torch import config, occupancy, renderer, session, tracing, train
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.device import resolve_device
 from torch_nerf_tpu_torch.fields import make_nerf_field
@@ -58,6 +69,35 @@ def _short(name: str) -> str:
     return re.sub(r"^.*::", "", name.replace("void ", "").strip())
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def split(chrome: dict, spans, steps: int, host_s: float) -> dict:
+    """A device-only Chrome trace of ``steps`` steps bounded by marker
+    fills, with the port's ``spans`` (``tracing.records()`` as dicts) of the same
+    stretch: the step's ms on the host and device clocks, the union of the
+    device's busy intervals, its idle share, the kernels by name and the
+    split by phase (see the module's doc), all per step."""
+    ops = [(ev["name"], float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0.0)))
+           for ev in chrome["traceEvents"] if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATS]
+    lo, hi = min(a for _, a, _ in ops), max(b for _, _, b in ops)
+    kernels = collections.defaultdict(float)
+    for name, a, b in ops:
+        kernels[_short(name)] += (b - a) / 1e3 / steps
+    base = chrome["baseTimeNanoseconds"]
+    on_trace = [dict(s, start=(s["start"] - base) / 1e3, end=(s["end"] - base) / 1e3) for s in spans]
+    busy, idle = tracing.idle_by_span([(a, b) for _, a, b in ops], on_trace)
+    phases = collections.defaultdict(lambda: {"host_ms": 0.0, "idle_ms": 0.0})
+    for s in on_trace:
+        phases[s["name"]]["host_ms"] += (s["end"] - s["start"]) / 1e3 / steps
+    for name, length in idle.items():
+        phases[name]["idle_ms"] += length / 1e3 / steps
+    return dict(step_ms=host_s / steps * 1e3, window_ms=(hi - lo) / 1e3 / steps, device_busy_ms=busy / 1e3 / steps,
+                idle_share=1.0 - busy / (hi - lo),
+                kernels_ms_per_step=dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
+                phases=dict(sorted(phases.items(), key=lambda kv: -kv[1]["idle_ms"])))
+
+
 def profile_path(step, state, grid, images, poses, gen, steps: int) -> dict:
     """``steps`` traced steps after 3 untraced ones; ``grid`` is the
     occupancy grid the step threads, or None."""
@@ -69,27 +109,26 @@ def profile_path(step, state, grid, images, poses, gen, steps: int) -> dict:
 
     for _ in range(3):
         state, grid = one(state, grid)
+    marker = torch.empty(1, device=images.device)
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    tracing.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        marker.fill_(0.0)
         for _ in range(steps):
             state, grid = one(state, grid)
+        marker.fill_(1.0)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-    kernels = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        key = _short(evt.key)
-        kernels[key] = kernels.get(key, 0.0) + us / 1e3 / steps
-    busy = sum(kernels.values())
-    step_ms = elapsed / steps * 1e3
-    return dict(step_ms=step_ms, device_busy_ms=busy, idle_share=1.0 - busy / step_ms,
-                kernels_ms_per_step=dict(sorted(kernels.items(), key=lambda kv: -kv[1])))
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            chrome = json.load(f)
+    finally:
+        os.unlink(path)
+    return split(chrome, [s.as_dict() for s in tracing.records()], steps, elapsed)
 
 
 # H100 SXM data-sheet peaks: dense bf16, HBM3
@@ -105,7 +144,7 @@ ROUTE_FIELDS = {"wgmma": dict(compute_dtype=torch.bfloat16),
 ROUTE_PEAKS = {"f32_wgmma": PEAK_FLOPS / 8}
 
 
-def phases(kernels_ms: dict, cfg, passes) -> dict:
+def kernel_floors(kernels_ms: dict, cfg, passes) -> dict:
     """The train pass's kernels' ms per step beside their floors over the
     step's passes (points each)."""
     out = {}
@@ -117,7 +156,7 @@ def phases(kernels_ms: dict, cfg, passes) -> dict:
     return out
 
 
-def general_phases(kernels_ms: dict, cfg, passes) -> dict:
+def general_floors(kernels_ms: dict, cfg, passes) -> dict:
     """The general route's forward, chain and dW kernels' ms per step beside
     their floors by operations over the step's passes, at the peak of the
     route's products (the dW GEMM's, ``dw_tc_kernel``, on both general
@@ -182,8 +221,8 @@ def main(argv=None) -> dict:
         grid = occupancy.init_grid(occ, dev) if occ else None
         out[path] = profile_path(step, state, grid, images, poses, gen, args.steps)
         if path == "fused":
-            split = phases if fused_nerf.train_route(field.fused_cfg) == "wgmma" else general_phases
-            out[path]["phases"] = split(out[path]["kernels_ms_per_step"], field.fused_cfg,
+            floors = kernel_floors if fused_nerf.train_route(field.fused_cfg) == "wgmma" else general_floors
+            out[path]["floors"] = floors(out[path]["kernels_ms_per_step"], field.fused_cfg,
                                         (4096 * settings.num_samples_coarse,
                                          4096 * (settings.num_samples_coarse + settings.num_samples_fine)))
         print(json.dumps({"path": path, **out[path]}), flush=True)

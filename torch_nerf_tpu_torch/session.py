@@ -18,9 +18,10 @@ from torch_nerf_tpu_torch import config as cfg_mod
 from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.datasets.blender import PosedImages, load_blender
 from torch_nerf_tpu_torch.datasets.llff import llff_holdout_index, llff_t_bounds, load_llff
-from torch_nerf_tpu_torch.encoders import positional_encoding_dim
+from torch_nerf_tpu_torch.encoders import positional_encoding_dim, sh_encoding_dim
 from torch_nerf_tpu_torch.fields import Field, make_nerf_field
 from torch_nerf_tpu_torch.fields_ngp import make_encode_smoothness_loss, make_instant_ngp_field
+from torch_nerf_tpu_torch.models import instant_ngp
 from torch_nerf_tpu_torch.models.nerf import layer_dims
 from torch_nerf_tpu_torch.occupancy import OccupancyConfig
 from torch_nerf_tpu_torch.ops import fused_nerf
@@ -312,12 +313,10 @@ def estimate_flops_per_step(cfg: cfg_mod.ExperimentConfig) -> float:
         pos_dim = positional_encoding_dim(net.pos_dim, enc.coord_encode_level, enc.include_input)
         dir_dim = positional_encoding_dim(net.view_dir_dim, enc.dir_encode_level, enc.include_input)
         macs = sum(i * o for i, o in layer_dims(pos_dim, dir_dim, net.feat_dim).values())
-    else:  # instant_nerf: density (LF->64->16) + color (16+sh -> 64 -> 64 -> 3)
-        lf = net.num_level * net.table_feat_dim
-        if net.table_layout == "packed_dual":
-            lf *= 2
-        sh_dim = enc.degree**2 if enc.type == "sh" else 27
-        macs = (lf * 64 + 64 * 64 + 64 * 16) + ((16 + sh_dim) * 64 + 64 * 64 + 64 * 3)
+    else:  # instant_nerf: the two MLPs' layers as the model draws them
+        sh_dim = sh_encoding_dim(enc.degree) if enc.type == "sh" else 27
+        shapes = instant_ngp.mlp_shapes(sh_dim, net.num_level, net.table_feat_dim, table_layout=net.table_layout)
+        macs = sum(i * o for layers in shapes.values() for i, o in layers.values())
     coarse = r.num_samples_coarse
     fine = r.num_samples_coarse + r.num_samples_fine  # merged fine set
     if cfg.occupancy.enabled:

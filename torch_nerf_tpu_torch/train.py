@@ -34,7 +34,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from torch_nerf_tpu_torch import cameras, occupancy
+from torch_nerf_tpu_torch import cameras, occupancy, tracing
 from torch_nerf_tpu_torch.fields import Field
 from torch_nerf_tpu_torch.models.nerf import Params
 from torch_nerf_tpu_torch.ops import integration, sampling
@@ -135,16 +135,18 @@ def ray_loss_fn(
     settings: RenderSettings,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Photometric loss on a ray batch: coarse MSE + fine MSE."""
-    out = render_rays(field, params["coarse"], params.get("fine"), ray_origin, ray_dir, None,
-                      settings, uniforms)
-    coarse_loss = torch.mean((out["rgb_coarse"] - rgb_gt) ** 2)
-    loss = coarse_loss
-    metrics = {"coarse_loss": coarse_loss}
-    if settings.hierarchical:
-        fine_loss = torch.mean((out["rgb_fine"] - rgb_gt) ** 2)
-        loss = loss + fine_loss
-        metrics["fine_loss"] = fine_loss
-    metrics["loss"] = loss
+    with tracing.span("train.render"):
+        out = render_rays(field, params["coarse"], params.get("fine"), ray_origin, ray_dir, None,
+                          settings, uniforms)
+    with tracing.span("train.loss"):
+        coarse_loss = torch.mean((out["rgb_coarse"] - rgb_gt) ** 2)
+        loss = coarse_loss
+        metrics = {"coarse_loss": coarse_loss}
+        if settings.hierarchical:
+            fine_loss = torch.mean((out["rgb_fine"] - rgb_gt) ** 2)
+            loss = loss + fine_loss
+            metrics["fine_loss"] = fine_loss
+        metrics["loss"] = loss
     return loss, metrics
 
 
@@ -168,7 +170,8 @@ def fused_loss_and_grad(
     num_rays = ray_origin.shape[0]
     cfg = field.fused_cfg
     with torch.no_grad():
-        t_coarse = sampling.stratified_t_samples_from_uniforms(rand.coarse, settings.t_near, settings.t_far)
+        with tracing.span("sample.coarse"):
+            t_coarse = sampling.stratified_t_samples_from_uniforms(rand.coarse, settings.t_near, settings.t_far)
         rgb_c, weights_c, grads_c = fused_train_pass(
             params["coarse"], ray_origin, ray_dir, t_coarse, sampling.t_deltas(t_coarse), rgb_gt, cfg, num_rays
         )
@@ -176,9 +179,10 @@ def fused_loss_and_grad(
         metrics = {"coarse_loss": coarse_loss, "loss": coarse_loss}
         grads: Dict[str, Params] = {"coarse": grads_c}
         if settings.hierarchical:
-            t_fine = sampling.hierarchical_t_samples_from_uniforms(
-                weights_c, settings.t_near, settings.t_far, rand.fine_coarse, rand.u, rand.fine
-            )
+            with tracing.span("sample.fine"):
+                t_fine = sampling.hierarchical_t_samples_from_uniforms(
+                    weights_c, settings.t_near, settings.t_far, rand.fine_coarse, rand.u, rand.fine
+                )
             rgb_f, _, grads_f = fused_train_pass(
                 params["fine"], ray_origin, ray_dir, t_fine, sampling.t_deltas(t_fine), rgb_gt, cfg, num_rays
             )
@@ -306,12 +310,13 @@ def fused_pruned_loss_and_grad(
 def _apply_grads(state: TrainState, grads: list) -> None:
     """One Adam step and one schedule step with ``grads`` in
     :func:`parameter_list` order."""
-    for leaf, grad in zip(parameter_list(state.params), grads):
-        leaf.grad = grad
-    state.optimizer.step()
-    state.scheduler.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
+    with tracing.span("train.adam"):
+        for leaf, grad in zip(parameter_list(state.params), grads):
+            leaf.grad = grad
+        state.optimizer.step()
+        state.scheduler.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
 
 
 def _generic_grads(loss_fn, params, aux_loss_fn, aux_draws):
@@ -325,7 +330,8 @@ def _generic_grads(loss_fn, params, aux_loss_fn, aux_draws):
         metrics["aux_loss"] = aux
         loss = loss + aux
         metrics["loss"] = loss
-    grads = list(torch.autograd.grad(loss, parameter_list(params)))
+    with tracing.span("train.backward", handoff=True):
+        grads = list(torch.autograd.grad(loss, parameter_list(params)))
     return {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -544,17 +550,23 @@ def make_image_train_step(
     if occupancy_cfg is not None:
 
         def occ_step_fn(state: TrainState, grid, images, poses, generator=None, draws: Optional[ImageDraws] = None):
-            if draws is None:
-                draws = draw(generator, images.shape[0], state.step)
-            return ray_step(state, grid, *ray_batch(images, poses, draws), draws.rays, draws.aux, draws.occ_jitter)
+            with tracing.unit("train.step", step=state.step):
+                if draws is None:
+                    draws = draw(generator, images.shape[0], state.step)
+                with tracing.span("train.ray_batch"):
+                    batch = ray_batch(images, poses, draws)
+                return ray_step(state, grid, *batch, draws.rays, draws.aux, draws.occ_jitter)
 
         step_fn = occ_step_fn
     else:
 
         def step_fn(state: TrainState, images, poses, generator=None, draws: Optional[ImageDraws] = None):
-            if draws is None:
-                draws = draw(generator, images.shape[0])
-            return ray_step(state, *ray_batch(images, poses, draws), draws.rays, draws.aux)
+            with tracing.unit("train.step", step=state.step):
+                if draws is None:
+                    draws = draw(generator, images.shape[0])
+                with tracing.span("train.ray_batch"):
+                    batch = ray_batch(images, poses, draws)
+                return ray_step(state, *batch, draws.rays, draws.aux)
 
     step_fn.draw = draw
     step_fn.ray_batch = ray_batch
