@@ -95,7 +95,13 @@ backward hash launch per step); train_bench_ngp (NGP train steps at
 timed beside its bound and its plain version; then the packed layouts,
 without and with the smoothness loss, and kernels 8-9 timed alone);
 bench_ngp (800x800 NGP frames at ``bench.py --render
---model=instant_nerf``'s point, all four layouts); kernel_fold (kernels
+--model=instant_nerf``'s point, all four layouts, the frame loop's fused
+NGP forward once a chunk); ngp_fused (the NGP field's fused forward
+after the hash encode, ``csrc/ngp_mlp_fwd.cu``, against its plain version
+at the render cell's 4096 x 256 points with 32 and 64 features and at
+ragged shapes, two planted image faults rejected, NaN and +-inf where the
+plain version puts them, timed beside its bound, its plain version and
+the cuBLAS route it replaces); kernel_fold (kernels
 8-9, the packed layouts' folded encode forward and backward, at full width
 for ``packed`` and ``packed_dual`` on the same points, four planted faults
 that must be rejected, then kernels 8-9 on two contention cases: every
@@ -261,7 +267,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     reports = build.build(["fused_nerf_fwd", "fused_nerf_bwd", "fused_train", "hash_grid", "fused_tc_fwd",
-                           "fused_tc_train", "fused_tc_bwd"])
+                           "fused_tc_train", "fused_tc_bwd", "ngp_mlp_fwd"])
     seconds = time.perf_counter() - t0
     ptxas = {
         Path(src).stem: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -2664,31 +2670,34 @@ def phase_train_ngp(work: Path):
     view, 40 chunks); then 8 steps of ``--config instant_nerf``
     (per-corner). Hash launches counted over each call: one forward and one
     backward per train step, one forward per render chunk, nothing of the
-    other layout's kernels."""
+    other layout's kernels; the fused NGP forward once per render chunk
+    (the presets are bf16: ``prepare`` takes it) and never in a train step."""
+    from torch_nerf_tpu_torch.ops import ngp_mlp  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
 
-    counted = hash_ops("bricked")[:2] + hash_ops("hash")[:2]
+    counted = hash_ops("bricked")[:2] + hash_ops("hash")[:2] + (ngp_mlp.ngp_mlp_fwd,)
     done = train_resume_render(work, "ngp", ["--config", "instant_nerf_tpu"] + NGP_TRAIN_OVERRIDES, counted)
     hash_result, _, hash_launches, _ = run_cli(run_train.main, [
         "--config", "instant_nerf", "--log-dir", str(work / "ngp_hash_run"), "--max-steps", "8"]
         + NGP_TRAIN_OVERRIDES, counted)
     chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
-    # [brick fwd, brick bwd, corner fwd, corner bwd] per call
-    want = [[24 + chunks_800 + chunks_400, 24, 0, 0], [8, 8, 0, 0]]
-    want_render, want_hash = [2 * chunks_800, 0, 0, 0], [0, 0, 8, 8]
+    # [brick fwd, brick bwd, corner fwd, corner bwd, fused NGP fwd] per call
+    want = [[24 + chunks_800 + chunks_400, 24, 0, 0, chunks_800 + chunks_400], [8, 8, 0, 0, 0]]
+    want_render, want_hash = [2 * chunks_800, 0, 0, 0, 2 * chunks_800], [0, 0, 8, 8, 0]
     launches, render_launches = done["launches"], done["render_launches"]
     ok = (done["ok"] and launches == want and render_launches == want_render and hash_launches == want_hash
           and len(hash_result["losses"]) == 8 and all(math.isfinite(v) for v in hash_result["losses"]))
     emit("train_ngp", seconds=done["seconds"], hash_steps=hash_result["step"],
-         launches_brick_fwd_bwd_corner_fwd_bwd={"train": launches, "render": render_launches,
-                                                 "hash_train": hash_launches},
+         launches_brick_fwd_bwd_corner_fwd_bwd_fused={"train": launches, "render": render_launches,
+                                                       "hash_train": hash_launches},
          expected={"train": want, "render": want_render, "hash_train": want_hash},
          hash_losses=hash_result["losses"], **done["report"], ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: train_ngp phase failed")
     return {"hash_brick_fwd": launches[0][0] + launches[1][0] + render_launches[0],
             "hash_brick_bwd": launches[0][1] + launches[1][1],
-            "hash_corner_fwd": hash_launches[2], "hash_corner_bwd": hash_launches[3]}
+            "hash_corner_fwd": hash_launches[2], "hash_corner_bwd": hash_launches[3],
+            "ngp_mlp_fwd": launches[0][4] + launches[1][4] + render_launches[4]}
 
 
 # ---------------------------------------------------------------------------
@@ -2893,26 +2902,29 @@ def phase_train_packed(work: Path):
     fwd, fold bwd, brick fwd, brick bwd, corner fwd, corner bwd] counted
     over each call: two forward and two backward fold kernels per train step
     (the ray batch's and the probes'), one forward per render chunk, no
-    kernel 4-7; the last step's ``aux_loss`` above 0."""
+    kernel 4-7, the fused NGP forward once per render chunk; the last
+    step's ``aux_loss`` above 0."""
+    from torch_nerf_tpu_torch.ops import ngp_mlp  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
 
-    counted = fold_ops() + hash_ops("bricked")[:2] + hash_ops("hash")[:2]
+    counted = fold_ops() + hash_ops("bricked")[:2] + hash_ops("hash")[:2] + (ngp_mlp.ngp_mlp_fwd,)
     done = train_resume_render(work, "packed", ["--config", "instant_nerf", "network.table_layout=packed"]
                                + SMOOTHNESS + NGP_TRAIN_OVERRIDES, counted)
     dual, _, dual_launches, _ = run_cli(run_train.main, [
         "--config", "instant_nerf", "--log-dir", str(work / "packed_dual_run"), "--max-steps", "8",
         "network.table_layout=packed_dual"] + SMOOTHNESS + NGP_TRAIN_OVERRIDES, counted)
     chunks_800, chunks_400 = -(-800 * 800 // 4096), -(-400 * 400 // 4096)
-    want = [[2 * 24 + chunks_800 + chunks_400, 2 * 24, 0, 0, 0, 0], [2 * 8, 2 * 8, 0, 0, 0, 0]]
-    want_render, want_dual = [2 * chunks_800, 0, 0, 0, 0, 0], [2 * 8, 2 * 8, 0, 0, 0, 0]
+    want = [[2 * 24 + chunks_800 + chunks_400, 2 * 24, 0, 0, 0, 0, chunks_800 + chunks_400],
+            [2 * 8, 2 * 8, 0, 0, 0, 0, 0]]
+    want_render, want_dual = [2 * chunks_800, 0, 0, 0, 0, 0, 2 * chunks_800], [2 * 8, 2 * 8, 0, 0, 0, 0, 0]
     launches, render_launches = done["launches"], done["render_launches"]
     aux = [r["metrics"].get("aux_loss", 0.0) for r in done["results"] + [dual]]
     ok = (done["ok"] and launches == want and render_launches == want_render and dual_launches == want_dual
           and len(dual["losses"]) == 8 and all(math.isfinite(v) for v in dual["losses"])
           and all(a > 0.0 for a in aux))
     emit("train_packed", seconds=done["seconds"], dual_steps=dual["step"],
-         launches_fold_fwd_bwd_brick_fwd_bwd_corner_fwd_bwd={"train": launches, "render": render_launches,
-                                                               "dual_train": dual_launches},
+         launches_fold_fwd_bwd_brick_fwd_bwd_corner_fwd_bwd_fused={"train": launches, "render": render_launches,
+                                                                     "dual_train": dual_launches},
          expected={"train": want, "render": want_render, "dual_train": want_dual},
          dual_losses=dual["losses"],
          last_aux_loss={"packed_24": aux[0], "packed_32": aux[1], "packed_dual_8": aux[2]},
@@ -3135,9 +3147,12 @@ def phase_train_occ(work: Path):
     threshold, losses finite and falling, render and evaluate finite. Launches: kernel
     3 twice a step at 4096 x 32 and 4096 x 128; kernel 1 once a sweep at
     262,144 points besides the renders; kernels 4-5 (6-7) once a step at
-    4096 x 128 points, kernel 4 (6) once a sweep."""
+    4096 x 128 points, kernel 4 (6) once a sweep; the fused NGP forward
+    once a sweep (``occupancy.make_density_fn`` takes ``field.prepare``)
+    and once a render chunk, never in a train step."""
     from torch_nerf_tpu_torch.ops import fused_nerf as fn  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import fused_train as ftm  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import ngp_mlp  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners import run_train  # noqa: PLC0415
 
     cells, step_points = 64**3, 4096 * 128
@@ -3149,7 +3164,7 @@ def phase_train_occ(work: Path):
                                                                                    fn.fused_nerf_apply])
     ngp_args = ["--config", "instant_nerf_tpu", "occupancy.keep_samples=128",
                 f"occupancy.threshold={OCC_THRESHOLD['bricked']}"] + OCC_RUN
-    counted = hash_ops("bricked")[:2] + hash_ops("hash")[:2]
+    counted = hash_ops("bricked")[:2] + hash_ops("hash")[:2] + (ngp_mlp.ngp_mlp_fwd,)
     ngp = train_resume_render(work, "occ_ngp", ngp_args + NGP_TRAIN_OVERRIDES, counted)
     hash_result, _, hash_launches, hash_shapes = run_cli(run_train.main, [
         "--config", "instant_nerf", "--log-dir", str(work / "occ_hash_run"), "--max-steps", "8",
@@ -3159,8 +3174,9 @@ def phase_train_occ(work: Path):
     renders = [2 * (chunks_800 + chunks_400), 0]
     want = {"classic": [[48, sweeps[0] + renders[0]], [16, sweeps[1]]],
             "classic_render": [0, 2 * 2 * chunks_800],
-            "bricked": [[24 + sweeps[0] + renders[0] // 2, 24, 0, 0], [8 + sweeps[1], 8, 0, 0]],
-            "bricked_render": [2 * chunks_800, 0, 0, 0], "hash": [0, 0, 8 + 2, 8]}
+            "bricked": [[24 + sweeps[0] + renders[0] // 2, 24, 0, 0, sweeps[0] + renders[0] // 2],
+                        [8 + sweeps[1], 8, 0, 0, sweeps[1]]],
+            "bricked_render": [2 * chunks_800, 0, 0, 0, 2 * chunks_800], "hash": [0, 0, 8 + 2, 8, 2]}
     got = {"classic": classic["launches"], "classic_render": classic["render_launches"],
            "bricked": ngp["launches"], "bricked_render": ngp["render_launches"], "hash": hash_launches}
     k3_shapes = [{(4096, 32): n, (4096, 128): n} for n in (24, 8)]
@@ -3174,6 +3190,8 @@ def phase_train_occ(work: Path):
         == [(24, sweeps[0]), (8, sweeps[1])],
         "kernel5_steps": [sh[1] for sh in ngp["shapes"]] == [{step_points: 24}, {step_points: 8}],
         "kernel67_steps_and_sweeps": hash_shapes[2] == {step_points: 8, cells: 2} and hash_shapes[3] == {step_points: 8},
+        "fused_ngp_sweeps": [sh[4].get(cells, 0) for sh in ngp["shapes"]] == [sweeps[0], sweeps[1]]
+        and hash_shapes[4] == {cells: 2},
         "classic_run": classic["ok"], "bricked_run": ngp["ok"],
         "hash_losses_finite": len(hash_result["losses"]) == 8 and all(math.isfinite(v) for v in hash_result["losses"]),
     }
@@ -3200,7 +3218,8 @@ def phase_train_occ(work: Path):
             "fused_nerf_fwd": sum(c[1] for c in classic["launches"]) + classic["render_launches"][1],
             "hash_brick_fwd": sum(c[0] for c in ngp["launches"]) + ngp["render_launches"][0],
             "hash_brick_bwd": sum(c[1] for c in ngp["launches"]),
-            "hash_corner_fwd": hash_launches[2], "hash_corner_bwd": hash_launches[3]}
+            "hash_corner_fwd": hash_launches[2], "hash_corner_bwd": hash_launches[3],
+            "ngp_mlp_fwd": sum(c[4] for c in ngp["launches"]) + ngp["render_launches"][4] + hash_launches[4]}
 
 
 def ngp_field(layout, use_kernel=True):
@@ -3217,14 +3236,15 @@ def phase_train_bench_ngp(smi: str):
     a level), and ``bricked`` with occupancy pruning at ``bench.py
     --model=instant_nerf --occupancy``'s point (128 of 256, the default
     grid, a sweep every 16 steps): 3 warm-up and 20 timed steps, launches
-    counted over the timed ones; then each hash kernel alone on the 2^20
+    counted over the timed ones (the fused NGP forward only in the
+    occupancy path's sweep); then each hash kernel alone on the 2^20
     points of a dense batch of the step's own, with a seeded random
     cotangent (CUDA events), beside its bound, its share of it and its
     plain version's time."""
     from torch_nerf_tpu_torch import config, occupancy, renderer, session, train  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
     from torch_nerf_tpu_torch.ops import hash_grid as hg  # noqa: PLC0415
-    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import ngp_mlp, sampling  # noqa: PLC0415
     from torch_nerf_tpu_torch.runners.train_ab import step_batch  # noqa: PLC0415
 
     dev = torch.device("cuda")
@@ -3256,7 +3276,7 @@ def phase_train_bench_ngp(smi: str):
         for _ in range(3):
             state, grid, _ = bench_step(step, state, grid, images, poses, gen)
         torch.cuda.synchronize()
-        launch_count.reset(fwd, bwd)
+        launch_count.reset(fwd, bwd, ngp_mlp.ngp_mlp_fwd)
         losses = []
         t0 = time.perf_counter()
         for _ in range(timed):
@@ -3270,8 +3290,10 @@ def phase_train_bench_ngp(smi: str):
         # (state.step 16, 64^3 points) falls among the timed steps 3..22
         want_fwd = {4096 * 128: timed, 64**3: 1} if occ else None
         paths[path] = dict(ms_per_step=elapsed / timed * 1e3, rays_per_sec=4096 * timed / elapsed,
-                           launches={"fwd": fwd.launches, "bwd": bwd.launches},
-                           expected_launches={"fwd": per_step * timed + (1 if occ else 0), "bwd": per_step * timed},
+                           launches={"fwd": fwd.launches, "bwd": bwd.launches,
+                                     "fused": dict(ngp_mlp.ngp_mlp_fwd.shapes)},
+                           expected_launches={"fwd": per_step * timed + (1 if occ else 0), "bwd": per_step * timed,
+                                              "fused": {64**3: 1} if occ else {}},
                            fwd_points=dict(fwd.shapes), expected_fwd_points=want_fwd,
                            loss_first=losses[0], loss_last=losses[-1],
                            aux_loss_last=float(metrics["aux_loss"]) if smooth else None,
@@ -3327,10 +3349,11 @@ def phase_train_bench_ngp(smi: str):
 def phase_bench_ngp(smi: str):
     """800x800 NGP frames at ``bench.py --render --model=instant_nerf``'s
     point (256 samples, no fine network, 4096-ray chunks: 157 forward hash
-    launches a frame), every layout, seeded random weights: a warm-up and 2
-    timed frames each."""
+    launches and 157 of the fused forward after it a frame), every layout,
+    seeded random weights: a warm-up and 2 timed frames each."""
     from torch_nerf_tpu_torch import cameras, renderer  # noqa: PLC0415
     from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import ngp_mlp  # noqa: PLC0415
 
     dev = torch.device("cuda")
     settings = renderer.RenderSettings(num_samples_coarse=256, num_samples_fine=0)
@@ -3347,23 +3370,173 @@ def phase_bench_ngp(smi: str):
 
         img = frame(1)
         torch.cuda.synchronize()
-        launch_count.reset(fwd)
+        launch_count.reset(fwd, ngp_mlp.ngp_mlp_fwd)
         t0 = time.perf_counter()
         for i in range(frames):
             img = frame(2 + i)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         layouts[layout] = dict(seconds_per_frame=elapsed / frames, rays_per_sec=800 * 800 * frames / elapsed,
-                               launches_per_frame=fwd.launches / frames, finite=bool(torch.isfinite(img).all()),
-                               shape=list(img.shape))
+                               launches_per_frame=fwd.launches / frames,
+                               fused_launches_per_frame=ngp_mlp.ngp_mlp_fwd.launches / frames,
+                               finite=bool(torch.isfinite(img).all()), shape=list(img.shape))
     clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
     chunks = -(-800 * 800 // 4096)
-    ok = all(v["finite"] and v["launches_per_frame"] == chunks and v["shape"] == [800, 800, 3]
-             for v in layouts.values())
+    ok = all(v["finite"] and v["launches_per_frame"] == v["fused_launches_per_frame"] == chunks
+             and v["shape"] == [800, 800, 3] for v in layouts.values())
     emit("bench_ngp", card=smi, sm_clock_temp_power=clocks, frames=frames, layouts=layouts, ok=ok)
     if not ok:
         raise SystemExit("chip_smoke: bench_ngp phase failed")
     return layouts
+
+
+# ---------------------------------------------------------------------------
+# the NGP field's fused forward after the hash encode (csrc/ngp_mlp_fwd.cu)
+
+NGP_FUSED_SHAPE = (4096, 256)  # the render cell's chunk: rays x samples
+
+
+def ngp_fused_case(layout, dev, seed, rays=NGP_FUSED_SHAPE[0], samples=NGP_FUSED_SHAPE[1]):
+    """``(w, feats, ray_dirs, samples, params)`` of a bf16 NGP field at the
+    render cell's init (tables U(-1, 1), MLP weights PyTorch's default x
+    sqrt(6)): the hash encode's features of ``rays`` random pixels of a
+    400x400 view x ``samples`` stratified depths in [2, 6], the rays'
+    directions and the field's ``prepare``-d handle."""
+    from torch_nerf_tpu_torch import cameras, renderer  # noqa: PLC0415
+    from torch_nerf_tpu_torch.datasets import synthetic  # noqa: PLC0415
+    from torch_nerf_tpu_torch.models import instant_ngp  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import sampling  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    field = ngp_field(layout)
+    params = field.init(gen, dev)
+    params["tables"].uniform_(-1.0, 1.0, generator=gen)
+    for mlp in ("density_mlp", "color_mlp"):
+        for layer in params[mlp].values():
+            layer["w"].mul_(math.sqrt(6.0))
+    camera = cameras.CameraParams(480.0, 480.0, 400, 400)
+    pose = torch.as_tensor(synthetic.split_poses(8, "train")[seed % 8], device=dev)
+    pix = torch.randint(0, 400 * 400, (rays,), generator=gen, device=dev)
+    o, d = cameras.rays_for_pixels(pix, camera, pose)
+    uni = renderer.draw_uniforms(gen, rays, renderer.RenderSettings(num_samples_coarse=samples, num_samples_fine=0))
+    t = sampling.stratified_t_samples_from_uniforms(uni.coarse, 2.0, 6.0)
+    pts = sampling.points_along_rays(o, d, t).reshape(-1, 3).contiguous()
+    w = field.prepare(params)
+    res = ngp_resolutions(dev)
+    with torch.no_grad():
+        feats = instant_ngp.encode_features(w.tables, pts, res, layout, w.in_dim)
+    return w, feats, d.contiguous(), samples, params
+
+
+def ngp_fused_verdict(got, plain, ref) -> dict:
+    """:func:`judge` of the kernel's (log2 sigma, rgb) against the plain
+    version in f32 (the yardstick), by the plain bf16 version's own error; with the largest
+    gaps between kernel and plain and the share of rgb values that
+    differ."""
+    def named_out(out):
+        return {"log2_sigma": torch.log2(out[0]), "rgb": out[1]}
+
+    ref_out = named_out(ref)
+    verdict = judge(rel_l2(named_out(got), ref_out), rel_l2(named_out(plain), ref_out))
+    verdict.update(max_abs_vs_plain={k: (a - b).abs().max().item() for (k, a), b in
+                                     zip(named_out(got).items(), named_out(plain).values())},
+                   rgb_differing_share=(got[1] != plain[1]).float().mean().item())
+    return verdict
+
+
+def phase_ngp_fused(smi: str):
+    """The NGP field's fused forward (``ops/ngp_mlp.py``) against its plain
+    version: at the render cell's shape (4096 rays x 256 samples) on the
+    ``hash`` layout (32 features) and on ``packed_dual`` (64), and on ragged
+    shapes (37 rays x 51 samples; 4099 points of their own directions);
+    each held against the plain version in f32 by the plain bf16 version's error
+    (:func:`judge`), two planted faults in the weight image (the colour
+    fc_in's SH columns zeroed; the density hidden layer's panel without its
+    swizzle) rejected, a second launch bit-identical, NaN and +-inf planted
+    in the features coming out where the plain version puts them; then the
+    kernel timed at the cell's shape beside its bound, its plain version and
+    today's tree route after the encode (cuBLAS GEMMs and PyTorch's
+    elementwise kernels: the library yardstick)."""
+    from torch_nerf_tpu_torch import encoders  # noqa: PLC0415
+    from torch_nerf_tpu_torch.models import instant_ngp  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import ngp_mlp  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    peak_flops, peak_bw = card_peaks(torch.cuda.get_device_name(0))
+    checks, timings = {}, {}
+    launch_count.reset(ngp_mlp.ngp_mlp_fwd)
+    launches = 0
+    for name, layout, rays, samples in (("cell/hash", "hash", *NGP_FUSED_SHAPE),
+                                        ("cell/packed_dual", "packed_dual", *NGP_FUSED_SHAPE),
+                                        ("ragged/hash", "hash", 37, 51), ("ragged/packed_dual", "packed_dual", 37, 51),
+                                        ("points/hash", "hash", 4099, 1)):
+        w, feats, ray_dirs, samples, params = ngp_fused_case(layout, dev, 11, rays, samples)
+        with torch.no_grad():
+            got = ngp_mlp.ngp_mlp_fwd(w, feats, ray_dirs, samples)
+            again = ngp_mlp.ngp_mlp_fwd(w, feats, ray_dirs, samples)
+            launches += 2
+            plain = ngp_mlp.ngp_mlp_reference(w, feats, ray_dirs, samples)
+            ref = ngp_mlp.ngp_mlp_reference(w, feats, ray_dirs, samples, compute_dtype=torch.float32)
+            torch.cuda.synchronize()
+            entry = ngp_fused_verdict(got, plain, ref)
+            entry["relaunch_equal"] = all(torch.equal(a, b) for a, b in zip(got, again))
+            entry["points"] = feats.shape[0]
+            if name.startswith("cell"):
+                faults = {}
+                color_in = params["color_mlp"]["fc_in"]
+                no_sh = {**params, "color_mlp": {**params["color_mlp"], "fc_in": {
+                    "w": torch.cat([color_in["w"][:16], torch.zeros_like(color_in["w"][16:])]), "b": color_in["b"]}}}
+                faults["sh_columns_zeroed"] = dataclasses.replace(w, image=ngp_mlp.weight_image(no_sh))
+                image = w.image.clone()
+                hidden = slice(64 * 64, 2 * 64 * 64)  # the density hidden layer's panel, row-major
+                image[hidden] = w.density_mlp["fc_hidden_0"]["w"].to(torch.bfloat16).t().reshape(-1)
+                faults["density_hidden_unswizzled"] = dataclasses.replace(w, image=image)
+                entry["faults_rejected"] = {
+                    k: not ngp_fused_verdict(ngp_mlp.ngp_mlp_fwd(f, feats, ray_dirs, samples), plain, ref)["ok"]
+                    for k, f in faults.items()}
+                launches += len(faults)
+                # NaN, +inf and -inf planted in three points' features
+                bad = feats.clone()
+                bad[5, 3], bad[1000, 0], bad[-1, -1] = float("nan"), float("inf"), float("-inf")
+                k_out = ngp_mlp.ngp_mlp_fwd(w, bad, ray_dirs, samples)
+                p_out = ngp_mlp.ngp_mlp_reference(w, bad, ray_dirs, samples)
+                launches += 1
+                entry["nonfinite_where_plain"] = all(
+                    torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.isinf(a), torch.isinf(b))
+                    for a, b in zip(k_out, p_out))
+                entry["nonfinite_points"] = int((~torch.isfinite(k_out[1]).all(dim=-1)).sum())
+                n, in_dim = feats.shape
+                flops = 2 * n * sum(layer["w"].numel() for mlp in (w.density_mlp, w.color_mlp)
+                                    for layer in mlp.values())
+                nbytes = 4 * (n * in_dim + 3 * ray_dirs.shape[0] + 4 * n)
+                dirs_points = ray_dirs[:, None, :].expand(-1, samples, -1)
+
+                def library():
+                    dir_enc = encoders.sh_encoding(dirs_points, ngp_mlp.SH_DEGREE).reshape(n, -1)
+                    density_out = instant_ngp.small_mlp_apply(params["density_mlp"], feats, torch.bfloat16)
+                    color_in = torch.cat([density_out, dir_enc], dim=-1)
+                    color = instant_ngp.small_mlp_apply(params["color_mlp"], color_in, torch.bfloat16)
+                    return torch.exp2(density_out[..., 0]), torch.sigmoid(color)
+
+                timed = 20
+                ms = cuda_ms(lambda: ngp_mlp.ngp_mlp_fwd(w, feats, ray_dirs, samples), timed)
+                launches += timed + 1
+                timings[name] = bound_entry(ms, cuda_ms(lambda: ngp_mlp.ngp_mlp_reference(w, feats, ray_dirs, samples),
+                                                        5),
+                                            flops, nbytes, peak_flops, peak_bw, n)
+                timings[name]["library_ms"] = cuda_ms(library, 5)
+                timings[name]["library"] = "instant_ngp_apply after the encode: cuBLAS GEMMs, elementwise, cat"
+        checks[name] = entry
+    clocks = nvidia_smi("clocks.sm,temperature.gpu,power.draw")
+    ok = (all(e["ok"] and e["relaunch_equal"] for e in checks.values())
+          and all(all(e["faults_rejected"].values()) and e["nonfinite_where_plain"]
+                  for e in checks.values() if "faults_rejected" in e)
+          and ngp_mlp.ngp_mlp_fwd.launches == launches)
+    emit("ngp_fused", card=smi, sm_clock_temp_power=clocks, checks=checks, kernels=timings,
+         launches=ngp_mlp.ngp_mlp_fwd.launches, expected_launches=launches, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: ngp_fused phase failed")
+    return {"checks": checks, "kernels": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -4900,6 +5073,14 @@ def _kernel_entries(done: dict) -> list:
             ("hash_fold_bwd", "bwd", "torch_nerf_tpu/ops/pallas/hash_fold.py:283"),
         )
         for k, dual in ((done["train_bench_ngp"][f"packed/{part}"], done["train_bench_ngp"][f"packed_dual/{part}"]),)
+    ] + [
+        {"name": "ngp_mlp_fwd", "route": "cuda", "source": "torch_nerf_tpu_torch/ops/csrc/ngp_mlp_fwd.cu",
+         "replaces": "none: the JAX package leaves the NGP field's MLPs to XLA",
+         "launches": done["bench_ngp"]["hash"]["fused_launches_per_frame"], "launches_path": "bench_ngp, a frame",
+         "max_abs_err": max(v["max_abs_vs_plain"]["rgb"] for v in done["ngp_fused"]["checks"].values()),
+         **{key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "packed_dual": {key: dual[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for k, dual in ((done["ngp_fused"]["kernels"]["cell/hash"], done["ngp_fused"]["kernels"]["cell/packed_dual"]),)
     ]
 
 
@@ -4937,6 +5118,7 @@ def main() -> int:
         "train_multi_step": phase_train_multi_step(),
         "train_bench_ngp": phase_train_bench_ngp(smi),
         "bench_ngp": phase_bench_ngp(smi),
+        "ngp_fused": phase_ngp_fused(smi),
         "train_bench_multi": phase_train_bench_multi(smi),
     }
     done.update(phase_parallel(smi, work))

@@ -35,7 +35,7 @@ from torch_nerf_tpu_torch.datasets import synthetic
 from torch_nerf_tpu_torch.fields_ngp import make_instant_ngp_field
 from torch_nerf_tpu_torch.models import hash_math, instant_ngp
 from torch_nerf_tpu_torch.models.nerf import params_from_jax, params_to_jax
-from torch_nerf_tpu_torch.ops import hash_grid
+from torch_nerf_tpu_torch.ops import hash_grid, ngp_mlp
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SMALL = dict(num_level=3, log_max_entry_per_level=10, table_feat_dim=2, min_res=4, max_res=16)
@@ -309,6 +309,70 @@ def test_small_mlp_bf16_bound():
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-2)
     np.testing.assert_allclose(got.numpy(), f32.numpy(), rtol=0, atol=2e-2)
     np.testing.assert_allclose(f32.numpy(), np.asarray(jngp.small_mlp_apply(jparams, jnp.asarray(x))), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 field at L 16 x F 2, where ``prepare`` takes the fused forward
+# after the encode (``ops/ngp_mlp.py``; its plain version on the CPU)
+
+FUSED = dict(num_level=16, log_max_entry_per_level=10, table_feat_dim=2, min_res=4, max_res=64)
+
+
+def _jax_bf16_field_and_port_handle(layout, seed):
+    jfield, jparams = _jax_ngp_params(layout, seed=seed, **FUSED, compute_dtype=jnp.bfloat16)
+    field = make_instant_ngp_field(**FUSED, table_layout=layout, compute_dtype=torch.bfloat16)
+    w = field.prepare(params_from_jax(jparams))
+    assert isinstance(w, ngp_mlp.NgpWeights) and w.in_dim == (64 if layout == "packed_dual" else 32)
+    return jfield, jparams, field, w
+
+
+def _counting_fused_forward(monkeypatch):
+    """Count the field's calls of ``ngp_mlp.ngp_mlp_fwd``."""
+    calls, fused = [], ngp_mlp.ngp_mlp_fwd
+
+    def counted(*args, **kw):
+        calls.append(args[1].shape[0])
+        return fused(*args, **kw)
+
+    monkeypatch.setattr(ngp_mlp, "ngp_mlp_fwd", counted)
+    return calls
+
+
+@pytest.mark.parametrize("layout", ["hash", "bricked", "packed", "packed_dual"])
+def test_prepared_bf16_field_matches_jax(layout, monkeypatch):
+    """bf16 on both sides, within :func:`test_small_mlp_bf16_bound`'s 2e-2
+    (sigma = 2^x compared as x)."""
+    jfield, jparams, field, w = _jax_bf16_field_and_port_handle(layout, seed=6)
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(-1.5, 1.5, (5, 9, 3)).astype(np.float32)
+    ray_dirs = rng.normal(size=(5, 1, 3)).astype(np.float32) * 2.0  # unnormalised, as the renderer passes them
+    dirs = np.broadcast_to(ray_dirs, pts.shape)
+    jsigma, jrgb = jfield.apply(jparams, jnp.asarray(pts), jnp.asarray(dirs))
+    calls = _counting_fused_forward(monkeypatch)
+    # one ray's direction over its samples, as ``renderer._render_pass`` expands it
+    sigma, rgb = field.apply(w, _t(pts), _t(ray_dirs).expand(5, 9, 3))
+    assert calls == [45] and sigma.shape == (5, 9) and rgb.shape == (5, 9, 3)
+    np.testing.assert_allclose(np.log2(sigma.numpy()), np.log2(np.asarray(jsigma)), rtol=0, atol=2e-2)
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(jrgb), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("layout", ["hash", "packed_dual"])
+def test_render_image_of_prepared_bf16_field_matches_jax(layout, monkeypatch):
+    """A frame of the bf16 field: the port's frame loop prepares it and
+    takes the fused forward once a chunk; JAX's frame in bf16. Pixels
+    within 2e-2, the fields' bf16 bound."""
+    jfield, jparams, field, _ = _jax_bf16_field_and_port_handle(layout, seed=5)
+    settings = renderer.RenderSettings(num_samples_coarse=8, num_samples_fine=0)
+    jsettings = jrend.RenderSettings(num_samples_coarse=8, num_samples_fine=0)
+    pose = synthetic.split_poses(2, "test")[1]
+    key = jax.random.PRNGKey(3)
+    ref = jrend.render_image(jfield, jparams, None, jcam.CameraParams(19.2, 19.2, 12, 12),
+                             jnp.asarray(pose), key, jsettings, chunk_size=48)
+    calls = _counting_fused_forward(monkeypatch)
+    img = renderer.render_image(field, params_from_jax(jparams), None, cameras.CameraParams(19.2, 19.2, 12, 12),
+                                _t(pose), 3, settings, chunk_size=48, uniforms_for_chunk=_jax_uniforms(key, settings))
+    assert img.shape == (12, 12, 3) and calls == [48 * 8] * 3
+    np.testing.assert_allclose(img.numpy(), np.asarray(ref), rtol=0, atol=2e-2)
 
 
 # ---------------------------------------------------------------------------

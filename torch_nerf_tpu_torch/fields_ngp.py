@@ -5,11 +5,15 @@ Counterpart of ``torch_nerf_tpu/fields_ngp.py``: raw positions go into the
 hash grid, the unnormalised ray directions into the SH encoder. The field
 has no ``fused_cfg``, so training takes the generic autograd branch of
 ``train.make_ray_train_step``: one forward and one backward hash kernel a
-render pass, and one more of each for the smoothness loss's probes.
+render pass, and one more of each for the smoothness loss's probes. Where
+``ops/ngp_mlp.py`` takes the config, ``prepare`` (the frame loop's, once a
+frame) gives a forward-only handle whose ``apply`` is two kernels a render
+pass: the hash encode, then SH, both MLPs and their activations in one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -18,6 +22,7 @@ from torch_nerf_tpu_torch import encoders, tracing
 from torch_nerf_tpu_torch.fields import Field
 from torch_nerf_tpu_torch.models import instant_ngp
 from torch_nerf_tpu_torch.models.hash_math import level_resolutions
+from torch_nerf_tpu_torch.ops import ngp_mlp
 
 
 def make_instant_ngp_field(
@@ -41,12 +46,20 @@ def make_instant_ngp_field(
     "packed_dual" one more from a grid staggered by half a voxel.
     ``use_kernel`` None or True takes the hash kernels on CUDA
     tensors and their plain versions on CPU tensors; False takes the plain
-    versions on every device."""
+    versions on every device. With the kernels, in bf16, at SH degree 4,
+    hidden widths 64 and an input of 32 or 64 features (``ngp_mlp.takes``),
+    ``prepare`` builds an ``ngp_mlp.NgpWeights`` handle and ``apply`` of one
+    takes ``ngp_mlp.ngp_mlp_fwd`` after the encode (forward only); every
+    other config's ``prepare`` is the identity. ``apply`` of the public tree
+    is differentiable."""
     instant_ngp.check_layout(table_layout)
     res_np = level_resolutions(num_level, min_res, max_res)
     res_on: Dict[torch.device, torch.Tensor] = {}
     view_dir_dim = encoders.sh_encoding_dim(sh_degree)
     kernel = use_kernel is None or bool(use_kernel)
+    in_dim = instant_ngp.mlp_shapes(view_dir_dim, num_level, table_feat_dim, density_feat_dim, color_feat_dim,
+                                    table_layout)["density_mlp"]["fc_in"][0]
+    fused = kernel and ngp_mlp.takes(in_dim, density_feat_dim, color_feat_dim, sh_degree, compute_dtype)
 
     def resolutions(device: torch.device) -> torch.Tensor:
         if device not in res_on:
@@ -68,6 +81,8 @@ def make_instant_ngp_field(
 
     def apply(params, pts: torch.Tensor, dirs: torch.Tensor):
         tracing.add("points", pts.numel() // 3)
+        if isinstance(params, ngp_mlp.NgpWeights):
+            return fused_apply(params, pts, dirs)
         with tracing.span("field.sh"):
             dir_enc = encoders.sh_encoding(dirs, sh_degree)
         return instant_ngp.instant_ngp_apply(
@@ -75,7 +90,28 @@ def make_instant_ngp_field(
             compute_dtype=compute_dtype, table_layout=table_layout, use_kernel=kernel,
         )
 
-    return Field(init=init, apply=apply, name="instant_ngp" if kernel else "instant_ngp_plain")
+    def fused_apply(w: ngp_mlp.NgpWeights, pts: torch.Tensor, dirs: torch.Tensor):
+        batch_shape = pts.shape[:-1]
+        flat_pos = pts.reshape(-1, 3).contiguous()
+        with tracing.span("field.encode"):
+            feats = instant_ngp.encode_features(w.tables, flat_pos, resolutions(pts.device), table_layout, in_dim)
+        ray_dirs, samples = rays_of(dirs)
+        with tracing.span("field.fused_mlp"):
+            sigma, rgb = ngp_mlp.ngp_mlp_fwd(w, feats, ray_dirs, samples, is_hdr)
+        return sigma.reshape(batch_shape), rgb.reshape(*batch_shape, 3)
+
+    field = Field(init=init, apply=apply, name="instant_ngp" if kernel else "instant_ngp_plain")
+    return dataclasses.replace(field, prepare=ngp_mlp.prepare) if fused else field
+
+
+def rays_of(dirs: torch.Tensor):
+    """``(ray_dirs (R, 3), samples)`` of per-point directions: a ray's
+    direction expanded over its samples (``(R, S, 3)`` with stride 0 over
+    S, as ``renderer._render_pass`` passes them) gives its R rays of S
+    samples; any other layout gives each point as a ray of one sample."""
+    if dirs.dim() == 3 and dirs.stride(1) == 0:
+        return dirs[:, 0].contiguous(), dirs.shape[1]
+    return dirs.reshape(-1, 3).contiguous(), 1
 
 
 class SmoothnessDraws(NamedTuple):

@@ -133,6 +133,24 @@ def hash_encode_packed(
     return hash_grid.fold_encode_reference(tables, coords, resolutions, offsets, feat_dim)
 
 
+def encode_features(
+    tables: torch.Tensor, flat_pos: torch.Tensor, resolutions: torch.Tensor, table_layout: str, in_dim: int,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """The ``(N, in_dim)`` features of ``table_layout``'s encode at ``flat_pos
+    (N, 3)``: ``in_dim`` is the density MLP's input width, from which the
+    packed layouts take F (over 2L pseudo-levels when dual), as the JAX
+    package does."""
+    if table_layout in ("packed", "packed_dual"):
+        feat_dim = in_dim // tables.shape[0]
+        offsets = None
+        if table_layout == "packed_dual":
+            resolutions, offsets = dual_resolutions_offsets(resolutions)
+        return hash_encode_packed(tables, flat_pos, resolutions, feat_dim, offsets, use_kernel)
+    encode = hash_encode_bricked if table_layout == "bricked" else hash_encode
+    return encode(tables, flat_pos, resolutions, use_kernel)
+
+
 # ---------------------------------------------------------------------------
 # small MLPs
 
@@ -253,16 +271,8 @@ def instant_ngp_apply(
     flat_dir = view_dir_enc.reshape(-1, view_dir_enc.shape[-1])
     tables = params["tables"]
     with tracing.span("field.encode"):
-        if table_layout in ("packed", "packed_dual"):
-            # 2L pseudo-levels when dual: F from fc_in's rows, as the JAX package
-            feat_dim = params["density_mlp"]["fc_in"]["w"].shape[0] // tables.shape[0]
-            offsets = None
-            if table_layout == "packed_dual":
-                resolutions, offsets = dual_resolutions_offsets(resolutions)
-            feats = hash_encode_packed(tables, flat_pos, resolutions, feat_dim, offsets, use_kernel)
-        else:
-            encode = hash_encode_bricked if table_layout == "bricked" else hash_encode
-            feats = encode(tables, flat_pos, resolutions, use_kernel)
+        feats = encode_features(tables, flat_pos, resolutions, table_layout,
+                                params["density_mlp"]["fc_in"]["w"].shape[0], use_kernel)
     with tracing.span("field.density_mlp"):
         density_out = small_mlp_apply(params["density_mlp"], feats, compute_dtype)
         sigma = torch.exp2(density_out[..., 0])

@@ -147,7 +147,8 @@ def make_density_fn(field, params_key: str = "coarse") -> Callable[[Dict[str, An
     """``(params, pts (M, 3)) -> sigma (M,)`` of the ``params_key`` network,
     with zero directions (they reach only the colour branch), through the
     field's inference route (``field.prepare``: kernel 1 for the fused
-    field), building no graph."""
+    field, ``ops/ngp_mlp.py``'s fused forward after the hash encode for a
+    bf16 Instant-NGP field), building no graph."""
 
     def density(params: Dict[str, Any], pts: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
