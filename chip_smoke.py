@@ -107,7 +107,11 @@ for ``packed`` and ``packed_dual`` on the same points, four planted faults
 that must be rejected, then kernels 8-9 on two contention cases: every
 point in one voxel, and long runs of samples along rays, then every
 packed width F 1-16 of both layouts at 16 and 3 levels on 1, 33 and 4099
-points); train_packed (``run_train`` of ``packed`` with the
+points); kernel_vm (TensoRF's VM encode, ``csrc/vm_grid.cu``, forward in
+f32 and bf16 products and backward, against the plain versions at the
+tensorf_vm.train cell's 4096 x 800 ray samples on 300^3 factors, a
+relaunched backward within 1e-6, each timed beside its byte roofline and
+the plain version); train_packed (``run_train`` of ``packed`` with the
 smoothness loss for 24 steps, a resume for 8, ``run_render`` +
 ``evaluate``, then 8 steps of ``packed_dual``; two forward and two
 backward fold launches per step, one forward per render chunk);
@@ -267,7 +271,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     reports = build.build(["fused_nerf_fwd", "fused_nerf_bwd", "fused_train", "hash_grid", "fused_tc_fwd",
-                           "fused_tc_train", "fused_tc_bwd", "ngp_mlp_fwd"])
+                           "fused_tc_train", "fused_tc_bwd", "ngp_mlp_fwd", "vm_grid", "composite_fwd"])
     seconds = time.perf_counter() - t0
     ptxas = {
         Path(src).stem: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -1498,6 +1502,91 @@ def _field_and_params(dev, use_kernel=True, dtype=torch.bfloat16):
 
     field = make_nerf_field(compute_dtype=dtype, use_kernel=use_kernel)
     return field, {"coarse": _seeded_params(0, dev), "fine": _seeded_params(1, dev)}
+
+
+def vm_points(dev, rays: int = 4096, samples: int = 800) -> torch.Tensor:
+    """The tensorf_vm.train cell's points: ``rays`` rays from a sphere of
+    radius 4 towards random points of the box, ``samples`` stratified
+    samples a ray over [2, 6] in ray order, normalised to the box."""
+    from torch_nerf_tpu_torch.models import tensorf  # noqa: PLC0415
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    eye = torch.nn.functional.normalize(torch.randn((rays, 3), generator=gen, device=dev), dim=-1) * 4.0
+    aim = torch.rand((rays, 3), generator=gen, device=dev) * 2.0 - 1.0
+    d = torch.nn.functional.normalize(aim - eye, dim=-1)
+    t = 2.0 + (torch.arange(samples, device=dev) + torch.rand((rays, samples), generator=gen, device=dev)) * (
+        4.0 / samples)
+    pts = eye[:, None, :] + t[..., None] * d[:, None, :]
+    return tensorf.normalize_points(pts.reshape(-1, 3), 1.5).contiguous()
+
+
+def phase_kernel_vm(smi: str):
+    """The VM kernels (``ops/vm_grid.py``) against their plain versions at
+    the tensorf_vm.train cell's shape (300^3, 16 and 48 components, 4096 x
+    800 ray samples, the factors as the benchmark's reference prepares
+    them): the forward in f32 and in bf16 products, the backward with bf16
+    cotangents against the plain f64 sums, a relaunch of the backward
+    within 1e-6 (its atomics add in an order that changes from run to run),
+    and each kernel's time beside its byte roofline and the plain
+    version's."""
+    from nerfbench.reference import tensorf as ref_tf  # noqa: PLC0415
+    from torch_nerf_tpu_torch import config as cfg_mod  # noqa: PLC0415
+    from torch_nerf_tpu_torch import session  # noqa: PLC0415
+    from torch_nerf_tpu_torch.models import tensorf  # noqa: PLC0415
+    from torch_nerf_tpu_torch.ops import vm_grid  # noqa: PLC0415
+
+    dev = torch.device("cuda")
+    cfg = cfg_mod.resolve("tensorf")
+    params = session.build_field(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    net = cfg.network
+    ref_tf.prepare({"coarse": params}, {f"network.{k}": getattr(net, k) for k in cfg_mod.TENSORF_KEYS})
+    factors = tensorf.factors_of(params)
+    xhat = vm_points(dev)
+    n = xhat.shape[0]
+    with torch.no_grad():
+        rs, ra = vm_grid.vm_encode_reference(factors, xhat)
+    out, ok = {}, True
+    for dtype in (torch.float32, torch.bfloat16):
+        sigma, app = vm_grid.vm_grid_fwd(factors, xhat, dtype)
+        torch.cuda.synchronize()
+        err_s = float((sigma - rs).abs().max() / rs.abs().max())
+        err_a = float((app.float() - ra).abs().max() / ra.abs().max())
+        limit = 2.0**-8 if dtype == torch.bfloat16 else 1e-5  # bf16: its rounding of the largest products
+        good = err_s <= 1e-5 and err_a <= limit and torch.isfinite(app.float()).all().item()
+        ok &= bool(good)
+        out[f"fwd_{str(dtype)[6:]}"] = {"sigma_rel_err": err_s, "app_err": err_a, "app_limit": limit, "ok": bool(good)}
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gs = torch.randn((n,), generator=gen, device=dev)
+    ga = torch.randn((n, ra.shape[1]), generator=gen, device=dev).to(torch.bfloat16)
+    got = vm_grid.vm_grid_bwd(gs, ga, xhat, factors)
+    again = vm_grid.vm_grid_bwd(gs, ga, xhat, factors)
+    want = vm_grid.vm_backward_reference(gs.double(), ga.double(), xhat, factors)
+    torch.cuda.synchronize()
+    bwd_err = [float((g.double() - w).norm() / w.norm()) for g, w in zip(got, want)]
+    relaunch = [float((a - b).norm() / b.norm()) for a, b in zip(again, got)]
+    good = max(bwd_err) <= 1e-5 and max(relaunch) <= 1e-6
+    ok &= good
+    out["bwd"] = {"rel_l2_err": bwd_err, "relaunch_rel_diff": relaunch, "ok": good}
+    del want, again
+    name = torch.cuda.get_device_name(0)
+    _, bw = card_peaks(name)
+    rc = {**{f"network.{k}": getattr(net, k) for k in cfg_mod.TENSORF_KEYS}, "device.compute_dtype": "bfloat16"}
+    fwd_bytes = ref_tf.encode_bytes(rc, n, False)
+    bwd_bytes = ref_tf.encode_bytes(rc, n, True) - fwd_bytes
+    fwd_ms = cuda_ms(lambda: vm_grid.vm_grid_fwd(factors, xhat, torch.bfloat16), 10)
+    bwd_ms = cuda_ms(lambda: vm_grid.vm_grid_bwd(gs, ga, xhat, factors), 10)
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(lambda: vm_grid.vm_encode_reference(factors, xhat), 2)
+    plain_bwd_ms = cuda_ms(lambda: vm_grid.vm_backward_reference(gs, ga.float(), xhat, factors), 2)
+    out["timing"] = {"card": smi, "points": n, "fwd_ms": fwd_ms, "bwd_ms_with_zeroing": bwd_ms,
+                     "fwd_least_ms": 1e3 * fwd_bytes / bw, "bwd_least_ms": 1e3 * bwd_bytes / bw,
+                     "fwd_roofline_pct": 100.0 * fwd_bytes / bw / (fwd_ms * 1e-3),
+                     "bwd_roofline_pct": 100.0 * bwd_bytes / bw / (bwd_ms * 1e-3),
+                     "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms}
+    emit("kernel_vm", **out, ok=bool(ok))
+    if not ok:
+        raise SystemExit("chip_smoke: the VM kernels disagree with their plain versions")
+    return out
 
 
 def phase_serve(work: Path):
@@ -5101,6 +5190,7 @@ def main() -> int:
         "kernel_train": phase_kernel_train(batch),
         "kernel_hash": phase_kernel_hash(),
         "kernel_fold": phase_kernel_fold(),
+        "kernel_vm": phase_kernel_vm(smi),
         "serve": phase_serve(work),
         "train": phase_train(work),
         "train_f32": train_resume_render_routes(work, "f32_wgmma"),

@@ -6,6 +6,11 @@ package loads in the other. The one difference in meaning:
 ``device.platform=None`` selects the CUDA card here. YAML is used only where
 PyYAML is installed; JSON (a subset of YAML) is written otherwise, and read
 back by both packages.
+
+TensoRF (``network.type=tensorf``) is the port's alone: its keys
+(:data:`TENSORF_KEYS`) are written only for a TensoRF network, so every
+other run directory still loads in both packages, and a TensoRF run
+directory loads in the port only.
 """
 
 from __future__ import annotations
@@ -60,9 +65,10 @@ class DataConfig:
 
 @dataclasses.dataclass
 class NetworkConfig:
-    """Mirrors ``configs/network/nerf.yaml`` / ``instant_nerf.yaml``."""
+    """Mirrors ``configs/network/nerf.yaml`` / ``instant_nerf.yaml``; the
+    TensoRF keys are the port's own."""
 
-    type: str = "nerf"  # nerf | instant_nerf
+    type: str = "nerf"  # nerf | instant_nerf | tensorf
     pos_dim: int = 3
     view_dir_dim: int = 3
     feat_dim: int = 256
@@ -79,6 +85,26 @@ class NetworkConfig:
     # "packed"/"packed_dual" = the round-2/3 voxel-packed layouts (fastest,
     # -4..-6 dB novel-view from per-voxel-private corner copies)
     table_layout: str = "hash"
+    # TensoRF-VM knobs (the public code's names in parentheses): texels a grid
+    # axis (N_voxel_final = 300^3), components a plane and line of the
+    # density and appearance factors (n_lamb_sigma, n_lamb_sh), the
+    # appearance basis's width (data_dim_color), the render MLP's width
+    # (featureC), the frequencies of its encodings (fea_pe, view_pe), the
+    # box [-aabb_bound, aabb_bound]^3, density_shift and distance_scale
+    vm_grid_res: int = 300
+    vm_density_components: int = 16
+    vm_app_components: int = 48
+    app_dim: int = 27
+    feature_c: int = 128
+    fea_pe: int = 2
+    view_pe: int = 2
+    aabb_bound: float = 1.5
+    density_shift: float = -10.0
+    distance_scale: float = 25.0
+
+
+TENSORF_KEYS = ("vm_grid_res", "vm_density_components", "vm_app_components", "app_dim", "feature_c", "fea_pe",
+                "view_pe", "aabb_bound", "density_shift", "distance_scale")
 
 
 @dataclasses.dataclass
@@ -254,11 +280,32 @@ def instant_nerf_tpu_config() -> ExperimentConfig:
     return cfg
 
 
+def tensorf_config() -> ExperimentConfig:
+    """TensoRF-VM-192 (arXiv:2203.09507, section 4; the public code's
+    ``configs/lego.txt``) at its final 300^3 grid: 16 density and 48
+    appearance components a plane, a 27-wide basis, a 128-wide render MLP
+    with encodings of 2 frequencies, the box [-1.5, 1.5]^3, density shift
+    -10, distance scale 25; 4096 rays a step, 800 stratified samples a ray
+    over [2, 6] (TensoRF's step of half a texel) and no fine pass; Adam at
+    the factors' lr 0.02 -> 0.002 over 30,000 steps."""
+    cfg = ExperimentConfig()
+    cfg.network.type = "tensorf"
+    cfg.renderer.num_pixels = 4096
+    cfg.renderer.num_samples_coarse = 800
+    cfg.renderer.num_samples_fine = 0
+    cfg.train_params.optim.num_iter = 30_000
+    cfg.train_params.optim.init_lr = 2.0e-2
+    cfg.train_params.optim.end_lr = 2.0e-3
+    cfg.train_params.log.epoch_btw_ckpt = 500
+    return cfg
+
+
 PRESETS = {
     "default": ExperimentConfig,
     "nerf": ExperimentConfig,
     "instant_nerf": instant_nerf_config,
     "instant_nerf_tpu": instant_nerf_tpu_config,
+    "tensorf": tensorf_config,
 }
 
 
@@ -268,7 +315,11 @@ PRESETS = {
 
 def to_dict(cfg: Any) -> Any:
     if dataclasses.is_dataclass(cfg):
-        return {f.name: to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+        out = {f.name: to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+        if isinstance(cfg, NetworkConfig) and cfg.type != "tensorf":
+            for key in TENSORF_KEYS:
+                del out[key]
+        return out
     return cfg
 
 

@@ -107,13 +107,14 @@ def _render_pass(
     ray_dir: torch.Tensor,
     t_samples: torch.Tensor,
 ) -> Dict[str, torch.Tensor]:
-    """One network evaluation + compositing for given t samples."""
+    """One network evaluation + compositing for given t samples; in
+    inference mode (the frame loop) the compositing is the kernel's."""
     pts = sampling.points_along_rays(ray_origin, ray_dir, t_samples)
     dirs = ray_dir[:, None, :].expand_as(pts)
     sigma, radiance = field.apply(params, pts, dirs)
     with tracing.span("render.composite"):
         delta = sampling.t_deltas(t_samples)
-        rgb, weights = integration.composite(sigma, radiance, delta)
+        rgb, weights = integration.composite(sigma, radiance, delta, use_kernel=torch.is_inference_mode_enabled())
     return {"rgb": rgb, "weights": weights}
 
 

@@ -4,7 +4,8 @@ config, and the FLOP count of a train step.
 Counterpart of ``torch_nerf_tpu/session.py`` for the classic NeRF and the
 Instant-NGP field (every table layout, and the packed layouts' smoothness
 loss), the Blender, LLFF and procedural datasets, occupancy pruning, and
-the scenes of a multi-scene run (:func:`build_multiscene_dataset`).
+the scenes of a multi-scene run (:func:`build_multiscene_dataset`); and
+for the port's own TensoRF-VM field.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from torch_nerf_tpu_torch.datasets.llff import llff_holdout_index, llff_t_bounds
 from torch_nerf_tpu_torch.encoders import positional_encoding_dim, sh_encoding_dim
 from torch_nerf_tpu_torch.fields import Field, make_nerf_field
 from torch_nerf_tpu_torch.fields_ngp import make_encode_smoothness_loss, make_instant_ngp_field
-from torch_nerf_tpu_torch.models import instant_ngp
+from torch_nerf_tpu_torch.fields_tensorf import make_tensorf_field
+from torch_nerf_tpu_torch.models import instant_ngp, tensorf
 from torch_nerf_tpu_torch.models.nerf import layer_dims
 from torch_nerf_tpu_torch.occupancy import OccupancyConfig
 from torch_nerf_tpu_torch.ops import fused_nerf
@@ -163,6 +165,21 @@ def build_field(cfg: cfg_mod.ExperimentConfig) -> Field:
             sh_degree=enc.degree,
             compute_dtype=compute_dtype,
             table_layout=net.table_layout,
+            use_kernel=cfg.parallel.use_pallas,
+        )
+    if net.type == "tensorf":
+        return make_tensorf_field(
+            grid_res=net.vm_grid_res,
+            density_components=net.vm_density_components,
+            app_components=net.vm_app_components,
+            app_dim=net.app_dim,
+            feature_c=net.feature_c,
+            fea_pe=net.fea_pe,
+            view_pe=net.view_pe,
+            bound=net.aabb_bound,
+            density_shift=net.density_shift,
+            distance_scale=net.distance_scale,
+            compute_dtype=compute_dtype,
             use_kernel=cfg.parallel.use_pallas,
         )
     if net.type != "nerf":
@@ -313,6 +330,9 @@ def estimate_flops_per_step(cfg: cfg_mod.ExperimentConfig) -> float:
         pos_dim = positional_encoding_dim(net.pos_dim, enc.coord_encode_level, enc.include_input)
         dir_dim = positional_encoding_dim(net.view_dir_dim, enc.dir_encode_level, enc.include_input)
         macs = sum(i * o for i, o in layer_dims(pos_dim, dir_dim, net.feat_dim).values())
+    elif net.type == "tensorf":  # basis_mat, the render MLP and the VM products
+        macs = tensorf.macs_per_point(net.vm_app_components, net.app_dim, net.feature_c, net.fea_pe, net.view_pe,
+                                      net.vm_density_components)
     else:  # instant_nerf: the two MLPs' layers as the model draws them
         sh_dim = sh_encoding_dim(enc.degree) if enc.type == "sh" else 27
         shapes = instant_ngp.mlp_shapes(sh_dim, net.num_level, net.table_feat_dim, table_layout=net.table_layout)
